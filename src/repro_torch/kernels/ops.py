@@ -1,0 +1,46 @@
+"""Public kernel entry points, dispatched by the device of the input.
+
+A CUDA tensor goes to the hand-written kernel, which raises if it cannot
+be built or launched; a CPU tensor goes to the plain version in
+``ref.py``.  There is no other switch: where the data lies decides.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import paged_prefill as _pp
+from repro_torch.kernels import ref as _ref
+
+
+def _on_cuda(t) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def paged_attention(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
+                    window: int = 0):
+    """One-token paged decode: q (B,H,hd) against k/v pools
+    (NB,bs,KV,hd) through block_table (B,nb) -> (B,H,hd)."""
+    fn = _pa.paged_attention if _on_cuda(q) else _ref.paged_attention_ref
+    return fn(q, k_pool, v_pool, kpos_pool, block_table, pos, window=window)
+
+
+def paged_prefill(q, k, v, kpos, qpos, *, window: int = 0):
+    """Ragged-batch chunked-prefill attention: q (B,S,H,hd) against
+    assembled keys k/v (B,L,KV,hd) with absolute key/query positions
+    kpos (B,L) / qpos (B,S) -> (B,S,H,hd)."""
+    fn = _pp.paged_prefill if _on_cuda(q) else _ref.paged_prefill_ref
+    return fn(q, k, v, kpos, qpos, window=window)
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since its count was last set to 0."""
+    return {"paged_attention": _pa.KERNEL.launches,
+            "paged_prefill": _pp.KERNEL.launches}
+
+
+def reset_launch_counts() -> None:
+    _pa.KERNEL.launches = 0
+    _pp.KERNEL.launches = 0

@@ -1,0 +1,80 @@
+"""Plain PyTorch versions of the attention kernels.
+
+They define the semantics, copied from ``repro.kernels.ref``: the CUDA
+kernels are held to them on the card, and a CPU tensor is served by them
+(``kernels/ops.py``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -2.0 ** 30
+
+
+def paged_attention_ref(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
+                        window: int = 0):
+    """One-token decode against a block-paged KV pool, as a plain gather.
+
+    q (B,H,hd), k/v pools (NB,bs,KV,hd), kpos_pool (NB,bs) int32 absolute
+    positions (-1 = invalid lane), block_table (B,nb) int32 (0-padded),
+    pos (B,) int32 position of the query token -> (B,H,hd).  GQA:
+    H % KV == 0.  All-invalid rows return zeros (masked probabilities are
+    zeroed after the softmax, like the kernel's online accumulator).
+    """
+    b, h, hd = q.shape
+    nb = block_table.shape[1]
+    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    g = h // kv
+    bt = block_table.long()
+    k = k_pool[bt].reshape(b, nb * bs, kv, hd).float()
+    v = v_pool[bt].reshape(b, nb * bs, kv, hd).float()
+    kpos = kpos_pool[bt].reshape(b, nb * bs)
+    qg = q.reshape(b, kv, g, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k) / math.sqrt(hd)
+    p = pos.to(kpos.dtype)[:, None]
+    valid = (kpos >= 0) & (kpos <= p)
+    if window:
+        valid = valid & (p - kpos < window)
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    probs = torch.where(valid, torch.softmax(s, -1), 0.0)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v)
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
+def paged_prefill_ref(q, k, v, kpos, qpos, *, window: int = 0):
+    """Ragged-batch chunked-prefill attention: every row is one request's
+    prefill chunk, its raggedness (chunk length, prefix size, position
+    offset) encoded in the two position arrays.
+
+    q (B,S,H,hd) chunk queries; k/v (B,L,KV,hd) keys = the row's gathered
+    prefix followed by the chunk itself; kpos (B,L) int32 absolute key
+    positions (-1 = invalid lane); qpos (B,S) int32 absolute query
+    positions.  Key lane s is visible to query lane t iff ``kpos[s] >= 0
+    and kpos[s] <= qpos[t]`` (plus ``qpos[t] - kpos[s] < window`` when
+    ``window`` > 0).  Scores in fp32; the value contraction runs in
+    v.dtype, as in the reference.  A query lane with no visible key gets
+    the uniform average of every key (the softmax of an all-``NEG_INF``
+    row), as in the reference; callers discard such lanes.
+    -> (B,S,H,hd).
+    """
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if kv != h:
+        k = torch.repeat_interleave(k, h // kv, dim=2)
+        v = torch.repeat_interleave(v, h // kv, dim=2)
+    sc = torch.einsum("bqhd,bshd->bhqs", q, k) * (1.0 / math.sqrt(hd))
+    sc = sc.float()
+    kp = kpos[:, None, None, :]
+    qp = qpos[:, None, :, None]
+    mask = (kp >= 0) & (kp <= qp)
+    if window:
+        mask = mask & (qp - kp < window)
+    sc = torch.where(mask, sc, NEG_INF)
+    m = torch.amax(sc, -1, keepdim=True)
+    e = torch.exp(sc - m)
+    z = torch.sum(e, -1, keepdim=True)
+    probs = (e / torch.clamp(z, min=1e-30)).to(v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, v)

@@ -1,0 +1,98 @@
+"""Shared layer library: rmsnorm, RoPE, the swiglu MLP, embeddings.
+
+Plain functions on tensors with the arithmetic of ``repro.models.layers``:
+norms and RoPE compute in float32 and cast back to the input dtype;
+products run in the parameters' dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.module import ParamSpec
+
+# ---------------------------------------------------------------- norms
+
+
+def norm_schema(cfg: ModelConfig):
+    if cfg.norm_kind != "rmsnorm":
+        raise ValueError(f"norm_kind {cfg.norm_kind!r} is not ported yet")
+    return {"scale": ParamSpec((cfg.d_model,), init="ones")}
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    x32 = x.float()
+    ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def norm_apply(p, x, kind: str, eps: float = 1e-6):
+    if kind != "rmsnorm":
+        raise ValueError(f"norm_kind {kind!r} is not ported yet")
+    return rms_norm(x, p["scale"], eps)
+
+
+# ---------------------------------------------------------------- RoPE
+
+
+def rope_angles(positions, head_dim: int, theta: float):
+    """positions: (...,) int -> (..., head_dim/2) float32 angles."""
+    half = head_dim // 2
+    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (theta ** (idx / half))
+    return positions.float()[..., None] * freqs
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, hd); positions: (B, S) or (S,)."""
+    ang = rope_angles(positions, x.shape[-1], theta)   # (B?, S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                  # (B?, S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- MLP
+
+
+def mlp_schema(cfg: ModelConfig):
+    if cfg.mlp_kind != "swiglu":
+        raise ValueError(f"mlp_kind {cfg.mlp_kind!r} is not ported yet")
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "up": ParamSpec((d, f), scale_dim=-2),
+        "down": ParamSpec((f, d), scale_dim=-2),
+        "gate": ParamSpec((d, f), scale_dim=-2),
+    }
+
+
+def mlp_apply(p, x, kind: str):
+    if kind != "swiglu":
+        raise ValueError(f"mlp_kind {kind!r} is not ported yet")
+    h = F.silu(x @ p["gate"]) * (x @ p["up"])
+    return h @ p["down"]
+
+
+# ---------------------------------------------------------------- embeddings
+
+
+def embed_schema(cfg: ModelConfig):
+    if cfg.pos_kind == "learned":
+        raise ValueError("learned positions are not ported yet")
+    s = {"tokens": ParamSpec((cfg.vocab_size, cfg.d_model), init="embed")}
+    if not cfg.tie_embeddings:
+        s["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size), scale_dim=-2)
+    return s
+
+
+def embed_apply(p, tokens):
+    return p["tokens"][tokens.long()]
+
+
+def unembed_apply(p, cfg: ModelConfig, x):
+    if cfg.tie_embeddings:
+        return x @ p["tokens"].T
+    return x @ p["unembed"]
