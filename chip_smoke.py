@@ -8,7 +8,8 @@ then runs five phases, each raising on failure:
 
 1. device: the card's name and power limit, the kernels' build time;
 2. kernel parity: each kernel against its plain PyTorch version at the
-   serving path's shapes, in bfloat16 and float32;
+   serving path's shapes (``paged_prefill`` at a chunk's and at the fused
+   decode dispatch's), in bfloat16 and float32;
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
    random weights): one ragged prefill dispatch and one decode step
    through the kernels and through the plain versions agree;
@@ -44,10 +45,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no tensor
 # tolerances, kernel vs plain version on the same inputs
 KERNEL_TOL = {
     # sums in another order and expf over up to 768 keys
-    "float32": dict(atol=1e-4, rtol=1e-4),
-    # the plain versions round scores, probabilities and outputs to bf16
-    # (8 mantissa bits); the kernels keep float32 until the output
-    "bfloat16": dict(atol=5e-2, rtol=5e-2),
+    ("paged_attention", "float32"): dict(atol=1e-4, rtol=1e-4),
+    ("paged_prefill", "float32"): dict(atol=1e-4, rtol=1e-4),
+    # both sides compute in float32 and round the output to bf16 once, so
+    # an element may land one bf16 ulp apart (2**-7 of its size); the
+    # measured error is ~2.4e-4, the absolute part leaves 8x headroom
+    ("paged_attention", "bfloat16"): dict(atol=2e-3, rtol=2 ** -7),
+    # the plain version also rounds the probabilities to bf16 before the
+    # value product, the kernel keeps them float32; measured ~1.6e-2
+    ("paged_prefill", "bfloat16"): dict(atol=3e-2, rtol=2 ** -7),
 }
 # relative L2 error of logits, kernels vs plain versions through a model:
 # bf16 rounds activations in each of 28 layers, so kernel-side rounding
@@ -133,37 +139,46 @@ def prefill_visible(torch, kpos, qpos, window):
 
 
 def kernel_parity(torch, device, ops, ref):
-    """Phase 2. -> {kernel: max abs error of the bf16, window-0 case}."""
+    """Phase 2: decode at the decode dispatch's shape; prefill at a chunk
+    shape (4 rows, S=256) and at the fused decode dispatch's (8 rows,
+    S=1).  -> {kernel: max abs error over its bfloat16 cases}."""
     gen = torch.Generator(device=device).manual_seed(0)
-    errs = {}
+    errs = {"paged_attention": 0.0, "paged_prefill": 0.0}
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
-        tol = KERNEL_TOL[dtype_name]
         for window in (0, 64):
             args = decode_case(torch, gen, device, dtype)
             out = ops.paged_attention(*args, window=window)
             plain = ref.paged_attention_ref(*args, window=window)
             torch.cuda.synchronize()
             err = (out.float() - plain.float()).abs().max().item()
-            torch.testing.assert_close(out.float(), plain.float(), **tol)
+            torch.testing.assert_close(
+                out.float(), plain.float(),
+                **KERNEL_TOL["paged_attention", dtype_name])
             assert torch.all(out[5] == 0), "all-null row must be zeros"
             log(f"parity paged_attention {dtype_name} window={window}: "
                 f"max_abs_err={err:.3e}")
-            if dtype_name == "bfloat16" and window == 0:
-                errs["paged_attention"] = err
+            if dtype_name == "bfloat16":
+                errs["paged_attention"] = max(errs["paged_attention"], err)
 
-            args = prefill_case(torch, gen, device, dtype)
-            out = ops.paged_prefill(*args, window=window)
-            plain = ref.paged_prefill_ref(*args, window=window)
-            torch.cuda.synchronize()
-            lanes = prefill_visible(torch, args[3], args[4], window).any(-1)
-            err = (out[lanes].float() - plain[lanes].float()).abs().max().item()
-            torch.testing.assert_close(out[lanes].float(),
-                                       plain[lanes].float(), **tol)
-            log(f"parity paged_prefill {dtype_name} window={window}: "
-                f"max_abs_err={err:.3e} ({int(lanes.sum())} visible lanes)")
-            if dtype_name == "bfloat16" and window == 0:
-                errs["paged_prefill"] = err
+            for b, s in ((4, 256), (8, 1)):
+                args = prefill_case(torch, gen, device, dtype, b=b, s=s)
+                out = ops.paged_prefill(*args, window=window)
+                plain = ref.paged_prefill_ref(*args, window=window)
+                torch.cuda.synchronize()
+                lanes = prefill_visible(torch, args[3], args[4],
+                                        window).any(-1)
+                assert lanes.any()
+                err = (out[lanes].float()
+                       - plain[lanes].float()).abs().max().item()
+                torch.testing.assert_close(
+                    out[lanes].float(), plain[lanes].float(),
+                    **KERNEL_TOL["paged_prefill", dtype_name])
+                log(f"parity paged_prefill {dtype_name} {b} rows S={s} "
+                    f"window={window}: max_abs_err={err:.3e} "
+                    f"({int(lanes.sum())} visible lanes)")
+                if dtype_name == "bfloat16":
+                    errs["paged_prefill"] = max(errs["paged_prefill"], err)
     return errs
 
 
@@ -228,7 +243,7 @@ def model_parity(torch, device, cfg, ops, ref, ragged_dispatch):
         with ctx:
             logits[name], _ = model.decode_step_paged(
                 params, step_pools, torch.where(active[:, None], bt, 0),
-                step_tokens, pos, active, decode_kernel=True)
+                step_tokens, pos, active)
     out["decode"] = _rel_err(torch, logits["kernel"][active],
                              logits["plain"][active])
     return out

@@ -11,13 +11,14 @@ the published width in the config's dtype.  Weights are drawn from
 ``--seed`` by the port's own initialiser, so tokens agree with other runs
 of this launcher, not with the reference's.  ``--decode-fusion on``
 (default) runs decode rows through the ragged prefill dispatch
-(``paged_prefill`` kernel); ``off`` runs the separate decode dispatch,
-whose attention ``--decode-kernel`` picks (``auto``/``on``: the
-``paged_attention`` kernel on the card; ``off``: the plain gather).
+(``paged_prefill`` kernel); ``off`` runs the separate decode dispatch
+(``paged_attention`` kernel).
 
 Flags of features the port does not carry yet are refused with a message:
 ``--engine slot``, ``--scheduler serial``, ``--spec-decode``,
-``--replicas`` > 1, ``--metrics`` and ``--trace-out``.
+``--replicas`` > 1, ``--metrics`` and ``--trace-out``, and any value other
+than the default of ``--decode-kernel``, ``--window-accounting``,
+``--affinity``, ``--slots``, ``--spec-k`` and ``--draft-layers``.
 """
 from __future__ import annotations
 
@@ -71,9 +72,8 @@ def make_parser() -> argparse.ArgumentParser:
                          "prefixes")
     ap.add_argument("--decode-kernel", choices=("auto", "on", "off"),
                     default="auto",
-                    help="decode dispatch attention: the paged_attention "
-                         "kernel (auto/on; its plain version on the CPU) "
-                         "or the plain block gather (off)")
+                    help="auto/on: the decode dispatch reads through the "
+                         "paged_attention kernel (off is not ported)")
     ap.add_argument("--prefill-buckets", default="auto",
                     help="prefill length bucketing: auto (powers of two), "
                          "off (exact shapes), or a comma list like 8,16,64")
@@ -89,19 +89,22 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spec-decode", choices=("off", "ngram", "draft"),
                     default="off",
                     help="off only (speculative decoding is not ported yet)")
-    ap.add_argument("--spec-k", type=int, default=4)
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculative decoding only (not ported yet)")
     ap.add_argument("--decode-fusion", choices=("on", "off"), default="on",
                     help="run decode through the fused ragged dispatch as "
                          "length-1 windows (on) or the separate decode "
                          "dispatch (off)")
     ap.add_argument("--window-accounting", choices=("on", "off"),
                     default="on",
-                    help="inert: the carried configs have no sliding-window "
-                         "layers")
+                    help="on only (sliding-window layers are not ported "
+                         "yet)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="1 only (the cluster tier is not ported yet)")
-    ap.add_argument("--affinity", choices=("on", "off"), default="on")
-    ap.add_argument("--draft-layers", type=int, default=1)
+    ap.add_argument("--affinity", choices=("on", "off"), default="on",
+                    help="cluster tier only (not ported yet)")
+    ap.add_argument("--draft-layers", type=int, default=1,
+                    help="speculative decoding only (not ported yet)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -125,6 +128,14 @@ def check_args(args) -> None:
         (args.replicas > 1, "--replicas: the cluster tier"),
         (args.metrics, "--metrics: the observability layer"),
         (args.trace_out is not None, "--trace-out: the observability layer"),
+        (args.decode_kernel == "off", "--decode-kernel off: the plain "
+                                      "decode gather"),
+        (args.window_accounting != "on", "--window-accounting off: "
+                                         "sliding-window layers"),
+        (args.affinity != "on", "--affinity off: the cluster tier"),
+        (args.slots != 4, "--slots: the slot engine"),
+        (args.spec_k != 4, "--spec-k: speculative decoding"),
+        (args.draft_layers != 1, "--draft-layers: speculative decoding"),
     ]
     for refused, what in refusals:
         if refused:
@@ -148,14 +159,12 @@ def build_engine(args, model, params):
     buckets = args.prefill_buckets
     if buckets not in ("auto", "off"):
         buckets = [int(b) for b in buckets.split(",")]
-    kernel = {"auto": None, "on": True, "off": False}[args.decode_kernel]
     return PagedLLMEngine(model, params, num_blocks=args.num_blocks,
                           block_size=args.block_size,
                           max_batch=args.max_batch,
                           max_len=args.cache_max,
                           prefix_cache=args.prefix_cache == "on",
                           prefill_buckets=buckets,
-                          decode_kernel=kernel,
                           scheduler=args.scheduler,
                           prefill_chunk=args.prefill_chunk,
                           step_token_budget=args.step_token_budget,

@@ -100,17 +100,15 @@ class Model:
         return unembed_apply(params["embed"], cfg, last), caches
 
     def decode_step_paged(self, params, pools, block_table, tokens, pos,
-                          active, *, decode_kernel=None):
+                          active):
         """Paged one-token step.  tokens (B,1) int32, pos (B,) absolute
-        position, block_table (B, nb) int32, active (B,) bool.
-        ``decode_kernel``: True = ``ops.paged_attention`` (the CUDA kernel
-        on the card), False = the plain block gather, None = the kernel
-        when the inputs lie on the card.  Pools are written in place.
+        position, block_table (B, nb) int32, active (B,) bool.  Attention
+        reads through ``ops.paged_attention`` (the CUDA kernel on the
+        card).  Pools are written in place.
         -> (logits (B,1,V), pools)."""
         cfg = self.cfg
         x = embed_apply(params["embed"], tokens)
         x, pools = tf.stack_decode_paged(params["stack"], cfg, x, pools,
-                                         block_table, pos, active,
-                                         decode_kernel=decode_kernel)
+                                         block_table, pos, active)
         x = norm_apply(params["final_norm"], x, cfg.norm_kind)
         return unembed_apply(params["embed"], cfg, x), pools

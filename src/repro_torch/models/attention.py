@@ -11,17 +11,12 @@ the pool tensors in place; each such place says so.
 """
 from __future__ import annotations
 
-import math
-from typing import Optional
-
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.module import ParamSpec
-
-NEG_INF = -2.0 ** 30  # large-negative that survives bf16
 
 # ------------------------------------------------------------------ schema
 
@@ -82,40 +77,11 @@ def _out_proj(out, wo):
     return out.reshape(*out.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
 
 
-def _softmax(scores, mask):
-    scores = torch.where(mask, scores.float(), NEG_INF)
-    m = torch.amax(scores, -1, keepdim=True)
-    e = torch.exp(scores - m)
-    z = torch.sum(e, -1, keepdim=True)
-    return e / torch.clamp(z, min=1e-30)
-
-
 def _bcast_pos(positions, b, s):
     positions = torch.as_tensor(positions, dtype=torch.int32)
     if positions.dim() == 1:
         positions = positions[None, :].expand(b, s)
     return positions.contiguous()
-
-
-def _decode_attn_read(p, cfg: ModelConfig, q, cache_k, cache_v, kpos, pos,
-                      *, kind: str):
-    """Masked one-token attention over a gathered cache view (the plain
-    read of paged decode).  q (B,1,H,hd), cache_k/v (B,L,KV,hd), kpos
-    (B,L) absolute positions (-1 = invalid lane).  Returns y (B,1,D)."""
-    hd = cfg.resolved_head_dim
-    h = q.shape[2]
-    g = h // cache_k.shape[2]
-    k_rep = torch.repeat_interleave(cache_k, g, dim=2)
-    v_rep = torch.repeat_interleave(cache_v, g, dim=2)
-    sc = torch.einsum("bqhd,bshd->bhqs", q, k_rep) * (1.0 / math.sqrt(hd))
-    kp = kpos[:, None, None, :]
-    pp = pos[:, None, None, None]
-    mask = (kp >= 0) & (kp <= pp)
-    if kind == "attn_local" and cfg.sliding_window:
-        mask = mask & (pp - kp < cfg.sliding_window)
-    probs = _softmax(sc, mask).to(cache_v.dtype)
-    out = torch.einsum("bhqs,bshd->bqhd", probs, v_rep)
-    return _out_proj(out, p["wo"])
 
 
 # ------------------------------------------------------------- paged cache
@@ -135,7 +101,7 @@ def paged_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 
 def attn_decode_paged(p, cfg: ModelConfig, x, pool, block_table, pos, active,
-                      *, kind: str, decode_kernel: Optional[bool] = None):
+                      *, kind: str):
     """One-token decode against a block-paged KV pool.
 
     x (B,1,D); ``pool`` is the *shared* layer pool; ``block_table`` (B, nb)
@@ -145,18 +111,13 @@ def attn_decode_paged(p, cfg: ModelConfig, x, pool, block_table, pos, active,
     lanes never validate.  Writes the new token's K/V into ``pool`` in
     place and returns y (B,1,D).
 
-    ``decode_kernel`` selects the attention read: True goes through
-    ``ops.paged_attention`` (the CUDA kernel on the card, its plain
-    version on the CPU), False keeps the gather below, None means the
-    kernel when ``x`` lies on the card.  Inactive rows differ harmlessly
-    between the two (kernel: zeros; gather: uniform-probability
-    garbage) — the engine discards both.
+    The read goes through ``ops.paged_attention``: the CUDA kernel on the
+    card, its plain version on the CPU.  Inactive rows read zeros, which
+    the engine discards.
     """
     rope = cfg.pos_kind == "rope"
-    hd = cfg.resolved_head_dim
     q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None], rope, kind)
     bs = pool["pos"].shape[1]
-    b, nb = block_table.shape
 
     # scatter the new token's kv into (physical block, in-block offset),
     # in place (the reference rebuilds the pool with .at[].set).  Active
@@ -170,22 +131,11 @@ def attn_decode_paged(p, cfg: ModelConfig, x, pool, block_table, pos, active,
     pool["v"][phys, off] = v_new[:, 0].to(pool["v"].dtype)
     pool["pos"][phys, off] = torch.where(active, pos.int(), -1)
 
-    use_kernel = x.is_cuda if decode_kernel is None else bool(decode_kernel)
-    if use_kernel:
-        window = cfg.sliding_window if kind == "attn_local" else 0
-        out = kernel_ops.paged_attention(
-            q[:, 0].contiguous(), pool["k"], pool["v"], pool["pos"],
-            block_table, pos.int().contiguous(), window=window)
-        return _out_proj(out, p["wo"])[:, None]
-
-    # gather-based read: (B, nb, bs, ...) -> (B, nb*bs, ...) logical view
-    kv = cfg.num_kv_heads
-    bt = block_table.long()
-    cache_k = pool["k"][bt].reshape(b, nb * bs, kv, hd)
-    cache_v = pool["v"][bt].reshape(b, nb * bs, kv, hd)
-    kpos = pool["pos"][bt].reshape(b, nb * bs)
-    return _decode_attn_read(p, cfg, q, cache_k, cache_v, kpos, pos,
-                             kind=kind)
+    window = cfg.sliding_window if kind == "attn_local" else 0
+    out = kernel_ops.paged_attention(
+        q[:, 0].contiguous(), pool["k"], pool["v"], pool["pos"],
+        block_table, pos.int().contiguous(), window=window)
+    return _out_proj(out, p["wo"])[:, None]
 
 
 def attn_prefill_paged(p, cfg: ModelConfig, x, positions, pool, block_table,

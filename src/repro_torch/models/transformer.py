@@ -94,26 +94,25 @@ def stack_schema(cfg: ModelConfig):
 
 
 def block_decode_paged(p, cfg: ModelConfig, x, pool, block_table, pos, active,
-                       *, kind: str, decode_kernel=None):
+                       *, kind: str):
     """One-token step of one layer against its block-paged pool (written
     in place).  -> x."""
     h = norm_apply(p["norm1"], x, cfg.norm_kind)
     x = x + attn.attn_decode_paged(p["mix"], cfg, h, pool, block_table, pos,
-                                   active, kind=kind,
-                                   decode_kernel=decode_kernel)
+                                   active, kind=kind)
     h = norm_apply(p["norm2"], x, cfg.norm_kind)
     return x + mlp_apply(p["ffn"], h, cfg.mlp_kind)
 
 
 def stack_decode_paged(params, cfg: ModelConfig, x, pools, block_table, pos,
-                       active, decode_kernel=None):
+                       active):
     """-> (x, pools).  The block table is shared by every layer (one
     allocation per request covers the whole stack — each layer owns its
     own physical pool, indexed by the same table).  Pools are written in
     place and returned."""
     for p, pool in zip(layer_views(cfg, params), layer_views(cfg, pools)):
         x = block_decode_paged(p, cfg, x, pool, block_table, pos, active,
-                               kind="attn", decode_kernel=decode_kernel)
+                               kind="attn")
     return x, pools
 
 

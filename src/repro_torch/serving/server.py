@@ -119,9 +119,7 @@ class PagedLLMEngine:
     ``decode_fusion=True`` (default) runs decode rows through that same
     ragged dispatch as length-1 windows (``paged_prefill`` attention);
     ``False`` restores the separate decode dispatch, whose attention is
-    chosen by ``decode_kernel`` (True = ``ops.paged_attention``, the
-    CUDA kernel on the card; False = the plain block gather; None = the
-    kernel when the model lies on the card).
+    ``ops.paged_attention`` (the CUDA kernel on the card).
     """
 
     def __init__(self, model, params, num_blocks: int = 32,
@@ -129,7 +127,6 @@ class PagedLLMEngine:
                  max_len: int = 256, eos_id: Optional[int] = None,
                  prefix_cache: bool = False,
                  prefill_buckets="auto",
-                 decode_kernel: Optional[bool] = None,
                  prefill_chunk: int = 256,
                  step_token_budget: Optional[int] = None,
                  scheduler: str = "continuous",
@@ -186,7 +183,6 @@ class PagedLLMEngine:
         self.admission_window = admission_window
         self.admission_skips = 0
         self.decode_fusion = bool(decode_fusion)
-        self.decode_kernel = decode_kernel
         # paged_attention launches made by this engine's decode dispatch:
         # the decode_kernel gauge reports what ran, not what was asked for
         self.decode_kernel_launches = 0
@@ -701,8 +697,7 @@ class PagedLLMEngine:
             torch.from_numpy(self.block_table).to(dev),
             torch.from_numpy(tokens).to(dev),
             torch.from_numpy(pos).to(dev),
-            torch.from_numpy(active_mask).to(dev),
-            decode_kernel=self.decode_kernel)
+            torch.from_numpy(active_mask).to(dev))
         greedy = torch.argmax(logits[:, 0], dim=-1)
         self.decode_kernel_launches += \
             kernel_ops.launch_counts()["paged_attention"] - before

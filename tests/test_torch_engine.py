@@ -125,21 +125,20 @@ def test_engine_token_identical_to_reference(models, reference_runs,
 
 def test_decode_kernel_gauge_reads_launches(models):
     """The gauge reports the kernel's launches by this engine's decode
-    dispatch, not the request: 0 on the CPU even with the kernel asked
-    for, 0 with decode fusion on (the decode dispatch never runs)."""
+    dispatch: 0 on the CPU, where the decode dispatch runs the plain
+    version, and 0 with decode fusion on (the decode dispatch never
+    runs)."""
     _, _, tm, tparams = models
     prompt = np.arange(1, 9, dtype=np.int32)
-    for kw in (dict(decode_fusion=True, decode_kernel=True),
-               dict(decode_fusion=False, decode_kernel=True),
-               dict(decode_fusion=False, decode_kernel=None)):
+    for fusion in (True, False):
         eng = PagedLLMEngine(tm, tparams, num_blocks=17, block_size=4,
-                             max_len=32, **kw)
+                             max_len=32, decode_fusion=fusion)
         eng.submit(prompt, max_new=4)
         _drive(eng, [], [])
         s = eng.stats()
         assert s["finished"] == 1
         assert s["decode_kernel"] == 0
-        assert s["decode_compiles"] == (0 if kw["decode_fusion"] else 1)
+        assert s["decode_compiles"] == (0 if fusion else 1)
 
 
 def test_engine_refuses_unported_features(models):
@@ -237,6 +236,9 @@ def test_serve_cli_fusion_on_off_same_tokens():
     ["--engine", "slot"], ["--scheduler", "serial"],
     ["--spec-decode", "ngram"], ["--replicas", "2"], ["--metrics"],
     ["--trace-out", "t.json"], ["--arch", "gemma3-4b"],
+    ["--decode-kernel", "off"], ["--window-accounting", "off"],
+    ["--affinity", "off"], ["--slots", "2"], ["--spec-k", "2"],
+    ["--draft-layers", "2"],
 ])
 def test_serve_cli_refuses_unported_flags(argv):
     with pytest.raises((SystemExit, KeyError)):

@@ -11,9 +11,11 @@ different order differ by ~1e-7 of outputs of magnitude ~1; ``atol=1e-5``.
 On the card (tests marked ``cuda``, skipped elsewhere): the CUDA kernels
 against the plain versions at the same inputs.  float32: ``atol=rtol=
 1e-4`` (summation order and ``expf`` against ``torch.exp`` over up to a
-few hundred keys).  bfloat16: ``atol=rtol=5e-2``, as the reference's
-bf16 kernel tests: the plain versions round scores, probabilities and
-outputs to bf16 (8 bits of mantissa) where the kernels hold float32.
+few hundred keys).  bfloat16, each with ``rtol=2**-7`` because both sides
+round the output to bf16 once and an element may land one bf16 ulp
+apart: decode ``atol=2e-3`` (both sides otherwise float32); prefill
+``atol=3e-2`` (the plain version also rounds the probabilities to bf16
+before the value product, the kernel keeps them float32).
 """
 import ctypes
 import re
@@ -115,6 +117,7 @@ PREFILL_SHAPES = [
     (2, 8, 4, 4, 16, 12),         # MHA
     (3, 8, 4, 2, 32, 16),         # GQA 2:1
     (2, 5, 8, 1, 64, 9),          # MQA, unaligned
+    (4, 1, 4, 2, 32, 13),         # one query lane: fused decode rows
 ]
 
 
@@ -174,9 +177,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tol(dtype):
-    return dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else \
-        dict(atol=5e-2, rtol=5e-2)
+def _tol(kernel, dtype):
+    if dtype == torch.float32:
+        return dict(atol=1e-4, rtol=1e-4)
+    return dict(atol={"paged_attention": 2e-3, "paged_prefill": 3e-2}[kernel],
+                rtol=2 ** -7)
 
 
 @pytest.mark.cuda
@@ -194,12 +199,14 @@ def test_paged_attention_kernel_matches_plain(cuda, shape, window, dtype):
     torch.cuda.synchronize()
     assert pa_mod.KERNEL.launches == n0 + 1
     plain = ref.paged_attention_ref(q, k, v, kp, bt, pos, window=window)
-    torch.testing.assert_close(out.float(), plain.float(), **_tol(dt))
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("paged_attention", dt))
     assert torch.all(out[1] == 0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", PREFILL_SHAPES + [(2, 40, 16, 8, 128, 70)])
+@pytest.mark.parametrize("shape", PREFILL_SHAPES + [(2, 40, 16, 8, 128, 70),
+                                   (8, 1, 16, 8, 128, 512)])
 @pytest.mark.parametrize("window", [0, 5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_prefill_kernel_matches_plain(cuda, shape, window, dtype):
@@ -220,4 +227,4 @@ def test_paged_prefill_kernel_matches_plain(cuda, shape, window, dtype):
         vis &= qp - kp < window
     lanes = vis.any(-1)
     torch.testing.assert_close(out[lanes].float(), plain[lanes].float(),
-                               **_tol(dt))
+                               **_tol("paged_prefill", dt))

@@ -153,11 +153,14 @@ def test_prefill_ragged_per_row_cursors(pair, all_logits):
     _check_caches(jc, tc, seq_len, 8)
 
 
-@pytest.mark.parametrize("decode_kernel", [None, False, True])
+@pytest.mark.parametrize("decode_kernel", [False, True])
 def test_decode_step_active_and_inactive_rows(pair, decode_kernel):
     """One decode step over active rows at ragged positions and inactive
     rows (null tables, ``active`` False): active logits and the pool
-    writes match; inactive rows write only pos -1 into the null block."""
+    writes match the reference's decode step through its jnp gather
+    (``decode_kernel`` False) and through its kernel op (True;
+    ``repro.kernels.ops.paged_attention``, the reference's oracle on the
+    CPU); inactive rows write only pos -1 into the null block."""
     jm, jparams, tm, tparams = pair
     rng = np.random.default_rng(3)
     vocab = jm.cfg.vocab_size
@@ -170,11 +173,10 @@ def test_decode_step_active_and_inactive_rows(pair, decode_kernel):
     jp, tp = _both(np_pools)
     jl, jpools = jm.decode_step_paged(
         jparams, jp, jnp.asarray(bt), jnp.asarray(toks), jnp.asarray(pos),
-        jnp.asarray(active), decode_kernel=bool(decode_kernel))
+        jnp.asarray(active), decode_kernel=decode_kernel)
     tl, tpools = tm.decode_step_paged(
         tparams, tp, torch.from_numpy(bt), torch.from_numpy(toks),
-        torch.from_numpy(pos), torch.from_numpy(active),
-        decode_kernel=decode_kernel)
+        torch.from_numpy(pos), torch.from_numpy(active))
     np.testing.assert_allclose(tl.numpy()[active], np.asarray(jl)[active],
                                **TOL)
     jslot = jax.tree.map(np.asarray, jpools["periods"]["slot0"])
