@@ -8,16 +8,22 @@ then runs five phases, each raising on failure:
 
 1. device: the card's name and power limit, the kernels' build time;
 2. kernel parity: each kernel against its plain PyTorch version at the
-   serving path's shapes (``paged_prefill`` at a chunk's and at the fused
-   decode dispatch's), in bfloat16 and float32;
+   serving paths' shapes (``paged_prefill`` at a chunk's and at the fused
+   decode dispatch's, ``flash_attention`` at the slot engine's
+   whole-prompt prefill), in bfloat16 and float32;
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
-   random weights): one ragged prefill dispatch and one decode step
-   through the kernels and through the plain versions agree;
+   random weights): one ragged prefill dispatch and one decode step of
+   the paged path, and two whole-prompt prefills and one decode step of
+   the slot path, through the kernels and through the plain versions
+   agree;
 4. engine: the serve path (``launch.serve.build_engine``) answers 8
-   requests at full width with decode fusion on (``paged_prefill``) and
-   off (``paged_attention``), with a pool tight enough to preempt; the
-   launch counts show both kernels ran; then both modes at full width
-   with 2 layers in float32 must emit identical tokens;
+   requests at full width with the paged engine, decode fusion on
+   (``paged_prefill``) and off (``paged_attention``), with a pool tight
+   enough to preempt, and with the slot engine (``flash_attention`` for
+   each admission, ``paged_prefill`` for decode); the launch counts show
+   each kernel ran; then at full width with 2 layers in float32 the
+   paged engine's two modes and the slot engine must emit identical
+   tokens;
 5. times: each kernel's time beside its bound, its plain version's and
    one PyTorch library call's (a yardstick only; the port never calls
    it).
@@ -54,6 +60,10 @@ KERNEL_TOL = {
     # the plain version also rounds the probabilities to bf16 before the
     # value product, the kernel keeps them float32; measured ~1.6e-2
     ("paged_prefill", "bfloat16"): dict(atol=3e-2, rtol=2 ** -7),
+    # both sides keep softmax and value product in float32 and round the
+    # output once, as the decode kernel; sums over up to 512 keys
+    ("flash_attention", "float32"): dict(atol=1e-4, rtol=1e-4),
+    ("flash_attention", "bfloat16"): dict(atol=2e-3, rtol=2 ** -7),
 }
 # relative L2 error of logits, kernels vs plain versions through a model:
 # bf16 rounds activations in each of 28 layers, so kernel-side rounding
@@ -118,6 +128,19 @@ def prefill_case(torch, gen, device, dtype, b=4, s=256, h=16, kv=8, hd=128,
     return q.to(dtype), k.to(dtype), v.to(dtype), kpos, qpos
 
 
+def flash_case(torch, gen, device, dtype, b=1, h=16, kv=8, hd=128, sq=512,
+               sk=None):
+    """Whole-prompt operands as the slot prefill passes them: (B,S,heads,
+    hd) projections viewed as (B,heads,S,hd)."""
+    sk = sq if sk is None else sk
+
+    def operand(heads, s):
+        return torch.randn(b, s, heads, hd, generator=gen,
+                           device=device).to(dtype).transpose(1, 2)
+
+    return operand(h, sq), operand(kv, sk), operand(kv, sk)
+
+
 def decode_visible(torch, kpos_pool, bt, pos, window):
     kp = kpos_pool[bt.long()].reshape(bt.shape[0], -1)         # (B, nb*bs)
     p = pos[:, None]
@@ -141,11 +164,31 @@ def prefill_visible(torch, kpos, qpos, window):
 def kernel_parity(torch, device, ops, ref):
     """Phase 2: decode at the decode dispatch's shape; prefill at a chunk
     shape (4 rows, S=256) and at the fused decode dispatch's (8 rows,
-    S=1).  -> {kernel: max abs error over its bfloat16 cases}."""
+    S=1); flash at one prompt row of 37 and 512 tokens (windows 0 and
+    64) and non-causal with 37 queries over 100 keys.  -> {kernel: max
+    abs error over its bfloat16 cases}."""
     gen = torch.Generator(device=device).manual_seed(0)
-    errs = {"paged_attention": 0.0, "paged_prefill": 0.0}
+    errs = {"paged_attention": 0.0, "paged_prefill": 0.0,
+            "flash_attention": 0.0}
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
+        for sq, sk, causal, window in ((37, 37, True, 0), (37, 37, True, 64),
+                                       (512, 512, True, 0),
+                                       (512, 512, True, 64),
+                                       (37, 100, False, 0)):
+            q, k, v = flash_case(torch, gen, device, dtype, sq=sq, sk=sk)
+            out = ops.flash_attention(q, k, v, causal=causal, window=window)
+            plain = ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            torch.testing.assert_close(
+                out.float(), plain.float(),
+                **KERNEL_TOL["flash_attention", dtype_name])
+            log(f"parity flash_attention {dtype_name} Sq={sq} Sk={sk} "
+                f"causal={causal} window={window}: max_abs_err={err:.3e}")
+            if dtype_name == "bfloat16":
+                errs["flash_attention"] = max(errs["flash_attention"], err)
         for window in (0, 64):
             args = decode_case(torch, gen, device, dtype)
             out = ops.paged_attention(*args, window=window)
@@ -186,17 +229,21 @@ def plain_ops(ops, ref):
     """Route the model's attention to the plain versions for one
     comparison run (patching the ops module the model calls through)."""
     return mock.patch.multiple(ops, paged_attention=ref.paged_attention_ref,
-                               paged_prefill=ref.paged_prefill_ref)
+                               paged_prefill=ref.paged_prefill_ref,
+                               flash_attention=ref.flash_attention_ref)
 
 
-def model_parity(torch, device, cfg, ops, ref, ragged_dispatch):
-    """Phase 3: one ragged prefill dispatch (per-row cursors past a cached
-    prefix) and one decode step, kernels vs plain versions on identical
-    pools.  -> {"prefill": rel_err, "decode": rel_err}."""
-    from repro_torch.models.api import Model
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
 
-    model = Model(cfg, device=device)
-    params = model.init(seed=0)
+
+def model_parity(torch, device, model, params, ops, ref, ragged_dispatch):
+    """Phase 3, paged path: one ragged prefill dispatch (per-row cursors
+    past a cached prefix) and one decode step, kernels vs plain versions
+    on identical pools.  -> {"prefill": rel_err, "decode": rel_err}."""
+    cfg = model.cfg
     bs, rows = 16, 4
     prefix_lens = [48, 112, 0, 200]
     chunk_lens = [64, 16, 96, 1]
@@ -237,15 +284,52 @@ def model_parity(torch, device, cfg, ops, ref, ragged_dispatch):
     step_tokens = tokens(1)
     for name, ctx in (("kernel", contextlib.nullcontext()),
                       ("plain", plain_ops(ops, ref))):
-        step_pools = {g: {n: {k: t.clone() for k, t in layer.items()}
-                          for n, layer in pools[g].items()}
-                      for g in pools}
+        step_pools = _clone(pools)
         with ctx:
             logits[name], _ = model.decode_step_paged(
                 params, step_pools, torch.where(active[:, None], bt, 0),
                 step_tokens, pos, active)
     out["decode"] = _rel_err(torch, logits["kernel"][active],
                              logits["plain"][active])
+    return out
+
+
+def slot_model_parity(torch, device, model, params, ops, ref, write_slot):
+    """Phase 3, slot path: whole-prompt prefills of 150 and 37 tokens
+    (``Model.prefill``, one row each, as the slot engine admits), their
+    caches spliced into two of three slots, and one decode step over all
+    three (the third a dead slot at position 0), kernels vs plain
+    versions on identical caches.  -> {"prefill": rel_err, "decode":
+    rel_err}."""
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(3)
+    lens = (150, 37)
+    prompts = [torch.randint(1, cfg.vocab_size, (1, n), generator=gen,
+                             device=device, dtype=torch.int32) for n in lens]
+    cache = model.cache_init(3, 256)
+    logits = {"kernel": [], "plain": []}
+    for name, ctx in (("kernel", contextlib.nullcontext()),
+                      ("plain", plain_ops(ops, ref))):
+        for slot, toks in enumerate(prompts):
+            with ctx:
+                lg, c1 = model.prefill(params, {"tokens": toks},
+                                       cache_max=256)
+            logits[name].append(lg[0, -1])
+            if name == "kernel":
+                write_slot(cache, c1, slot)
+    out = {"prefill": _rel_err(torch, torch.stack(logits["kernel"]),
+                               torch.stack(logits["plain"]))}
+    step = torch.randint(1, cfg.vocab_size, (3, 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    pos = torch.tensor([*lens, 0], dtype=torch.int32, device=device)
+    step_logits = {}
+    for name, ctx in (("kernel", contextlib.nullcontext()),
+                      ("plain", plain_ops(ops, ref))):
+        with ctx:
+            step_logits[name], _ = model.decode_step(params, _clone(cache),
+                                                     step, pos)
+    out["decode"] = _rel_err(torch, step_logits["kernel"][:2],
+                             step_logits["plain"][:2])
     return out
 
 
@@ -272,6 +356,8 @@ def smoke_workload(vocab_size, seed=0, n=8, prefix=32, lo=32, hi=200):
 SERVE_ARGV = ["--arch", "qwen3-0.6b", "--no-reduced", "--num-blocks", "32",
               "--block-size", "16", "--cache-max", "256", "--max-new", "16",
               "--prefix-cache", "on"]
+SLOT_ARGV = ["--arch", "qwen3-0.6b", "--no-reduced", "--engine", "slot",
+             "--slots", "4", "--cache-max", "256", "--max-new", "16"]
 
 
 def run_engine(engine, prompts, max_new, sync):
@@ -326,19 +412,20 @@ def time_ms(torch, fn, iters=20):
     return total / iters
 
 
-def sdpa(torch, q, k, v, mask):
-    """One PyTorch call for attention with an explicit boolean mask:
-    q (B,H,Sq,hd), k/v (B,KV,Sk,hd), mask (B,1,Sq,Sk)."""
+def sdpa(torch, q, k, v, mask=None, causal=False):
+    """One PyTorch call for attention with an explicit boolean mask or
+    the causal one: q (B,H,Sq,hd), k/v (B,KV,Sk,hd), mask (B,1,Sq,Sk)."""
     import torch.nn.functional as F
 
     try:
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              is_causal=causal,
                                               enable_gqa=True)
     except TypeError:                       # torch without enable_gqa
         g = q.shape[1] // k.shape[1]
         return F.scaled_dot_product_attention(
             q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
-            attn_mask=mask)
+            attn_mask=mask, is_causal=causal)
 
 
 def kernel_times(torch, device, ops, ref):
@@ -401,6 +488,18 @@ def kernel_times(torch, device, ops, ref):
                                                vis[:, None])),
         bytes=nbytes, flops=4 * hd * h * int(vis.sum()))
 
+    # the slot engine's whole-prompt prefill: one row, causal, window 0
+    for s in (512, 2048):
+        q, k, v = flash_case(torch, gen, device, dt, sq=s)
+        b, h, _, hd = q.shape
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+        out[f"flash_attention_{s}"] = dict(
+            ms=time_ms(torch, lambda: ops.flash_attention(q, k, v)),
+            plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v)),
+            library_ms=time_ms(torch, lambda: sdpa(torch, q, k, v,
+                                                   causal=True)),
+            bytes=nbytes, flops=4 * hd * h * b * (s * (s + 1) // 2))
+
     for rec in out.values():
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = rec["flops"] / PEAK_FLOPS["bfloat16"] * 1e3
@@ -435,6 +534,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import serve
     from repro_torch.models.api import Model
+    from repro_torch.serving.kvcache import write_slot
     from repro_torch.serving.server import ragged_dispatch
     from repro_torch.serving.stats_schema import validate
 
@@ -457,20 +557,23 @@ def main() -> int:
     # 2. kernel parity
     errs = kernel_parity(torch, device, ops, ref)
 
-    # 3. model at full width
+    # 3. model at full width, paged and slot paths
     full = get_config("qwen3-0.6b")
-    rel = model_parity(torch, device, full, ops, ref, ragged_dispatch)
-    log(f"model qwen3-0.6b bf16 28 layers, kernels vs plain: "
-        f"prefill rel_err={rel['prefill']:.3e} "
-        f"decode rel_err={rel['decode']:.3e}")
-    assert rel["prefill"] <= MODEL_TOL["bfloat16"], rel
-    assert rel["decode"] <= MODEL_TOL["bfloat16"], rel
     small = dataclasses.replace(full, num_layers=2, dtype="float32")
-    rel32 = model_parity(torch, device, small, ops, ref, ragged_dispatch)
-    log(f"model qwen3-0.6b float32 2 layers, kernels vs plain: "
-        f"prefill rel_err={rel32['prefill']:.3e} "
-        f"decode rel_err={rel32['decode']:.3e}")
-    assert max(rel32.values()) <= MODEL_TOL["float32"], rel32
+    for cfg, what in ((full, "bf16 28 layers"), (small, "float32 2 layers")):
+        model = Model(cfg, device=device)
+        params = model.init(seed=0)
+        tol = MODEL_TOL[cfg.dtype]
+        for path, rel in (
+                ("paged", model_parity(torch, device, model, params, ops,
+                                       ref, ragged_dispatch)),
+                ("slot", slot_model_parity(torch, device, model, params, ops,
+                                           ref, write_slot))):
+            log(f"model qwen3-0.6b {what} {path} path, kernels vs plain: "
+                f"prefill rel_err={rel['prefill']:.3e} "
+                f"decode rel_err={rel['decode']:.3e}")
+            assert max(rel.values()) <= tol, (path, rel)
+        del model, params
 
     # 4. engine through the serve path
     args = serve.make_parser().parse_args(SERVE_ARGV)
@@ -478,7 +581,8 @@ def main() -> int:
     cfg, model, params = serve.build_model(args)
     prompts = smoke_workload(cfg.vocab_size)
     sync = torch.cuda.synchronize
-    launches = {"paged_attention": 0, "paged_prefill": 0}
+    launches = {"flash_attention": 0, "paged_attention": 0,
+                "paged_prefill": 0}
     for fusion in ("on", "off"):
         args.decode_fusion = fusion
         run_engine(serve.build_engine(args, model, params), prompts[:2], 2,
@@ -506,6 +610,28 @@ def main() -> int:
         for k, n in counts.items():
             launches[k] += n
 
+    slot_args = serve.make_parser().parse_args(SLOT_ARGV)
+    serve.check_args(slot_args)
+    run_engine(serve.build_engine(slot_args, model, params), prompts[:2], 2,
+               sync)                                          # warm-up
+    engine = serve.build_engine(slot_args, model, params)
+    ops.reset_launch_counts()
+    outs, secs = run_engine(engine, prompts, slot_args.max_new, sync)
+    counts = ops.launch_counts()
+    stats = validate(engine.stats())
+    ntok = sum(len(t) for t in outs.values())
+    log(f"engine qwen3-0.6b bf16 28 layers slot ({slot_args.slots} slots): "
+        f"{len(outs)} requests, {ntok} tokens in {secs:.3f}s "
+        f"({ntok / secs:.1f} tok/s), admissions={stats['admissions']} "
+        f"launches={counts}")
+    assert len(outs) == len(prompts)
+    assert all(len(t) == slot_args.max_new for t in outs.values())
+    assert stats["admissions"] == len(prompts)
+    assert counts["flash_attention"] == cfg.num_layers * stats["admissions"]
+    assert counts["paged_prefill"] > 0 and counts["paged_attention"] == 0
+    for k, n in counts.items():
+        launches[k] += n
+
     args.decode_fusion = "on"
     engine = serve.build_engine(args, model, params)
     secs, busy, rows = profile_engine(
@@ -527,22 +653,35 @@ def main() -> int:
         tokens[fusion], secs = run_engine(engine, prompts, args.max_new, sync)
         log(f"engine qwen3-0.6b float32 2 layers decode_fusion={fusion}: "
             f"{sum(map(len, tokens[fusion].values())) / secs:.1f} tok/s")
+    engine = serve.build_engine(slot_args, small_model, small_params)
+    tokens["slot"], secs = run_engine(engine, prompts, slot_args.max_new,
+                                      sync)
+    log(f"engine qwen3-0.6b float32 2 layers slot: "
+        f"{sum(map(len, tokens['slot'].values())) / secs:.1f} tok/s")
     assert tokens["on"] == tokens["off"], "fusion on/off tokens differ"
-    log("engine float32 fusion on/off: token-identical")
+    assert tokens["slot"] == tokens["on"], "slot and paged tokens differ"
+    log("engine float32 paged fusion on/off and slot: token-identical")
 
     # 5. times
     times = kernel_times(torch, device, ops, ref)
-    t = times["paged_prefill_s1"]
-    log(f"time paged_prefill bf16 at the fused-decode shape (8 rows, S=1, "
-        f"512 prefix keys): {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
-        f"sdpa {t['library_ms']:.4f} ms")
+    for key, what in (("paged_prefill_s1", "paged_prefill bf16 at the "
+                       "fused-decode shape (8 rows, S=1, 512 prefix keys)"),
+                      ("flash_attention_2048", "flash_attention bf16 at one "
+                       "causal row of S=2048")):
+        t = times[key]
+        log(f"time {what}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
+            f"sdpa {t['library_ms']:.4f} ms")
     records = []
-    for name, replaces in (("paged_attention",
-                            "src/repro/kernels/paged_attention.py:96"),
-                           ("paged_prefill", "src/repro/kernels/ops.py:87")):
-        t = times[name]
-        log(f"time {name} bf16: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+    for name, key, replaces in (
+            ("flash_attention", "flash_attention_512",
+             "src/repro/kernels/flash_attention.py:92"),
+            ("paged_attention", "paged_attention",
+             "src/repro/kernels/paged_attention.py:96"),
+            ("paged_prefill", "paged_prefill",
+             "src/repro/kernels/ops.py:87")):
+        t = times[key]
+        log(f"time {key} bf16: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
             f"ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
             f"sdpa {t['library_ms']:.4f} ms")
         records.append({

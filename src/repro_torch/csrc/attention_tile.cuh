@@ -14,9 +14,10 @@
 //   l      = l * alpha + sum(p)    acc = acc * alpha + p @ V
 //
 // A key at lane c is visible to row r iff kpos[c] >= 0, kpos[c] <=
-// qpos[r], and (window == 0 or qpos[r] - kpos[c] < window). Rows with no
-// visible key keep acc = 0 and l = 0, so the final acc / max(l, 1e-30)
-// writes zeros for them.
+// qpos[r] (the causal term, dropped when kCausal is false), and (window
+// == 0 or qpos[r] - kpos[c] < window). Rows with no visible key keep
+// acc = 0 and l = 0, so the final acc / max(l, 1e-30) writes zeros for
+// them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,8 +49,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool kCausal = true>
 __device__ __forceinline__ bool visible(int kp, int qp, int window) {
-  return kp >= 0 && kp <= qp && (window == 0 || qp - kp < window);
+  return kp >= 0 && (!kCausal || kp <= qp) &&
+         (window == 0 || qp - kp < window);
 }
 
 // Shared-memory working set of one CTA. k rows are padded to hd + 1
@@ -103,6 +106,7 @@ __device__ inline void init_rows(const TileSmem& t, int R, int hd) {
 // Fold keys [0, nk) of the staged tile into every row. Entry and exit
 // are CTA-wide barriers' responsibility: the caller syncs after staging,
 // this routine syncs before returning.
+template <bool kCausal = true>
 __device__ inline void attend_tile(const TileSmem& t, int R, int TK, int nk,
                                    int hd, float scale, int window) {
   // scores: consecutive threads take consecutive keys of one row
@@ -126,7 +130,7 @@ __device__ inline void attend_tile(const TileSmem& t, int R, int TK, int nk,
     float* sr = t.s + (size_t)r * TK;
     float mx = kNegInf;
     for (int c = lane; c < TK; c += 32) {
-      const bool ok = c < nk && visible(t.kpos[c], qp, window);
+      const bool ok = c < nk && visible<kCausal>(t.kpos[c], qp, window);
       mx = fmaxf(mx, ok ? sr[c] : kNegInf);
     }
     mx = warp_max(mx);
@@ -134,7 +138,7 @@ __device__ inline void attend_tile(const TileSmem& t, int R, int TK, int nk,
     const float m_new = fmaxf(m_prev, mx);
     float sum = 0.f;
     for (int c = lane; c < TK; c += 32) {
-      const bool ok = c < nk && visible(t.kpos[c], qp, window);
+      const bool ok = c < nk && visible<kCausal>(t.kpos[c], qp, window);
       const float p = ok ? expf(sr[c] - m_new) : 0.f;
       sr[c] = p;
       sum += p;

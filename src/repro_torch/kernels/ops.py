@@ -6,6 +6,7 @@ be built or launched; a CPU tensor goes to the plain version in
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_prefill as _pp
 from repro_torch.kernels import ref as _ref
@@ -17,6 +18,13 @@ def _on_cuda(t) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Whole-prompt attention: q (B,H,Sq,hd), k/v (B,KV,Sk,hd) ->
+    (B,H,Sq,hd)."""
+    fn = _fa.flash_attention if _on_cuda(q) else _ref.flash_attention_ref
+    return fn(q, k, v, causal=causal, window=window)
 
 
 def paged_attention(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
@@ -37,10 +45,11 @@ def paged_prefill(q, k, v, kpos, qpos, *, window: int = 0):
 
 def launch_counts() -> dict:
     """Launches of each kernel since its count was last set to 0."""
-    return {"paged_attention": _pa.KERNEL.launches,
+    return {"flash_attention": _fa.KERNEL.launches,
+            "paged_attention": _pa.KERNEL.launches,
             "paged_prefill": _pp.KERNEL.launches}
 
 
 def reset_launch_counts() -> None:
-    _pa.KERNEL.launches = 0
-    _pp.KERNEL.launches = 0
+    for mod in (_fa, _pa, _pp):
+        mod.KERNEL.launches = 0

@@ -13,6 +13,32 @@ import torch
 NEG_INF = -2.0 ** 30
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd).  GQA: H % KV == 0.
+
+    Plain softmax attention in fp32 with optional causal (query i sees
+    keys j <= i) and sliding-window (``window`` > 0: keys (i-window, i])
+    masking.  Softmax and the value product stay in float32; the output
+    is cast to q.dtype once.
+    """
+    b, h, sq, hd = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, kv, g, sq, hd).float()
+    scores = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    qi = torch.arange(sq, device=q.device)[:, None]
+    ki = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qi >= ki)
+    if window:
+        mask = mask & (qi - ki < window)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bksh->bkgqh", probs, v.float())
+    return out.reshape(b, h, sq, hd).to(q.dtype)
+
+
 def paged_attention_ref(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
                         window: int = 0):
     """One-token decode against a block-paged KV pool, as a plain gather.

@@ -1,8 +1,11 @@
 """Serving launcher: continuous-batching LLM inference through the paged
-engine, on the card unless ``--device cpu`` is given.
+engine (default) or the fixed-slot engine (``--engine slot``), on the
+card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --no-reduced --requests 8 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine slot \\
+        --slots 4 --no-reduced
 
 Takes the flags of ``repro.launch.serve`` and prints the same ``req N:
 [...]`` lines.  ``--reduced`` (the default, as in the reference) serves
@@ -12,13 +15,18 @@ the published width in the config's dtype.  Weights are drawn from
 of this launcher, not with the reference's.  ``--decode-fusion on``
 (default) runs decode rows through the ragged prefill dispatch
 (``paged_prefill`` kernel); ``off`` runs the separate decode dispatch
-(``paged_attention`` kernel).
+(``paged_attention`` kernel).  The slot engine prefills each prompt
+whole (``flash_attention`` kernel) and decodes every slot through
+``paged_prefill`` with one query lane; as in the reference, it takes
+``--slots`` and ``--cache-max`` and ignores the paged-only flags.
 
 Flags of features the port does not carry yet are refused with a message:
-``--engine slot``, ``--scheduler serial``, ``--spec-decode``,
-``--replicas`` > 1, ``--metrics`` and ``--trace-out``, and any value other
-than the default of ``--decode-kernel``, ``--window-accounting``,
-``--affinity``, ``--slots``, ``--spec-k`` and ``--draft-layers``.
+``--scheduler serial``, ``--spec-decode``, ``--replicas`` > 1,
+``--metrics`` and ``--trace-out``, and any value other than the default
+of ``--decode-kernel``, ``--window-accounting``, ``--affinity``,
+``--spec-k`` and ``--draft-layers``.  ``--replicas`` and
+``--spec-decode`` with ``--engine slot`` exit with the reference's
+"needs the paged engine".
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.models.api import Model
-from repro_torch.serving.server import PagedLLMEngine
+from repro_torch.serving.server import LLMEngine, PagedLLMEngine
 
 
 def _fmt_stats(stats: dict) -> str:
@@ -60,11 +68,12 @@ def make_parser() -> argparse.ArgumentParser:
                     help="serve the CPU-smoke variant (default); "
                          "--no-reduced serves the published width")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--engine", choices=("paged", "slot"), default=None,
-                    help="paged only (the slot engine is not ported yet)")
+    ap.add_argument("--engine", choices=("paged", "slot"), default="paged",
+                    help="paged: block-paged continuous batching; slot: "
+                         "fixed cache slots, whole-prompt prefill")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,
-                    help="slot engine only (not ported yet)")
+                    help="cache slots of the slot engine")
     ap.add_argument("--num-blocks", type=int, default=32)
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--prefix-cache", choices=("on", "off"), default="on",
@@ -109,7 +118,7 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--cache-max", type=int, default=128,
-                    help="max_len of a request (prompt + generated)")
+                    help="per-request cache strip (slot) / max_len (paged)")
     ap.add_argument("--stats-every", type=int, default=16)
     ap.add_argument("--metrics", action="store_true",
                     help="not ported yet")
@@ -121,8 +130,12 @@ def make_parser() -> argparse.ArgumentParser:
 
 def check_args(args) -> None:
     """Refuse flags of features the port does not carry yet."""
+    if args.engine == "slot":
+        if args.replicas > 1:
+            raise SystemExit("--replicas needs the paged engine")
+        if args.spec_decode != "off":
+            raise SystemExit("--spec-decode needs the paged engine")
     refusals = [
-        (args.engine == "slot", "--engine slot: the slot engine"),
         (args.scheduler != "continuous", "--scheduler serial"),
         (args.spec_decode != "off", "--spec-decode: speculative decoding"),
         (args.replicas > 1, "--replicas: the cluster tier"),
@@ -133,7 +146,6 @@ def check_args(args) -> None:
         (args.window_accounting != "on", "--window-accounting off: "
                                          "sliding-window layers"),
         (args.affinity != "on", "--affinity off: the cluster tier"),
-        (args.slots != 4, "--slots: the slot engine"),
         (args.spec_k != 4, "--spec-k: speculative decoding"),
         (args.draft_layers != 1, "--draft-layers: speculative decoding"),
     ]
@@ -156,6 +168,9 @@ def build_model(args):
 
 
 def build_engine(args, model, params):
+    if args.engine == "slot":
+        return LLMEngine(model, params, num_slots=args.slots,
+                         cache_max=args.cache_max)
     buckets = args.prefill_buckets
     if buckets not in ("auto", "off"):
         buckets = [int(b) for b in buckets.split(",")]
@@ -175,7 +190,6 @@ def build_engine(args, model, params):
 def main(argv=None):
     args = make_parser().parse_args(argv)
     check_args(args)
-    args.engine = "paged"
     cfg, model, params = build_model(args)
     engine = build_engine(args, model, params)
 

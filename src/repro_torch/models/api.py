@@ -1,7 +1,13 @@
-"""Model API on the paged path (the port of ``repro.models.api.Model``).
+"""Model API for inference (the port of ``repro.models.api.Model``).
 
 ``Model(cfg, device)`` carries the schema, a seeded ``init``, and the
-paged entry points the serving engine calls:
+entry points the serving engines call.  The slot engine's:
+
+    cache_init(batch, cache_max)               slot caches (pos lanes -1)
+    prefill(params, batch, cache_max=...)      (last logits, caches)
+    decode_step(params, caches, tokens, pos)   (logits, caches)
+
+and the paged engine's:
 
     pool_init(num_blocks, block_size)          block pools (pos lanes -1)
     prefill_paged(params, batch, pools, ...)   (logits, suffix caches)
@@ -48,6 +54,37 @@ class Model:
 
     def init(self, seed: int = 0):
         return init_params(self.schema(), seed, self.cfg.dtype, self.device)
+
+    # ------------------------------------------------------------ slot
+    def cache_init(self, batch: int, cache_max: int):
+        """Zero slot caches for ``batch`` slots of ``cache_max`` lanes,
+        every pos lane -1 (the counterpart of ``cache_abstract``)."""
+        return tf.stack_cache_init(self.cfg, batch, cache_max,
+                                   torch_dtype(self.cfg.dtype), self.device)
+
+    def prefill(self, params, batch, *, cache_max: int):
+        """Whole-prompt prefill: ``batch["tokens"]`` (B,S) at positions
+        0..S-1.  Attention runs through ``ops.flash_attention`` (the CUDA
+        kernel on the card).  -> (last-token logits (B,1,V), caches of
+        ``cache_max`` lanes in the stack layout)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=self.device)
+        x = embed_apply(params["embed"], tokens)
+        x, caches = tf.stack_prefill(params["stack"], cfg, x, positions,
+                                     cache_max=cache_max)
+        x = norm_apply(params["final_norm"], x, cfg.norm_kind)
+        return unembed_apply(params["embed"], cfg, x[:, -1:, :]), caches
+
+    def decode_step(self, params, caches, tokens, pos):
+        """tokens (B,1) int32, pos (B,) int32 absolute position.  The
+        caches are written in place.  -> (logits (B,1,V), caches)."""
+        cfg = self.cfg
+        x = embed_apply(params["embed"], tokens)
+        x, caches = tf.stack_decode(params["stack"], cfg, x, caches, pos)
+        x = norm_apply(params["final_norm"], x, cfg.norm_kind)
+        return unembed_apply(params["embed"], cfg, x), caches
 
     # ------------------------------------------------------------ paged
     @property

@@ -1,13 +1,20 @@
-"""Attention over the block-paged KV pool: GQA, RoPE, qk-norm.
+"""Attention: GQA, RoPE, qk-norm; the slot cache and the block-paged pool.
 
-The paged half of ``repro.models.attention``.  The pool for one layer is
-``{"k": (NB, bs, KV, hd), "v": (NB, bs, KV, hd), "pos": (NB, bs) int32}``
-where ``pos`` holds the absolute position of each lane (-1 = invalid).
-Physical block 0 is the null block: its ``pos`` lanes stay -1 and block
-tables pad with 0, so reads through padding never pass the mask.
+The port of ``repro.models.attention`` for inference.  Two cache shapes:
 
-Where the reference rebuilds a pool with ``.at[].set``, the port writes
-the pool tensors in place; each such place says so.
+* the slot cache of one layer (``init_cache``): ``{"k", "v": (B, C, KV,
+  hd), "pos": (B, C) int32}``, one strip of ``C`` lanes per slot, filled
+  by ``attn_prefill`` (whole prompt) and ``attn_decode`` (one token,
+  ring position ``pos % C``);
+* the paged pool of one layer (``paged_pool_init``): ``{"k", "v": (NB,
+  bs, KV, hd), "pos": (NB, bs) int32}``.  Physical block 0 is the null
+  block: its ``pos`` lanes stay -1 and block tables pad with 0, so reads
+  through padding never pass the mask.
+
+``pos`` holds the absolute position of each lane (-1 = invalid).  Where
+the reference rebuilds a cache or pool with ``.at[].set`` or
+``dynamic_update_slice``, the port writes the tensors in place; each
+such place says so.
 """
 from __future__ import annotations
 
@@ -82,6 +89,115 @@ def _bcast_pos(positions, b, s):
     if positions.dim() == 1:
         positions = positions[None, :].expand(b, s)
     return positions.contiguous()
+
+
+# ------------------------------------------------------------- full-seq
+
+
+def _flash_attend(p, cfg: ModelConfig, q, k, v, *, kind: str):
+    """Causal self-attention: q (B,S,H,hd), k/v (B,S,KV,hd) -> y (B,S,D)
+    through ``ops.flash_attention`` (the CUDA kernel on the card, its
+    plain version on the CPU).  The kernel reads the ``(B,H,S,hd)``
+    transposed views through their strides and writes its output in q's
+    layout, so neither direction copies on the card."""
+    window = cfg.sliding_window if kind == "attn_local" else 0
+    out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), window=window)
+    return _out_proj(out.transpose(1, 2), p["wo"])
+
+
+def attn_apply(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
+               allow_kernel: bool = False):
+    """Full-sequence causal self-attention at contiguous ``positions``
+    (S,): the reference's kernel branch (``allow_kernel=True``), through
+    ``ops.flash_attention``.  -> y (B,S,D).
+
+    The reference's q-chunked jnp branch serves training, prefix-LM and
+    cross-attention, none of which the port constructs yet: asking for
+    it (``allow_kernel=False``, or per-row (B,S) positions) raises."""
+    if not allow_kernel or positions.dim() != 1:
+        raise NotImplementedError(
+            "attn_apply: only the inference kernel branch (allow_kernel="
+            "True, positions (S,)) is ported to repro_torch; the q-chunked "
+            "branch (training, prefix-LM, cross-attention) is not")
+    q, k, v = _project_qkv(p, cfg, x, positions, cfg.pos_kind == "rope",
+                           kind)
+    return _flash_attend(p, cfg, q, k, v, kind=kind)
+
+
+# ------------------------------------------------------------- slot cache
+
+
+def cache_len_for(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    if kind == "attn_local" and cfg.sliding_window:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
+               device):
+    """Zero slot cache for one attention layer, every pos lane -1."""
+    c = cache_len_for(cfg, kind, max_len)
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    return {
+        "pos": torch.full((batch, c), -1, dtype=torch.int32, device=device),
+        "k": torch.zeros((batch, c, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, c, kv, hd), dtype=dtype, device=device),
+    }
+
+
+def attn_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
+                 cache_max: int):
+    """Whole-prompt forward at positions (S,) + cache construction.
+    -> (y (B,S,D), cache with ``cache_len_for`` lanes).
+
+    The reference projects q/k/v twice (once inside ``attn_apply``, once
+    for the cache); the port projects once and feeds both.  Lanes past
+    the prompt carry pos -1; a prompt of at least ``clen`` tokens keeps
+    its last ``clen`` positions, ring-aligned so lane j holds the
+    position p with p % clen == j."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions, cfg.pos_kind == "rope",
+                           kind)
+    y = _flash_attend(p, cfg, q, k, v, kind=kind)
+    clen = cache_len_for(cfg, kind, cache_max)
+    entries = {"k": k, "v": v, "pos": _bcast_pos(positions, b, s)}
+    if s >= clen:
+        # element i holds position take + i, which belongs at lane
+        # (take + i) % clen
+        take = s - clen
+        roll = (take % clen) if clen else 0
+        return y, {kk: torch.roll(vv[:, take:], roll, dims=1)
+                   for kk, vv in entries.items()}
+    cache = init_cache(cfg, kind, b, cache_max, k.dtype, x.device)
+    for kk, vv in entries.items():
+        cache[kk][:, :s] = vv
+    return y, cache
+
+
+def attn_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str):
+    """One-token decode.  x (B,1,D), pos (B,) int32 absolute position of
+    the new token.  Writes the token's K/V and position into lane ``pos
+    % C`` of each row's strip, in place (the reference returns a rebuilt
+    cache).  -> (y (B,1,D), cache).
+
+    The read is ``ops.paged_prefill`` with one query lane: the same mask
+    (``kpos >= 0 and kpos <= pos``, plus the window band), float32
+    scores and probabilities cast to the value dtype as the reference's
+    slot read, and the CUDA kernel on the card."""
+    q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None],
+                                   cfg.pos_kind == "rope", kind)
+    rows = torch.arange(x.shape[0], device=x.device)
+    lane = (pos % cache["k"].shape[1]).long()
+    cache["k"][rows, lane] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, lane] = v_new[:, 0].to(cache["v"].dtype)
+    pos = pos.to(torch.int32)
+    cache["pos"][rows, lane] = pos
+    window = cfg.sliding_window if kind == "attn_local" else 0
+    out = kernel_ops.paged_prefill(q.contiguous(), cache["k"], cache["v"],
+                                   cache["pos"], pos[:, None].contiguous(),
+                                   window=window)
+    return _out_proj(out, p["wo"]), cache
 
 
 # ------------------------------------------------------------- paged cache

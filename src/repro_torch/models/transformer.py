@@ -1,4 +1,5 @@
-"""Layer blocks and period-stacked stacks on the paged path.
+"""Layer blocks and period-stacked stacks: the slot path (whole-prompt
+prefill, one-token decode against slot caches) and the paged path.
 
 Parameters, pools and caches keep the reference's layout
 (``repro.models.transformer``): ``{"periods": {"slot{j}": leaves with a
@@ -93,6 +94,73 @@ def stack_schema(cfg: ModelConfig):
     return s
 
 
+def _to_layout(cfg: ModelConfig, per_layer: list):
+    """Per-layer trees in stack order -> the stack layout, period slots
+    stacked on a new leading n_periods axis (copies)."""
+    p, n_per, n_rem = layout(cfg)
+    periods = {f"slot{j}": {k: torch.stack([c[k] for c in
+                                            per_layer[j:n_per * p:p]])
+                            for k in per_layer[j]}
+               for j in range(p)} if n_per else {}
+    rem = {f"layer{j}": per_layer[n_per * p + j] for j in range(n_rem)}
+    return {"periods": periods, "rem": rem}
+
+
+# ------------------------------------------------------------ slot path
+
+
+def block_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
+                  cache_max: int):
+    """Whole-prompt forward of one layer + its decode cache.
+    -> (x, cache)."""
+    h = norm_apply(p["norm1"], x, cfg.norm_kind)
+    y, cache = attn.attn_prefill(p["mix"], cfg, h, positions, kind=kind,
+                                 cache_max=cache_max)
+    x = x + y
+    h = norm_apply(p["norm2"], x, cfg.norm_kind)
+    return x + mlp_apply(p["ffn"], h, cfg.mlp_kind), cache
+
+
+def block_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str):
+    """One-token step of one layer; its cache is written in place.
+    x (B,1,D), pos (B,).  -> (x, cache)."""
+    h = norm_apply(p["norm1"], x, cfg.norm_kind)
+    y, cache = attn.attn_decode(p["mix"], cfg, h, cache, pos, kind=kind)
+    x = x + y
+    h = norm_apply(p["norm2"], x, cfg.norm_kind)
+    return x + mlp_apply(p["ffn"], h, cfg.mlp_kind), cache
+
+
+def stack_prefill(params, cfg: ModelConfig, x, positions, *, cache_max: int):
+    """-> (x, caches), caches in the stack layout."""
+    caches = []
+    for p in layer_views(cfg, params):
+        x, c = block_prefill(p, cfg, x, positions, kind="attn",
+                             cache_max=cache_max)
+        caches.append(c)
+    return x, _to_layout(cfg, caches)
+
+
+def stack_decode(params, cfg: ModelConfig, x, caches, pos):
+    """-> (x, caches).  Each layer's cache (a view into the stacked
+    leaves) is written in place; the caches are returned."""
+    for p, cache in zip(layer_views(cfg, params), layer_views(cfg, caches)):
+        x, _ = block_decode(p, cfg, x, cache, pos, kind="attn")
+    return x, caches
+
+
+def stack_cache_init(cfg: ModelConfig, batch: int, cache_max: int, dtype,
+                     device):
+    """Zero slot caches for the whole stack, every pos lane -1, in the
+    layout of the reference's ``stack_cache_abstract``."""
+    return _to_layout(cfg, [attn.init_cache(cfg, "attn", batch, cache_max,
+                                            dtype, device)
+                            for _ in range(cfg.num_layers)])
+
+
+# ------------------------------------------------------------ paged path
+
+
 def block_decode_paged(p, cfg: ModelConfig, x, pool, block_table, pos, active,
                        *, kind: str):
     """One-token step of one layer against its block-paged pool (written
@@ -139,27 +207,13 @@ def stack_prefill_paged(params, cfg: ModelConfig, x, positions, pools,
         x, c = block_prefill_paged(p, cfg, x, positions, pool, block_table,
                                    start_pos, kind="attn", seq_len=seq_len)
         caches.append(c)
-    p, n_per, n_rem = layout(cfg)
-    periods = {f"slot{j}": {k: torch.stack([c[k] for c in caches[j:n_per * p:p]])
-                            for k in caches[j]}
-               for j in range(p)} if n_per else {}
-    rem = {f"layer{j}": caches[n_per * p + j] for j in range(n_rem)}
-    return x, {"periods": periods, "rem": rem}
+    return x, _to_layout(cfg, caches)
 
 
 def stack_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,
                     dtype, device):
     """Zero block pools for the whole stack (pos lanes -1), in the cache
     layout: period-stacked leaves lead with ``n_periods``."""
-    p, n_per, n_rem = layout(cfg)
-
-    def stacked(tree):
-        return {k: torch.stack([v] * n_per) for k, v in tree.items()}
-
-    def one():
-        return attn.paged_pool_init(cfg, num_blocks, block_size, dtype,
-                                    device)
-
-    periods = {f"slot{j}": stacked(one()) for j in range(p)} if n_per else {}
-    rem = {f"layer{j}": one() for j in range(n_rem)}
-    return {"periods": periods, "rem": rem}
+    return _to_layout(cfg, [attn.paged_pool_init(cfg, num_blocks,
+                                                 block_size, dtype, device)
+                            for _ in range(cfg.num_layers)])

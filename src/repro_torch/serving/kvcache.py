@@ -1,15 +1,23 @@
-"""Block-paged KV pool management on the serving side.
+"""KV-cache management on the serving side: slots and block pools.
 
-``BlockAllocator`` owns the physical-block free list and refcounts (a
-copy of the reference's, which lives in a module that imports JAX); the
-functions below are the host-side pool edits the engine makes.  Pools
-follow the stack layout (``transformer.stack_pool_init``): "periods"
-leaves lead with ``n_periods`` then (num_blocks, block_size, ...), "rem"
-leaves start at (num_blocks, block_size, ...).
+The slot engine's cache is batched (leading batch axis = slots):
+``SlotManager`` tracks which slots are live and ``write_slot`` splices a
+request's prefill cache into its slot.  Freed slots are not zeroed: the
+next admission's splice overwrites the whole strip, ``pos`` -1 lanes
+included, so stale keys can never win the attention mask.
 
-Every edit writes the pool tensors in place where the reference rebuilds
-them with ``.at[].set``, and returns the pools so call sites read as in
-the reference.
+For the paged engine, ``BlockAllocator`` owns the physical-block free
+list and refcounts, and the functions after it are the host-side pool
+edits the engine makes.  Pools follow the stack layout
+(``transformer.stack_pool_init``): "periods" leaves lead with
+``n_periods`` then (num_blocks, block_size, ...), "rem" leaves start at
+(num_blocks, block_size, ...).
+
+``SlotManager`` and ``BlockAllocator`` are copies of the reference's
+(which live in a module that imports JAX).  Every edit writes the cache
+or pool tensors in place where the reference rebuilds them with
+``dynamic_update_slice`` or ``.at[].set``, and returns them so call
+sites read as in the reference.
 """
 from __future__ import annotations
 
@@ -17,6 +25,48 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 
 import torch
+
+
+class SlotManager:
+    def __init__(self, num_slots: int):
+        self.num_slots = num_slots
+        self._free: List[int] = list(range(num_slots))
+        self._live: set = set()
+
+    def alloc(self) -> Optional[int]:
+        if not self._free:
+            return None
+        s = self._free.pop(0)
+        self._live.add(s)
+        return s
+
+    def free(self, slot: int) -> None:
+        self._live.discard(slot)
+        self._free.append(slot)
+        self._free.sort()
+
+    @property
+    def live(self) -> List[int]:
+        return sorted(self._live)
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+
+def write_slot(batched_cache: Any, single_cache: Any, slot: int) -> Any:
+    """Splice a batch-1 cache (``Model.prefill``'s) into slot ``slot`` of
+    the batched cache, in place.  The whole strip is written, ``pos`` -1
+    lanes included: that is what kills the previous occupant's lanes
+    (dead slots decode at position 0 and write lane 0 every step).
+    "periods" leaves carry the batch on axis 1 behind the leading
+    ``n_periods`` axis, "rem" leaves on axis 0."""
+    for group, lead in (("periods", (slice(None),)), ("rem", ())):
+        for name, node in batched_cache[group].items():
+            for key, big in node.items():
+                big[lead + (slot,)] = single_cache[group][name][key][
+                    lead + (0,)]
+    return batched_cache
 
 
 class BlockAllocator:

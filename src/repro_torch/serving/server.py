@@ -1,10 +1,14 @@
-"""Continuous-batching LLM serving over a block-paged KV pool.
+"""Continuous-batching LLM serving: fixed slots and a block-paged pool.
 
-The port of ``repro.serving.server.PagedLLMEngine`` for decoder-only
-attention stacks: the same scheduler, block accounting, prefix cache and
-bucketing, so that on the same weights and prompts it emits the same
-tokens.  Each engine step is one or two dispatches of eager PyTorch work
-on ``model.device``; greedy tokens come back to the host as int32 only.
+The port of ``repro.serving.server``'s two engines for decoder-only
+attention stacks.  ``LLMEngine`` is the slot baseline: one whole-prompt
+prefill per admission (``Model.prefill``, the ``flash_attention``
+kernel) or one decode step over every slot.  ``PagedLLMEngine`` is the
+production path, with the reference's scheduler, block accounting,
+prefix cache and bucketing.  On the same weights and prompts each emits
+the tokens of its reference counterpart.  Each engine step is eager
+PyTorch work on ``model.device``; greedy tokens come back to the host
+as integers only.
 
 Not ported yet, and refused at construction: speculative decoding, the
 serial scheduler, the observability hooks, and stacks with window or
@@ -19,9 +23,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.serving.kvcache import (BlockAllocator, copy_blocks,
-                                         invalidate_blocks, scrub_null_block,
-                                         write_chunk_tokens)
+from repro_torch.serving.kvcache import (BlockAllocator, SlotManager,
+                                         copy_blocks, invalidate_blocks,
+                                         scrub_null_block,
+                                         write_chunk_tokens, write_slot)
 from repro_torch.serving.prefix_cache import MatchResult, PrefixCache
 
 
@@ -35,6 +40,139 @@ class GenRequest:
     first_token_at: Optional[float] = None
     last_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+
+
+def _note_token(req: GenRequest, now: float) -> None:
+    """One output token emitted for ``req`` at ``now``: track the first
+    and last token timestamps."""
+    if req.first_token_at is None:
+        req.first_token_at = now
+    req.last_token_at = now
+
+
+class LLMEngine:
+    """Continuous-batching decode over fixed cache slots.
+
+    Every ``step()`` either admits the queue's head into a free slot (one
+    whole-prompt ``Model.prefill``, its cache spliced into the slot) or,
+    with no admission possible, advances every slot by one token through
+    ``Model.decode_step``; dead slots ride along at position 0 and their
+    outputs are discarded.  A request finishes at ``max_new`` tokens,
+    ``eos_id`` or a full strip.
+    """
+
+    def __init__(self, model, params, num_slots: int = 4,
+                 cache_max: int = 512, eos_id: Optional[int] = None,
+                 obs=None):
+        if obs is not None:
+            raise NotImplementedError("the observability hooks (obs=) are "
+                                      "not ported to repro_torch yet")
+        self.model = model
+        self.params = params
+        self.device = model.device
+        self.slots = SlotManager(num_slots)
+        self.cache_max = cache_max
+        self.eos_id = eos_id
+        self.num_slots = num_slots
+        self.cache = model.cache_init(num_slots, cache_max)
+        self.pos = np.full((num_slots,), -1, np.int64)
+        self.active: Dict[int, GenRequest] = {}      # slot -> request
+        self.queue: List[GenRequest] = []
+        self._rid = 0
+        self.admissions = 0
+        self.finished_count = 0
+        self._prefill_sigs: set = set()   # prompt lengths prefilled
+        self._decode_sigs: set = set()
+
+    def submit(self, prompt: np.ndarray, max_new: int = 16,
+               now: float = 0.0) -> int:
+        self._rid += 1
+        self.queue.append(GenRequest(self._rid, np.asarray(prompt, np.int32),
+                                     max_new, submitted=now))
+        return self._rid
+
+    @property
+    def idle(self) -> bool:
+        return not self.queue and not self.active
+
+    def step(self, now: float = 0.0) -> List[GenRequest]:
+        """Admit one queued request (prefill) OR advance all live slots by
+        one token.  Returns finished requests."""
+        if self.queue and self.slots.num_free > 0:
+            return self._admit(now)
+        if self.active:
+            return self._decode_all(now)
+        return []
+
+    def _admit(self, now: float) -> List[GenRequest]:
+        req = self.queue.pop(0)
+        slot = self.slots.alloc()
+        tokens = torch.from_numpy(req.prompt[None, :]).to(self.device)
+        self._prefill_sigs.add(len(req.prompt))
+        logits, cache1 = self.model.prefill(self.params, {"tokens": tokens},
+                                            cache_max=self.cache_max)
+        write_slot(self.cache, cache1, slot)
+        self.pos[slot] = len(req.prompt)
+        tok = int(torch.argmax(logits[0, -1]))
+        self.admissions += 1
+        req.out_tokens.append(tok)
+        _note_token(req, now)
+        self.active[slot] = req
+        return self._collect(now)
+
+    def _decode_all(self, now: float) -> List[GenRequest]:
+        live = self.slots.live
+        tokens = np.zeros((self.num_slots, 1), np.int32)
+        pos = np.maximum(self.pos, 0).astype(np.int32)
+        for s in live:
+            tokens[s, 0] = self.active[s].out_tokens[-1]
+        self._decode_sigs.add(self.num_slots)
+        dev = self.device
+        logits, self.cache = self.model.decode_step(
+            self.params, self.cache, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(pos).to(dev))
+        arr = torch.argmax(logits[:, 0], dim=-1).to(torch.int32).cpu().numpy()
+        for s in live:
+            req = self.active[s]
+            req.out_tokens.append(int(arr[s]))
+            _note_token(req, now)
+            self.pos[s] += 1
+        return self._collect(now)
+
+    def _collect(self, now: float) -> List[GenRequest]:
+        done = []
+        for s in list(self.active):
+            req = self.active[s]
+            hit_eos = self.eos_id is not None and req.out_tokens and \
+                req.out_tokens[-1] == self.eos_id
+            if len(req.out_tokens) >= req.max_new or hit_eos or \
+                    int(self.pos[s]) + 1 >= self.cache_max:
+                req.finished_at = now
+                done.append(req)
+                del self.active[s]
+                self.slots.free(s)
+                self.pos[s] = -1
+                self.finished_count += 1
+        return done
+
+    def stats(self) -> Dict[str, float]:
+        """Gauges per ``serving/stats_schema.py`` (slots stand in for
+        blocks: one slot == cache_max tokens)."""
+        live = len(self.active)
+        return {
+            "engine": "slot",
+            "queue_depth": len(self.queue),
+            "active": live,
+            "free_blocks": self.slots.num_free,
+            "used_blocks": live,
+            "total_blocks": self.num_slots,
+            "pool_occupancy": live / max(self.num_slots, 1),
+            "preemptions": 0,
+            "admissions": self.admissions,
+            "finished": self.finished_count,
+            "prefill_compiles": len(self._prefill_sigs),
+            "decode_compiles": len(self._decode_sigs),
+        }
 
 
 @dataclasses.dataclass
@@ -628,9 +766,7 @@ class PagedLLMEngine:
         req = self.active[row]
         req.out_tokens.append(tok)
         self.generated_tokens += 1
-        if req.first_token_at is None:
-            req.first_token_at = now
-        req.last_token_at = now
+        _note_token(req, now)
 
     def _finish_prefill(self, row: int, tok: int, now: float) -> None:
         """Last chunk written: emit the first token and move the row to

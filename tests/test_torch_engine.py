@@ -114,7 +114,8 @@ def test_engine_token_identical_to_reference(models, reference_runs,
         assert s["decode_fusion"] == int(fusion)
         assert s["decode_kernel"] == 0      # no kernel runs on the CPU
         assert eng.allocator.num_live == s["cached_blocks"]
-    assert ops.launch_counts() == {"paged_attention": 0, "paged_prefill": 0}
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "paged_attention": 0, "paged_prefill": 0}
     assert runs[True] == ref_outs
     assert runs[False] == ref_outs
     assert len(ref_outs) == sum(len(b) for b in bursts)
@@ -233,16 +234,29 @@ def test_serve_cli_fusion_on_off_same_tokens():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--engine", "slot"], ["--scheduler", "serial"],
+    ["--engine", "slot", "--replicas", "2"], ["--scheduler", "serial"],
     ["--spec-decode", "ngram"], ["--replicas", "2"], ["--metrics"],
     ["--trace-out", "t.json"], ["--arch", "gemma3-4b"],
     ["--decode-kernel", "off"], ["--window-accounting", "off"],
-    ["--affinity", "off"], ["--slots", "2"], ["--spec-k", "2"],
-    ["--draft-layers", "2"],
+    ["--affinity", "off"], ["--engine", "slot", "--spec-decode", "ngram"],
+    ["--spec-k", "2"], ["--draft-layers", "2"],
 ])
 def test_serve_cli_refuses_unported_flags(argv):
     with pytest.raises((SystemExit, KeyError)):
         _serve(*argv)
+
+
+@pytest.mark.parametrize("argv", [["--engine", "slot"], ["--slots", "2"]])
+def test_serve_cli_slot_flags_serve(argv):
+    """The slot engine serves (``--slots`` sizes it; the paged engine, the
+    default, ignores it, as in the reference) with the paged engine's
+    tokens."""
+    lines = _serve(*argv)
+    assert lines[0].startswith("4 requests, 20 tokens")
+    assert f"engine={'slot' if '--engine' in argv else 'paged'}" in lines[0]
+    req = [ln for ln in lines if ln.strip().startswith("req ")]
+    assert len(req) == 3
+    assert req == [ln for ln in _serve() if ln.strip().startswith("req ")]
 
 
 def test_serve_cli_reduced_flag():
@@ -250,3 +264,4 @@ def test_serve_cli_reduced_flag():
     assert ap.parse_args([]).reduced is True
     assert ap.parse_args(["--no-reduced"]).reduced is False
     assert ap.parse_args([]).device == "cuda"
+    assert ap.parse_args([]).engine == "paged"

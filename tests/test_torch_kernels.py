@@ -13,9 +13,11 @@ against the plain versions at the same inputs.  float32: ``atol=rtol=
 1e-4`` (summation order and ``expf`` against ``torch.exp`` over up to a
 few hundred keys).  bfloat16, each with ``rtol=2**-7`` because both sides
 round the output to bf16 once and an element may land one bf16 ulp
-apart: decode ``atol=2e-3`` (both sides otherwise float32); prefill
-``atol=3e-2`` (the plain version also rounds the probabilities to bf16
-before the value product, the kernel keeps them float32).
+apart: decode and flash ``atol=2e-3`` (both sides otherwise float32);
+prefill ``atol=3e-2`` (the plain version also rounds the probabilities
+to bf16 before the value product, the kernel keeps them float32).  The
+flash kernel's CPU-side checks (plain version against the reference)
+are in ``tests/test_torch_flash_attention.py``.
 """
 import ctypes
 import re
@@ -26,6 +28,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp_mod  # noqa: E402
 
@@ -155,15 +158,17 @@ def test_cuda_sources_export_what_the_wrappers_bind():
     """Each ``csrc/<name>.cu`` defines the C symbols its wrapper binds
     with the argument count the wrapper declares (the compiler is not
     here to check it)."""
-    assert build.sources() == ["paged_attention", "paged_prefill"]
-    for kern in (pa_mod.KERNEL, pp_mod.KERNEL):
+    assert build.sources() == ["flash_attention", "paged_attention",
+                               "paged_prefill"]
+    for kern in (fa_mod.KERNEL, pa_mod.KERNEL, pp_mod.KERNEL):
         text = (build.CSRC / f"{kern.library}.cu").read_text()
         for sym, argtypes in ((kern.symbol, kern.argtypes),
                               (kern.smem_symbol, kern.smem_argtypes)):
             m = re.search(r'extern "C" \w+ ' + sym + r"\(([^)]*)\)", text)
             assert m, sym
             assert len(m.group(1).split(",")) == len(argtypes), sym
-        assert all(t in (ctypes.c_void_p, ctypes.c_int, ctypes.c_float)
+        assert all(t in (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                         ctypes.POINTER(ctypes.c_longlong))
                    for t in kern.argtypes)
 
 
@@ -180,8 +185,8 @@ def cuda():
 def _tol(kernel, dtype):
     if dtype == torch.float32:
         return dict(atol=1e-4, rtol=1e-4)
-    return dict(atol={"paged_attention": 2e-3, "paged_prefill": 3e-2}[kernel],
-                rtol=2 ** -7)
+    return dict(atol={"paged_attention": 2e-3, "paged_prefill": 3e-2,
+                      "flash_attention": 2e-3}[kernel], rtol=2 ** -7)
 
 
 @pytest.mark.cuda
@@ -228,3 +233,46 @@ def test_paged_prefill_kernel_matches_plain(cuda, shape, window, dtype):
     lanes = vis.any(-1)
     torch.testing.assert_close(out[lanes].float(), plain[lanes].float(),
                                **_tol("paged_prefill", dt))
+
+
+# the reference's flash sweep (tests/test_kernels.py; Sk = Sq unless
+# non-causal) x its masks, then the slot engine's prefill shapes at
+# qwen3-0.6b's heads: the model's transposed (B,S,H,hd) views, one
+# prompt row, windows 0 and 64, and non-causal with Sq != Sk
+FA_CARD_CASES = (
+    [(shape, causal, window, False)
+     for shape in [(1, 4, 4, 64, 64, 64), (2, 8, 2, 96, 96, 64),
+                   (1, 8, 1, 128, 128, 128), (2, 4, 4, 33, 75, 64)]
+     for causal, window in [(True, 0), (True, 16), (False, 0)]]
+    + [((1, 16, 8, s, s, 128), True, window, True)
+       for s in (1, 37, 512) for window in (0, 64)]
+    + [((1, 16, 8, 37, 100, 128), False, 0, True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,model_layout", FA_CARD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
+                                              model_layout, dtype):
+    b, h, kv, sq, sk, hd = shape
+    if causal:
+        sk = sq
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(shape) + window + int(causal))
+
+    def operand(heads, s):
+        a = torch.from_numpy(rng.normal(size=(b, s, heads, hd))
+                             .astype(np.float32)).to(cuda, dt)
+        # (B,S,heads,hd) viewed as (B,heads,S,hd), as the model passes it
+        return a.transpose(1, 2) if model_layout else \
+            a.transpose(1, 2).contiguous()
+
+    q, k, v = operand(h, sq), operand(kv, sk), operand(kv, sk)
+    n0 = fa_mod.KERNEL.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_mod.KERNEL.launches == n0 + 1
+    assert out.shape == q.shape and out.stride() == q.stride()
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("flash_attention", dt))
