@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a),
-then runs five phases, each raising on failure:
+then runs six phases, each raising on failure:
 
 1. device: the card's name and power limit, the kernels' build time;
 2. kernel parity: each kernel against its plain PyTorch version at the
    serving paths' shapes (``paged_prefill`` at a chunk's and at the fused
    decode dispatch's, ``flash_attention`` at the slot engine's
-   whole-prompt prefill), in bfloat16 and float32;
+   whole-prompt prefill) in bfloat16 and float32, ``rwkv6_scan`` at the
+   rwkv6 slot path's prefill and decode in float32;
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
    random weights): one ragged prefill dispatch and one decode step of
    the paged path, and two whole-prompt prefills and one decode step of
@@ -24,9 +25,18 @@ then runs five phases, each raising on failure:
    each kernel ran; then at full width with 2 layers in float32 the
    paged engine's two modes and the slot engine must emit identical
    tokens;
-5. times: each kernel's time beside its bound, its plain version's and
-   one PyTorch library call's (a yardstick only; the port never calls
-   it).
+5. rwkv6: with the qwen3 model freed, rwkv6-1.6b at its published
+   width (24 layers, bfloat16, seeded random weights with the
+   reference's zero-initialised leaves drawn too) through the serve
+   path's slot engine: whole-prompt prefills and decode steps through
+   ``rwkv6_scan`` and through its plain version agree, in bfloat16 and
+   in float32, each beside the scan in float64; the engine
+   answers 8 requests with ``rwkv6_scan`` launched 24 times per engine
+   step and no attention kernel; at 2 layers in float32 the engine
+   emits the same tokens through the kernel and the plain version;
+6. times: each kernel's time beside its bound, its plain version's and
+   one PyTorch library call's where there is one (a yardstick only; the
+   port never calls it).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -64,11 +74,27 @@ KERNEL_TOL = {
     # output once, as the decode kernel; sums over up to 512 keys
     ("flash_attention", "float32"): dict(atol=1e-4, rtol=1e-4),
     ("flash_attention", "bfloat16"): dict(atol=2e-3, rtol=2 ** -7),
+    # float32 only (the model calls it so): each step's 64-term sums in
+    # another order, the state carrying the rounding across 200 steps,
+    # outputs reaching ~100
+    ("rwkv6_scan", "float32"): dict(atol=1e-4, rtol=1e-4),
 }
 # relative L2 error of logits, kernels vs plain versions through a model:
 # bf16 rounds activations in each of 28 layers, so kernel-side rounding
 # differences compound; float32 (2 layers) only reorders sums
 MODEL_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# rwkv6-1.6b at full width (24 layers, seeded random weights): the
+# recurrence carries every rounding difference into all later tokens and
+# the random network amplifies it along its depth.  Against the scan in
+# float64, the plain scan's own float32 rounding moves the logits of the
+# prefills (150 and 37 tokens) by 6.1e-2 in bf16 and 7.9e-5 in float32,
+# the kernel's by 6.4e-2 and 6.9e-4 (on each layer's own inputs the
+# kernel is the more exact of the two); 2 decode steps from equal states
+# move by 1.8e-2 and 1.2e-6.  The limits are 2-3x the kernel-vs-plain
+# readings (6.2e-2, 1.9e-2; 7.0e-4, 1.2e-6), and each run prints the
+# float64 readings beside them
+RWKV_MODEL_TOL = {"bfloat16": {"prefill": 0.15, "decode": 4e-2},
+                  "float32": {"prefill": 2e-3, "decode": 1e-4}}
 
 
 def log(*a):
@@ -141,6 +167,26 @@ def flash_case(torch, gen, device, dtype, b=1, h=16, kv=8, hd=128, sq=512,
     return operand(h, sq), operand(kv, sk), operand(kv, sk)
 
 
+def rwkv_case(torch, gen, device, b=1, h=32, s=200, hd=64):
+    """WKV6 operands as the rwkv6 layer passes them: float32 (B,S,H,hd)
+    projections viewed as (B,H,S,hd), data-dependent decays
+    exp(-exp(N(-3, 1))) as ``_decay`` makes them, a start state."""
+    def operand(t):
+        return t.transpose(1, 2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    r, k, v = (operand(randn(b, s, h, hd)) for _ in range(3))
+    w = operand(torch.exp(-torch.exp(randn(b, s, h, hd) - 3.0)))
+    u = randn(h, hd) * 0.5
+    s0 = randn(b, h, hd, hd) * 0.1
+    return r, k, v, w, u, s0
+
+
+RWKV_SHAPES = ((1, 37), (1, 200), (4, 1))     # (rows, S): prefill, decode
+
+
 def decode_visible(torch, kpos_pool, bt, pos, window):
     kp = kpos_pool[bt.long()].reshape(bt.shape[0], -1)         # (B, nb*bs)
     p = pos[:, None]
@@ -165,11 +211,31 @@ def kernel_parity(torch, device, ops, ref):
     """Phase 2: decode at the decode dispatch's shape; prefill at a chunk
     shape (4 rows, S=256) and at the fused decode dispatch's (8 rows,
     S=1); flash at one prompt row of 37 and 512 tokens (windows 0 and
-    64) and non-causal with 37 queries over 100 keys.  -> {kernel: max
-    abs error over its bfloat16 cases}."""
+    64) and non-causal with 37 queries over 100 keys; the WKV6 scan at
+    rwkv6-1.6b's 32 heads: one prompt row of 37 and 200 tokens and a
+    decode step over 4 slots, each also against the scan in float64.
+    -> {kernel: max abs error over its bfloat16 cases (``rwkv6_scan``:
+    its float32 cases)}."""
     gen = torch.Generator(device=device).manual_seed(0)
     errs = {"paged_attention": 0.0, "paged_prefill": 0.0,
-            "flash_attention": 0.0}
+            "flash_attention": 0.0, "rwkv6_scan": 0.0}
+    for b, s in RWKV_SHAPES:
+        args = rwkv_case(torch, gen, device, b=b, s=s)
+        out, sf = ops.rwkv6_scan(*args)
+        plain, plain_sf = ref.rwkv6_scan_ref(*args)
+        torch.cuda.synchronize()
+        for got, want in ((out, plain), (sf, plain_sf)):
+            torch.testing.assert_close(got, want,
+                                       **KERNEL_TOL["rwkv6_scan", "float32"])
+        err = max((out - plain).abs().max().item(),
+                  (sf - plain_sf).abs().max().item())
+        exact = ref.rwkv6_scan_ref(*(t.double() for t in args))[0]
+        log(f"parity rwkv6_scan float32 {b} rows S={s}: max_abs_err="
+            f"{err:.3e} (max |out| {plain.abs().max().item():.1f}); "
+            f"against the float64 scan: kernel "
+            f"{(out - exact).abs().max().item():.3e}, plain "
+            f"{(plain - exact).abs().max().item():.3e}")
+        errs["rwkv6_scan"] = max(errs["rwkv6_scan"], err)
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
         for sq, sk, causal, window in ((37, 37, True, 0), (37, 37, True, 64),
@@ -230,7 +296,8 @@ def plain_ops(ops, ref):
     comparison run (patching the ops module the model calls through)."""
     return mock.patch.multiple(ops, paged_attention=ref.paged_attention_ref,
                                paged_prefill=ref.paged_prefill_ref,
-                               flash_attention=ref.flash_attention_ref)
+                               flash_attention=ref.flash_attention_ref,
+                               rwkv6_scan=ref.rwkv6_scan_ref)
 
 
 def _clone(tree):
@@ -294,47 +361,63 @@ def model_parity(torch, device, model, params, ops, ref, ragged_dispatch):
     return out
 
 
-def slot_model_parity(torch, device, model, params, ops, ref, write_slot):
-    """Phase 3, slot path: whole-prompt prefills of 150 and 37 tokens
-    (``Model.prefill``, one row each, as the slot engine admits), their
-    caches spliced into two of three slots, and one decode step over all
-    three (the third a dead slot at position 0), kernels vs plain
-    versions on identical caches.  -> {"prefill": rel_err, "decode":
-    rel_err}."""
+def slot_model_parity(torch, device, model, params, ops, ref, write_slot,
+                      decode_steps=1, arms=None):
+    """Phases 3 and 5, slot path: whole-prompt prefills of 150 and 37
+    tokens (``Model.prefill``, one row each, as the slot engine admits),
+    their caches spliced into two of three slots, and ``decode_steps``
+    decode steps over all three (the third a dead slot at position 0),
+    kernels vs plain versions (or the two ``arms``, context managers)
+    from identical caches.  -> {"prefill": rel_err, "decode": rel_err
+    over every step}."""
+    arms = arms or (contextlib.nullcontext(), plain_ops(ops, ref))
     cfg = model.cfg
     gen = torch.Generator(device=device).manual_seed(3)
     lens = (150, 37)
     prompts = [torch.randint(1, cfg.vocab_size, (1, n), generator=gen,
                              device=device, dtype=torch.int32) for n in lens]
     cache = model.cache_init(3, 256)
-    logits = {"kernel": [], "plain": []}
-    for name, ctx in (("kernel", contextlib.nullcontext()),
-                      ("plain", plain_ops(ops, ref))):
+    logits = ([], [])
+    for arm, ctx in enumerate(arms):
         for slot, toks in enumerate(prompts):
             with ctx:
                 lg, c1 = model.prefill(params, {"tokens": toks},
                                        cache_max=256)
-            logits[name].append(lg[0, -1])
-            if name == "kernel":
+            logits[arm].append(lg[0, -1])
+            if arm == 0:
                 write_slot(cache, c1, slot)
-    out = {"prefill": _rel_err(torch, torch.stack(logits["kernel"]),
-                               torch.stack(logits["plain"]))}
-    step = torch.randint(1, cfg.vocab_size, (3, 1), generator=gen,
-                         device=device, dtype=torch.int32)
-    pos = torch.tensor([*lens, 0], dtype=torch.int32, device=device)
-    step_logits = {}
-    for name, ctx in (("kernel", contextlib.nullcontext()),
-                      ("plain", plain_ops(ops, ref))):
-        with ctx:
-            step_logits[name], _ = model.decode_step(params, _clone(cache),
-                                                     step, pos)
-    out["decode"] = _rel_err(torch, step_logits["kernel"][:2],
-                             step_logits["plain"][:2])
+    out = {"prefill": _rel_err(torch, torch.stack(logits[0]),
+                               torch.stack(logits[1]))}
+    steps = torch.randint(1, cfg.vocab_size, (decode_steps, 3, 1),
+                          generator=gen, device=device, dtype=torch.int32)
+    step_logits = ([], [])
+    for arm, ctx in enumerate(arms):
+        caches = _clone(cache)
+        for i in range(decode_steps):
+            pos = torch.tensor([lens[0] + i, lens[1] + i, 0],
+                               dtype=torch.int32, device=device)
+            with ctx:
+                lg, caches = model.decode_step(params, caches, steps[i], pos)
+            step_logits[arm].append(lg[:2])
+    out["decode"] = _rel_err(torch, torch.stack(step_logits[0]),
+                             torch.stack(step_logits[1]))
     return out
 
 
+def float64_scan(ops, ref):
+    """Route the WKV6 scan to its plain version in float64, cast back to
+    float32: the recurrence without float32 rounding of its own."""
+    def scan(r, k, v, w, u, s0=None):
+        out, sf = ref.rwkv6_scan_ref(
+            *(t.double() for t in (r, k, v, w, u)),
+            None if s0 is None else s0.double())
+        return out.float(), sf.float()
+
+    return mock.patch.object(ops, "rwkv6_scan", scan)
+
+
 def _rel_err(torch, a, b) -> float:
-    a, b = a.float(), b.float()
+    a, b = a.double(), b.double()
     assert torch.isfinite(a).all() and torch.isfinite(b).all()
     return ((a - b).norm() / b.norm()).item()
 
@@ -360,18 +443,164 @@ SLOT_ARGV = ["--arch", "qwen3-0.6b", "--no-reduced", "--engine", "slot",
              "--slots", "4", "--cache-max", "256", "--max-new", "16"]
 
 
-def run_engine(engine, prompts, max_new, sync):
-    """Submit every prompt, drain; -> ({rid: tokens}, seconds)."""
+RWKV_ARGV = ["--arch", "rwkv6-1.6b", "--no-reduced", "--engine", "slot",
+             "--slots", "4", "--cache-max", "256", "--max-new", "16"]
+
+
+def run_engine(engine, prompts, max_new, sync, stats=None):
+    """Submit every prompt, drain; -> ({rid: tokens}, seconds).  A
+    ``stats`` dict receives the number of engine steps."""
     for p in prompts:
         engine.submit(p, max_new=max_new)
     sync()
     t0 = time.perf_counter()
     outs = {}
+    steps = 0
     while not engine.idle:
+        steps += 1
         for r in engine.step():
             outs[r.rid] = list(r.out_tokens)
     sync()
+    if stats is not None:
+        stats["steps"] = steps
     return outs, time.perf_counter() - t0
+
+
+def perturb_zero_init(torch, params, seed):
+    """Draw the rwkv6 leaves that the init (as the reference's) leaves at
+    zero, which would silence the bonus term and make every decay the
+    constant exp(-exp(-3)), in place: mixing coefficients U(0, 1), decay
+    bases N(0, 1) (decays ~0.69 to ~0.998), bonus N(0, 0.5), LoRA
+    outputs N(0, 0.1)."""
+    scale = {"mu": None, "mu_k": None, "w_base": 1.0, "u": 0.5,
+             "mix_b": 0.1, "w_b": 0.1}
+    gen = None
+
+    def walk(node):
+        nonlocal gen
+        for key in sorted(node):
+            leaf = node[key]
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif key in scale:
+                gen = gen or torch.Generator(device=leaf.device).manual_seed(
+                    seed)
+                if scale[key] is None:
+                    new = torch.rand(leaf.shape, generator=gen,
+                                     device=leaf.device)
+                else:
+                    new = torch.randn(leaf.shape, generator=gen,
+                                      device=leaf.device) * scale[key]
+                leaf.copy_(new)
+
+    walk(params)
+    return params
+
+
+def rwkv_model_parity(torch, device, model, params, ops, ref, write_slot):
+    """The slot path's prefills and 2 decode steps, kernel vs plain scan,
+    and each of them against the scan in float64 (what float32 rounding
+    in the scan alone moves)."""
+    def parity(a, b):
+        return slot_model_parity(torch, device, model, params, ops, ref,
+                                 write_slot, decode_steps=2, arms=(a, b))
+
+    rel = parity(contextlib.nullcontext(), plain_ops(ops, ref))
+    kernel = parity(contextlib.nullcontext(), float64_scan(ops, ref))
+    plain = parity(plain_ops(ops, ref), float64_scan(ops, ref))
+    dt = model.cfg.dtype
+    log(f"model rwkv6-1.6b {dt} {model.cfg.num_layers} layers slot path, "
+        f"kernel vs plain: prefill rel_err={rel['prefill']:.3e} "
+        f"decode rel_err={rel['decode']:.3e} (2 steps); against the "
+        f"float64 scan: kernel {kernel['prefill']:.3e} / "
+        f"{kernel['decode']:.3e}, plain {plain['prefill']:.3e} / "
+        f"{plain['decode']:.3e}")
+    for key, tol in RWKV_MODEL_TOL[dt].items():
+        assert rel[key] <= tol, (dt, rel, kernel, plain)
+
+    # each layer's own scan inputs of the 150-token prefill (recorded on
+    # the plain path): kernel and plain scan against the scan in float64
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return ref.rwkv6_scan_ref(*args)
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    toks = torch.randint(1, model.cfg.vocab_size, (1, 150), generator=gen,
+                         device=device, dtype=torch.int32)
+    with mock.patch.object(ops, "rwkv6_scan", record):
+        model.prefill(params, {"tokens": toks}, cache_max=256)
+    worst = {"kernel": 0.0, "plain": 0.0}
+    for args in calls:
+        exact = ref.rwkv6_scan_ref(*(t.double() for t in args))
+        for name, fn in (("kernel", ops.rwkv6_scan),
+                         ("plain", ref.rwkv6_scan_ref)):
+            worst[name] = max(worst[name], *(
+                _rel_err(torch, got.double(), want)
+                for got, want in zip(fn(*args), exact)))
+    log(f"  on each of the {len(calls)} layers' own scan inputs, worst "
+        f"relative L2 error of output or state against the float64 scan: "
+        f"kernel {worst['kernel']:.3e}, plain {worst['plain']:.3e}")
+    assert worst["kernel"] <= 2 * worst["plain"], worst
+
+
+def rwkv6_phase(torch, device, ops, ref, serve, Model, write_slot, validate,
+                sync) -> int:
+    """Phase 5: rwkv6-1.6b at full width through the serve path's slot
+    engine.  -> ``rwkv6_scan`` launches of its engine run."""
+    args = serve.make_parser().parse_args(RWKV_ARGV)
+    serve.check_args(args)
+    cfg, model, params = serve.build_model(args)
+    perturb_zero_init(torch, params, seed=1)
+    rwkv_model_parity(torch, device, model, params, ops, ref, write_slot)
+
+    prompts = smoke_workload(cfg.vocab_size)
+    run_engine(serve.build_engine(args, model, params), prompts[:2], 2,
+               sync)                                          # warm-up
+    engine = serve.build_engine(args, model, params)
+    run = {}
+    ops.reset_launch_counts()
+    outs, secs = run_engine(engine, prompts, args.max_new, sync, run)
+    counts = ops.launch_counts()
+    stats = validate(engine.stats())
+    ntok = sum(len(t) for t in outs.values())
+    log(f"engine rwkv6-1.6b bf16 24 layers slot ({args.slots} slots): "
+        f"{len(outs)} requests, {ntok} tokens in {secs:.3f}s "
+        f"({ntok / secs:.1f} tok/s), {run['steps']} steps, "
+        f"admissions={stats['admissions']} launches={counts}")
+    assert len(outs) == len(prompts)
+    assert all(len(t) == args.max_new for t in outs.values())
+    assert stats["admissions"] == len(prompts)
+    # one launch per layer per engine step (an admission or a decode step)
+    assert counts["rwkv6_scan"] == cfg.num_layers * run["steps"], counts
+    assert counts["flash_attention"] == counts["paged_attention"] == \
+        counts["paged_prefill"] == 0, counts
+    del model, params, engine
+    torch.cuda.empty_cache()
+
+    f32 = Model(dataclasses.replace(cfg, dtype="float32"), device=device)
+    f32_params = perturb_zero_init(torch, f32.init(seed=args.seed), seed=1)
+    rwkv_model_parity(torch, device, f32, f32_params, ops, ref, write_slot)
+    del f32, f32_params
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    small_model = Model(small, device=device)
+    small_params = perturb_zero_init(torch, small_model.init(seed=args.seed),
+                                     seed=1)
+    tokens = {}
+    for name, ctx in (("kernel", contextlib.nullcontext()),
+                      ("plain", plain_ops(ops, ref))):
+        with ctx:
+            engine = serve.build_engine(args, small_model, small_params)
+            tokens[name], secs = run_engine(engine, prompts, args.max_new,
+                                            sync)
+        log(f"engine rwkv6-1.6b float32 2 layers slot, {name}: "
+            f"{sum(map(len, tokens[name].values())) / secs:.1f} tok/s")
+    assert tokens["kernel"] == tokens["plain"], "rwkv6 kernel/plain tokens"
+    log("engine rwkv6 float32 slot, kernel and plain: token-identical")
+    return counts["rwkv6_scan"]
 
 
 # ---------------------------------------------------------------- timing
@@ -393,15 +622,24 @@ def profile_engine(torch, run):
     return secs, sum(r[0] for r in rows) / 1e6, rows
 
 
+SPIN_CYCLES = 2_000_000       # ~1 ms of the card's clock
+
+
 def time_ms(torch, fn, iters=20):
     """Mean device time of ``fn`` over ``iters`` launches, with the 50 MB
-    L2 cache flushed before each (a serving step finds its inputs cold)."""
+    L2 cache flushed before each (a serving step finds its inputs cold).
+    A spin kernel of ~1 ms runs before the start event, so the card is
+    still busy while the host enqueues ``fn``: the events bracket the
+    device's work, not the host's launch overhead (the engine runs
+    measure that), except where ``fn`` takes the host longer than the
+    spin to enqueue (the plain versions' Python loops)."""
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -429,8 +667,9 @@ def sdpa(torch, q, k, v, mask=None, causal=False):
 
 
 def kernel_times(torch, device, ops, ref):
-    """Phase 5, at the parity phase's main-path shapes in bfloat16,
-    window 0.  -> {kernel: record}."""
+    """Phase 6, at the parity phase's main-path shapes, the attention
+    kernels in bfloat16 with window 0, ``rwkv6_scan`` in float32.  ->
+    {kernel: record}."""
     gen = torch.Generator(device=device).manual_seed(2)
     dt = torch.bfloat16
     elt = 2
@@ -500,9 +739,25 @@ def kernel_times(torch, device, ops, ref):
                                                    causal=True)),
             bytes=nbytes, flops=4 * hd * h * b * (s * (s + 1) // 2))
 
+    # the rwkv6 slot path: a prompt row of S=200 and a decode step over 4
+    # slots, float32; bytes: r, k, v, w read and out written (B,H,S,hd), u,
+    # s0 read and s_final written; operations: the least the recurrence
+    # needs, 5 hd^2 + 5 hd per (row, head, step) (r.S and the state update
+    # per (i, j), the bonus term per i / j)
+    for b, s in ((1, 200), (4, 1)):
+        r, k, v, w, u, s0 = rwkv_case(torch, gen, device, b=b, s=s)
+        _, h, _, hd = r.shape
+        out[f"rwkv6_scan_{b}x{s}"] = dict(
+            ms=time_ms(torch, lambda: ops.rwkv6_scan(r, k, v, w, u, s0)),
+            plain_ms=time_ms(torch, lambda: ref.rwkv6_scan_ref(
+                r, k, v, w, u, s0)),
+            library_ms=None, dtype="float32",
+            bytes=4 * (5 * r.numel() + u.numel() + 2 * s0.numel()),
+            flops=(5 * hd * hd + 5 * hd) * b * h * s)
+
     for rec in out.values():
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = rec["flops"] / PEAK_FLOPS["bfloat16"] * 1e3
+        t_ops = rec["flops"] / PEAK_FLOPS[rec.get("dtype", "bfloat16")] * 1e3
         rec["bound_ms"] = max(t_bytes, t_ops)
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return out
@@ -582,7 +837,7 @@ def main() -> int:
     prompts = smoke_workload(cfg.vocab_size)
     sync = torch.cuda.synchronize
     launches = {"flash_attention": 0, "paged_attention": 0,
-                "paged_prefill": 0}
+                "paged_prefill": 0, "rwkv6_scan": 0}
     for fusion in ("on", "off"):
         args.decode_fusion = fusion
         run_engine(serve.build_engine(args, model, params), prompts[:2], 2,
@@ -662,7 +917,13 @@ def main() -> int:
     assert tokens["slot"] == tokens["on"], "slot and paged tokens differ"
     log("engine float32 paged fusion on/off and slot: token-identical")
 
-    # 5. times
+    # 5. rwkv6-1.6b through the slot engine, the qwen3 models freed first
+    del model, params, small_model, small_params, engine
+    torch.cuda.empty_cache()
+    launches["rwkv6_scan"] = rwkv6_phase(torch, device, ops, ref, serve,
+                                         Model, write_slot, validate, sync)
+
+    # 6. times
     times = kernel_times(torch, device, ops, ref)
     for key, what in (("paged_prefill_s1", "paged_prefill bf16 at the "
                        "fused-decode shape (8 rows, S=1, 512 prefix keys)"),
@@ -691,6 +952,22 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for key, what in (("rwkv6_scan_1x200", "one prompt row of S=200"),
+                      ("rwkv6_scan_4x1", "a decode step over 4 slots")):
+        t = times[key]
+        log(f"time rwkv6_scan float32 at {what} (32 heads of 64): "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, no library "
+            "call")
+    t = times["rwkv6_scan_1x200"]
+    records.append({
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:90",
+        "launches": launches["rwkv6_scan"],
+        "max_abs_err": errs["rwkv6_scan"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ from typing import Tuple
 
 _MODULE_FOR = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 

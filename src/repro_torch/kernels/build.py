@@ -89,8 +89,8 @@ class CudaKernel:
     nowhere else, so a run can show that its path went through the
     kernel (set it to 0 before the run, read it after)."""
 
-    def __init__(self, library: str, symbol: str, argtypes, smem_symbol: str,
-                 smem_argtypes):
+    def __init__(self, library: str, symbol: str, argtypes,
+                 smem_symbol: Optional[str] = None, smem_argtypes=()):
         self.library = library
         self.symbol = symbol
         self.argtypes = argtypes
@@ -101,13 +101,17 @@ class CudaKernel:
 
     def _bind(self):
         """(launch, smem_bytes) C functions; builds and loads the
-        library on first use."""
+        library on first use.  A kernel with static shared memory only
+        has no smem_bytes function (None)."""
         if self._bound is None:
             lib = ctypes.CDLL(str(build_all([self.library])[self.library]))
             fns = []
             for sym, argtypes, restype in (
                     (self.symbol, self.argtypes, ctypes.c_int),
                     (self.smem_symbol, self.smem_argtypes, ctypes.c_size_t)):
+                if sym is None:
+                    fns.append(None)
+                    continue
                 fn = getattr(lib, sym)
                 fn.argtypes = argtypes
                 fn.restype = restype

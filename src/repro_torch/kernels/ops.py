@@ -10,6 +10,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_prefill as _pp
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rwkv6_scan as _rw
 
 
 def _on_cuda(t) -> bool:
@@ -43,13 +44,22 @@ def paged_prefill(q, k, v, kpos, qpos, *, window: int = 0):
     return fn(q, k, v, kpos, qpos, window=window)
 
 
+def rwkv6_scan(r, k, v, w, u, s0=None):
+    """WKV6 recurrence: r/k/v/w (B,H,S,hd) float32 (w = decay in (0,1)),
+    u (H,hd), s0 (B,H,hd,hd) or None (zeros) -> (out (B,H,S,hd),
+    s_final (B,H,hd,hd) float32)."""
+    fn = _rw.rwkv6_scan if _on_cuda(r) else _ref.rwkv6_scan_ref
+    return fn(r, k, v, w, u, s0)
+
+
 def launch_counts() -> dict:
     """Launches of each kernel since its count was last set to 0."""
     return {"flash_attention": _fa.KERNEL.launches,
             "paged_attention": _pa.KERNEL.launches,
-            "paged_prefill": _pp.KERNEL.launches}
+            "paged_prefill": _pp.KERNEL.launches,
+            "rwkv6_scan": _rw.KERNEL.launches}
 
 
 def reset_launch_counts() -> None:
-    for mod in (_fa, _pa, _pp):
+    for mod in (_fa, _pa, _pp, _rw):
         mod.KERNEL.launches = 0

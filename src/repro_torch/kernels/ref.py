@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the attention kernels and the WKV6 scan.
 
 They define the semantics, copied from ``repro.kernels.ref``: the CUDA
 kernels are held to them on the card, and a CPU tensor is served by them
@@ -104,3 +104,27 @@ def paged_prefill_ref(q, k, v, kpos, qpos, *, window: int = 0):
     z = torch.sum(e, -1, keepdim=True)
     probs = (e / torch.clamp(z, min=1e-30)).to(v.dtype)
     return torch.einsum("bhqs,bshd->bqhd", probs, v)
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0=None):
+    """WKV6 recurrence, one time step at a time in float32 (float64 for
+    float64 inputs).  r/k/v (B,H,S,hd), w (B,H,S,hd) decay in (0,1), u
+    (H,hd) bonus, s0 (B,H,hd,hd) or None (zeros).  -> (out (B,H,S,hd) in
+    r's dtype, s_final (B,H,hd,hd) float32, or float64).
+
+        o_t[j] = sum_i r_t[i] * (S[i,j] + u[i] k_t[i] v_t[j])
+        S      = diag(w_t) S + k_t (x) v_t
+    """
+    b, h, s, hd = r.shape
+    dt = torch.promote_types(r.dtype, torch.float32)
+    r32, k32, v32, w32 = (t.to(dt) for t in (r, k, v, w))
+    u32 = u.to(dt)[None, :, :, None]
+    state = torch.zeros(b, h, hd, hd, dtype=dt,
+                        device=r.device) if s0 is None else s0.to(dt)
+    outs = []
+    for t in range(s):
+        kv = k32[:, :, t, :, None] * v32[:, :, t, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r32[:, :, t],
+                                 state + u32 * kv))
+        state = w32[:, :, t, :, None] * state + kv
+    return torch.stack(outs, dim=2).to(r.dtype), state

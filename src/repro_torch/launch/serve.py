@@ -6,6 +6,8 @@ card unless ``--device cpu`` is given.
         --no-reduced --requests 8 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --engine slot \\
         --slots 4 --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+        --engine slot --no-reduced
 
 Takes the flags of ``repro.launch.serve`` and prints the same ``req N:
 [...]`` lines.  ``--reduced`` (the default, as in the reference) serves
@@ -19,6 +21,10 @@ of this launcher, not with the reference's.  ``--decode-fusion on``
 whole (``flash_attention`` kernel) and decodes every slot through
 ``paged_prefill`` with one query lane; as in the reference, it takes
 ``--slots`` and ``--cache-max`` and ignores the paged-only flags.
+rwkv6-1.6b is served by the slot engine only, its recurrence in the
+``rwkv6_scan`` kernel for prefill and decode alike; with the paged
+engine (the default) it exits with "recurrent-state slots ... are not
+ported to repro_torch yet".
 
 Flags of features the port does not carry yet are refused with a message:
 ``--scheduler serial``, ``--spec-decode``, ``--replicas`` > 1,
@@ -164,6 +170,11 @@ def build_model(args):
     if args.reduced:
         cfg = cfg.reduced()
     model = Model(cfg, device=args.device)
+    if args.engine == "paged":
+        try:
+            model.check_paged()
+        except NotImplementedError as e:
+            raise SystemExit(str(e)) from None
     return cfg, model, model.init(args.seed)
 
 

@@ -18,6 +18,10 @@ Parameters are nested dicts of tensors in the reference's tree
 ``final_norm``), so weights bridged from the reference
 (``repro_torch.bridge``) drop in.  Everything runs on ``device``, which
 defaults to the card; the CPU runs only when asked for.
+
+Stacks of ``"attn"`` layers take both engines.  Stacks with recurrent
+``"rwkv6"`` layers take the slot engine only: the paged entry points
+refuse them until the reference's recurrent-state slots are ported.
 """
 from __future__ import annotations
 
@@ -58,15 +62,18 @@ class Model:
     # ------------------------------------------------------------ slot
     def cache_init(self, batch: int, cache_max: int):
         """Zero slot caches for ``batch`` slots of ``cache_max`` lanes,
-        every pos lane -1 (the counterpart of ``cache_abstract``)."""
+        every pos lane -1; recurrent states start at zero, as the
+        reference's ``LLMEngine`` zero-fills its caches (the counterpart
+        of ``cache_abstract``)."""
         return tf.stack_cache_init(self.cfg, batch, cache_max,
                                    torch_dtype(self.cfg.dtype), self.device)
 
     def prefill(self, params, batch, *, cache_max: int):
         """Whole-prompt prefill: ``batch["tokens"]`` (B,S) at positions
-        0..S-1.  Attention runs through ``ops.flash_attention`` (the CUDA
-        kernel on the card).  -> (last-token logits (B,1,V), caches of
-        ``cache_max`` lanes in the stack layout)."""
+        0..S-1.  Attention runs through ``ops.flash_attention`` and the
+        rwkv6 recurrence through ``ops.rwkv6_scan`` (the CUDA kernels on
+        the card).  -> (last-token logits (B,1,V), caches of
+        ``cache_max`` lanes or recurrent states, in the stack layout)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -89,13 +96,33 @@ class Model:
     # ------------------------------------------------------------ paged
     @property
     def supports_paged(self) -> bool:
-        """Every model this package constructs is a decoder-only stack of
-        attention layers, which the block-paged engine serves."""
-        return True
+        """The reference's definition: block-paged decode covers
+        decoder-only token stacks, attention layers paging their KV
+        through the pool and recurrent layers (mamba/rwkv6) carrying
+        per-request state slots beside it."""
+        cfg = self.cfg
+        return (not cfg.is_encoder_decoder and cfg.frontend == "none"
+                and all(k in ("attn", "attn_local", "mamba", "rwkv6")
+                        for k in cfg.kinds_for_layers))
+
+    @property
+    def paged_has_state(self) -> bool:
+        """Does the paged stack carry recurrent (non-KV) layer state?"""
+        return self.supports_paged and any(
+            k in ("mamba", "rwkv6") for k in self.cfg.kinds_for_layers)
+
+    def check_paged(self) -> None:
+        """Raise for a stack the port's paged path cannot serve yet."""
+        if self.paged_has_state:
+            raise NotImplementedError(
+                f"{self.cfg.name}: paged serving of recurrent layers needs "
+                "recurrent-state slots, which are not ported to repro_torch "
+                "yet (serve it with the slot engine, --engine slot)")
 
     def pool_init(self, num_blocks: int, block_size: int):
         """Zero block pools for every layer (pos lanes -1).  Block 0 is
         the reserved null block — allocators must never hand it out."""
+        self.check_paged()
         return tf.stack_pool_init(self.cfg, num_blocks, block_size,
                                   torch_dtype(self.cfg.dtype), self.device)
 
@@ -114,6 +141,7 @@ class Model:
         logits (B,1,V), the chunk's caches in the pool layout, S lanes
         per row with ``pos`` -1 on padded lanes); ``all_logits=True``
         returns (B,S,V) logits for every lane."""
+        self.check_paged()
         cfg = self.cfg
         tokens = batch["tokens"]
         s = tokens.shape[1]
@@ -143,6 +171,7 @@ class Model:
         reads through ``ops.paged_attention`` (the CUDA kernel on the
         card).  Pools are written in place.
         -> (logits (B,1,V), pools)."""
+        self.check_paged()
         cfg = self.cfg
         x = embed_apply(params["embed"], tokens)
         x, pools = tf.stack_decode_paged(params["stack"], cfg, x, pools,

@@ -1,4 +1,5 @@
-"""Shared layer library: rmsnorm, RoPE, the swiglu MLP, embeddings.
+"""Shared layer library: rmsnorm and layernorm, RoPE, the swiglu MLP,
+embeddings.
 
 Plain functions on tensors with the arithmetic of ``repro.models.layers``:
 norms and RoPE compute in float32 and cast back to the input dtype;
@@ -16,9 +17,13 @@ from repro_torch.models.module import ParamSpec
 
 
 def norm_schema(cfg: ModelConfig):
+    d = cfg.d_model
+    if cfg.norm_kind == "layernorm":
+        return {"scale": ParamSpec((d,), init="ones"),
+                "bias": ParamSpec((d,), init="zeros")}
     if cfg.norm_kind != "rmsnorm":
         raise ValueError(f"norm_kind {cfg.norm_kind!r} is not ported yet")
-    return {"scale": ParamSpec((cfg.d_model,), init="ones")}
+    return {"scale": ParamSpec((d,), init="ones")}
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -27,7 +32,17 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (x32 * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-6):
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def norm_apply(p, x, kind: str, eps: float = 1e-6):
+    if kind == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"], eps)
     if kind != "rmsnorm":
         raise ValueError(f"norm_kind {kind!r} is not ported yet")
     return rms_norm(x, p["scale"], eps)

@@ -1,0 +1,157 @@
+"""RWKV-6 (Finch) block: token-shift time-mix with data-dependent decay.
+
+The port of ``repro.models.rwkv6`` (arXiv:2404.05892, with the
+reference's simplifications: one mix LoRA shared by r/k/v/w/g, an RMS
+head-norm instead of GroupNorm):
+
+  time-mix:   xx_t = x_{t-1} - x_t           (token shift)
+              m_t  = mu + lora_mix(x_t + xx_t * mu)       # data-dep mix
+              x^c_t = x_t + xx_t * m^c_t                  # c in {r,k,v,w,g}
+              r,k,v,g = W_r x^r, W_k x^k, W_v x^v, silu(W_g x^g)
+              w_t  = exp(-exp(w_base + lora_w(x^w_t) - 3))  # per-channel decay
+              o_t[v]  = sum_k r[k] (S[k,v] + u[k] k[k] v[v])
+              S_t  = diag(w_t) S_{t-1} + k_t (x) v_t      # per head
+              y    = W_o (headnorm(o) * g)
+
+  channel-mix: squared-ReLU FFN on the token-shifted input (rwkv6 blocks
+  never read ``cfg.mlp_kind``).
+
+The recurrence always goes through ``ops.rwkv6_scan``: the CUDA kernel on
+the card, its plain version on the CPU, for a whole prompt and for one
+decode token alike.  The reference's masked per-row scan (``seq_len``,
+for right-padded ragged paged prefill) is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.module import ParamSpec
+
+LORA_RANK = 64
+
+
+def num_heads(cfg: ModelConfig) -> int:
+    return cfg.d_model // cfg.rwkv_head_dim
+
+
+def rwkv_schema(cfg: ModelConfig):
+    d = cfg.d_model
+    h, hd = num_heads(cfg), cfg.rwkv_head_dim
+    r = LORA_RANK
+    return {
+        "mu": ParamSpec((5, d), init="zeros"),
+        "mix_a": ParamSpec((d, r), scale_dim=-2),
+        "mix_b": ParamSpec((r, 5, d), init="zeros"),
+        "w_base": ParamSpec((d,), init="zeros"),
+        "w_a": ParamSpec((d, r), scale_dim=-2),
+        "w_b": ParamSpec((r, d), init="zeros"),
+        "u": ParamSpec((h, hd), init="zeros"),
+        "wr": ParamSpec((d, d), scale_dim=-2),
+        "wk": ParamSpec((d, d), scale_dim=-2),
+        "wv": ParamSpec((d, d), scale_dim=-2),
+        "wg": ParamSpec((d, d), scale_dim=-2),
+        "wo": ParamSpec((d, d), scale_dim=-2),
+        "head_scale": ParamSpec((h, hd), init="ones"),
+    }
+
+
+def channel_mix_schema(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": ParamSpec((d,), init="zeros"),
+        "wk_cm": ParamSpec((d, f), scale_dim=-2),
+        "wv_cm": ParamSpec((f, d), scale_dim=-2),
+    }
+
+
+def channel_mix(p, cfg: ModelConfig, x, x_prev):
+    """RWKV channel-mix: squared-ReLU FFN on the token-shifted input.
+    x (B,S,D), x_prev (B,D) -> (y, new x_prev = x's last lane)."""
+    prev = _token_shift(x, x_prev)
+    xk = x + (prev - x) * p["mu_k"]
+    k = torch.square(F.relu(xk @ p["wk_cm"]))
+    return k @ p["wv_cm"], _last_valid(x)
+
+
+def init_state(cfg: ModelConfig, batch: int, dtype, device):
+    """Zero recurrent state of one layer: ``s`` (B,H,hd,hd) float32,
+    ``x_tm`` / ``x_cm`` (B,D) in the model dtype."""
+    h, hd = num_heads(cfg), cfg.rwkv_head_dim
+    return {
+        "s": torch.zeros(batch, h, hd, hd, dtype=torch.float32,
+                         device=device),
+        "x_tm": torch.zeros(batch, cfg.d_model, dtype=dtype, device=device),
+        "x_cm": torch.zeros(batch, cfg.d_model, dtype=dtype, device=device),
+    }
+
+
+def _token_shift(x, x_prev):
+    """x (B,S,D), x_prev (B,D) -> previous-token tensor (B,S,D)."""
+    return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _last_valid(x):
+    """x (B,S,D) -> lane S-1 (B,D) (the unpadded full-sequence path)."""
+    return x[:, -1, :]
+
+
+def _mix_heads(p, cfg, x, xx):
+    """Data-dependent token-shift mixing -> the five mixed streams."""
+    b, s, d = x.shape
+    mu = p["mu"]                                       # (5, D)
+    base = x[:, :, None, :] + xx[:, :, None, :] * mu[None, None]
+    lora_in = torch.tanh((x + xx * mu[0]) @ p["mix_a"])           # (B,S,R)
+    delta = (lora_in @ p["mix_b"].reshape(LORA_RANK, 5 * d)).reshape(
+        b, s, 5, d)
+    mixed = base + xx[:, :, None, :] * delta
+    return mixed.unbind(dim=2)                         # r,k,v,w,g streams
+
+
+def _decay(p, xw):
+    """Per-channel decay in (0,1): w = exp(-exp(w_base + lora_w(xw) - 3)),
+    float32."""
+    lo = torch.tanh(xw) @ p["w_a"]
+    raw = p["w_base"].float() + (lo @ p["w_b"]).float()
+    return torch.exp(-torch.exp(raw - 3.0))            # -3: init near slow decay
+
+
+def _headnorm(o, scale, eps=1e-6):
+    ms = torch.mean(torch.square(o), -1, keepdim=True)
+    return o * torch.rsqrt(ms + eps) * scale[None, None]
+
+
+def rwkv_time_mix(p, cfg: ModelConfig, x, state, seq_len=None):
+    """x (B,S,D), state {"s", "x_tm", ...} -> (y (B,S,D), {"s": final
+    state, "x_tm": x's last lane}); the caller adds "x_cm" after the
+    channel-mix.  The WKV recurrence runs through ``ops.rwkv6_scan`` on
+    float32 (B,H,S,hd) views of the (B,S,H,hd) projections."""
+    if seq_len is not None:
+        raise NotImplementedError(
+            "rwkv_time_mix: the masked per-row scan (seq_len, ragged paged "
+            "prefill) is not ported to repro_torch yet")
+    b, s, d = x.shape
+    h, hd = num_heads(cfg), cfg.rwkv_head_dim
+    prev = _token_shift(x, state["x_tm"])
+    xx = prev - x
+    xr, xk, xv, xw, xg = _mix_heads(p, cfg, x, xx)
+    r = (xr @ p["wr"]).reshape(b, s, h, hd)
+    k = (xk @ p["wk"]).reshape(b, s, h, hd)
+    v = (xv @ p["wv"]).reshape(b, s, h, hd)
+    g = F.silu(xg @ p["wg"])
+    w = _decay(p, xw).reshape(b, s, h, hd)             # float32
+    u = p["u"].float()
+
+    def heads_first(t):                                # (B,H,S,hd) view
+        return t.float().transpose(1, 2)
+
+    out, s_final = kernel_ops.rwkv6_scan(
+        heads_first(r), heads_first(k), heads_first(v), heads_first(w), u,
+        state["s"].float())
+    o = out.transpose(1, 2)                            # (B,S,H,hd)
+    o = _headnorm(o, p["head_scale"].float())
+    o = o.reshape(b, s, d).to(x.dtype) * g
+    y = o @ p["wo"]
+    return y, {"s": s_final, "x_tm": _last_valid(x)}

@@ -9,7 +9,9 @@ reference scans over the period axis, the port runs a Python loop and
 indexes that axis; indexing gives views, so a pool written in place by
 layer i is the stacked pool's slice i.
 
-Only layer kind ``"attn"`` (dense MLP) is ported so far.
+Ported so far: layer kinds ``"attn"`` (dense MLP) on both paths and
+``"rwkv6"`` (time-mix + channel-mix, recurrent state as the cache) on
+the slot path.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (mlp_apply, mlp_schema, norm_apply,
                                        norm_schema)
 from repro_torch.models.module import stack_specs
@@ -45,14 +48,23 @@ def slot_sig(cfg: ModelConfig, j: int) -> Tuple[str, bool]:
     return kind, cfg.layer_is_moe(j)
 
 
+PORTED_KINDS = ("attn", "rwkv6")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is a dense ``"attn"`` layer."""
+    """Raise unless every layer is a dense ``"attn"`` or ``"rwkv6"``
+    layer."""
     for i in range(cfg.num_layers):
         kind, moe = slot_sig(cfg, i)
-        if kind != "attn" or moe:
+        if kind not in PORTED_KINDS or moe:
             raise ValueError(f"{cfg.name}: layer {i} is {kind!r}"
                              f"{' (MoE)' if moe else ''}; repro_torch ports "
-                             "dense 'attn' layers only so far")
+                             "dense 'attn' and 'rwkv6' layers only so far")
+
+
+def layer_kinds(cfg: ModelConfig) -> list:
+    """Each layer's kind, in stack order (that of ``layer_views``)."""
+    return [slot_sig(cfg, i)[0] for i in range(cfg.num_layers)]
 
 
 def layer_views(cfg: ModelConfig, tree) -> list:
@@ -75,10 +87,16 @@ def _index(tree, i: int):
 
 
 def block_schema(cfg: ModelConfig, kind: str, moe: bool):
-    if kind != "attn" or moe:
+    if kind not in PORTED_KINDS or moe:
         raise ValueError(f"layer kind {kind!r} (moe={moe}) is not ported yet")
-    return {"norm1": norm_schema(cfg), "norm2": norm_schema(cfg),
-            "mix": attn.attn_schema(cfg), "ffn": mlp_schema(cfg)}
+    s = {"norm1": norm_schema(cfg), "norm2": norm_schema(cfg)}
+    if kind == "rwkv6":
+        s["mix"] = rwkv_mod.rwkv_schema(cfg)
+        s["ffn"] = rwkv_mod.channel_mix_schema(cfg)
+    else:
+        s["mix"] = attn.attn_schema(cfg)
+        s["ffn"] = mlp_schema(cfg)
+    return s
 
 
 def stack_schema(cfg: ModelConfig):
@@ -109,10 +127,24 @@ def _to_layout(cfg: ModelConfig, per_layer: list):
 # ------------------------------------------------------------ slot path
 
 
+def _rwkv_block(p, cfg: ModelConfig, x, state):
+    """rwkv6 layer body from ``state``: time-mix, then the channel-mix in
+    place of the MLP.  -> (x, new state {"s", "x_tm", "x_cm"})."""
+    h = norm_apply(p["norm1"], x, cfg.norm_kind)
+    y, part = rwkv_mod.rwkv_time_mix(p["mix"], cfg, h, state)
+    x = x + y
+    h2 = norm_apply(p["norm2"], x, cfg.norm_kind)
+    y2, x_cm = rwkv_mod.channel_mix(p["ffn"], cfg, h2, state["x_cm"])
+    return x + y2, {"s": part["s"], "x_tm": part["x_tm"], "x_cm": x_cm}
+
+
 def block_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
                   cache_max: int):
-    """Whole-prompt forward of one layer + its decode cache.
-    -> (x, cache)."""
+    """Whole-prompt forward of one layer + its decode cache (rwkv6: its
+    state after the prompt, from zeros).  -> (x, cache)."""
+    if kind == "rwkv6":
+        return _rwkv_block(p, cfg, x, rwkv_mod.init_state(
+            cfg, x.shape[0], x.dtype, x.device))
     h = norm_apply(p["norm1"], x, cfg.norm_kind)
     y, cache = attn.attn_prefill(p["mix"], cfg, h, positions, kind=kind,
                                  cache_max=cache_max)
@@ -124,6 +156,11 @@ def block_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
 def block_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str):
     """One-token step of one layer; its cache is written in place.
     x (B,1,D), pos (B,).  -> (x, cache)."""
+    if kind == "rwkv6":
+        x, new = _rwkv_block(p, cfg, x, cache)
+        for key, leaf in new.items():
+            cache[key].copy_(leaf)
+        return x, cache
     h = norm_apply(p["norm1"], x, cfg.norm_kind)
     y, cache = attn.attn_decode(p["mix"], cfg, h, cache, pos, kind=kind)
     x = x + y
@@ -134,8 +171,8 @@ def block_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str):
 def stack_prefill(params, cfg: ModelConfig, x, positions, *, cache_max: int):
     """-> (x, caches), caches in the stack layout."""
     caches = []
-    for p in layer_views(cfg, params):
-        x, c = block_prefill(p, cfg, x, positions, kind="attn",
+    for p, kind in zip(layer_views(cfg, params), layer_kinds(cfg)):
+        x, c = block_prefill(p, cfg, x, positions, kind=kind,
                              cache_max=cache_max)
         caches.append(c)
     return x, _to_layout(cfg, caches)
@@ -144,18 +181,23 @@ def stack_prefill(params, cfg: ModelConfig, x, positions, *, cache_max: int):
 def stack_decode(params, cfg: ModelConfig, x, caches, pos):
     """-> (x, caches).  Each layer's cache (a view into the stacked
     leaves) is written in place; the caches are returned."""
-    for p, cache in zip(layer_views(cfg, params), layer_views(cfg, caches)):
-        x, _ = block_decode(p, cfg, x, cache, pos, kind="attn")
+    for p, cache, kind in zip(layer_views(cfg, params),
+                              layer_views(cfg, caches), layer_kinds(cfg)):
+        x, _ = block_decode(p, cfg, x, cache, pos, kind=kind)
     return x, caches
 
 
 def stack_cache_init(cfg: ModelConfig, batch: int, cache_max: int, dtype,
                      device):
-    """Zero slot caches for the whole stack, every pos lane -1, in the
-    layout of the reference's ``stack_cache_abstract``."""
-    return _to_layout(cfg, [attn.init_cache(cfg, "attn", batch, cache_max,
-                                            dtype, device)
-                            for _ in range(cfg.num_layers)])
+    """Zero slot caches for the whole stack (attention strips with every
+    pos lane -1, rwkv6 states of zeros), in the layout of the
+    reference's ``stack_cache_abstract``."""
+    def one(kind):
+        if kind == "rwkv6":
+            return rwkv_mod.init_state(cfg, batch, dtype, device)
+        return attn.init_cache(cfg, kind, batch, cache_max, dtype, device)
+
+    return _to_layout(cfg, [one(kind) for kind in layer_kinds(cfg)])
 
 
 # ------------------------------------------------------------ paged path

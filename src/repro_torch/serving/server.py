@@ -10,9 +10,12 @@ the tokens of its reference counterpart.  Each engine step is eager
 PyTorch work on ``model.device``; greedy tokens come back to the host
 as integers only.
 
-Not ported yet, and refused at construction: speculative decoding, the
-serial scheduler, the observability hooks, and stacks with window or
-recurrent layers (``Model`` refuses those).
+The slot engine also serves recurrent rwkv6 stacks: their caches are
+the layers' states, spliced into a slot at admission like a strip.  Not
+ported yet, and refused at construction: speculative decoding, the
+serial scheduler, the observability hooks, stacks with window layers
+(``Model`` refuses those), and recurrent stacks on the paged engine
+(their state slots).
 """
 from __future__ import annotations
 
@@ -54,11 +57,13 @@ class LLMEngine:
     """Continuous-batching decode over fixed cache slots.
 
     Every ``step()`` either admits the queue's head into a free slot (one
-    whole-prompt ``Model.prefill``, its cache spliced into the slot) or,
-    with no admission possible, advances every slot by one token through
-    ``Model.decode_step``; dead slots ride along at position 0 and their
-    outputs are discarded.  A request finishes at ``max_new`` tokens,
-    ``eos_id`` or a full strip.
+    whole-prompt ``Model.prefill``, its cache or recurrent state spliced
+    into the slot) or, with no admission possible, advances every slot
+    by one token through ``Model.decode_step``; dead slots ride along at
+    position 0 and their outputs are discarded.  A request finishes at
+    ``max_new`` tokens, ``eos_id`` or a full strip (``pos + 1 >=
+    cache_max``, as in the reference, also for a recurrent stack whose
+    state does not grow).
     """
 
     def __init__(self, model, params, num_slots: int = 4,
@@ -275,6 +280,7 @@ class PagedLLMEngine:
         if not model.supports_paged:
             raise ValueError(f"{model.cfg.name}: paged engine needs a "
                              "decoder-only token stack")
+        model.check_paged()
         if scheduler != "continuous":
             raise NotImplementedError(
                 f"scheduler={scheduler!r}: repro_torch ports the continuous "

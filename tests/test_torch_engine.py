@@ -115,7 +115,8 @@ def test_engine_token_identical_to_reference(models, reference_runs,
         assert s["decode_kernel"] == 0      # no kernel runs on the CPU
         assert eng.allocator.num_live == s["cached_blocks"]
     assert ops.launch_counts() == {"flash_attention": 0,
-                                   "paged_attention": 0, "paged_prefill": 0}
+                                   "paged_attention": 0, "paged_prefill": 0,
+                                   "rwkv6_scan": 0}
     assert runs[True] == ref_outs
     assert runs[False] == ref_outs
     assert len(ref_outs) == sum(len(b) for b in bursts)

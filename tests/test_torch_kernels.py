@@ -17,7 +17,11 @@ apart: decode and flash ``atol=2e-3`` (both sides otherwise float32);
 prefill ``atol=3e-2`` (the plain version also rounds the probabilities
 to bf16 before the value product, the kernel keeps them float32).  The
 flash kernel's CPU-side checks (plain version against the reference)
-are in ``tests/test_torch_flash_attention.py``.
+are in ``tests/test_torch_flash_attention.py``, the WKV6 scan's in
+``tests/test_torch_rwkv6.py``.  The WKV6 scan on the card, float32 only
+(the model calls it so): ``atol=rtol=1e-4`` against outputs that reach
+~100 — the kernel sums each step's 64 terms in another order, and the
+state carries the rounding across up to 200 steps.
 """
 import ctypes
 import re
@@ -31,6 +35,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp_mod  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rw_mod  # noqa: E402
 
 ATOL = 1e-5
 
@@ -159,11 +164,13 @@ def test_cuda_sources_export_what_the_wrappers_bind():
     with the argument count the wrapper declares (the compiler is not
     here to check it)."""
     assert build.sources() == ["flash_attention", "paged_attention",
-                               "paged_prefill"]
-    for kern in (fa_mod.KERNEL, pa_mod.KERNEL, pp_mod.KERNEL):
+                               "paged_prefill", "rwkv6_scan"]
+    for kern in (fa_mod.KERNEL, pa_mod.KERNEL, pp_mod.KERNEL, rw_mod.KERNEL):
         text = (build.CSRC / f"{kern.library}.cu").read_text()
         for sym, argtypes in ((kern.symbol, kern.argtypes),
                               (kern.smem_symbol, kern.smem_argtypes)):
+            if sym is None:             # static shared memory only
+                continue
             m = re.search(r'extern "C" \w+ ' + sym + r"\(([^)]*)\)", text)
             assert m, sym
             assert len(m.group(1).split(",")) == len(argtypes), sym
@@ -276,3 +283,58 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
     plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), plain.float(),
                                **_tol("flash_attention", dt))
+
+
+# the reference's rwkv6 sweep (tests/test_kernels.py) x mild and extreme
+# decay, then the slot path's shapes: rwkv6-1.6b's 32 heads of 64, one
+# prompt row of 37 and 200 tokens, and a decode step over 4 slots, as the
+# model passes them (float32 (B,S,H,hd) projections viewed (B,H,S,hd))
+RW_CARD_CASES = (
+    [(shape, extreme, False)
+     for shape in [(1, 1, 16, 8), (2, 3, 50, 64), (1, 2, 128, 64)]
+     for extreme in (False, True)]
+    + [(shape, True, True)
+       for shape in [(1, 32, 37, 64), (1, 32, 200, 64), (4, 32, 1, 64)]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,extreme_decay,model_layout", RW_CARD_CASES)
+@pytest.mark.parametrize("with_s0", [True, False])
+def test_rwkv6_scan_kernel_matches_plain(cuda, shape, extreme_decay,
+                                         model_layout, with_s0):
+    b, h, s, hd = shape
+    rng = np.random.default_rng(sum(shape) + int(extreme_decay))
+
+    def operand(a):
+        a = torch.from_numpy(a.astype(np.float32))
+        # (B,S,H,hd) viewed as (B,H,S,hd), as the model passes it
+        return a.permute(0, 2, 1, 3).contiguous().to(cuda).transpose(1, 2) \
+            if model_layout else a.to(cuda)
+
+    r, k, v = (operand(rng.normal(size=shape)) for _ in range(3))
+    w = operand(np.exp(-np.exp(rng.normal(size=shape) * 2))
+                if extreme_decay else np.full(shape, 0.95))
+    u = torch.from_numpy(rng.normal(size=(h, hd)).astype(np.float32)
+                         * 0.5).to(cuda)
+    s0 = torch.from_numpy(rng.normal(size=(b, h, hd, hd)).astype(np.float32)
+                          * 0.1).to(cuda) if with_s0 else None
+    n0 = rw_mod.KERNEL.launches
+    out, sf = ops.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert rw_mod.KERNEL.launches == n0 + 1
+    assert out.shape == r.shape and out.stride() == r.stride()
+    plain, plain_sf = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(out, plain, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(sf, plain_sf, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 2, 3, 65, device=cuda)
+    u = torch.zeros(2, 65, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        rw_mod.rwkv6_scan(x, x, x, x, u)
+    y = torch.zeros(1, 2, 3, 8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        rw_mod.rwkv6_scan(y.bfloat16(), y, y, y, torch.zeros(2, 8,
+                                                             device=cuda))

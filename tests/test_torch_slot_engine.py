@@ -211,7 +211,8 @@ def test_slot_engine_token_identical_to_reference(pair, reference_slot_run):
     eng = LLMEngine(tm, tparams, num_slots=3, cache_max=32)
     outs = _drain(eng, wl)
     assert ops.launch_counts() == {"flash_attention": 0,
-                                   "paged_attention": 0, "paged_prefill": 0}
+                                   "paged_attention": 0, "paged_prefill": 0,
+                                   "rwkv6_scan": 0}
     assert outs == ref_outs
     assert len(outs) == len(wl.prompts)
     # some request stopped at a full strip, not at max_new
