@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a),
-then runs six phases, each raising on failure:
+then runs seven phases, each raising on failure:
 
 1. device: the card's name and power limit, the kernels' build time;
 2. kernel parity: each kernel against its plain PyTorch version at the
@@ -34,7 +34,17 @@ then runs six phases, each raising on failure:
    answers 8 requests with ``rwkv6_scan`` launched 24 times per engine
    step and no attention kernel; at 2 layers in float32 the engine
    emits the same tokens through the kernel and the plain version;
-6. times: each kernel's time beside its bound, its plain version's and
+6. digits: the paper's pipeline (mnist-cnn at its published width,
+   float32, seeded weights saved and restored through the checkpoint
+   store): ``conv2d`` against its plain version over the reference's
+   sweep and the pipeline's batches in float32 and bfloat16;
+   ``StratusPipeline.evaluate`` over 2,000 test and 1,000 canvas digits
+   with the plain path's predictions; ``StratusApp`` answering 20 posted
+   canvas digits (paper-faithful config) with the plain path's digits,
+   and a POST load of 25 users through ``LoadGenerator`` on the
+   micro-batched config under 5 % failures; ``conv2d`` launched once per
+   forward pass;
+7. times: each kernel's time beside its bound, its plain version's and
    one PyTorch library call's where there is one (a yardstick only; the
    port never calls it).
 
@@ -49,6 +59,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -78,6 +89,12 @@ KERNEL_TOL = {
     # another order, the state carrying the rounding across 200 steps,
     # outputs reaching ~100
     ("rwkv6_scan", "float32"): dict(atol=1e-4, rtol=1e-4),
+    # an FMA chain against the plain version's products and adds, over at
+    # most 75 terms of outputs below ~10
+    ("conv2d", "float32"): dict(atol=1e-5, rtol=1e-5),
+    # both sides sum in float32 and round the output to bf16 once: one
+    # bf16 ulp (2**-7 of the value) apart at most
+    ("conv2d", "bfloat16"): dict(atol=1e-3, rtol=2 ** -7),
 }
 # relative L2 error of logits, kernels vs plain versions through a model:
 # bf16 rounds activations in each of 28 layers, so kernel-side rounding
@@ -95,6 +112,19 @@ MODEL_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 # float64 readings beside them
 RWKV_MODEL_TOL = {"bfloat16": {"prefill": 0.15, "decode": 4e-2},
                   "float32": {"prefill": 2e-3, "decode": 1e-4}}
+# the digit pipeline, kernel vs plain path: float32 probabilities; an
+# argmax may differ only where the plain path's top-two logits are closer
+DIGIT_PROB_ATOL = 1e-5
+DIGIT_TIE_MARGIN = 1e-5
+# (B, H, W, Cin, K, Cout): the reference's sweep (tests/test_kernels.py),
+# then the pipeline's batches at the paper's shape: the consumer's 1 and
+# up to 32, evaluation's 1,000 canvas and 2,000 test digits
+CONV_SHAPES = ((5, 28, 28, 1, 3, 32), (130, 28, 28, 1, 3, 32),
+               (4, 12, 16, 3, 5, 8), (2, 9, 9, 2, 1, 4),
+               (1, 28, 28, 1, 3, 32), (32, 28, 28, 1, 3, 32),
+               (1000, 28, 28, 1, 3, 32), (2000, 28, 28, 1, 3, 32))
+MICRO_BATCHED = dict(max_batch=32, consume_base=0.05,
+                     balancer_policy="power_of_two")
 
 
 def log(*a):
@@ -292,12 +322,13 @@ def kernel_parity(torch, device, ops, ref):
 
 
 def plain_ops(ops, ref):
-    """Route the model's attention to the plain versions for one
-    comparison run (patching the ops module the model calls through)."""
+    """Route the models' kernels to the plain versions for one comparison
+    run (patching the ops module the models call through)."""
     return mock.patch.multiple(ops, paged_attention=ref.paged_attention_ref,
                                paged_prefill=ref.paged_prefill_ref,
                                flash_attention=ref.flash_attention_ref,
-                               rwkv6_scan=ref.rwkv6_scan_ref)
+                               rwkv6_scan=ref.rwkv6_scan_ref,
+                               conv2d=ref.conv2d_ref)
 
 
 def _clone(tree):
@@ -603,6 +634,187 @@ def rwkv6_phase(torch, device, ops, ref, serve, Model, write_slot, validate,
     return counts["rwkv6_scan"]
 
 
+# ---------------------------------------------------------------- digits
+
+
+def conv2d_parity(torch, device, ops, ref) -> float:
+    """Phase 6: ``conv2d`` against its plain version over ``CONV_SHAPES``
+    in float32 and bfloat16: images in [0, 1] at the paper's shape,
+    N(0, 1) elsewhere, filters N(0, 0.2).  -> max abs error over the
+    float32 cases (the model's dtype)."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    worst = 0.0
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for b, h, w, cin, k, cout in CONV_SHAPES:
+            draw = torch.rand if (h, cin, k) == (28, 1, 3) else torch.randn
+            x = draw(b, h, w, cin, generator=gen, device=device).to(dtype)
+            wt = (torch.randn(k, k, cin, cout, generator=gen, device=device)
+                  * 0.2).to(dtype)
+            out = ops.conv2d(x, wt)
+            plain = ref.conv2d_ref(x, wt)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            torch.testing.assert_close(out.float(), plain.float(),
+                                       **KERNEL_TOL["conv2d", dtype_name])
+            log(f"parity conv2d {dtype_name} x ({b},{h},{w},{cin}) w "
+                f"({k},{k},{cin},{cout}): max_abs_err={err:.3e}")
+            if dtype_name == "float32":
+                worst = max(worst, err)
+    return worst
+
+
+def digit_predictions(torch, ops, ref, pipe, images):
+    """Probabilities of ``images`` through the pipeline's forward pass on
+    the kernel and on the plain path; the argmax must agree except where
+    the plain path's top-two logits are closer than DIGIT_TIE_MARGIN.
+    -> (plain digits, whether each is a tie, max |prob diff|, flips)."""
+    from repro_torch.models.cnn import cnn_forward
+
+    x = torch.from_numpy(images).to(pipe.device)
+    logits = {}
+    for name, ctx in (("kernel", contextlib.nullcontext()),
+                      ("plain", plain_ops(ops, ref))):
+        with ctx, torch.inference_mode():
+            logits[name] = cnn_forward(pipe.params, pipe.cfg, x)
+    assert torch.isfinite(logits["kernel"]).all()
+    probs = {k: torch.softmax(v, -1) for k, v in logits.items()}
+    torch.testing.assert_close(probs["kernel"], probs["plain"],
+                               atol=DIGIT_PROB_ATOL, rtol=0)
+    digits = {k: v.argmax(-1) for k, v in logits.items()}
+    top2 = logits["plain"].topk(2, -1).values
+    tie = top2[:, 0] - top2[:, 1] < DIGIT_TIE_MARGIN
+    flips = digits["kernel"] != digits["plain"]
+    assert bool(tie[flips].all())
+    return (digits["plain"].tolist(), tie.tolist(),
+            (probs["kernel"] - probs["plain"]).abs().max().item(),
+            int(flips.sum()))
+
+
+def counting(fn, calls):
+    """``fn`` that counts its calls in ``calls["n"]``."""
+    def wrapped(*args):
+        calls["n"] += 1
+        return fn(*args)
+
+    return wrapped
+
+
+def digit_phase(torch, device, ops, ref) -> tuple:
+    """Phase 6: the paper's digit pipeline on the card.  -> (max abs
+    error of ``conv2d`` vs plain in float32, ``conv2d`` launches of the
+    pipeline's runs: evaluation and both app runs)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.pipeline import StratusPipeline
+    from repro_torch.data import mnist
+    from repro_torch.serving.loadgen import LoadGenerator
+    from repro_torch.serving.server import AppConfig
+    from repro_torch.serving.sim import Clock
+
+    err = conv2d_parity(torch, device, ops, ref)
+
+    pipe = StratusPipeline(seed=0, device=device)
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = CheckpointManager(root)
+        ckpt.save(1, {"params": pipe.params})
+        step, tree = ckpt.restore_latest({"params": pipe.params})
+    assert step == 1
+    for name, t in tree["params"].items():
+        assert t.device == pipe.params[name].device
+        assert torch.equal(t, pipe.params[name]), name
+    pipe.params = tree["params"]
+
+    launches = 0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = pipe.evaluate()
+    secs = time.perf_counter() - t0
+    n = ops.launch_counts()["conv2d"]
+    assert n == 2, n                    # one forward pass per whole set
+    launches += n
+    with plain_ops(ops, ref):
+        ev_plain = pipe.evaluate()
+    log(f"digits evaluate (2,000 test + 1,000 canvas, seeded random "
+        f"weights): {secs:.3f}s, conv2d launches={n}, test accuracy "
+        f"{ev['test_accuracy']:.4f} (plain {ev_plain['test_accuracy']:.4f})"
+        f", canvas {ev['canvas_accuracy']:.4f} (plain "
+        f"{ev_plain['canvas_accuracy']:.4f})")
+    flips = 0
+    for what, (images, _) in (("test", mnist.make_split(2000, pipe.seed + 100)),
+                              ("canvas", mnist.canvas_digits(
+                                  1000, pipe.seed + 200))):
+        _, _, perr, nflip = digit_predictions(torch, ops, ref, pipe, images)
+        flips += nflip
+        log(f"  {what}: kernel vs plain path, max |prob diff| {perr:.3e}, "
+            f"argmax flips {nflip} (each within a {DIGIT_TIE_MARGIN} "
+            "margin)")
+    if flips == 0:
+        assert ev == ev_plain, (ev, ev_plain)
+
+    # the paper-faithful app: 20 posted canvas digits, as the quickstart
+    images, labels = mnist.canvas_digits(20, seed=42)
+    plain_digits, tie, _, _ = digit_predictions(torch, ops, ref, pipe,
+                                                images)
+    clock = Clock()
+    app = pipe.deploy(clock)
+    calls = {"n": 0}
+    app.predict_fn = counting(app.predict_fn, calls)
+    ops.reset_launch_counts()
+    outcomes = []
+    for img in images:
+        app.post_predict(img, outcomes.append)
+    clock.run(until=30.0)
+    n = ops.launch_counts()["conv2d"]
+    stored = [app.store.poll(f"req-{i + 1}") for i in range(len(images))]
+    lat = sorted(o.latency for o in outcomes)
+    log(f"digits app AppConfig(): {len(outcomes)} outcomes "
+        f"{sorted({o.status for o in outcomes})}, latency {lat[0]:.3f}-"
+        f"{lat[-1]:.3f}s virtual, predict calls={calls['n']}, conv2d "
+        f"launches={n}; stored digits "
+        f"{[d['digit'] if d else None for d in stored]}, labels "
+        f"{labels.tolist()}")
+    assert len(outcomes) == len(images)
+    assert all(o.status == 200 for o in outcomes)
+    for i, doc in enumerate(stored):
+        assert doc["digit"] == plain_digits[i] or tie[i], (i, doc)
+    assert n == calls["n"] > 0, (n, calls)
+    launches += n
+
+    # the micro-batched app under a POST load, every request a canvas digit
+    pool, _ = mnist.canvas_digits(256, seed=43)
+    plain_digits, tie, _, _ = digit_predictions(torch, ops, ref, pipe, pool)
+    clock = Clock()
+    app = pipe.deploy(clock, AppConfig(**MICRO_BATCHED), seed=25)
+    calls = {"n": 0}
+    app.predict_fn = counting(app.predict_fn, calls)
+    sent = []
+
+    def issue(done):
+        sent.append(len(sent) % len(pool))
+        app.post_predict(pool[sent[-1]], done)
+
+    ops.reset_launch_counts()
+    rep = LoadGenerator(clock, issue, users=25, spawn_rate=3, duration=30.0,
+                        seed=25, kind="POST").run()
+    n = ops.launch_counts()["conv2d"]
+    log(f"digits app micro-batched {MICRO_BATCHED}: {rep.row()} "
+        f"per_status={rep.per_status}, predict calls={calls['n']}, conv2d "
+        f"launches={n}")
+    assert rep.total > 0 and rep.failure_pct < 5.0, rep
+    assert n == calls["n"] > 0, (n, calls)
+    answered = 0
+    for i, img in enumerate(sent):
+        doc = app.store.poll(f"req-{i + 1}")
+        if doc is not None:             # refused or timed-out requests
+            answered += 1
+            assert doc["digit"] == plain_digits[img] or tie[img], (i, doc)
+    assert answered > 0
+    launches += n
+    del pipe, app
+    torch.cuda.empty_cache()
+    return err, launches
+
+
 # ---------------------------------------------------------------- timing
 
 
@@ -667,9 +879,9 @@ def sdpa(torch, q, k, v, mask=None, causal=False):
 
 
 def kernel_times(torch, device, ops, ref):
-    """Phase 6, at the parity phase's main-path shapes, the attention
-    kernels in bfloat16 with window 0, ``rwkv6_scan`` in float32.  ->
-    {kernel: record}."""
+    """Phase 7, at the parity phase's main-path shapes, the attention
+    kernels in bfloat16 with window 0, ``rwkv6_scan`` and ``conv2d`` in
+    float32.  -> {kernel: record}."""
     gen = torch.Generator(device=device).manual_seed(2)
     dt = torch.bfloat16
     elt = 2
@@ -755,6 +967,24 @@ def kernel_times(torch, device, ops, ref):
             bytes=4 * (5 * r.numel() + u.numel() + 2 * s0.numel()),
             flops=(5 * hd * hd + 5 * hd) * b * h * s)
 
+    # the digit CNN's conv layer in float32 (the model's dtype) at the
+    # consumer's batches of 1 and 32 and evaluation's 2,000 test digits;
+    # bytes: x and w read, the output written (28x the input here);
+    # library: cuDNN on the NCHW / OIHW views, TF32 off (``main``)
+    import torch.nn.functional as F
+
+    for b in (1, 32, 2000):
+        x = torch.rand(b, 28, 28, 1, generator=gen, device=device)
+        w = torch.randn(3, 3, 1, 32, generator=gen, device=device)
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        out[f"conv2d_{b}"] = dict(
+            ms=time_ms(torch, lambda: ops.conv2d(x, w)),
+            plain_ms=time_ms(torch, lambda: ref.conv2d_ref(x, w)),
+            library_ms=time_ms(torch, lambda: F.conv2d(xn, wn)),
+            dtype="float32",
+            bytes=4 * (x.numel() + w.numel() + b * 26 * 26 * 32),
+            flops=2 * b * 26 * 26 * 3 * 3 * 32)
+
     for rec in out.values():
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = rec["flops"] / PEAK_FLOPS[rec.get("dtype", "bfloat16")] * 1e3
@@ -795,6 +1025,11 @@ def main() -> int:
 
     device = torch.device("cuda:0")
     torch.cuda.set_device(device)
+    # full float32 in products and convolutions: the plain versions run
+    # float32 matmuls (already the default), and cuDNN's convolution, timed
+    # as conv2d's yardstick, would otherwise run in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -836,7 +1071,7 @@ def main() -> int:
     cfg, model, params = serve.build_model(args)
     prompts = smoke_workload(cfg.vocab_size)
     sync = torch.cuda.synchronize
-    launches = {"flash_attention": 0, "paged_attention": 0,
+    launches = {"conv2d": 0, "flash_attention": 0, "paged_attention": 0,
                 "paged_prefill": 0, "rwkv6_scan": 0}
     for fusion in ("on", "off"):
         args.decode_fusion = fusion
@@ -923,7 +1158,10 @@ def main() -> int:
     launches["rwkv6_scan"] = rwkv6_phase(torch, device, ops, ref, serve,
                                          Model, write_slot, validate, sync)
 
-    # 6. times
+    # 6. the paper's digit pipeline
+    errs["conv2d"], launches["conv2d"] = digit_phase(torch, device, ops, ref)
+
+    # 7. times
     times = kernel_times(torch, device, ops, ref)
     for key, what in (("paged_prefill_s1", "paged_prefill bf16 at the "
                        "fused-decode shape (8 rows, S=1, 512 prefix keys)"),
@@ -968,6 +1206,21 @@ def main() -> int:
         "max_abs_err": errs["rwkv6_scan"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None})
+    for b in (1, 32, 2000):
+        t = times[f"conv2d_{b}"]
+        log(f"time conv2d float32 at B={b} (28x28x1 images, 32 filters of "
+            f"3x3): {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {t['bytes']} bytes read and written), "
+            f"plain {t['plain_ms']:.4f} ms, cudnn {t['library_ms']:.4f} ms "
+            "(TF32 off)")
+    t = times["conv2d_32"]              # the micro-batched consumer's batch
+    records.append({
+        "name": "conv2d", "route": "cuda",
+        "source": "src/repro_torch/csrc/conv2d.cu",
+        "replaces": "src/repro/kernels/conv2d.py:37",
+        "launches": launches["conv2d"], "max_abs_err": errs["conv2d"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,11 @@
 leaves (``jax.tree.map(np.asarray, Model(cfg).init(key))``) and returns
 the same tree — ``embed``, ``stack/periods/slot{j}`` with the leading
 ``n_periods`` axis, ``stack/rem/layer{j}``, ``final_norm`` — with torch
-tensors on ``device``.  bfloat16 leaves (numpy's ``bfloat16`` extension
+tensors on ``device``.  The digit CNN's tree is flat: ``conv_w`` (3,3,1,32)
+HWIO, ``conv_b``, ``dense1_w`` (5408,128) in the reference's (h, w, c)
+flatten order, ``dense1_b``, ``dense2_w``, ``dense2_b``
+(``jax.tree.map(np.asarray, init_params(cnn_schema(cfg), key,
+"float32"))``, or a trained ``StratusPipeline.params``).  bfloat16 leaves (numpy's ``bfloat16`` extension
 type) keep their bits and become ``torch.bfloat16``.  This module needs
 neither JAX nor the reference package; the tests that call it do.
 """

@@ -1,1 +1,1 @@
-"""Attention kernels: CUDA sources in ``csrc/``, their wrappers, plain versions and the device dispatch."""
+"""Attention, WKV6 and convolution kernels: CUDA sources in ``csrc/``, their wrappers, plain versions and the device dispatch."""

@@ -6,6 +6,7 @@ be built or launched; a CPU tensor goes to the plain version in
 """
 from __future__ import annotations
 
+from repro_torch.kernels import conv2d as _cv
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_prefill as _pp
@@ -52,14 +53,22 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     return fn(r, k, v, w, u, s0)
 
 
+def conv2d(x, w):
+    """Valid, stride-1 convolution: x (B,H,W,Cin) NHWC x w (KH,KW,Cin,Cout)
+    HWIO -> (B,H-KH+1,W-KW+1,Cout) in x's dtype, summed in float32."""
+    fn = _cv.conv2d if _on_cuda(x) else _ref.conv2d_ref
+    return fn(x, w)
+
+
 def launch_counts() -> dict:
     """Launches of each kernel since its count was last set to 0."""
-    return {"flash_attention": _fa.KERNEL.launches,
+    return {"conv2d": _cv.KERNEL.launches,
+            "flash_attention": _fa.KERNEL.launches,
             "paged_attention": _pa.KERNEL.launches,
             "paged_prefill": _pp.KERNEL.launches,
             "rwkv6_scan": _rw.KERNEL.launches}
 
 
 def reset_launch_counts() -> None:
-    for mod in (_fa, _pa, _pp, _rw):
+    for mod in (_cv, _fa, _pa, _pp, _rw):
         mod.KERNEL.launches = 0

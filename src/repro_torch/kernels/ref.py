@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels and the WKV6 scan.
+"""Plain PyTorch versions of the attention kernels, the WKV6 scan and the
+convolution.
 
 They define the semantics, copied from ``repro.kernels.ref``: the CUDA
 kernels are held to them on the card, and a CPU tensor is served by them
@@ -128,3 +129,25 @@ def rwkv6_scan_ref(r, k, v, w, u, s0=None):
                                  state + u32 * kv))
         state = w32[:, :, t, :, None] * state + kv
     return torch.stack(outs, dim=2).to(r.dtype), state
+
+
+def conv2d_ref(x, w):
+    """Valid, stride-1 convolution, x (B,H,W,Cin) NHWC x w (KH,KW,Cin,Cout)
+    HWIO -> (B,H-KH+1,W-KW+1,Cout) in x's dtype.
+
+    Written as the TPU kernel's tap decomposition: the float32 sum over
+    the KH*KW taps of shifted ``(B*H'*W', Cin) x (Cin, Cout)`` products,
+    cast to x.dtype once.  No ``F.conv2d``, so the plain version does not
+    depend on cuDNN or its TF32 default for float32.
+    """
+    b, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    ho, wo = h - kh + 1, wd - kw + 1
+    x32, w32 = x.float(), w.float()
+    acc = torch.zeros(b * ho * wo, cout, dtype=torch.float32,
+                      device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            tap = x32[:, i:i + ho, j:j + wo, :].reshape(b * ho * wo, cin)
+            acc = acc + tap @ w32[i, j]
+    return acc.reshape(b, ho, wo, cout).to(x.dtype)

@@ -1,7 +1,15 @@
-"""Continuous-batching LLM serving: fixed slots and a block-paged pool.
+"""The Stratus digit-serving pipeline, and continuous-batching LLM
+serving over fixed slots and a block-paged pool.
 
-The port of ``repro.serving.server``'s two engines for decoder-only
-attention stacks.  ``LLMEngine`` is the slot baseline: one whole-prompt
+``StratusApp`` is the port of the reference's paper pipeline (Fig. 1/2)
+under virtual time: client -> LoadBalancer (NGINX x3) -> Flask service
+time -> Broker (Kafka x3 partitions) -> consumer (the real model, its
+wall time charged to the clock) -> ResultStore (CouchDB) -> Flask poll.
+Outcomes follow the paper's failure modes: 429 when the balancer or
+Flask is saturated, 503 when a partition is full, 504 on a timeout.
+
+The rest is the port of ``repro.serving.server``'s two engines for
+decoder-only attention stacks.  ``LLMEngine`` is the slot baseline: one whole-prompt
 prefill per admission (``Model.prefill``, the ``flash_attention``
 kernel) or one decode step over every slot.  ``PagedLLMEngine`` is the
 production path, with the reference's scheduler, block accounting,
@@ -20,17 +28,193 @@ serial scheduler, the observability hooks, stacks with window layers
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import time
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.serving.balancer import LoadBalancer, Overloaded
+from repro_torch.serving.broker import Broker, PartitionFull
 from repro_torch.serving.kvcache import (BlockAllocator, SlotManager,
                                          copy_blocks, invalidate_blocks,
                                          scrub_null_block,
                                          write_chunk_tokens, write_slot)
 from repro_torch.serving.prefix_cache import MatchResult, PrefixCache
+from repro_torch.serving.sim import Clock, QueuedResource
+from repro_torch.serving.store import ResultStore
+
+
+# ---------------------------------------------------------------- Stratus
+
+
+@dataclasses.dataclass
+class AppConfig:
+    """Calibrated to the paper's testbed (two small Chameleon VMs): 3 NGINX
+    replicas serving a slow static bundle (~2.5 s), a single-message
+    consumer (the paper-faithful default, ``max_batch=1``) behind 3 Kafka
+    partitions.  The micro-batched configuration flips ``max_batch``/policy."""
+
+    # NGINX tier (GET path, paper §III.B)
+    nginx_replicas: int = 3
+    nginx_concurrency: int = 3         # worker_connections per replica
+    nginx_queue: int = 8               # listen backlog
+    balancer_policy: str = "round_robin"
+    static_service: float = 2.5        # paper: ~2.95 s GET at 10 users
+    reject_latency: float = 0.3        # paper: ~306 ms mean at 98% fail
+    # flask tier (POST path goes straight to Flask:30005 in the paper)
+    flask_concurrency: int = 8
+    flask_queue: int = 64
+    flask_service: float = 0.05
+    # kafka tier
+    partitions: int = 3
+    partition_depth: int = 256
+    # consumer tier
+    num_consumers: int = 1
+    poll_interval: float = 0.05
+    max_batch: int = 1                 # paper: one message at a time
+    batch_wait: float = 0.02
+    consume_base: float = 0.35         # per-call overhead (consumer job)
+    consume_jitter: float = 0.5        # +- fraction of consume_base
+    # client behaviour
+    poll_store_every: float = 0.25
+    client_timeout: float = 30.0
+
+
+@dataclasses.dataclass
+class Outcome:
+    ok: bool
+    status: int
+    latency: float
+    kind: str
+
+
+class StratusApp:
+    """The full pipeline under virtual time with real model execution.
+
+    ``predict_fn`` maps a stacked (B, 28, 28, 1) float32 numpy batch to
+    (B, 10) probabilities on the host; its wall time is charged to the
+    clock, so it must return only once the device has finished
+    (``StratusPipeline.predict_fn`` returns numpy through ``.cpu()``).
+    ``obs``: anything with a ``metrics`` registry (``obs/metrics.py``)."""
+
+    def __init__(self, clock: Clock,
+                 predict_fn: Callable[[np.ndarray], np.ndarray],
+                 cfg: AppConfig = AppConfig(), seed: int = 0, obs=None):
+        self.clock = clock
+        self.cfg = cfg
+        self.predict_fn = predict_fn
+        self.obs = obs
+        metrics = obs.metrics if obs is not None else None
+        self.balancer = LoadBalancer(cfg.nginx_replicas, cfg.nginx_concurrency,
+                                     cfg.nginx_queue, cfg.balancer_policy,
+                                     seed, metrics=metrics)
+        self._nginx = [QueuedResource(clock, cfg.nginx_concurrency,
+                                      cfg.nginx_queue, metrics=metrics,
+                                      name=f"nginx-{i}")
+                       for i in range(cfg.nginx_replicas)]
+        self._flask = QueuedResource(clock, cfg.flask_concurrency,
+                                     cfg.flask_queue, metrics=metrics,
+                                     name="flask")
+        self.broker = Broker(cfg.partitions, cfg.partition_depth, seed,
+                             metrics=metrics)
+        self.store = ResultStore()
+        self._rng = np.random.default_rng(seed)
+        self._req_id = 0
+        for c in range(cfg.num_consumers):
+            self._schedule_consumer(c)
+
+    # ------------------------------------------------------------ client
+    def get_page(self, done: Callable[[Outcome], None]) -> None:
+        """GET / — static page through an NGINX replica (paper §III.B).
+        The balancer policy picks the replica; the replica's worker pool +
+        listen backlog decide accept vs 429."""
+        t0 = self.clock.now
+        try:
+            replica = self.balancer.pick()
+        except Overloaded:
+            self.clock.schedule(self.cfg.reject_latency, lambda: done(
+                Outcome(False, 429, self.cfg.reject_latency, "GET")))
+            return
+        res = self._nginx[replica.rid]
+
+        def finish():
+            self.balancer.release(replica)
+            done(Outcome(True, 200, self.clock.now - t0, "GET"))
+
+        if not res.submit(self.cfg.static_service, finish):
+            self.balancer.release(replica)
+            self.clock.schedule(self.cfg.reject_latency, lambda: done(
+                Outcome(False, 429, self.cfg.reject_latency, "GET")))
+
+    def post_predict(self, image: np.ndarray,
+                     done: Callable[[Outcome], None]) -> None:
+        """POST /predict — straight to the Flask backend (port 30005 in the
+        paper; the front-end bypasses NGINX for API calls), then the Fig. 1
+        pipeline: Kafka -> consumer -> CouchDB -> poll.  Keys are
+        ``req-N`` in order of submission."""
+        t0 = self.clock.now
+        self._req_id += 1
+        key = f"req-{self._req_id}"
+
+        def after_flask():
+            try:
+                self.broker.produce({"key": key, "image": image},
+                                    timestamp=self.clock.now)
+            except PartitionFull:
+                done(Outcome(False, 503, self.clock.now - t0, "POST"))
+                return
+            poll_result()
+
+        def poll_result():
+            if self.clock.now - t0 > self.cfg.client_timeout:
+                done(Outcome(False, 504, self.clock.now - t0, "POST"))
+                return
+            doc = self.store.poll(key)
+            if doc is not None:
+                done(Outcome(True, 200, self.clock.now - t0, "POST"))
+            else:
+                self.clock.schedule(self.cfg.poll_store_every, poll_result)
+
+        if not self._flask.submit(self.cfg.flask_service, after_flask):
+            self.clock.schedule(self.cfg.reject_latency, lambda: done(
+                Outcome(False, 429, self.cfg.reject_latency, "POST")))
+
+    # ------------------------------------------------------------ consumer
+    def _schedule_consumer(self, cid: int) -> None:
+        self.clock.schedule(self.cfg.poll_interval,
+                            lambda: self._consume(cid))
+
+    def _consume(self, cid: int) -> None:
+        """One consumer pass: drain up to ``max_batch`` records per owned
+        partition, run the REAL model, write results, commit.  The next
+        poll is scheduled after the virtual busy time (real inference wall
+        time + per-call overhead with jitter)."""
+        cfg = self.cfg
+        busy = 0.0
+        for p in range(cfg.partitions):
+            if p % cfg.num_consumers != cid:
+                continue
+            records = self.broker.poll("stratus", p, cfg.max_batch)
+            if not records:
+                continue
+            images = np.stack([r.value["image"] for r in records])
+            t0 = time.perf_counter()
+            probs = np.asarray(self.predict_fn(images))
+            elapsed = time.perf_counter() - t0
+            for r, pr in zip(records, probs):
+                self.store.upsert_idempotent(
+                    r.value["key"],
+                    {"probs": pr, "digit": int(np.argmax(pr))})
+            self.broker.commit("stratus", p, records[-1].offset + 1)
+            jitter = 1.0 + cfg.consume_jitter * self._rng.uniform(-1, 1)
+            busy += cfg.consume_base * jitter + elapsed
+        self.clock.schedule(max(cfg.poll_interval, busy),
+                            lambda: self._consume(cid))
+
+
+# ---------------------------------------------------------------- LLM
 
 
 @dataclasses.dataclass

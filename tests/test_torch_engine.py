@@ -114,7 +114,7 @@ def test_engine_token_identical_to_reference(models, reference_runs,
         assert s["decode_fusion"] == int(fusion)
         assert s["decode_kernel"] == 0      # no kernel runs on the CPU
         assert eng.allocator.num_live == s["cached_blocks"]
-    assert ops.launch_counts() == {"flash_attention": 0,
+    assert ops.launch_counts() == {"conv2d": 0, "flash_attention": 0,
                                    "paged_attention": 0, "paged_prefill": 0,
                                    "rwkv6_scan": 0}
     assert runs[True] == ref_outs
