@@ -8,10 +8,11 @@ then runs seven phases, each raising on failure:
 
 1. device: the card's name and power limit, the kernels' build time;
 2. kernel parity: each kernel against its plain PyTorch version at the
-   serving paths' shapes (``paged_prefill`` at a chunk's and at the fused
-   decode dispatch's, ``flash_attention`` at the slot engine's
-   whole-prompt prefill) in bfloat16 and float32, ``rwkv6_scan`` at the
-   rwkv6 slot path's prefill and decode in float32;
+   serving paths' shapes (``paged_prefill`` at a chunk's, at the fused
+   decode dispatch's and at slot decode's, ``flash_attention`` at the
+   slot engine's whole-prompt prefill up to 2,048 tokens) in bfloat16 and
+   float32, ``rwkv6_scan`` at the rwkv6 slot path's prefill and decode in
+   float32;
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
    random weights): one ragged prefill dispatch and one decode step of
    the paged path, and two whole-prompt prefills and one decode step of
@@ -22,9 +23,10 @@ then runs seven phases, each raising on failure:
    (``paged_prefill``) and off (``paged_attention``), with a pool tight
    enough to preempt, and with the slot engine (``flash_attention`` for
    each admission, ``paged_prefill`` for decode); the launch counts show
-   each kernel ran; then at full width with 2 layers in float32 the
-   paged engine's two modes and the slot engine must emit identical
-   tokens;
+   each kernel ran; a profile of the paged engine lists device time by
+   kernel, the bf16 attention's combine pass included; then at full
+   width with 2 layers in float32 the paged engine's two modes and the
+   slot engine must emit identical tokens;
 5. rwkv6: with the qwen3 model freed, rwkv6-1.6b at its published
    width (24 layers, bfloat16, seeded random weights with the
    reference's zero-initialised leaves drawn too) through the serve
@@ -46,7 +48,8 @@ then runs seven phases, each raising on failure:
    forward pass;
 7. times: each kernel's time beside its bound, its plain version's and
    one PyTorch library call's where there is one (a yardstick only; the
-   port never calls it).
+   port never calls it); for the bf16 attention shapes the kernel's
+   ratio to SDPA and whether its key ranges were split.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -184,6 +187,21 @@ def prefill_case(torch, gen, device, dtype, b=4, s=256, h=16, kv=8, hd=128,
     return q.to(dtype), k.to(dtype), v.to(dtype), kpos, qpos
 
 
+def slot_decode_case(torch, gen, device, dtype, b=4, lanes=256, h=16, kv=8,
+                     hd=128):
+    """A slot-engine decode read: each slot's strip of ``lanes`` holds
+    positions 0..n-1 (n random, the new token's lane last), the rest -1;
+    one query lane per slot at position n-1."""
+    q = torch.randn(b, 1, h, hd, generator=gen, device=device)
+    k = torch.randn(b, lanes, kv, hd, generator=gen, device=device)
+    v = torch.randn(b, lanes, kv, hd, generator=gen, device=device)
+    n = torch.randint(1, lanes + 1, (b,), generator=gen, device=device)
+    lane = torch.arange(lanes, device=device)
+    kpos = torch.where(lane[None] < n[:, None], lane[None], -1).int()
+    qpos = (n - 1)[:, None].int()
+    return q.to(dtype), k.to(dtype), v.to(dtype), kpos, qpos
+
+
 def flash_case(torch, gen, device, dtype, b=1, h=16, kv=8, hd=128, sq=512,
                sk=None):
     """Whole-prompt operands as the slot prefill passes them: (B,S,heads,
@@ -239,9 +257,10 @@ def prefill_visible(torch, kpos, qpos, window):
 
 def kernel_parity(torch, device, ops, ref):
     """Phase 2: decode at the decode dispatch's shape; prefill at a chunk
-    shape (4 rows, S=256) and at the fused decode dispatch's (8 rows,
-    S=1); flash at one prompt row of 37 and 512 tokens (windows 0 and
-    64) and non-causal with 37 queries over 100 keys; the WKV6 scan at
+    shape (4 rows, S=256), at the fused decode dispatch's (8 rows, S=1)
+    and at slot decode's (4 slots of 256 lanes, S=1); flash at one prompt
+    row of 37 and 512 tokens (windows 0 and 64) and 2,048 tokens, and
+    non-causal with 37 queries over 100 keys; the WKV6 scan at
     rwkv6-1.6b's 32 heads: one prompt row of 37 and 200 tokens and a
     decode step over 4 slots, each also against the scan in float64.
     -> {kernel: max abs error over its bfloat16 cases (``rwkv6_scan``:
@@ -271,6 +290,7 @@ def kernel_parity(torch, device, ops, ref):
         for sq, sk, causal, window in ((37, 37, True, 0), (37, 37, True, 64),
                                        (512, 512, True, 0),
                                        (512, 512, True, 64),
+                                       (2048, 2048, True, 0),
                                        (37, 100, False, 0)):
             q, k, v = flash_case(torch, gen, device, dtype, sq=sq, sk=sk)
             out = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -300,8 +320,11 @@ def kernel_parity(torch, device, ops, ref):
             if dtype_name == "bfloat16":
                 errs["paged_attention"] = max(errs["paged_attention"], err)
 
-            for b, s in ((4, 256), (8, 1)):
-                args = prefill_case(torch, gen, device, dtype, b=b, s=s)
+            for b, s in ((4, 256), (8, 1), ("slot", 1)):
+                if b == "slot":
+                    b, args = 4, slot_decode_case(torch, gen, device, dtype)
+                else:
+                    args = prefill_case(torch, gen, device, dtype, b=b, s=s)
                 out = ops.paged_prefill(*args, window=window)
                 plain = ref.paged_prefill_ref(*args, window=window)
                 torch.cuda.synchronize()
@@ -314,7 +337,8 @@ def kernel_parity(torch, device, ops, ref):
                     out[lanes].float(), plain[lanes].float(),
                     **KERNEL_TOL["paged_prefill", dtype_name])
                 log(f"parity paged_prefill {dtype_name} {b} rows S={s} "
-                    f"window={window}: max_abs_err={err:.3e} "
+                    f"L={args[1].shape[1]} window={window}: "
+                    f"max_abs_err={err:.3e} "
                     f"({int(lanes.sum())} visible lanes)")
                 if dtype_name == "bfloat16":
                     errs["paged_prefill"] = max(errs["paged_prefill"], err)
@@ -882,10 +906,16 @@ def kernel_times(torch, device, ops, ref):
     """Phase 7, at the parity phase's main-path shapes, the attention
     kernels in bfloat16 with window 0, ``rwkv6_scan`` and ``conv2d`` in
     float32.  -> {kernel: record}."""
+    from repro_torch.kernels import attention_split
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import paged_prefill as pp_mod
+
     gen = torch.Generator(device=device).manual_seed(2)
     dt = torch.bfloat16
     elt = 2
+    sms = attention_split.sm_count(device)
     out = {}
+    split_fns = {}                  # key -> the kernel call, bf16 attention
 
     q, k, v, kp, bt, pos = decode_case(torch, gen, device, dt)
     b, h, hd = q.shape
@@ -918,38 +948,54 @@ def kernel_times(torch, device, ops, ref):
     flops = 4 * hd * h * int(vis.sum())
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = vis[:, None]
+    split_fns["paged_prefill"] = (lambda q=q, k=k, v=v, kpos=kpos, qpos=qpos:
+                                  ops.paged_prefill(q, k, v, kpos, qpos))
     out["paged_prefill"] = dict(
-        ms=time_ms(torch, lambda: ops.paged_prefill(q, k, v, kpos, qpos)),
+        ms=time_ms(torch, split_fns["paged_prefill"]),
         plain_ms=time_ms(torch, lambda: ref.paged_prefill_ref(
             q, k, v, kpos, qpos)),
         library_ms=time_ms(torch, lambda: sdpa(torch, qt, kt, vt, mask)),
-        bytes=nbytes, flops=flops)
+        bytes=nbytes, flops=flops,
+        split=pp_mod.plan(b, s, k.shape[1], h, kv, sms).split)
 
-    # the fused decode dispatch's shape: one query lane per row
-    q, k, v, kpos, qpos = prefill_case(torch, gen, device, dt, b=8, s=1)
-    vis = prefill_visible(torch, kpos, qpos, 0)
-    nbytes = (2 * q.numel() * elt + kpos.numel() * 4 + qpos.numel() * 4
-              + int(vis.any(1).sum()) * 2 * kv * hd * elt)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    out["paged_prefill_s1"] = dict(
-        ms=time_ms(torch, lambda: ops.paged_prefill(q, k, v, kpos, qpos)),
-        plain_ms=time_ms(torch, lambda: ref.paged_prefill_ref(
-            q, k, v, kpos, qpos)),
-        library_ms=time_ms(torch, lambda: sdpa(torch, qt, kt, vt,
-                                               vis[:, None])),
-        bytes=nbytes, flops=4 * hd * h * int(vis.sum()))
+    # one query lane per row: the fused decode dispatch (8 rows, 512
+    # prefix lanes) and slot decode (4 slots of 256 lanes)
+    for key, args in (
+            ("paged_prefill_s1",
+             prefill_case(torch, gen, device, dt, b=8, s=1)),
+            ("paged_prefill_slot",
+             slot_decode_case(torch, gen, device, dt))):
+        q, k, v, kpos, qpos = args
+        vis = prefill_visible(torch, kpos, qpos, 0)
+        nbytes = (2 * q.numel() * elt + kpos.numel() * 4 + qpos.numel() * 4
+                  + int(vis.any(1).sum()) * 2 * kv * hd * elt)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        split_fns[key] = (lambda q=q, k=k, v=v, kpos=kpos, qpos=qpos:
+                          ops.paged_prefill(q, k, v, kpos, qpos))
+        out[key] = dict(
+            ms=time_ms(torch, split_fns[key]),
+            plain_ms=time_ms(torch, lambda: ref.paged_prefill_ref(
+                q, k, v, kpos, qpos)),
+            library_ms=time_ms(torch, lambda: sdpa(torch, qt, kt, vt,
+                                                   vis[:, None])),
+            bytes=nbytes, flops=4 * hd * h * int(vis.sum()),
+            split=pp_mod.plan(q.shape[0], 1, k.shape[1], h, kv, sms).split)
 
     # the slot engine's whole-prompt prefill: one row, causal, window 0
     for s in (512, 2048):
         q, k, v = flash_case(torch, gen, device, dt, sq=s)
         b, h, _, hd = q.shape
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
-        out[f"flash_attention_{s}"] = dict(
-            ms=time_ms(torch, lambda: ops.flash_attention(q, k, v)),
+        key = f"flash_attention_{s}"
+        split_fns[key] = (lambda q=q, k=k, v=v:
+                          ops.flash_attention(q, k, v))
+        out[key] = dict(
+            ms=time_ms(torch, split_fns[key]),
             plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v)),
             library_ms=time_ms(torch, lambda: sdpa(torch, q, k, v,
                                                    causal=True)),
-            bytes=nbytes, flops=4 * hd * h * b * (s * (s + 1) // 2))
+            bytes=nbytes, flops=4 * hd * h * b * (s * (s + 1) // 2),
+            split=fa_mod.plan(b, h, k.shape[1], s, s, True, 0, sms).split)
 
     # the rwkv6 slot path: a prompt row of S=200 and a decode step over 4
     # slots, float32; bytes: r, k, v, w read and out written (B,H,S,hd), u,
@@ -984,6 +1030,16 @@ def kernel_times(torch, device, ops, ref):
             dtype="float32",
             bytes=4 * (x.numel() + w.numel() + b * 26 * 26 * 32),
             flops=2 * b * 26 * 26 * 3 * 3 * 32)
+
+    # the bf16 attention shapes whose key ranges the planner split, timed
+    # again with every query tile's range whole (one piece, no combine)
+    whole = mock.patch.object(attention_split, "plan", lambda ranges, c, n:
+                              attention_split.Plan(1 << 30,
+                                                   (1,) * len(ranges)))
+    for key, fn in split_fns.items():
+        if out[key]["split"]:
+            with whole:
+                out[key]["whole_ms"] = time_ms(torch, fn)
 
     for rec in out.values():
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1133,6 +1189,10 @@ def main() -> int:
         f"({100 * ours / max(busy, 1e-9):.1f}% of busy)")
     for us, n, key in rows[:10]:
         log(f"  {us / 1e3:9.2f} ms {n:6d}x  {key[:90]}")
+    combine = [r for r in rows if "combine" in r[2]]
+    assert combine, "the split decode steps must run the combine pass"
+    for us, n, key in combine:
+        log(f"  combine pass: {us / 1e3:.2f} ms {n}x  {key[:90]}")
 
     small_model = Model(small, device=device)
     small_params = small_model.init(seed=args.seed)
@@ -1163,14 +1223,29 @@ def main() -> int:
 
     # 7. times
     times = kernel_times(torch, device, ops, ref)
-    for key, what in (("paged_prefill_s1", "paged_prefill bf16 at the "
-                       "fused-decode shape (8 rows, S=1, 512 prefix keys)"),
-                      ("flash_attention_2048", "flash_attention bf16 at one "
-                       "causal row of S=2048")):
+    for name, key, what in (
+            ("flash_attention", "flash_attention_512",
+             "one causal row of S=512"),
+            ("flash_attention", "flash_attention_2048",
+             "one causal row of S=2048"),
+            ("paged_prefill", "paged_prefill",
+             "a chunk (4 rows, S=256, 512 prefix lanes)"),
+            ("paged_prefill", "paged_prefill_s1",
+             "fused decode (8 rows, S=1, 512 prefix lanes)"),
+            ("paged_prefill", "paged_prefill_slot",
+             "slot decode (4 slots, S=1, 256 lanes)"),
+            ("paged_attention", "paged_attention",
+             "paged decode (8 rows, 32 blocks of 16)")):
         t = times[key]
-        log(f"time {what}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
-            f"sdpa {t['library_ms']:.4f} ms")
+        split = (f", key ranges split={t['split']}" if "split" in t
+                 else "")
+        if "whole_ms" in t:
+            split += f" (whole ranges: {t['whole_ms']:.4f} ms)"
+        log(f"time {name} bf16 "
+            f"at {what}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, sdpa "
+            f"{t['library_ms']:.4f} ms, kernel / sdpa "
+            f"{t['ms'] / t['library_ms']:.2f}{split}")
     records = []
     for name, key, replaces in (
             ("flash_attention", "flash_attention_512",
@@ -1180,9 +1255,6 @@ def main() -> int:
             ("paged_prefill", "paged_prefill",
              "src/repro/kernels/ops.py:87")):
         t = times[key]
-        log(f"time {key} bf16: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
-            f"ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
-            f"sdpa {t['library_ms']:.4f} ms")
         records.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",

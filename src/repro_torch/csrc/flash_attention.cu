@@ -15,19 +15,34 @@
 // up. One row's causal prefill reads q, k, v once and writes out once
 // (bytes ~ S), but does 4 * hd flops per visible (query head, key)
 // (flops ~ S^2 / 2), past the ~295 flops per byte line from a few
-// hundred tokens on.
+// hundred tokens on: the tensor cores' rate decides.
 //
-// Design: one CTA per (batch row, KV head, tile of TQ queries) serves
-// the R = TQ * g query vectors of that head group, so each K/V tile is
-// read once per group and query tile. The TPU kernel's sequential
-// key-block grid axis becomes a loop inside the CTA: it walks only the
-// key range some query of the tile can see (causal: keys <= the tile's
-// last query; window: keys past the tile's first query minus the
-// window), so fully masked tiles are never read, and keys past Sk are
-// cut by the loop bound rather than padded. Each tile of TK keys is
-// staged in shared memory as float32 and folded into a float32 online
-// softmax (attention_tile.cuh); the key positions are the key indices,
-// the query positions the query indices.
+// Design, bfloat16 (attention_mma.cuh): one CTA of 4 warps per (batch
+// row, KV head, tile of TQ = 64 / g queries, piece of its key range)
+// serves the R = TQ * g query vectors of that head group, so each K/V
+// tile is read once per group and query tile. The TPU kernel's
+// sequential key-block grid axis becomes a loop inside the CTA over
+// 64-key tiles in bf16 shared memory, each copy (cp.async) overlapping
+// the other operand's math; Q.K^T and P.V run on mma.sync.m16n8k16 with
+// float32 sums in registers and the online softmax stays in registers. P goes into P.V as a bf16
+// hi + lo pair (two products): rounded once to bf16 it would move
+// outputs past the 2e-3 limit against the float32 plain version. The
+// CTA walks only the key range some query of the tile can see (causal:
+// keys <= the tile's last query; window: keys past the tile's first
+// query minus the window), so fully masked tiles are never read, and
+// keys past Sk are zero-filled, not read. Query tiles are launched
+// heaviest first (the last causal tile has the longest range); where
+// the grid would leave SMs idle or one range is several times the mean,
+// the wrapper's planner (kernels/attention_split.py) cuts the ranges
+// into pieces of whole tiles and a combine pass merges them.
+//
+// float32 keeps the CUDA-core tile below (attention_tile.cuh): on the
+// tensor cores float32 means TF32, ~3 decimal digits, which breaks the
+// 1e-4 float32 limits the 2-layer token-identity checks rest on. Each
+// tile of TK keys is staged in shared memory as float32 and folded into
+// a float32 online softmax; the key positions are the key indices, the
+// query positions the query indices.
+#include "attention_mma.cuh"
 #include "attention_tile.cuh"
 
 namespace repro_torch {
@@ -131,31 +146,106 @@ static int launch_causal(int causal, const void* q, const void* k,
                           scale, stream);
 }
 
+// ------------------------------------------------------------ bfloat16
+
+template <int HD, bool kCausal>
+__global__ void __launch_bounds__(mma::kThreads)
+    flash_attention_mma_kernel(const mma::Params p) {
+  mma::attend_piece<HD, false, kCausal, true, false>(p);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(mma::kCombineThreads)
+    flash_attention_combine_kernel(const mma::Params p) {
+  mma::combine_pieces<HD, false>(p);
+}
+
+template <int HD, bool kCausal>
+static int launch_mma(const mma::Params& p, cudaStream_t stream) {
+  const size_t smem = mma::smem_bytes(HD);
+  static unsigned long long allowed = 0;   // a bit per device
+  cudaError_t err = mma::allow_smem(flash_attention_mma_kernel<HD, kCausal>,
+                                    smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_mma_kernel<HD, kCausal>
+      <<<p.n_pieces * p.B * p.KV, mma::kThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  int lo, hi;
+  mma::split_tiles<false>(p, lo, hi);
+  if (err != cudaSuccess || lo == hi) return (int)err;
+  mma::Params pc = p;
+  pc.combine_lo = lo;
+  flash_attention_combine_kernel<HD>
+      <<<dim3((hi - lo) * mma::combine_blocks(HD), p.B * p.KV),
+         mma::kCombineThreads, 0, stream>>>(pc);
+  return (int)cudaGetLastError();
+}
+
+template <bool kCausal>
+static int launch_mma_hd(int hd, const mma::Params& p, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_mma<16, kCausal>(p, stream);
+    case 32: return launch_mma<32, kCausal>(p, stream);
+    case 64: return launch_mma<64, kCausal>(p, stream);
+    case 128: return launch_mma<128, kCausal>(p, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace repro_torch
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, (b, head,
-// seq) of q, k, v and out in that order. TQ: queries per CTA. Returns a
-// cudaError_t (0 = launched).
+// seq) of q, k, v and out in that order. TQ: queries per CTA. bfloat16
+// only: tiles_per_piece and n_pieces from the wrapper's planner (n_pieces
+// = the query tiles' piece counts summed; equal to ceil(Sq / TQ) when no
+// range is split), part_acc (float32, B*KV*n_pieces*TQ*(H/KV)*hd) and
+// part_ml (float32 pairs, B*KV*n_pieces*TQ*(H/KV)) scratch when split.
+// Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(int dtype, int causal, const void* q,
                                       const void* k, const void* v,
                                       void* out, const long long* strides,
                                       int B, int H, int KV, int Sq, int Sk,
                                       int hd, int TQ, int window, float scale,
+                                      int tiles_per_piece, int n_pieces,
+                                      void* part_acc, void* part_ml,
                                       void* stream) {
+  using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro_torch::launch_causal<float>(causal, q, k, v, out, strides, B,
-                                             H, KV, Sq, Sk, hd, TQ, window,
-                                             scale, s);
-  if (dtype == 1)
-    return repro_torch::launch_causal<__nv_bfloat16>(
-        causal, q, k, v, out, strides, B, H, KV, Sq, Sk, hd, TQ, window,
-        scale, s);
-  return (int)cudaErrorInvalidValue;
+    return launch_causal<float>(causal, q, k, v, out, strides, B, H, KV, Sq,
+                                Sk, hd, TQ, window, scale, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  mma::Params p{};
+  p.q = static_cast<const mma::bf16*>(q);
+  p.k = static_cast<const mma::bf16*>(k);
+  p.v = static_cast<const mma::bf16*>(v);
+  p.out = static_cast<mma::bf16*>(out);
+  p.qs = {strides[0], strides[1], strides[2]};
+  p.ks = {strides[3], strides[4], strides[5]};
+  p.vs = {strides[6], strides[7], strides[8]};
+  p.os = {strides[9], strides[10], strides[11]};
+  p.B = B;
+  p.KV = KV;
+  p.g = H / KV;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.TQ = TQ;
+  p.window = window;
+  p.causal = causal;
+  p.n_qtiles = (Sq + TQ - 1) / TQ;
+  p.C = tiles_per_piece;
+  p.n_pieces = n_pieces;
+  p.scale_log2 = scale * mma::kLog2e;
+  p.part_acc = static_cast<float*>(part_acc);
+  p.part_ml = static_cast<float2*>(part_ml);
+  return causal ? launch_mma_hd<true>(hd, p, s)
+                : launch_mma_hd<false>(hd, p, s);
 }
 
 // Shared memory a launch needs, so the wrapper can refuse shapes the card
 // cannot hold before launching.
-extern "C" size_t flash_attention_smem_bytes(int H, int KV, int hd, int TQ) {
+extern "C" size_t flash_attention_smem_bytes(int dtype, int H, int KV, int hd,
+                                             int TQ) {
+  if (dtype == 1) return repro_torch::mma::smem_bytes(hd);
   return repro_torch::tile_smem_bytes(TQ * (H / KV), repro_torch::kTK, hd);
 }

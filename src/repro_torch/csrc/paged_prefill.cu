@@ -1,5 +1,6 @@
 // Ragged chunked-prefill attention: the attention of every default
-// serving-engine step.
+// serving-engine step, and of every slot-engine decode step (one query
+// lane).
 //
 // Replaces repro/kernels/ops.py paged_prefill, which has no Pallas kernel
 // (both of its arms run the reference). Semantics:
@@ -16,16 +17,33 @@
 // under the ~295 flops per byte line until chunks reach a few hundred
 // tokens.
 //
-// Design: one CTA per (row, KV head, tile of TQ query lanes) serves the
-// R = TQ * g query vectors of that head group, so each key is read once
-// per group and tile. The CTA walks key tiles of TK keys: per tile it
-// reads the kpos lanes and skips the tile when no key can be visible to
-// any of its queries (null-block padding of the gathered prefix, keys
-// past the tile's last query), else stages K and V in shared memory as
-// float32 and folds them into a float32 online softmax
-// (attention_tile.cuh). Query lanes with no visible key write zeros,
-// where the reference writes the uniform average of all keys; the engine
-// discards those lanes (padding lanes and padding rows).
+// Design, bfloat16 (attention_mma.cuh): one CTA of 4 warps per (row, KV
+// head, tile of TQ = 64 / g query lanes, piece of the key lanes) serves
+// the R = TQ * g query vectors of that head group, so each key is read
+// once per group and tile. The CTA walks 64-key tiles in bf16 shared
+// memory, each copy (cp.async) overlapping the other operand's math,
+// Q.K^T and P.V on mma.sync.m16n8k16 with float32 sums and the online
+// softmax in registers; P goes into P.V rounded to bf16, as the plain version
+// rounds its probabilities. Tiles no query of the CTA can see (null-block
+// padding of the gathered prefix, keys past the tile's last query) are
+// skipped before they are loaded, from a ballot over their kpos lanes.
+// With 16 rows or fewer (S = 1: fused decode, slot decode) the four
+// warps take different 16-key slices of each tile and merge at the end.
+// Small grids (8 rows x 8 KV heads at fused decode, 4 slots x 8 at slot
+// decode) leave most of the 132 SMs idle, so the wrapper's planner
+// (kernels/attention_split.py) cuts the key lanes into pieces of whole
+// tiles, each a CTA, and a combine pass merges them by log-sum-exp.
+//
+// float32 keeps the CUDA-core tile below (attention_tile.cuh): on the
+// tensor cores float32 means TF32, ~3 decimal digits, which breaks the
+// 1e-4 float32 limits the 2-layer token-identity checks rest on. It
+// stages each tile of TK keys in shared memory as float32 and folds it
+// into a float32 online softmax.
+//
+// Query lanes with no visible key write zeros, where the reference
+// writes the uniform average of all keys; the engine discards those
+// lanes (padding lanes and padding rows).
+#include "attention_mma.cuh"
 #include "attention_tile.cuh"
 
 namespace repro_torch {
@@ -123,26 +141,106 @@ static int launch(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ bfloat16
+
+template <int HD, bool kWarpKeys>
+__global__ void __launch_bounds__(mma::kThreads)
+    paged_prefill_mma_kernel(const mma::Params p) {
+  mma::attend_piece<HD, true, true, false, kWarpKeys>(p);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(mma::kCombineThreads)
+    paged_prefill_combine_kernel(const mma::Params p) {
+  mma::combine_pieces<HD, true>(p);
+}
+
+template <int HD, bool kWarpKeys>
+static int launch_mma(const mma::Params& p, cudaStream_t stream) {
+  const size_t smem = mma::smem_bytes(HD);
+  static unsigned long long allowed = 0;   // a bit per device
+  cudaError_t err = mma::allow_smem(paged_prefill_mma_kernel<HD, kWarpKeys>,
+                                    smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  paged_prefill_mma_kernel<HD, kWarpKeys>
+      <<<p.n_pieces * p.B * p.KV, mma::kThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  int lo, hi;
+  mma::split_tiles<true>(p, lo, hi);
+  if (err != cudaSuccess || lo == hi) return (int)err;
+  mma::Params pc = p;
+  pc.combine_lo = lo;
+  paged_prefill_combine_kernel<HD>
+      <<<dim3((hi - lo) * mma::combine_blocks(HD), p.B * p.KV),
+         mma::kCombineThreads, 0, stream>>>(pc);
+  return (int)cudaGetLastError();
+}
+
+template <bool kWarpKeys>
+static int launch_mma_hd(int hd, const mma::Params& p, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_mma<16, kWarpKeys>(p, stream);
+    case 32: return launch_mma<32, kWarpKeys>(p, stream);
+    case 64: return launch_mma<64, kWarpKeys>(p, stream);
+    case 128: return launch_mma<128, kWarpKeys>(p, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16. TQ: query lanes per CTA. Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. TQ: query lanes per CTA. bfloat16
+// only: tiles_per_piece and n_pieces from the wrapper's planner (n_pieces
+// = the query tiles' piece counts summed; equal to ceil(S / TQ) when no
+// range is split), part_acc (float32, B*KV*n_pieces*TQ*(H/KV)*hd) and
+// part_ml (float32 pairs, B*KV*n_pieces*TQ*(H/KV)) scratch when split.
+// Returns a cudaError_t (0 = launched).
 extern "C" int paged_prefill_launch(int dtype, const void* q, const void* k,
                                     const void* v, const void* kpos,
                                     const void* qpos, void* out, int B, int S,
                                     int L, int H, int KV, int hd, int TQ,
-                                    int window, float scale, void* stream) {
+                                    int window, float scale,
+                                    int tiles_per_piece, int n_pieces,
+                                    void* part_acc, void* part_ml,
+                                    void* stream) {
+  using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro_torch::launch<float>(q, k, v, kpos, qpos, out, B, S, L, H,
-                                      KV, hd, TQ, window, scale, s);
-  if (dtype == 1)
-    return repro_torch::launch<__nv_bfloat16>(q, k, v, kpos, qpos, out, B, S,
-                                              L, H, KV, hd, TQ, window, scale,
-                                              s);
-  return (int)cudaErrorInvalidValue;
+    return launch<float>(q, k, v, kpos, qpos, out, B, S, L, H, KV, hd, TQ,
+                         window, scale, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  mma::Params p{};
+  p.q = static_cast<const mma::bf16*>(q);
+  p.k = static_cast<const mma::bf16*>(k);
+  p.v = static_cast<const mma::bf16*>(v);
+  p.out = static_cast<mma::bf16*>(out);
+  // (B, S, H, hd) and (B, L, KV, hd), dense
+  p.qs = {(long long)S * H * hd, hd, (long long)H * hd};
+  p.os = p.qs;
+  p.ks = {(long long)L * KV * hd, hd, (long long)KV * hd};
+  p.vs = p.ks;
+  p.kpos = static_cast<const int*>(kpos);
+  p.qpos = static_cast<const int*>(qpos);
+  p.B = B;
+  p.KV = KV;
+  p.g = H / KV;
+  p.Sq = S;
+  p.Sk = L;
+  p.TQ = TQ;
+  p.window = window;
+  p.causal = 1;
+  p.n_qtiles = (S + TQ - 1) / TQ;
+  p.C = tiles_per_piece;
+  p.n_pieces = n_pieces;
+  p.scale_log2 = scale * mma::kLog2e;
+  p.part_acc = static_cast<float*>(part_acc);
+  p.part_ml = static_cast<float2*>(part_ml);
+  return TQ * p.g <= 16 ? launch_mma_hd<true>(hd, p, s)
+                        : launch_mma_hd<false>(hd, p, s);
 }
 
-extern "C" size_t paged_prefill_smem_bytes(int H, int KV, int hd, int TQ) {
+extern "C" size_t paged_prefill_smem_bytes(int dtype, int H, int KV, int hd,
+                                           int TQ) {
+  if (dtype == 1) return repro_torch::mma::smem_bytes(hd);
   return repro_torch::tile_smem_bytes(TQ * (H / KV), repro_torch::kTK, hd);
 }

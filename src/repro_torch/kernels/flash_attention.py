@@ -11,11 +11,17 @@ Bound on an H100: operations from a few hundred prompt tokens on (a
 causal prefill does 4 * hd flops per visible (query head, key), ~S^2/2
 keys, against ~S bytes read); bytes below that.
 
-Design: one CTA per (batch row, KV head, tile of query positions) serves
-the head group's H / KV query heads, so a K/V tile is read once per
-group; the CTA walks only the key range its queries can see, stages
-each tile in shared memory as float32 and accumulates a float32 online
-softmax.  Operands are read through element strides, so the model's
+Design: one CTA per (batch row, KV head, tile of query positions, piece
+of its key range) serves the head group's H / KV query heads, so a K/V
+tile is read once per group, and walks only the keys its queries can
+see.  bfloat16 runs on the tensor cores (``csrc/attention_mma.cuh``:
+mma.sync with float32 sums, K/V tiles of 64 keys copied into
+shared memory, the online softmax in registers), heaviest query tiles
+first, key ranges split by ``attention_split.plan`` where the grid
+would leave SMs idle; head_dim 16, 32, 64 or 128, 16-byte aligned
+operands, strides a multiple of 8 elements, or it raises.  float32 keeps
+the CUDA-core tile (``attention_tile.cuh``): on the tensor cores float32
+means TF32.  Operands are read through element strides, so the model's
 ``(B,S,H,hd) -> (B,H,S,hd)`` transposed views go in without copies, and
 the output takes q's layout.  Queries that see no key (only when
 ``Sq > Sk`` with a window) come out 0, where the plain version averages
@@ -28,20 +34,22 @@ import math
 
 import torch
 
+from repro_torch.kernels import attention_split as split
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.paged_attention import DTYPE_CODE, MAX_SMEM
 
 ROWS_PER_CTA = 64   # query vectors (positions x group heads) per CTA: at
                     # qwen3-0.6b's group of 2, 32 positions, so a 512-token
-                    # prompt gives 16 x 8 KV heads = 128 CTAs, one wave
+                    # prompt gives 16 x 8 KV heads = 128 CTAs, split
+                    # further by the planner
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention_launch",
     [_I, _I, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _I, _I, _I,
-     _I, _I, _I, _I, _I, ctypes.c_float, _P],
-    "flash_attention_smem_bytes", [_I, _I, _I, _I])
+     _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P],
+    "flash_attention_smem_bytes", [_I, _I, _I, _I, _I])
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -73,7 +81,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check(t.stride(-1) == 1, f"{name} must have head_dim contiguous")
     tq = min(ROWS_PER_CTA // (h // kv), sq)
-    smem = KERNEL.smem_bytes(h, kv, hd, tq)
+    tiles_per_piece = n_pieces = 0      # float32: never split
+    scratch = ()
+    if q.dtype == torch.bfloat16:
+        split.check_mma_operands(_check, hd, q=q, k=k, v=v, out=out)
+        pl = plan(b, h, kv, sq, sk, causal, window, split.sm_count(dev))
+        tiles_per_piece, n_pieces = pl.tiles_per_piece, pl.n_pieces
+        scratch = split.scratch(pl, b * kv, tq * (h // kv), hd, dev)
+    smem = KERNEL.smem_bytes(DTYPE_CODE[q.dtype], h, kv, hd, tq)
     _check(smem <= MAX_SMEM, f"needs {smem} bytes of shared memory")
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
@@ -82,5 +97,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         KERNEL.launch(DTYPE_CODE[q.dtype], int(bool(causal)), q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
                       b, h, kv, sq, sk, hd, tq, int(window),
-                      1.0 / math.sqrt(hd), stream)
+                      1.0 / math.sqrt(hd), tiles_per_piece, n_pieces,
+                      *split.pointers(scratch), stream)
     return out
+
+
+def plan(b, h, kv, sq, sk, causal, window, sms) -> split.Plan:
+    """The key-range split of a bf16 launch on a card of ``sms`` SMs."""
+    tq = min(ROWS_PER_CTA // (h // kv), sq)
+    return split.plan(split.flash_key_ranges(sq, sk, tq, causal, window),
+                      b * kv, sms)

@@ -10,11 +10,18 @@ Bound on an H100: bytes at decode and small-chunk sizes (q, k, v and
 the positions read once, the output written once, over 3.35 TB/s); a
 chunk of a few hundred tokens per row crosses into the operation bound.
 
-Design: one CTA per (row, KV head, tile of query lanes) serves that
-head group's query vectors, walks key tiles with a float32 online
-softmax, and skips tiles no query of the tile can see (null-block
-padding, future keys).  Query lanes with no visible key come out 0,
-where the plain version averages every key; the engine discards such
+Design: one CTA per (row, KV head, tile of query lanes, piece of the key
+lanes) serves that head group's query vectors, walks key tiles with an
+online softmax, and skips tiles no query of the tile can see (null-block
+padding, future keys).  bfloat16 runs on the tensor cores
+(``csrc/attention_mma.cuh``: mma.sync with float32 sums, 64-key K/V tiles
+in shared memory, the softmax in registers; with 16 rows
+or fewer the four warps split each tile's keys); the key lanes are split
+by ``attention_split.plan`` where the grid would leave SMs idle (decode
+steps: 8 rows x 8 KV heads, or 4 slots x 8); head_dim 16, 32, 64 or 128
+and 16-byte aligned operands, or it raises.  float32 keeps the CUDA-core
+tile (``attention_tile.cuh``).  Query lanes with no visible key come out
+0, where the plain version averages every key; the engine discards such
 lanes (padding), so comparisons hold valid lanes only.
 """
 from __future__ import annotations
@@ -24,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import attention_split as split
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.paged_attention import DTYPE_CODE, MAX_SMEM
 
@@ -34,8 +42,8 @@ _I = ctypes.c_int
 KERNEL = CudaKernel(
     "paged_prefill", "paged_prefill_launch",
     [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, _P],
-    "paged_prefill_smem_bytes", [_I, _I, _I, _I])
+     ctypes.c_float, _I, _I, _P, _P, _P],
+    "paged_prefill_smem_bytes", [_I, _I, _I, _I, _I])
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -71,13 +79,27 @@ def paged_prefill(q, k, v, kpos, qpos, *, window: int = 0):
     # query lanes per CTA: up to ROWS_PER_CTA query vectors, never more
     # lanes than the chunk has (fused decode rows are S = 1)
     tq = min(ROWS_PER_CTA // (h // kv), s)
-    smem = KERNEL.smem_bytes(h, kv, hd, tq)
-    _check(smem <= MAX_SMEM, f"needs {smem} bytes of shared memory")
     out = torch.empty_like(q)
+    tiles_per_piece = n_pieces = 0      # float32: never split
+    scratch = ()
+    if q.dtype == torch.bfloat16:
+        split.check_mma_operands(_check, hd, q=q, k=k, v=v, out=out)
+        pl = plan(b, s, l, h, kv, split.sm_count(dev))
+        tiles_per_piece, n_pieces = pl.tiles_per_piece, pl.n_pieces
+        scratch = split.scratch(pl, b * kv, tq * (h // kv), hd, dev)
+    smem = KERNEL.smem_bytes(DTYPE_CODE[q.dtype], h, kv, hd, tq)
+    _check(smem <= MAX_SMEM, f"needs {smem} bytes of shared memory")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         KERNEL.launch(DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), kpos.data_ptr(), qpos.data_ptr(),
                       out.data_ptr(), b, s, l, h, kv, hd, tq, int(window),
-                      1.0 / math.sqrt(hd), stream)
+                      1.0 / math.sqrt(hd), tiles_per_piece, n_pieces,
+                      *split.pointers(scratch), stream)
     return out
+
+
+def plan(b, s, l, h, kv, sms) -> split.Plan:
+    """The key-range split of a bf16 launch on a card of ``sms`` SMs."""
+    tq = min(ROWS_PER_CTA // (h // kv), s)
+    return split.plan(split.paged_key_ranges(s, l, tq), b * kv, sms)

@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the attention kernels, the WKV6 scan and the
-convolution.
+"""Plain PyTorch versions of the attention kernels (and of the split-key
+combine pass of their bf16 tile), the WKV6 scan and the convolution.
 
-They define the semantics, copied from ``repro.kernels.ref``: the CUDA
-kernels are held to them on the card, and a CPU tensor is served by them
-(``kernels/ops.py``).
+The kernels' plain versions define their semantics, copied from
+``repro.kernels.ref``: the CUDA kernels are held to them on the card,
+and a CPU tensor is served by them (``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import math
 import torch
 
 NEG_INF = -2.0 ** 30
+LOG2E = 1.4426950408889634
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
@@ -105,6 +106,35 @@ def paged_prefill_ref(q, k, v, kpos, qpos, *, window: int = 0):
     z = torch.sum(e, -1, keepdim=True)
     probs = (e / torch.clamp(z, min=1e-30)).to(v.dtype)
     return torch.einsum("bhqs,bshd->bqhd", probs, v)
+
+
+def attention_partial_ref(q, k, v, visible, scale):
+    """One key piece's partial softmax state, as the bf16 attention
+    kernels write it when a query tile's keys are split: q (..., Sq, hd),
+    k/v (..., Sk, hd) (the piece's keys), visible (..., Sq, Sk) bool ->
+    (m (..., Sq), l (..., Sq), acc (..., Sq, hd)), float32, in base 2: m
+    the largest visible score times ``scale * log2(e)`` (NEG_INF where the
+    row sees no key of the piece), l the sum of ``2 ** (s - m)`` over the
+    visible keys, acc the same weights times the values (unnormalised).
+    """
+    if k.shape[-2] == 0:                # a piece of an empty key range
+        m = torch.full(q.shape[:-1], NEG_INF, device=q.device)
+        return m, torch.zeros_like(m), torch.zeros(q.shape,
+                                                   device=q.device)
+    s = (q.float() @ k.float().transpose(-1, -2)) * (scale * LOG2E)
+    s = torch.where(visible, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.where(visible, torch.exp2(s - m[..., None]), 0.0)
+    return m, p.sum(-1), p @ v.float()
+
+
+def attention_combine_ref(m, l, acc):
+    """Merge the pieces of ``attention_partial_ref`` (stacked on dim 0) by
+    log-sum-exp: m, l (P, ..., Sq), acc (P, ..., Sq, hd) -> the attention
+    output (..., Sq, hd), float32.  Rows no piece lets see a key get 0."""
+    f = torch.exp2(m - m.amax(0))
+    num = (f[..., None] * acc).sum(0)
+    return num / torch.clamp((f * l).sum(0), min=1e-30)[..., None]
 
 
 def rwkv6_scan_ref(r, k, v, w, u, s0=None):

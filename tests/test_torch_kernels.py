@@ -13,11 +13,15 @@ against the plain versions at the same inputs.  float32: ``atol=rtol=
 1e-4`` (summation order and ``expf`` against ``torch.exp`` over up to a
 few hundred keys).  bfloat16, each with ``rtol=2**-7`` because both sides
 round the output to bf16 once and an element may land one bf16 ulp
-apart: decode and flash ``atol=2e-3`` (both sides otherwise float32);
-prefill ``atol=3e-2`` (the plain version also rounds the probabilities
-to bf16 before the value product, the kernel keeps them float32).  The
-flash kernel's CPU-side checks (plain version against the reference)
-are in ``tests/test_torch_flash_attention.py``, the WKV6 scan's in
+apart: decode and flash ``atol=2e-3`` (the plain versions keep softmax
+and value product in float32; the bf16 flash kernel feeds its
+probabilities to the tensor cores as a bf16 hi + lo pair, ~16 bits);
+prefill ``atol=3e-2`` (the plain version rounds the normalised
+probabilities to bf16 before the value product, the bf16 kernel the
+unnormalised ones).  The bf16 kernels' key-range split is planned on the
+CPU in ``tests/test_torch_attention_split.py``.  The flash kernel's
+CPU-side checks (plain version against the reference) are in
+``tests/test_torch_flash_attention.py``, the WKV6 scan's in
 ``tests/test_torch_rwkv6.py``.  The WKV6 scan on the card, float32 only
 (the model calls it so): ``atol=rtol=1e-4`` against outputs that reach
 ~100 — the kernel sums each step's 64 terms in another order, and the
@@ -31,6 +35,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import attention_split as split  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import conv2d as cv_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
@@ -219,9 +224,17 @@ def test_paged_attention_kernel_matches_plain(cuda, shape, window, dtype):
     assert torch.all(out[1] == 0)
 
 
+# beyond the reference's sweep: a chunk and the fused decode dispatch at
+# qwen3-0.6b's heads, slot decode (4 slots of 256 lanes), and the bf16
+# tile's head dims 16-128 at groups of 1-8 with S off multiples of 16
+PP_CARD_SHAPES = PREFILL_SHAPES + [
+    (2, 40, 16, 8, 128, 70), (8, 1, 16, 8, 128, 512), (4, 1, 16, 8, 128, 255),
+    (2, 37, 8, 8, 16, 100), (3, 100, 8, 2, 32, 64), (2, 200, 16, 2, 64, 40),
+    (3, 1, 8, 1, 128, 300)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", PREFILL_SHAPES + [(2, 40, 16, 8, 128, 70),
-                                   (8, 1, 16, 8, 128, 512)])
+@pytest.mark.parametrize("shape", PP_CARD_SHAPES)
 @pytest.mark.parametrize("window", [0, 5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_prefill_kernel_matches_plain(cuda, shape, window, dtype):
@@ -249,14 +262,25 @@ def test_paged_prefill_kernel_matches_plain(cuda, shape, window, dtype):
 # non-causal) x its masks, then the slot engine's prefill shapes at
 # qwen3-0.6b's heads: the model's transposed (B,S,H,hd) views, one
 # prompt row, windows 0 and 64, and non-causal with Sq != Sk
+# then the bf16 tile's head dims 16-128 at groups 1-8, S off multiples of
+# 16 and 64, and non-causal windows with Sq > Sk, where late queries see
+# no key (compared where they see one, zeros elsewhere)
 FA_CARD_CASES = (
     [(shape, causal, window, False)
      for shape in [(1, 4, 4, 64, 64, 64), (2, 8, 2, 96, 96, 64),
                    (1, 8, 1, 128, 128, 128), (2, 4, 4, 33, 75, 64)]
      for causal, window in [(True, 0), (True, 16), (False, 0)]]
     + [((1, 16, 8, s, s, 128), True, window, True)
-       for s in (1, 37, 512) for window in (0, 64)]
-    + [((1, 16, 8, 37, 100, 128), False, 0, True)])
+       for s in (1, 37, 100, 200, 512, 2048) for window in (0, 64)]
+    + [((1, 16, 8, 37, 100, 128), False, 0, True)]
+    + [(shape, causal, window, layout)
+       for shape, layout in [((2, 8, 8, 100, 100, 16), False),
+                             ((1, 8, 4, 37, 37, 32), True),
+                             ((1, 16, 4, 200, 200, 64), True),
+                             ((2, 16, 2, 1, 1, 32), False)]
+       for causal, window in [(True, 0), (True, 48)]]
+    + [((1, 8, 2, 190, 50, 32), False, 20, True),
+       ((1, 16, 8, 300, 70, 128), False, 0, False)])
 
 
 @pytest.mark.cuda
@@ -284,8 +308,18 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, causal, window,
     assert fa_mod.KERNEL.launches == n0 + 1
     assert out.shape == q.shape and out.stride() == q.stride()
     plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    torch.testing.assert_close(out.float(), plain.float(),
+    qi = torch.arange(sq, device=cuda)[:, None]
+    kj = torch.arange(sk, device=cuda)[None, :]
+    vis = torch.ones(sq, sk, dtype=torch.bool, device=cuda)
+    if causal:
+        vis &= kj <= qi
+    if window:
+        vis &= qi - kj < window
+    sees = vis.any(1)
+    torch.testing.assert_close(out[:, :, sees].float(),
+                               plain[:, :, sees].float(),
                                **_tol("flash_attention", dt))
+    assert torch.all(out[:, :, ~sees] == 0)
 
 
 # the reference's rwkv6 sweep (tests/test_kernels.py) x mild and extreme
@@ -341,3 +375,72 @@ def test_rwkv6_scan_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         rw_mod.rwkv6_scan(y.bfloat16(), y, y, y, torch.zeros(2, 8,
                                                              device=cuda))
+
+
+# one shape the planner splits and one it does not, per bf16 kernel, on
+# this card (an H100's 132 SMs): flash at S=512 (16 query tiles x 8 KV
+# heads = 128 CTAs) and S=2048; paged_prefill at the fused decode
+# dispatch (8 rows x 8 KV heads) and a 4-row chunk of 256 lanes
+SPLIT_CARD_CASES = [("flash_attention", 512, True),
+                    ("flash_attention", 2048, False),
+                    ("paged_prefill", 1, True),
+                    ("paged_prefill", 256, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,s,splits", SPLIT_CARD_CASES)
+def test_bf16_split_plan_on_the_card(cuda, kernel, s, splits):
+    sms = split.sm_count(cuda)
+    assert sms >= 128, f"planned for an H100's 132 SMs, not {sms}"
+    rng = np.random.default_rng(s)
+    if kernel == "flash_attention":
+        pl = fa_mod.plan(1, 16, 8, s, s, True, 0, sms)
+        q, k, v = (torch.from_numpy(rng.normal(size=(1, heads, s, 128))
+                                    .astype(np.float32))
+                   .to(cuda, torch.bfloat16) for heads in (16, 8, 8))
+        out = ops.flash_attention(q, k, v)
+        plain = ref.flash_attention_ref(q, k, v)
+        lanes = torch.ones(out.shape[:-1], dtype=torch.bool, device=cuda)
+    else:
+        b = 8 if s == 1 else 4
+        q, k, v, kpos, qpos = (torch.from_numpy(a).to(cuda) for a in
+                               prefill_case(rng, b, s, 16, 8, 128, 512))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        pl = pp_mod.plan(b, s, k.shape[1], 16, 8, sms)
+        out = ops.paged_prefill(q, k, v, kpos, qpos)
+        plain = ref.paged_prefill_ref(q, k, v, kpos, qpos)
+        lanes = ((kpos[:, None, :] >= 0)
+                 & (kpos[:, None, :] <= qpos[:, :, None])).any(-1)
+    torch.cuda.synchronize()
+    assert pl.split == splits
+    if s == 1:
+        assert pl.ctas(8 * 8) >= sms
+    torch.testing.assert_close(out[lanes].float(), plain[lanes].float(),
+                               **_tol(kernel, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_refuse_what_the_tile_does_not_take(cuda):
+    bf = dict(device=cuda, dtype=torch.bfloat16)
+    kp = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    qp = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    q, k = torch.zeros(1, 4, 8, 80, **bf), torch.zeros(1, 2, 8, 80, **bf)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        fa_mod.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        pp_mod.paged_prefill(torch.zeros(1, 8, 4, 80, **bf),
+                             torch.zeros(1, 8, 2, 80, **bf),
+                             torch.zeros(1, 8, 2, 80, **bf), kp, qp)
+    # views starting one element into their storage
+    flat = torch.zeros(1 + 4 * 8 * 64, **bf)
+    k = torch.zeros(1, 2, 8, 64, **bf)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa_mod.flash_attention(flat[1:].view(1, 4, 8, 64), k, k)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        pp_mod.paged_prefill(flat[1:].view(1, 8, 4, 64),
+                             torch.zeros(1, 8, 2, 64, **bf),
+                             torch.zeros(1, 8, 2, 64, **bf), kp, qp)
+    # rows 68 elements apart: strides off multiples of 8
+    wide = torch.zeros(1, 4, 8, 68, **bf)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa_mod.flash_attention(wide, k, k)
