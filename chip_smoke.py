@@ -8,11 +8,12 @@ then runs seven phases, each raising on failure:
 
 1. device: the card's name and power limit, the kernels' build time;
 2. kernel parity: each kernel against its plain PyTorch version at the
-   serving paths' shapes (``paged_prefill`` at a chunk's, at the fused
-   decode dispatch's and at slot decode's, ``flash_attention`` at the
-   slot engine's whole-prompt prefill up to 2,048 tokens) in bfloat16 and
-   float32, ``rwkv6_scan`` at the rwkv6 slot path's prefill and decode in
-   float32;
+   serving paths' shapes (``paged_attention`` at the smoke decode shape
+   and the fusion-off engine's, both split, and at 24 rows, whole;
+   ``paged_prefill`` at a chunk's, at the fused decode dispatch's and at
+   slot decode's, ``flash_attention`` at the slot engine's whole-prompt
+   prefill up to 2,048 tokens) in bfloat16 and float32, ``rwkv6_scan`` at
+   the rwkv6 slot path's prefill and decode in float32;
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
    random weights): one ragged prefill dispatch and one decode step of
    the paged path, and two whole-prompt prefills and one decode step of
@@ -23,8 +24,9 @@ then runs seven phases, each raising on failure:
    (``paged_prefill``) and off (``paged_attention``), with a pool tight
    enough to preempt, and with the slot engine (``flash_attention`` for
    each admission, ``paged_prefill`` for decode); the launch counts show
-   each kernel ran; a profile of the paged engine lists device time by
-   kernel, the bf16 attention's combine pass included; then at full
+   each kernel ran; a profile of the paged engine in each mode lists
+   device time by kernel, the bf16 attention's combine pass and
+   ``paged_attention`` included; then at full
    width with 2 layers in float32 the paged engine's two modes and the
    slot engine must emit identical tokens;
 5. rwkv6: with the qwen3 model freed, rwkv6-1.6b at its published
@@ -49,7 +51,9 @@ then runs seven phases, each raising on failure:
 7. times: each kernel's time beside its bound, its plain version's and
    one PyTorch library call's where there is one (a yardstick only; the
    port never calls it); for the bf16 attention shapes the kernel's
-   ratio to SDPA and whether its key ranges were split.
+   ratio to SDPA, whether its key ranges were split (``paged_attention``:
+   its grid's CTAs) and, where split, the time with them whole; the
+   timing method's floor (one launch on one element).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -233,6 +237,10 @@ def rwkv_case(torch, gen, device, b=1, h=32, s=200, hd=64):
 
 
 RWKV_SHAPES = ((1, 37), (1, 200), (4, 1))     # (rows, S): prefill, decode
+# paged decode (rows, table width, all-null rows): decode_case's shape and
+# the fusion-off engine's (8 rows, cache-max 256 over blocks of 16), both
+# split on an H100, and 24 rows (192 CTAs), which the planner leaves whole
+PAGED_DECODE_SHAPES = ((8, 32, (5,)), (8, 16, (2,)), (24, 16, (3, 17)))
 
 
 def decode_visible(torch, kpos_pool, bt, pos, window):
@@ -256,7 +264,7 @@ def prefill_visible(torch, kpos, qpos, window):
 
 
 def kernel_parity(torch, device, ops, ref):
-    """Phase 2: decode at the decode dispatch's shape; prefill at a chunk
+    """Phase 2: paged decode at ``PAGED_DECODE_SHAPES``; prefill at a chunk
     shape (4 rows, S=256), at the fused decode dispatch's (8 rows, S=1)
     and at slot decode's (4 slots of 256 lanes, S=1); flash at one prompt
     row of 37 and 512 tokens (windows 0 and 64) and 2,048 tokens, and
@@ -265,6 +273,9 @@ def kernel_parity(torch, device, ops, ref):
     decode step over 4 slots, each also against the scan in float64.
     -> {kernel: max abs error over its bfloat16 cases (``rwkv6_scan``:
     its float32 cases)}."""
+    from repro_torch.kernels import attention_split
+    from repro_torch.kernels import paged_attention as pa_mod
+
     gen = torch.Generator(device=device).manual_seed(0)
     errs = {"paged_attention": 0.0, "paged_prefill": 0.0,
             "flash_attention": 0.0, "rwkv6_scan": 0.0}
@@ -306,19 +317,27 @@ def kernel_parity(torch, device, ops, ref):
             if dtype_name == "bfloat16":
                 errs["flash_attention"] = max(errs["flash_attention"], err)
         for window in (0, 64):
-            args = decode_case(torch, gen, device, dtype)
-            out = ops.paged_attention(*args, window=window)
-            plain = ref.paged_attention_ref(*args, window=window)
-            torch.cuda.synchronize()
-            err = (out.float() - plain.float()).abs().max().item()
-            torch.testing.assert_close(
-                out.float(), plain.float(),
-                **KERNEL_TOL["paged_attention", dtype_name])
-            assert torch.all(out[5] == 0), "all-null row must be zeros"
-            log(f"parity paged_attention {dtype_name} window={window}: "
-                f"max_abs_err={err:.3e}")
-            if dtype_name == "bfloat16":
-                errs["paged_attention"] = max(errs["paged_attention"], err)
+            for b, nb, nulls in PAGED_DECODE_SHAPES:
+                args = decode_case(torch, gen, device, dtype, b=b, nb=nb,
+                                   null_rows=nulls)
+                pl = pa_mod.plan(b, args[1].shape[2], nb,
+                                 attention_split.sm_count(device))
+                out = ops.paged_attention(*args, window=window)
+                plain = ref.paged_attention_ref(*args, window=window)
+                torch.cuda.synchronize()
+                err = (out.float() - plain.float()).abs().max().item()
+                torch.testing.assert_close(
+                    out.float(), plain.float(),
+                    **KERNEL_TOL["paged_attention", dtype_name])
+                assert all(torch.all(out[r] == 0) for r in nulls), \
+                    "all-null rows must be zeros"
+                log(f"parity paged_attention {dtype_name} {b} rows x {nb} "
+                    f"blocks window={window}: max_abs_err={err:.3e} "
+                    f"(split={pl.split}, {pl.ctas(b, args[1].shape[2])} "
+                    "CTAs)")
+                if dtype_name == "bfloat16":
+                    errs["paged_attention"] = max(errs["paged_attention"],
+                                                  err)
 
             for b, s in ((4, 256), (8, 1), ("slot", 1)):
                 if b == "slot":
@@ -902,12 +921,61 @@ def sdpa(torch, q, k, v, mask=None, causal=False):
             attn_mask=mask, is_causal=causal)
 
 
+# forced piece lengths of paged_attention's block tables (table width:
+# blocks per piece), at most 8 pieces: decode_case's 32 blocks and the
+# fusion-off engine's 16
+PIECE_SWEEP = {32: (4, 8, 11, 14, 16, 32), 16: (2, 4, 7, 8, 16)}
+
+
+def piece_sweep(torch, device, ops, pa_mod):
+    """paged_attention in bf16 at decode_case's rows with each piece
+    length of ``PIECE_SWEEP`` forced -> {(table width, blocks per piece):
+    ms}, what the planner's constants are read from (``fit_planner``).
+    Its own generator, so the other rows keep their inputs."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    sweep = {}
+    for nb, lengths in PIECE_SWEEP.items():
+        args = decode_case(torch, gen, device, torch.bfloat16, nb=nb)
+        for c in lengths:
+            with mock.patch.object(pa_mod, "plan", lambda b, kv, n, s, c=c:
+                                   pa_mod.Plan(c, -(-n // c))):
+                sweep[nb, c] = time_ms(torch,
+                                       lambda: ops.paged_attention(*args))
+    return sweep
+
+
+def fit_planner(sweep, split, b=8, kv=8, sms=132):
+    """Least-squares fit of the makespan model (``attention_split.makespan``
+    in block times, over a grid of its three constants, time = base + tau
+    x makespan) to a piece sweep -> (residual ms, fixed, combine,
+    ctas_per_sm, tau ms, base ms), the best first."""
+    fits = []
+    for fixed in range(1, 25):
+        for combine in range(21):
+            for per_sm in (1.0, 1.25, 1.5, 2.0, 3.0):
+                xs = [split.makespan([nb], c, b * kv, sms, fixed=fixed,
+                                     combine=combine, ctas_per_sm=per_sm)
+                      for nb, c in sweep]
+                ys = list(sweep.values())
+                mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+                sxx = sum((x - mx) ** 2 for x in xs)
+                if sxx == 0:
+                    continue
+                tau = sum((x - mx) * (y - my) for x, y in zip(xs, ys)) / sxx
+                base = my - tau * mx
+                res = (sum((base + tau * x - y) ** 2 for x, y in zip(xs, ys))
+                       / len(xs)) ** 0.5
+                fits.append((res, fixed, combine, per_sm, tau, base))
+    return min(fits)
+
+
 def kernel_times(torch, device, ops, ref):
     """Phase 7, at the parity phase's main-path shapes, the attention
     kernels in bfloat16 with window 0, ``rwkv6_scan`` and ``conv2d`` in
     float32.  -> {kernel: record}."""
     from repro_torch.kernels import attention_split
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import paged_attention as pa_mod
     from repro_torch.kernels import paged_prefill as pp_mod
 
     gen = torch.Generator(device=device).manual_seed(2)
@@ -930,13 +998,18 @@ def kernel_times(torch, device, ops, ref):
     gk = k[bt.long()].reshape(b, -1, kv, hd).transpose(1, 2)
     gv = v[bt.long()].reshape(b, -1, kv, hd).transpose(1, 2)
     mask = vis[:, None, None, :]
+    pl = pa_mod.plan(b, kv, bt.shape[1], sms)
+    split_fns["paged_attention"] = (
+        lambda q=q, k=k, v=v, kp=kp, bt=bt, pos=pos:
+        ops.paged_attention(q, k, v, kp, bt, pos))
     out["paged_attention"] = dict(
-        ms=time_ms(torch, lambda: ops.paged_attention(q, k, v, kp, bt, pos)),
+        ms=time_ms(torch, split_fns["paged_attention"]),
         plain_ms=time_ms(torch, lambda: ref.paged_attention_ref(
             q, k, v, kp, bt, pos)),
         library_ms=time_ms(torch, lambda: sdpa(torch, q[:, :, None], gk, gv,
                                                mask)),
-        bytes=nbytes, flops=flops)
+        bytes=nbytes, flops=flops, split=pl.split, ctas=pl.ctas(b, kv))
+    out["paged_attention"]["sweep"] = piece_sweep(torch, device, ops, pa_mod)
 
     q, k, v, kpos, qpos = prefill_case(torch, gen, device, dt)
     b, s, h, hd = q.shape
@@ -1031,14 +1104,15 @@ def kernel_times(torch, device, ops, ref):
             bytes=4 * (x.numel() + w.numel() + b * 26 * 26 * 32),
             flops=2 * b * 26 * 26 * 3 * 3 * 32)
 
-    # the bf16 attention shapes whose key ranges the planner split, timed
-    # again with every query tile's range whole (one piece, no combine)
-    whole = mock.patch.object(attention_split, "plan", lambda ranges, c, n:
-                              attention_split.Plan(1 << 30,
-                                                   (1,) * len(ranges)))
+    # the bf16 attention shapes whose key ranges the planners split, timed
+    # again with every range whole (one piece, no combine)
     for key, fn in split_fns.items():
         if out[key]["split"]:
-            with whole:
+            with mock.patch.object(
+                    attention_split, "plan", lambda ranges, c, n:
+                    attention_split.Plan(1 << 30, (1,) * len(ranges))), \
+                    mock.patch.object(pa_mod, "plan", lambda b, kv, nb, n:
+                                      pa_mod.Plan(nb, 1)):
                 out[key]["whole_ms"] = time_ms(torch, fn)
 
     for rec in out.values():
@@ -1193,6 +1267,20 @@ def main() -> int:
     assert combine, "the split decode steps must run the combine pass"
     for us, n, key in combine:
         log(f"  combine pass: {us / 1e3:.2f} ms {n}x  {key[:90]}")
+    # decode fusion off: every decode step through paged_attention
+    args.decode_fusion = "off"
+    engine = serve.build_engine(args, model, params)
+    secs, busy, rows = profile_engine(
+        torch, lambda: run_engine(engine, prompts, args.max_new, sync)[1])
+    decode = [r for r in rows if "paged_attention_kernel" in r[2]]
+    assert decode, "the fusion-off decode steps must run paged_attention"
+    log(f"profile engine bf16 28 layers decode_fusion=off: wall {secs:.3f}s "
+        f"under the profiler, device busy {busy:.3f}s "
+        f"({100 * busy / secs:.1f}%), paged_attention "
+        f"{sum(r[0] for r in decode) / 1e3:.2f} ms in "
+        f"{sum(r[1] for r in decode)} launches")
+    for us, n, key in rows[:6]:
+        log(f"  {us / 1e3:9.2f} ms {n:6d}x  {key[:90]}")
 
     small_model = Model(small, device=device)
     small_params = small_model.init(seed=args.seed)
@@ -1223,6 +1311,9 @@ def main() -> int:
 
     # 7. times
     times = kernel_times(torch, device, ops, ref)
+    one = torch.zeros(1, device=device)
+    log(f"time floor: one launch on one element (add_), same timing: "
+        f"{time_ms(torch, lambda: one.add_(1)):.4f} ms")
     for name, key, what in (
             ("flash_attention", "flash_attention_512",
              "one causal row of S=512"),
@@ -1235,10 +1326,12 @@ def main() -> int:
             ("paged_prefill", "paged_prefill_slot",
              "slot decode (4 slots, S=1, 256 lanes)"),
             ("paged_attention", "paged_attention",
-             "paged decode (8 rows, 32 blocks of 16)")):
+             "paged decode (8 rows, 32 blocks of 16, 16/8 heads)")):
         t = times[key]
         split = (f", key ranges split={t['split']}" if "split" in t
                  else "")
+        if "ctas" in t:
+            split += f" ({t['ctas']} CTAs)"
         if "whole_ms" in t:
             split += f" (whole ranges: {t['whole_ms']:.4f} ms)"
         log(f"time {name} bf16 "
@@ -1262,6 +1355,20 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = times["paged_attention"]
+    sweep = ", ".join(f"{nb} blocks / {c}: {ms:.4f}"
+                      for (nb, c), ms in t["sweep"].items())
+    log(f"time paged_attention bf16 by blocks per piece (table width / "
+        f"blocks per piece: ms): {sweep}")
+    from repro_torch.kernels import attention_split
+    from repro_torch.kernels import paged_attention as pa_mod
+    res, fixed, combine, per_sm, tau, base = fit_planner(t["sweep"],
+                                                         attention_split)
+    log(f"planner fit to that sweep: fixed={fixed} combine={combine} "
+        f"ctas_per_sm={per_sm} (block time {tau:.5f} ms, base {base:.4f} "
+        f"ms, rms residual {res:.5f} ms); in use: fixed="
+        f"{pa_mod.FIXED_BLOCKS:g} combine={pa_mod.COMBINE_BLOCKS:g} "
+        f"ctas_per_sm={pa_mod.CTAS_PER_SM:g}")
     for key, what in (("rwkv6_scan_1x200", "one prompt row of S=200"),
                       ("rwkv6_scan_4x1", "a decode step over 4 slots")):
         t = times[key]

@@ -1,126 +1,565 @@
-// One-token decode attention over a block-paged KV pool.
+// One-token decode attention over a block-paged KV pool, split over the
+// key range.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py
 // (paged_attention, body _kernel). Semantics: repro_torch/kernels/ref.py
-// paged_attention_ref.
+// paged_attention_ref: NEG_INF masking, a key visible iff its lane's kpos
+// is >= 0, <= pos and inside the window, zeros for rows that see no key,
+// probabilities and the value product in float32.
 //
 // Layout: q (B, H, hd); k/v pools (NB, bs, KV, hd); kpos pool (NB, bs)
 // int32 absolute positions (-1 = invalid lane); block table (B, nb) int32,
 // 0-padded (block 0 is the null block, every lane -1); pos (B,) int32;
 // out (B, H, hd).
 //
-// Bound on an H100: bytes. Each step reads every live K/V block of every
-// request once and does 4 * hd flops per (query head, key) on it, far
-// below the card's ~295 flops per byte, so the least time is the live
-// K/V bytes over 3.35 TB/s.
+// Bound on an H100: bytes. Each key costs about one float32 FMA per bf16
+// byte read (g x hd for Q.K and g x hd for P.V against 2 x hd x 2 bytes),
+// far below the card's ~295 operations per byte, so the least time is the
+// live K/V bytes over 3.35 TB/s. What stands between a decode step and
+// that bound is latency: a few MB spread over many small blocks, each
+// reached through the block table and its kpos lanes. An mma tile would
+// leave 7/8 of its rows empty at qwen3's group of 2 and would round the
+// probabilities to bf16, so the design spends the card on moving bytes:
 //
-// Design: one CTA per (request, KV head) serves that head's g = H / KV
-// query heads, so each K/V block is read from device memory once per
-// group. The CTA loads its own block-table row and walks the logical
-// blocks in a loop (the loop replaces the Pallas grid's sequential block
-// axis): per block it reads the kpos lanes, skips the block when no lane
-// is visible (null padding, all-future lanes), else stages K and V in
-// shared memory as float32 and folds them into a float32 online softmax
-// (attention_tile.cuh). Rows with no visible key write zeros.
-#include "attention_tile.cuh"
+//   * Split over the key range: a CTA takes (request, KV head, piece of
+//     the block table); the host planner (kernels/paged_attention.py
+//     plan) cuts the table where (request, KV head) pairs alone would
+//     leave SMs idle. An unsplit launch writes its output. A split one
+//     runs the pieces of a (request, KV head) as one thread-block
+//     cluster (at most 8 CTAs): each keeps its float32 (m, l, acc)
+//     partial state in shared memory, and the cluster merges them by
+//     log-sum-exp over distributed shared memory
+//     (ref.attention_combine_ref), with no second launch and no partial
+//     state in device memory.
+//   * Visibility first: the CTA reads its piece's table entries and every
+//     kpos lane (16 threads a 16-key chunk, a ballot each) into a
+//     bitmask per chunk, so chunks with no visible lane are never
+//     fetched; each warp takes every 4th visible chunk.
+//   * Loads: a warp copies its chunk's K and V rows straight from the
+//     pool with cp.async, 16 bytes a lane, coalesced along hd and
+//     zero-filled where a key is invisible, into its own two-stage ring,
+//     so the next chunk is in flight while the current one is reduced.
+//     No CTA-wide barrier inside the loop.
+//   * Math in float32 registers: each lane holds a 16-byte slice of the g
+//     query rows (pre-scaled into base 2); a key's score is a dot product
+//     over hd / (16 / sizeof(T)) lanes, and the chunk's partial products
+//     are summed by one reduce-scatter over those lanes (at qwen3's shape
+//     15 shuffles for 32 scores); the chunk's online-softmax update is one
+//     max and one sum over 16 lanes; each lane accumulates p x V for its
+//     slice of its keys.
+//   * One merge per CTA: the key groups of a warp by shuffles, the four
+//     warps by log-sum-exp through shared memory.
+//
+// head_dim 16, 32, 64 or 128, groups up to 8 query heads per KV head
+// (compiled for 1, 2, 4 and 8 rows), any block size; the wrapper refuses
+// the rest before launching.
+#include <cooperative_groups.h>
+
+#include "attention_mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace repro_torch {
+namespace paged {
 
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChunk = 16;         // keys a warp fetches and reduces at once
+constexpr int kWindowItems = 256;  // chunks whose visibility is read at once
+constexpr int kMaxGroup = 8;
+constexpr int kMaxPieces = 8;      // CTAs of a portable cluster
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* kpos;
+  const int* bt;
+  const int* pos;
+  void* out;
+  int H, KV, g, bs, nb, window;
+  int blocks_per_piece, n_pieces;
+  float scale_log2;
+};
+
+// 16 bytes of T as floats
 template <typename T>
-__global__ void paged_attention_kernel(const T* __restrict__ q,
-                                       const T* __restrict__ k_pool,
-                                       const T* __restrict__ v_pool,
-                                       const int* __restrict__ kpos_pool,
-                                       const int* __restrict__ block_table,
-                                       const int* __restrict__ pos,
-                                       T* __restrict__ out, int H, int KV,
-                                       int hd, int bs, int nb, int window,
-                                       float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int g = H / KV;
-  const int R = g, TK = bs;
-  TileSmem t = carve_tile_smem(smem, R, TK, hd);
-  const int qp = pos[b];
+struct Vec {
+  static constexpr int N = 16 / sizeof(T);
+};
 
-  for (int i = threadIdx.x; i < R * hd; i += blockDim.x) {
-    const int r = i / hd, d = i % hd;
-    t.q[i] = to_float(q[((size_t)b * H + kvh * g + r) * hd + d]);
-  }
-  for (int r = threadIdx.x; r < R; r += blockDim.x) t.qpos[r] = qp;
-  init_rows(t, R, hd);
-  __syncthreads();
-
-  for (int j = 0; j < nb; ++j) {
-    const size_t blk = (size_t)block_table[(size_t)b * nb + j];
-    int any = 0;
-    for (int c = threadIdx.x; c < TK; c += blockDim.x) {
-      const int kp = kpos_pool[blk * bs + c];
-      t.kpos[c] = kp;
-      any |= visible(kp, qp, window);
-    }
-    if (!__syncthreads_or(any)) continue;
-    for (int i = threadIdx.x; i < TK * hd; i += blockDim.x) {
-      const int c = i / hd, d = i % hd;
-      const size_t src = ((blk * bs + c) * KV + kvh) * hd + d;
-      t.k[(size_t)c * (hd + 1) + d] = to_float(k_pool[src]);
-      t.v[i] = to_float(v_pool[src]);
-    }
-    __syncthreads();
-    attend_tile(t, R, TK, TK, hd, scale, window);
-  }
-
-  for (int i = threadIdx.x; i < R * hd; i += blockDim.x) {
-    const int r = i / hd, d = i % hd;
-    const float l = fmaxf(t.l[r], 1e-30f);
-    out[((size_t)b * H + kvh * g + r) * hd + d] = from_float<T>(t.acc[i] / l);
+__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[4]) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
-template <typename T>
-static int launch(const void* q, const void* k_pool, const void* v_pool,
-                  const void* kpos_pool, const void* block_table,
-                  const void* pos, void* out, int B, int H, int KV, int hd,
-                  int bs, int nb, int window, float scale,
-                  cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(H / KV, bs, hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// Sum N values over the lanes that differ in the bits below 2 * OFF,
+// halving them at each level while two or more are left: afterwards
+// v[x] holds the sum of value x + (N / n) * (those lane bits, top first,
+// as far as N lasts), n = what is left (>= 1).
+template <int N, int OFF>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+  if constexpr (OFF >= 1) {
+    if constexpr (N >= 2) {
+      const bool upper = lane & OFF;
+#pragma unroll
+      for (int x = 0; x < N / 2; ++x) {
+        const float send = upper ? v[x] : v[x + N / 2];
+        const float keep = upper ? v[x + N / 2] : v[x];
+        v[x] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      reduce_scatter<N / 2, OFF / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], OFF);
+      reduce_scatter<1, OFF / 2>(v, lane);
+    }
+  }
+}
+
+template <typename T, int HD>
+struct Layout {
+  static constexpr int kVec = Vec<T>::N;         // elements a lane loads
+  static constexpr int kLanesPerKey = HD / kVec;  // lanes over one key's hd
+  static constexpr int kKeysPerRound = 32 / kLanesPerKey;
+  static constexpr int kRounds = kChunk / kKeysPerRound;
+  static_assert(kLanesPerKey >= 1 && kLanesPerKey <= 32, "head_dim");
+  // a warp's ring: two stages of K and V chunks
+  static constexpr size_t kStageBytes = (size_t)2 * kChunk * HD * sizeof(T);
+  static constexpr size_t kWarpBytes = 2 * kStageBytes;
+};
+
+__host__ __device__ constexpr int chunks_per_block(int bs) {
+  return (bs + kChunk - 1) / kChunk;
+}
+
+template <typename T, int HD, int G>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return kWarps * Layout<T, HD>::kWarpBytes      // the rings
+         + (size_t)kWarps * kChunk * G * 4       // scores, probabilities
+         + (size_t)kWindowItems * 4 * 3          // blocks, masks, lists
+         + (size_t)(G * HD + 2 * G) * 4;         // the CTA's merged state
+}
+
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(kThreads)
+    paged_attention_kernel(const Args a) {
+  using L = Layout<T, HD>;
+  constexpr int kVec = L::kVec, kLPK = L::kLanesPerKey;
+  constexpr int kKPR = L::kKeysPerRound, kRounds = L::kRounds;
+  // partial scores a lane sums per chunk, whole ones it keeps after the
+  // reduce-scatter, and lanes that share each
+  constexpr int kV = kRounds * G;
+  constexpr int kF = kV > kLPK ? kV / kLPK : 1;
+  constexpr int kDup = kLPK / (kV / kF);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int piece = blockIdx.x % a.n_pieces;
+  const int bk = blockIdx.x / a.n_pieces;           // b * KV + kvh
+  const int b = bk / a.KV, kvh = bk % a.KV, g = a.g;
+
+  T* ring = reinterpret_cast<T*>(smem + warp * L::kWarpBytes);
+  float* ps = reinterpret_cast<float*>(smem + kWarps * L::kWarpBytes) +
+              warp * kChunk * G;
+  int* sblk = reinterpret_cast<int*>(smem + kWarps * L::kWarpBytes +
+                                     (size_t)kWarps * kChunk * G * 4);
+  uint32_t* smask = reinterpret_cast<uint32_t*>(sblk + kWindowItems);
+  int* mine = reinterpret_cast<int*>(smask + kWindowItems) +
+              warp * (kWindowItems / kWarps);
+  // acc [G][HD], m [G], l [G] of the whole CTA, for a cluster's merge
+  float* cst = reinterpret_cast<float*>(smask + 2 * kWindowItems);
+
+  const T* __restrict__ kp_ = static_cast<const T*>(a.k);
+  const T* __restrict__ vp_ = static_cast<const T*>(a.v);
+  const int qp = a.pos[b];
+
+  // the lane's slice of every query row, scaled into base 2
+  const int x0 = (lane % kLPK) * kVec;
+  float q[G][kVec];
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    if (r < g) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          static_cast<const T*>(a.q) + ((size_t)b * a.H + kvh * g + r) * HD +
+          x0);
+      unpack(raw, q[r]);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) q[r][e] *= a.scale_log2;
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) q[r][e] = 0.f;
+    }
+  }
+  float m_run[G], l_run[G], acc[G][kVec];
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    m_run[r] = kNegInf;
+    l_run[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[r][e] = 0.f;
+  }
+
+  const int nch = chunks_per_block(a.bs);
+  const int window_blocks = kWindowItems / nch;
+  const int p_lo = piece * a.blocks_per_piece;
+  const int p_hi = min(p_lo + a.blocks_per_piece, a.nb);
+  const int* __restrict__ bt_row = a.bt + (size_t)b * a.nb;
+
+  for (int w0 = p_lo; w0 < p_hi; w0 += window_blocks) {
+    const int n_blocks = min(window_blocks, p_hi - w0);
+    const int n_items = n_blocks * nch;
+    // every warp is done with the previous window's lists
+    if (w0 > p_lo) __syncthreads();
+    // visibility: 16 threads a chunk read its block's table entry, then
+    // its kpos lanes together
+    const int passes = (n_items + kThreads / 16 - 1) / (kThreads / 16);
+    for (int p0 = 0; p0 < passes; p0 += 4) {
+      int kp[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int it = (p0 + u) * (kThreads / 16) + tid / 16;
+        const int c = (it % nch) * kChunk + (tid & 15);
+        const bool ok = p0 + u < passes && it < n_items;
+        const int blk = ok ? bt_row[w0 + it / nch] : 0;
+        if (ok && c == 0) sblk[it / nch] = blk;
+        kp[u] = ok && c < a.bs ? a.kpos[(size_t)blk * a.bs + c] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int it = (p0 + u) * (kThreads / 16) + tid / 16;
+        const uint32_t bal =
+            __ballot_sync(0xffffffffu, visible(kp[u], qp, a.window));
+        if ((tid & 15) == 0 && p0 + u < passes && it < n_items)
+          smask[it] = (bal >> (lane & 16)) & 0xffffu;
+      }
+    }
+    __syncthreads();
+    // this warp's chunks: every kWarps-th visible one, in order
+    int count = 0;
+    for (int base = 0; base < n_items; base += 32) {
+      const uint32_t m = base + lane < n_items ? smask[base + lane] : 0u;
+      const uint32_t bal = __ballot_sync(0xffffffffu, m != 0);
+      const int rank = count + __popc(bal & ((1u << lane) - 1u));
+      if (m != 0 && rank % kWarps == warp) mine[rank / kWarps] = base + lane;
+      count += __popc(bal);
+    }
+    __syncwarp();
+    const int n_mine = count > warp ? (count - warp + kWarps - 1) / kWarps : 0;
+
+    // copy chunk idx of this warp's list into stage st: K and V rows,
+    // zero-filled where the key is invisible; always one commit group
+    auto fetch = [&](int idx, int st) {
+      if (idx < n_mine) {
+        const int it = mine[idx];
+        const uint32_t msk = smask[it];
+        const size_t row0 =
+            (size_t)sblk[it / nch] * a.bs + (it % nch) * kChunk;
+        T* dk = ring + st * (2 * kChunk * HD);
+        T* dv = dk + kChunk * HD;
+#pragma unroll
+        for (int i = 0; i < kRounds; ++i) {     // kChunk * kLPK = 32 kRounds
+          const int e = i * 32 + lane, c = e / kLPK;
+          const bool ok = (msk >> c) & 1u;
+          const size_t src =
+              ((row0 + (ok ? c : 0)) * a.KV + kvh) * HD + (e % kLPK) * kVec;
+          mma::cp_async16(dk + e * kVec, kp_ + src, ok);
+          mma::cp_async16(dv + e * kVec, vp_ + src, ok);
+        }
+      }
+      mma::cp_async_commit();
+    };
+
+    fetch(0, 0);
+    fetch(1, 1);
+    for (int idx = 0; idx < n_mine; ++idx) {
+      const int st = idx & 1;
+      mma::cp_async_wait<1>();
+      __syncwarp();
+      const T* sk = ring + st * (2 * kChunk * HD);
+      const T* sv = sk + kChunk * HD;
+      const uint32_t msk = smask[mine[idx]];
+      // scores of the chunk's keys: kKPR keys a round, kLPK lanes each;
+      // the lane's partial dot products, then one reduce-scatter over the
+      // key's lanes leaves each lane kF whole scores
+      float s[kV];
+#pragma unroll
+      for (int i = 0; i < kRounds; ++i) {
+        float kf[kVec];
+        unpack(*reinterpret_cast<const uint4*>(
+                   sk + (i * kKPR + lane / kLPK) * HD + x0), kf);
+#pragma unroll
+        for (int r = 0; r < G; ++r) {
+          float t = 0.f;
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) t = fmaf(q[r][e], kf[e], t);
+          s[i * G + r] = t;
+        }
+      }
+      reduce_scatter<kV, kLPK / 2>(s, lane);
+      if (lane % kDup == 0)
+#pragma unroll
+        for (int x = 0; x < kF; ++x) {
+          const int v = x + kF * ((lane % kLPK) / kDup);   // i * G + r
+          ps[((v / G) * kKPR + lane / kLPK) * G + v % G] = s[x];
+        }
+      __syncwarp();
+      // the chunk's online-softmax update: lanes c and c + 16 hold key c
+      const int c = lane % kChunk;
+      const bool vis = (msk >> c) & 1u;
+      float p[G], alpha[G];
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        const float sc = vis ? ps[c * G + r] : kNegInf;
+        float mx = sc;
+#pragma unroll
+        for (int o = kChunk / 2; o >= 1; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m_run[r], mx);
+        p[r] = vis ? mma::fast_exp2(sc - m_new) : 0.f;
+        float sum = p[r];
+#pragma unroll
+        for (int o = kChunk / 2; o >= 1; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        alpha[r] = mma::fast_exp2(m_run[r] - m_new);
+        l_run[r] = l_run[r] * alpha[r] + sum;
+        m_run[r] = m_new;
+      }
+      __syncwarp();
+      if (lane < kChunk)
+#pragma unroll
+        for (int r = 0; r < G; ++r) ps[c * G + r] = p[r];
+#pragma unroll
+      for (int r = 0; r < G; ++r)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[r][e] *= alpha[r];
+      __syncwarp();
+      // p x V over the lane's keys and slice of hd
+#pragma unroll
+      for (int i = 0; i < kRounds; ++i) {
+        const int ck = i * kKPR + lane / kLPK;
+        float vf[kVec];
+        unpack(*reinterpret_cast<const uint4*>(sv + ck * HD + x0), vf);
+#pragma unroll
+        for (int r = 0; r < G; ++r) {
+          const float pr = ps[ck * G + r];
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
+        }
+      }
+      __syncwarp();           // the stage and ps are free for reuse
+      fetch(idx + 2, st);
+    }
+    mma::cp_async_wait<0>();
+  }
+
+  // merge the warp's key groups (one softmax state: m, l are warp-wide)
+#pragma unroll
+  for (int o = kLPK; o < 32; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < G; ++r)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+  // each warp's state into its own ring, then the CTA merges the four
+  float* wst = reinterpret_cast<float*>(ring);     // [G][HD] acc, m, l
+  __syncwarp();
+  if (lane < kLPK)
+#pragma unroll
+    for (int r = 0; r < G; ++r)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) wst[r * HD + x0 + e] = acc[r][e];
+  if (lane == 0)
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      wst[G * HD + r] = m_run[r];
+      wst[G * HD + G + r] = l_run[r];
+    }
+  __syncthreads();
+  for (int i = tid; i < g * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      M = fmaxf(M, reinterpret_cast<const float*>(
+                       smem + w * L::kWarpBytes)[G * HD + r]);
+    float Lsum = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* o =
+          reinterpret_cast<const float*>(smem + w * L::kWarpBytes);
+      const float f = mma::fast_exp2(o[G * HD + r] - M);
+      Lsum += o[G * HD + G + r] * f;
+      A += o[r * HD + d] * f;
+    }
+    if (a.n_pieces == 1) {
+      static_cast<T*>(a.out)[((size_t)b * a.H + kvh * g + r) * HD + d] =
+          from_float<T>(A / fmaxf(Lsum, 1e-30f));
+    } else {
+      cst[r * HD + d] = A;
+      if (d == 0) {
+        cst[G * HD + r] = M;
+        cst[G * HD + G + r] = Lsum;
+      }
+    }
+  }
+  if (a.n_pieces == 1) return;
+
+  // A split launch is one thread-block cluster per (request, KV head),
+  // a CTA per piece: once every piece's state is in its shared memory,
+  // the cluster's threads merge them by log-sum-exp
+  // (ref.attention_combine_ref), reading the other CTAs' states over
+  // distributed shared memory; the second barrier keeps each CTA's
+  // shared memory alive until the others have read it.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rank = (int)cluster.block_rank();
+  for (int i = rank * kThreads + tid; i < g * HD;
+       i += a.n_pieces * kThreads) {
+    const int r = i / HD, d = i % HD;
+    float M = kNegInf;
+    for (int j = 0; j < a.n_pieces; ++j)
+      M = fmaxf(M, cluster.map_shared_rank(cst, j)[G * HD + r]);
+    float Lsum = 0.f, A = 0.f;
+    for (int j = 0; j < a.n_pieces; ++j) {
+      const float* o = cluster.map_shared_rank(cst, j);
+      const float f = mma::fast_exp2(o[G * HD + r] - M);
+      Lsum += o[G * HD + G + r] * f;
+      A += o[r * HD + d] * f;
+    }
+    static_cast<T*>(a.out)[((size_t)b * a.H + kvh * g + r) * HD + d] =
+        from_float<T>(A / fmaxf(Lsum, 1e-30f));
+  }
+  cluster.sync();
+}
+
+template <typename T, int HD, int G>
+static int launch(const Args& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, HD, G>();
+  static unsigned long long allowed = 0;   // a bit per device
+  cudaError_t err =
+      mma::allow_smem(paged_attention_kernel<T, HD, G>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, KV);
-  paged_attention_kernel<T><<<grid, 128, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(kpos_pool),
-      static_cast<const int*>(block_table), static_cast<const int*>(pos),
-      static_cast<T*>(out), H, KV, hd, bs, nb, window, scale);
+  if (a.n_pieces == 1) {
+    paged_attention_kernel<T, HD, G>
+        <<<B * a.KV, kThreads, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  // the pieces of one (request, KV head) are consecutive CTAs: a cluster
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_pieces * B * a.KV);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.n_pieces;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, paged_attention_kernel<T, HD, G>, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <typename T, int HD>
+static int launch_g(const Args& a, int B, cudaStream_t stream) {
+  if (a.g <= 1) return launch<T, HD, 1>(a, B, stream);
+  if (a.g <= 2) return launch<T, HD, 2>(a, B, stream);
+  if (a.g <= 4) return launch<T, HD, 4>(a, B, stream);
+  if (a.g <= kMaxGroup) return launch<T, HD, 8>(a, B, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+static int launch_hd(int hd, const Args& a, int B, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_g<T, 16>(a, B, stream);
+    case 32: return launch_g<T, 32>(a, B, stream);
+    case 64: return launch_g<T, 64>(a, B, stream);
+    case 128: return launch_g<T, 128>(a, B, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+static size_t smem_hd(int hd, int g) {
+  const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
+  switch (hd * 16 + G) {
+#define REPRO_PA_CASE(HD, GG) \
+  case HD * 16 + GG: return smem_bytes<T, HD, GG>();
+    REPRO_PA_CASE(16, 1) REPRO_PA_CASE(16, 2) REPRO_PA_CASE(16, 4)
+    REPRO_PA_CASE(16, 8) REPRO_PA_CASE(32, 1) REPRO_PA_CASE(32, 2)
+    REPRO_PA_CASE(32, 4) REPRO_PA_CASE(32, 8) REPRO_PA_CASE(64, 1)
+    REPRO_PA_CASE(64, 2) REPRO_PA_CASE(64, 4) REPRO_PA_CASE(64, 8)
+    REPRO_PA_CASE(128, 1) REPRO_PA_CASE(128, 2) REPRO_PA_CASE(128, 4)
+    REPRO_PA_CASE(128, 8)
+#undef REPRO_PA_CASE
+  }
+  return 0;
+}
+
+}  // namespace paged
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. blocks_per_piece and n_pieces from the
+// wrapper's planner (n_pieces = ceil(nb / blocks_per_piece), 1 = unsplit,
+// at most kMaxPieces: a portable cluster). Returns a cudaError_t (0 =
+// launched).
 extern "C" int paged_attention_launch(int dtype, const void* q,
                                       const void* k_pool, const void* v_pool,
                                       const void* kpos_pool,
                                       const void* block_table,
                                       const void* pos, void* out, int B,
                                       int H, int KV, int hd, int bs, int nb,
-                                      int window, float scale, void* stream) {
+                                      int window, float scale,
+                                      int blocks_per_piece, int n_pieces,
+                                      void* stream) {
+  using namespace repro_torch;
+  if (B < 1 || KV < 1 || H % KV != 0 || bs < 1 || nb < 1 || n_pieces < 1 ||
+      n_pieces > paged::kMaxPieces || blocks_per_piece < 1 ||
+      (long long)blocks_per_piece * n_pieces < nb)
+    return (int)cudaErrorInvalidValue;
+  paged::Args a{};
+  a.q = q;
+  a.k = k_pool;
+  a.v = v_pool;
+  a.kpos = static_cast<const int*>(kpos_pool);
+  a.bt = static_cast<const int*>(block_table);
+  a.pos = static_cast<const int*>(pos);
+  a.out = out;
+  a.H = H;
+  a.KV = KV;
+  a.g = H / KV;
+  a.bs = bs;
+  a.nb = nb;
+  a.window = window;
+  a.blocks_per_piece = blocks_per_piece;
+  a.n_pieces = n_pieces;
+  a.scale_log2 = scale * mma::kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return repro_torch::launch<float>(q, k_pool, v_pool, kpos_pool,
-                                      block_table, pos, out, B, H, KV, hd, bs,
-                                      nb, window, scale, s);
-  if (dtype == 1)
-    return repro_torch::launch<__nv_bfloat16>(q, k_pool, v_pool, kpos_pool,
-                                              block_table, pos, out, B, H, KV,
-                                              hd, bs, nb, window, scale, s);
+  if (dtype == 0) return paged::launch_hd<float>(hd, a, B, s);
+  if (dtype == 1) return paged::launch_hd<__nv_bfloat16>(hd, a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory a launch needs, so the wrapper can refuse shapes the card
-// cannot hold before launching.
-extern "C" size_t paged_attention_smem_bytes(int H, int KV, int hd, int bs) {
-  return repro_torch::tile_smem_bytes(H / KV, bs, hd);
+// Shared memory a launch needs (0: a head_dim or group it does not take),
+// so the wrapper can refuse shapes before launching.
+extern "C" size_t paged_attention_smem_bytes(int dtype, int H, int KV, int hd,
+                                             int bs) {
+  (void)bs;   // a chunk holds kChunk keys whatever the block size
+  if (KV < 1 || H % KV != 0 || H / KV > repro_torch::paged::kMaxGroup)
+    return 0;
+  if (dtype == 0) return repro_torch::paged::smem_hd<float>(hd, H / KV);
+  return repro_torch::paged::smem_hd<__nv_bfloat16>(hd, H / KV);
 }

@@ -95,15 +95,19 @@ class Plan:
 
 
 def makespan(tiles: Sequence[int], tiles_per_piece: int,
-             ctas_per_qtile: int, sms: int) -> float:
+             ctas_per_qtile: int, sms: int, *, fixed: float = FIXED_TILES,
+             combine: float = COMBINE_TILES,
+             ctas_per_sm: float = CTAS_PER_SM) -> float:
     """Modelled time of a launch, in tile times: the longest CTA, or the
     grid's work spread over the card, whichever is longer, plus the
-    combine pass when a range is split."""
+    combine pass when a range is split.  The constants default to the
+    bf16 tile's; ``paged_attention.plan`` passes its own, in block
+    times."""
     pieces = [max(1, -(-t // tiles_per_piece)) for t in tiles]
-    work = (sum(tiles) + FIXED_TILES * sum(pieces)) * ctas_per_qtile
-    longest = min(tiles_per_piece, max(tiles)) + FIXED_TILES
-    split = COMBINE_TILES if sum(pieces) > len(pieces) else 0.0
-    return max(longest, work / (CTAS_PER_SM * sms)) + split
+    work = (sum(tiles) + fixed * sum(pieces)) * ctas_per_qtile
+    longest = min(tiles_per_piece, max(tiles)) + fixed
+    split = combine if sum(pieces) > len(pieces) else 0.0
+    return max(longest, work / (ctas_per_sm * sms)) + split
 
 
 def plan(ranges: Sequence[Tuple[int, int]], ctas_per_qtile: int,

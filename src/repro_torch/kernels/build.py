@@ -19,6 +19,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -80,6 +82,20 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return out
+
+
+def refuse_autograd(kernel: str, **tensors) -> None:
+    """Raise where autograd would need a backward the kernel lacks: the
+    wrappers fill their outputs through ctypes, so a result would carry
+    no ``grad_fn`` and its inputs would silently get no gradient."""
+    if not torch.is_grad_enabled():
+        return
+    for name, t in tensors.items():
+        if t is not None and t.requires_grad:
+            raise ValueError(
+                f"{kernel} kernel: {name} requires grad, and the kernel "
+                "has no backward yet; call it under torch.no_grad() or "
+                "pass detached tensors")
 
 
 class CudaKernel:

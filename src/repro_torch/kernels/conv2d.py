@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, refuse_autograd
 
 MAX_SMEM = 232_448          # bytes of shared memory one CTA may use (H100)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,6 +43,7 @@ def _check(cond: bool, msg: str) -> None:
 def conv2d(x, w):
     """x (B,H,W,Cin) x w (KH,KW,Cin,Cout) -> (B,H-KH+1,W-KW+1,Cout) in
     x's dtype, valid, stride 1, on the card."""
+    refuse_autograd("conv2d", x=x, w=w)
     _check(x.is_cuda, "x must be a CUDA tensor (CPU tensors take "
            "ops.conv2d's plain version)")
     _check(w.device == x.device, f"w is on {w.device}, x on {x.device}")

@@ -35,7 +35,7 @@ import math
 import torch
 
 from repro_torch.kernels import attention_split as split
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, refuse_autograd
 from repro_torch.kernels.paged_attention import DTYPE_CODE, MAX_SMEM
 
 ROWS_PER_CTA = 64   # query vectors (positions x group heads) per CTA: at
@@ -60,6 +60,7 @@ def _check(cond: bool, msg: str) -> None:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd), on the card.
     Any strides with head_dim contiguous; the output has q's layout."""
+    refuse_autograd("flash_attention", q=q, k=k, v=v)
     _check(q.is_cuda, "q must be a CUDA tensor (CPU tensors take "
            "ops.flash_attention's plain version)")
     dev = q.device

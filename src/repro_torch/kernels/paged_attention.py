@@ -3,38 +3,100 @@
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py``
 (``paged_attention``): one-token decode against a block-paged KV pool,
 read through each request's block table with an online softmax, GQA,
-and zeros for rows with no visible key.  Source:
+windows, and zeros for rows with no visible key.  Source:
 ``csrc/paged_attention.cu``; semantics: ``ref.paged_attention_ref``.
 
 Bound on an H100: bytes.  A decode step reads each live K/V block once
-and does 4 * hd flops per (query head, key), far below the ~295 flops
-per byte at which the tensor cores would bound it; the least time is
-the live K/V bytes over 3.35 TB/s.
+and does about one float32 FMA per byte of it, far below the ~295
+operations per byte at which the tensor cores would bound it; the least
+time is the live K/V bytes over 3.35 TB/s.
 
-Design: one CTA per (request, KV head) serves the head's H / KV query
-heads, so a K/V block is read once per group; the CTA walks its own
-block-table row in a loop, skips blocks with no visible lane, stages
-K/V in shared memory as float32 and accumulates in float32.
+Design: one CTA of 4 warps per (request, KV head, piece of the block
+table) serves the head's H / KV query heads, so a K/V block is read once
+per group.  The CTA reads its piece's kpos lanes first and fetches only
+chunks of 16 keys with a visible lane, each warp its own chunks through
+a two-stage ``cp.async`` ring of 16-byte copies; scores, the online
+softmax and the value sum stay in float32 registers.  ``plan`` cuts the
+table into pieces where (request, KV head) pairs alone would leave SMs
+idle; a split launch runs the pieces of a (request, KV head) as one
+thread-block cluster, which merges their float32 partial states over
+distributed shared memory (the combine pass; plain version
+``ref.attention_combine_ref``).  head_dim 16, 32, 64 or 128, up to 8
+query heads per KV head, 16-byte aligned operands, or it raises.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
+from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels import attention_split as split
+from repro_torch.kernels.build import CudaKernel, refuse_autograd
 
 MAX_SMEM = 232_448          # bytes of shared memory one CTA may use (H100)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)   # head dims the kernel compiles
+MAX_GROUP = 8                   # query heads per KV head it compiles for
+MAX_PIECES = 8                  # pieces of a table: a portable cluster
+
+# The planner's makespan model (``attention_split.makespan``) in the time
+# one CTA takes to stream one block of one KV head: a CTA's set-up (table
+# and kpos reads, the first copy's latency) and write-out, the cluster's
+# merge in a split launch, and the CTAs an SM runs at the speed of one
+# alone; fit by ``chip_smoke.py:fit_planner`` to an H100's timings of
+# this kernel over forced piece lengths (PERF.md).
+FIXED_BLOCKS = 15.0
+COMBINE_BLOCKS = 11.0
+CTAS_PER_SM = 1.5
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel(
     "paged_attention", "paged_attention_launch",
     [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, _P],
-    "paged_attention_smem_bytes", [_I, _I, _I, _I])
+     ctypes.c_float, _I, _I, _P],
+    "paged_attention_smem_bytes", [_I, _I, _I, _I, _I])
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    blocks_per_piece: int
+    n_pieces: int
+
+    @property
+    def split(self) -> bool:
+        return self.n_pieces > 1
+
+    def ctas(self, b: int, kv: int) -> int:
+        return b * kv * self.n_pieces
+
+
+def piece_blocks(nb: int, blocks_per_piece: int, j: int) -> Tuple[int, int]:
+    """Logical blocks [lo, hi) of the table that piece ``j`` reads (the
+    kernel's ``p_lo``/``p_hi``)."""
+    lo = j * blocks_per_piece
+    return lo, min(lo + blocks_per_piece, nb)
+
+
+def plan(b: int, kv: int, nb: int, sms: int) -> Plan:
+    """Blocks per piece for ``b`` requests of ``kv`` KV heads over tables
+    of ``nb`` blocks on a card of ``sms`` SMs: whole tables where the
+    (request, KV head) pairs fill the card; else, in at most
+    ``MAX_PIECES`` pieces (one cluster), the piece length that minimises
+    the makespan model (ties: fewer pieces) among those whose grid holds
+    a CTA for every SM, or among all where none does."""
+    nb = max(nb, 1)
+    if b * kv >= sms or nb == 1:
+        return Plan(nb, 1)
+    lengths = range(-(-nb // MAX_PIECES), nb + 1)
+    full = [c for c in lengths if b * kv * -(-nb // c) >= sms]
+    c = min(full or lengths, key=lambda n: (split.makespan(
+        [nb], n, b * kv, sms, fixed=FIXED_BLOCKS, combine=COMBINE_BLOCKS,
+        ctas_per_sm=CTAS_PER_SM), -n))
+    return Plan(c, -(-nb // c))
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -47,6 +109,7 @@ def paged_attention(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
     """q (B,H,hd), k/v pools (NB,bs,KV,hd), kpos_pool (NB,bs) int32,
     block_table (B,nb) int32 (0-padded), pos (B,) int32 -> (B,H,hd), on
     the card.  All-invalid rows return zeros."""
+    refuse_autograd("paged_attention", q=q, k_pool=k_pool, v_pool=v_pool)
     _check(q.is_cuda, "q must be a CUDA tensor (CPU tensors take "
            "ops.paged_attention's plain version)")
     dev = q.device
@@ -67,19 +130,31 @@ def paged_attention(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
     nbk, bs, kv, hd_k = k_pool.shape
     _check(v_pool.shape == k_pool.shape, "k_pool and v_pool shapes differ")
     _check(hd_k == hd, f"head_dim {hd_k} of the pool != {hd} of q")
+    _check(hd in HEAD_DIMS, f"head_dim {hd} (the kernel compiles "
+           f"{', '.join(map(str, HEAD_DIMS))})")
     _check(kv >= 1 and h % kv == 0, f"H={h} is not a multiple of KV={kv}")
+    _check(h // kv <= MAX_GROUP, f"group of {h // kv} query heads per KV "
+           f"head (at most {MAX_GROUP})")
     _check(tuple(kpos_pool.shape) == (nbk, bs), "kpos_pool must be (NB,bs)")
     _check(block_table.dim() == 2 and block_table.shape[0] == b,
            "block_table must be (B,nb)")
     _check(tuple(pos.shape) == (b,), "pos must be (B,)")
-    smem = KERNEL.smem_bytes(h, kv, hd, bs)
-    _check(smem <= MAX_SMEM, f"needs {smem} bytes of shared memory")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        _check(t.data_ptr() % 16 == 0,
+               f"{name} must start on a 16-byte boundary")
     out = torch.empty_like(q)
+    nb = block_table.shape[1]
+    if b == 0 or nb == 0:               # no row, or no key to read
+        return out.zero_()
+    smem = KERNEL.smem_bytes(DTYPE_CODE[q.dtype], h, kv, hd, bs)
+    _check(0 < smem <= MAX_SMEM, f"needs {smem} bytes of shared memory")
+    pl = plan(b, kv, nb, split.sm_count(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         KERNEL.launch(DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
                       v_pool.data_ptr(), kpos_pool.data_ptr(),
                       block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                      b, h, kv, hd, bs, block_table.shape[1], int(window),
-                      1.0 / math.sqrt(hd), stream)
+                      b, h, kv, hd, bs, nb, int(window),
+                      1.0 / math.sqrt(hd), pl.blocks_per_piece, pl.n_pieces,
+                      stream)
     return out

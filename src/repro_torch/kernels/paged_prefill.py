@@ -32,7 +32,7 @@ import math
 import torch
 
 from repro_torch.kernels import attention_split as split
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, refuse_autograd
 from repro_torch.kernels.paged_attention import DTYPE_CODE, MAX_SMEM
 
 ROWS_PER_CTA = 64           # query vectors (lanes x group heads) per CTA
@@ -54,6 +54,7 @@ def _check(cond: bool, msg: str) -> None:
 def paged_prefill(q, k, v, kpos, qpos, *, window: int = 0):
     """q (B,S,H,hd), k/v (B,L,KV,hd), kpos (B,L) int32, qpos (B,S) int32
     -> (B,S,H,hd), on the card."""
+    refuse_autograd("paged_prefill", q=q, k=k, v=v)
     _check(q.is_cuda, "q must be a CUDA tensor (CPU tensors take "
            "ops.paged_prefill's plain version)")
     dev = q.device

@@ -11,12 +11,16 @@ semantics: ``ref.rwkv6_scan_ref``.
 Bound on an H100: bytes, at both of the path's shapes (the inputs and the
 state read and written once; the source note counts them).
 
-Design: one CTA per (batch row, head), one thread per value column of
-the float32 state, which stays in registers for the whole sequence;
-time steps are staged in shared memory 32 at a time.  Any S >= 1 and any
-head_dim <= 64; operands are read through element strides, so the
-model's ``(B,S,H,hd) -> (B,H,S,hd)`` transposed views go in without
-copies, and the output takes r's layout.
+Design: one CTA of 8 warps per (batch row, head, block of 16 value
+columns), so a prompt row gets 128 CTAs and a 4-slot decode step 512;
+16 threads share a column of the float32 state, 4 rows each in
+registers for the whole sequence, and sum each step's output by a
+reduce-scatter every 16 steps.  Inputs are staged 32 steps at a time
+with 16-byte ``cp.async`` copies, the next chunk in flight while the
+current one runs; the state slice is read and written 16 bytes a thread.
+Any S >= 1 and any head_dim <= 64; operands are read through element
+strides, so the model's ``(B,S,H,hd) -> (B,H,S,hd)`` transposed views go
+in without copies, and the output takes r's layout.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, refuse_autograd
 
 MAX_HEAD_DIM = 64
 
@@ -45,6 +49,7 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     """r/k/v/w (B,H,S,hd) float32 (w = decay in (0,1)), u (H,hd), s0
     (B,H,hd,hd) or None (zeros), on the card.  -> (out (B,H,S,hd) in r's
     layout, s_final (B,H,hd,hd) float32)."""
+    refuse_autograd("rwkv6_scan", r=r, k=k, v=v, w=w, u=u, s0=s0)
     _check(r.is_cuda, "r must be a CUDA tensor (CPU tensors take "
            "ops.rwkv6_scan's plain version)")
     _check(r.dim() == 4, "r/k/v/w must be (B,H,S,hd)")

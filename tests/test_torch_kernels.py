@@ -204,16 +204,40 @@ def _tol(kernel, dtype):
                       "flash_attention": 2e-3}[kernel], rtol=2 ** -7)
 
 
+# beyond the reference's sweep: qwen3-0.6b's heads at chip_smoke.py's
+# decode shape (8 rows x 8 KV heads, split on an H100) and at 24 rows (192
+# CTAs, whole), a table of 64 blocks, 64 and 128 query heads (groups of 8
+# over head dims 64 and 128, and 64-head MHA), a group of 3 (compiled for
+# 4), blocks of 24 keys (two chunks, the second half empty), and rows of
+# all-null tables; (shape, null rows, whether the plan splits on an H100)
+PA_CARD_CASES = [(shape, (1,), None) for shape in DECODE_SHAPES] + [
+    ((8, 16, 8, 128, 8 * 32 + 1, 16, 32), (5,), True),
+    ((24, 16, 8, 128, 24 * 16 + 1, 16, 16), (3, 17), False),
+    ((4, 16, 8, 128, 4 * 64 + 1, 16, 64), (2,), True),
+    ((2, 64, 8, 64, 2 * 24 + 1, 16, 24), (1,), True),
+    ((2, 128, 16, 128, 2 * 24 + 1, 16, 24), (0,), True),
+    ((3, 64, 64, 32, 3 * 6 + 1, 8, 6), (2,), False),
+    ((2, 6, 2, 64, 2 * 24 + 1, 16, 24), (1,), True),
+    ((3, 8, 4, 32, 3 * 20 + 1, 24, 20), (0,), True),
+    ((8, 16, 8, 128, 8 * 20 + 1, 16, 20), (0, 3, 7), True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("shape,null_rows,splits", PA_CARD_CASES)
 @pytest.mark.parametrize("window", [0, 7])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_attention_kernel_matches_plain(cuda, shape, window, dtype):
+def test_paged_attention_kernel_matches_plain(cuda, shape, null_rows, splits,
+                                              window, dtype):
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(sum(shape) + window)
     q, k, v, kp, bt, pos = (torch.from_numpy(a).to(cuda) for a in
-                            decode_case(rng, *shape, null_rows=(1,)))
+                            decode_case(rng, *shape, null_rows=null_rows))
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    if splits is not None:
+        b, _, kv = shape[:3]
+        assert pa_mod.plan(b, kv, shape[-1],
+                           split.sm_count(cuda)).split == splits
     n0 = pa_mod.KERNEL.launches
     out = ops.paged_attention(q, k, v, kp, bt, pos, window=window)
     torch.cuda.synchronize()
@@ -221,7 +245,28 @@ def test_paged_attention_kernel_matches_plain(cuda, shape, window, dtype):
     plain = ref.paged_attention_ref(q, k, v, kp, bt, pos, window=window)
     torch.testing.assert_close(out.float(), plain.float(),
                                **_tol("paged_attention", dt))
-    assert torch.all(out[1] == 0)
+    for r in null_rows:
+        assert torch.all(out[r] == 0)
+
+
+@pytest.mark.cuda
+def test_paged_attention_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(0)
+    args = [torch.from_numpy(a).to(cuda) for a in
+            decode_case(rng, 2, 4, 2, 16, 9, 4, 3)]
+    q, k, v, kp, bt, pos = args
+    with pytest.raises(ValueError, match="head_dim 80"):
+        pa_mod.paged_attention(torch.zeros(2, 4, 80, device=cuda),
+                               torch.zeros(9, 4, 2, 80, device=cuda),
+                               torch.zeros(9, 4, 2, 80, device=cuda),
+                               kp, bt, pos)
+    with pytest.raises(ValueError, match="group of 16"):
+        pa_mod.paged_attention(torch.zeros(2, 16, 16, device=cuda),
+                               k[:, :, :1].contiguous(),
+                               v[:, :, :1].contiguous(), kp, bt, pos)
+    flat = torch.zeros(1 + q.numel(), device=cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        pa_mod.paged_attention(flat[1:].view(q.shape), k, v, kp, bt, pos)
 
 
 # beyond the reference's sweep: a chunk and the fused decode dispatch at
@@ -331,7 +376,11 @@ RW_CARD_CASES = (
      for shape in [(1, 1, 16, 8), (2, 3, 50, 64), (1, 2, 128, 64)]
      for extreme in (False, True)]
     + [(shape, True, True)
-       for shape in [(1, 32, 37, 64), (1, 32, 200, 64), (4, 32, 1, 64)]])
+       for shape in [(1, 32, 37, 64), (1, 32, 200, 64), (4, 32, 1, 64)]]
+    # head dims off the 16-column block: 40 (a last block of 8 columns)
+    # and 45 (odd: 4-byte copies), and 20 over a ragged tail of steps
+    + [((2, 3, 45, 40), True, True), ((2, 2, 33, 45), True, False),
+       ((1, 2, 70, 20), False, True)])
 
 
 @pytest.mark.cuda
