@@ -41,7 +41,9 @@ then runs seven phases, each raising on failure:
 6. digits: the paper's pipeline (mnist-cnn at its published width,
    float32, seeded weights saved and restored through the checkpoint
    store): ``conv2d`` against its plain version over the reference's
-   sweep and the pipeline's batches in float32 and bfloat16;
+   sweep, the pipeline's batches, rows that are not multiples of 16
+   bytes, a Cout that is not a multiple of 4 and B=5,000, in float32 and
+   bfloat16;
    ``StratusPipeline.evaluate`` over 2,000 test and 1,000 canvas digits
    with the plain path's predictions; ``StratusApp`` answering 20 posted
    canvas digits (paper-faithful config) with the plain path's digits,
@@ -50,10 +52,14 @@ then runs seven phases, each raising on failure:
    forward pass;
 7. times: each kernel's time beside its bound, its plain version's and
    one PyTorch library call's where there is one (a yardstick only; the
-   port never calls it); for the bf16 attention shapes the kernel's
-   ratio to SDPA, whether its key ranges were split (``paged_attention``:
-   its grid's CTAs) and, where split, the time with them whole; the
-   timing method's floor (one launch on one element).
+   port never calls it), the kernel and the library call both by events
+   around one launch (``time_ms``) and by CUDA-graph replay
+   (``graph_ms``), which reads below the events' floor; for the bf16
+   attention shapes the kernel's ratio to SDPA, whether its key ranges
+   were split (``paged_attention``: its grid's CTAs) and, where split,
+   the time with them whole; ``conv2d``'s launch plan and its times
+   under forced plans; the floor of both methods (one launch on one
+   element).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -63,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -125,11 +132,17 @@ DIGIT_PROB_ATOL = 1e-5
 DIGIT_TIE_MARGIN = 1e-5
 # (B, H, W, Cin, K, Cout): the reference's sweep (tests/test_kernels.py),
 # then the pipeline's batches at the paper's shape: the consumer's 1 and
-# up to 32, evaluation's 1,000 canvas and 2,000 test digits
+# up to 32, evaluation's 1,000 canvas and 2,000 test digits; then the
+# kernel's own edges: input and output rows that are not multiples of 16
+# bytes (bfloat16 rows of 30 and 312 bytes; 84 and 228 with 6 output
+# channels, not a multiple of 4), and a batch whose persistent CTAs each
+# walk ~70 items
 CONV_SHAPES = ((5, 28, 28, 1, 3, 32), (130, 28, 28, 1, 3, 32),
                (4, 12, 16, 3, 5, 8), (2, 9, 9, 2, 1, 4),
                (1, 28, 28, 1, 3, 32), (32, 28, 28, 1, 3, 32),
-               (1000, 28, 28, 1, 3, 32), (2000, 28, 28, 1, 3, 32))
+               (1000, 28, 28, 1, 3, 32), (2000, 28, 28, 1, 3, 32),
+               (12, 15, 15, 1, 3, 12), (8, 20, 21, 2, 3, 6),
+               (5000, 28, 28, 1, 3, 32))
 MICRO_BATCHED = dict(max_batch=32, consume_base=0.05,
                      balancer_policy="power_of_two")
 
@@ -905,6 +918,51 @@ def time_ms(torch, fn, iters=20):
     return total / iters
 
 
+GRAPH_PAIRS = 50              # (flush, fn) pairs in one captured graph
+GRAPH_REPLAYS = 7
+
+
+def graph_ms(torch, fn, n=GRAPH_PAIRS, replays=GRAPH_REPLAYS):
+    """Device time of one ``fn`` from CUDA-graph replay: ``n`` pairs of
+    (L2 flush, ``fn``) captured into one graph, minus a graph of the same
+    ``n`` flushes alone, over ``n``; the median of ``replays`` replays of
+    each, taken in turns.  No host launch and no event lies between the
+    pairs, so this reads below ``time_ms``'s floor: what remains beside
+    the device work is the graph's own gap between nodes, which the floor
+    row (one launch on one element) shows."""
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up, as capture asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graphs = []
+    for with_fn in (True, False):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                flush.zero_()
+                if with_fn:
+                    fn()
+        graphs.append(g)
+    times = ([], [])
+    for _ in range(replays):
+        for g, acc in zip(graphs, times):
+            torch.cuda._sleep(SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            acc.append(start.elapsed_time(end))
+    med = [sorted(t)[len(t) // 2] for t in times]
+    del graphs
+    return (med[0] - med[1]) / n
+
+
 def sdpa(torch, q, k, v, mask=None, causal=False):
     """One PyTorch call for attention with an explicit boolean mask or
     the causal one: q (B,H,Sq,hd), k/v (B,KV,Sk,hd), mask (B,1,Sq,Sk)."""
@@ -969,11 +1027,33 @@ def fit_planner(sweep, split, b=8, kv=8, sms=132):
     return min(fits)
 
 
+# forced launch plans of conv2d at the paper's shape (batch: (band rows,
+# CTAs per SM, ring slots)), beside the planner's own: what its constants
+# (ITEM_ROWS, CTAS_PER_SM, STAGES) are read from
+CONV_SWEEP = {32: ((1, 4, 8), (2, 2, 8), (4, 2, 8), (4, 4, 8), (2, 4, 2)),
+              2000: ((4, 4, 8), (13, 4, 8), (26, 1, 8), (26, 2, 8),
+                     (26, 4, 2))}
+
+
+def conv2d_sweep(torch, cv_mod, fn, forced):
+    """``fn`` (a conv2d call) timed under each forced plan -> {(band rows,
+    CTAs per SM, ring slots): (event ms, graph-replayed ms)}."""
+    plan = cv_mod.plan
+    sweep = {}
+    for key in forced:
+        rows, per_sm, stages = key
+        with mock.patch.object(cv_mod, "plan", functools.partial(
+                plan, band_rows=rows, ctas_per_sm=per_sm, stages=stages)):
+            sweep[key] = (time_ms(torch, fn), graph_ms(torch, fn))
+    return sweep
+
+
 def kernel_times(torch, device, ops, ref):
     """Phase 7, at the parity phase's main-path shapes, the attention
     kernels in bfloat16 with window 0, ``rwkv6_scan`` and ``conv2d`` in
     float32.  -> {kernel: record}."""
     from repro_torch.kernels import attention_split
+    from repro_torch.kernels import conv2d as cv_mod
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import paged_attention as pa_mod
     from repro_torch.kernels import paged_prefill as pp_mod
@@ -984,6 +1064,7 @@ def kernel_times(torch, device, ops, ref):
     sms = attention_split.sm_count(device)
     out = {}
     split_fns = {}                  # key -> the kernel call, bf16 attention
+    calls = {}                      # key -> (kernel call, library call)
 
     q, k, v, kp, bt, pos = decode_case(torch, gen, device, dt)
     b, h, hd = q.shape
@@ -1002,12 +1083,15 @@ def kernel_times(torch, device, ops, ref):
     split_fns["paged_attention"] = (
         lambda q=q, k=k, v=v, kp=kp, bt=bt, pos=pos:
         ops.paged_attention(q, k, v, kp, bt, pos))
+    calls["paged_attention"] = (
+        split_fns["paged_attention"],
+        lambda q=q, gk=gk, gv=gv, mask=mask: sdpa(torch, q[:, :, None], gk,
+                                                  gv, mask))
     out["paged_attention"] = dict(
         ms=time_ms(torch, split_fns["paged_attention"]),
         plain_ms=time_ms(torch, lambda: ref.paged_attention_ref(
             q, k, v, kp, bt, pos)),
-        library_ms=time_ms(torch, lambda: sdpa(torch, q[:, :, None], gk, gv,
-                                               mask)),
+        library_ms=time_ms(torch, calls["paged_attention"][1]),
         bytes=nbytes, flops=flops, split=pl.split, ctas=pl.ctas(b, kv))
     out["paged_attention"]["sweep"] = piece_sweep(torch, device, ops, pa_mod)
 
@@ -1023,11 +1107,14 @@ def kernel_times(torch, device, ops, ref):
     mask = vis[:, None]
     split_fns["paged_prefill"] = (lambda q=q, k=k, v=v, kpos=kpos, qpos=qpos:
                                   ops.paged_prefill(q, k, v, kpos, qpos))
+    calls["paged_prefill"] = (split_fns["paged_prefill"],
+                              lambda qt=qt, kt=kt, vt=vt, mask=mask:
+                              sdpa(torch, qt, kt, vt, mask))
     out["paged_prefill"] = dict(
         ms=time_ms(torch, split_fns["paged_prefill"]),
         plain_ms=time_ms(torch, lambda: ref.paged_prefill_ref(
             q, k, v, kpos, qpos)),
-        library_ms=time_ms(torch, lambda: sdpa(torch, qt, kt, vt, mask)),
+        library_ms=time_ms(torch, calls["paged_prefill"][1]),
         bytes=nbytes, flops=flops,
         split=pp_mod.plan(b, s, k.shape[1], h, kv, sms).split)
 
@@ -1045,12 +1132,14 @@ def kernel_times(torch, device, ops, ref):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         split_fns[key] = (lambda q=q, k=k, v=v, kpos=kpos, qpos=qpos:
                           ops.paged_prefill(q, k, v, kpos, qpos))
+        calls[key] = (split_fns[key],
+                      lambda qt=qt, kt=kt, vt=vt, mask=vis[:, None]:
+                      sdpa(torch, qt, kt, vt, mask))
         out[key] = dict(
             ms=time_ms(torch, split_fns[key]),
             plain_ms=time_ms(torch, lambda: ref.paged_prefill_ref(
                 q, k, v, kpos, qpos)),
-            library_ms=time_ms(torch, lambda: sdpa(torch, qt, kt, vt,
-                                                   vis[:, None])),
+            library_ms=time_ms(torch, calls[key][1]),
             bytes=nbytes, flops=4 * hd * h * int(vis.sum()),
             split=pp_mod.plan(q.shape[0], 1, k.shape[1], h, kv, sms).split)
 
@@ -1062,11 +1151,12 @@ def kernel_times(torch, device, ops, ref):
         key = f"flash_attention_{s}"
         split_fns[key] = (lambda q=q, k=k, v=v:
                           ops.flash_attention(q, k, v))
+        calls[key] = (split_fns[key], lambda q=q, k=k, v=v:
+                      sdpa(torch, q, k, v, causal=True))
         out[key] = dict(
             ms=time_ms(torch, split_fns[key]),
             plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v)),
-            library_ms=time_ms(torch, lambda: sdpa(torch, q, k, v,
-                                                   causal=True)),
+            library_ms=time_ms(torch, calls[key][1]),
             bytes=nbytes, flops=4 * hd * h * b * (s * (s + 1) // 2),
             split=fa_mod.plan(b, h, k.shape[1], s, s, True, 0, sms).split)
 
@@ -1078,8 +1168,11 @@ def kernel_times(torch, device, ops, ref):
     for b, s in ((1, 200), (4, 1)):
         r, k, v, w, u, s0 = rwkv_case(torch, gen, device, b=b, s=s)
         _, h, _, hd = r.shape
-        out[f"rwkv6_scan_{b}x{s}"] = dict(
-            ms=time_ms(torch, lambda: ops.rwkv6_scan(r, k, v, w, u, s0)),
+        key = f"rwkv6_scan_{b}x{s}"
+        calls[key] = (lambda r=r, k=k, v=v, w=w, u=u, s0=s0:
+                      ops.rwkv6_scan(r, k, v, w, u, s0), None)
+        out[key] = dict(
+            ms=time_ms(torch, calls[key][0]),
             plain_ms=time_ms(torch, lambda: ref.rwkv6_scan_ref(
                 r, k, v, w, u, s0)),
             library_ms=None, dtype="float32",
@@ -1096,13 +1189,19 @@ def kernel_times(torch, device, ops, ref):
         x = torch.rand(b, 28, 28, 1, generator=gen, device=device)
         w = torch.randn(3, 3, 1, 32, generator=gen, device=device)
         xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-        out[f"conv2d_{b}"] = dict(
-            ms=time_ms(torch, lambda: ops.conv2d(x, w)),
+        key = f"conv2d_{b}"
+        calls[key] = (lambda x=x, w=w: ops.conv2d(x, w),
+                      lambda xn=xn, wn=wn: F.conv2d(xn, wn))
+        out[key] = dict(
+            ms=time_ms(torch, calls[key][0]),
             plain_ms=time_ms(torch, lambda: ref.conv2d_ref(x, w)),
-            library_ms=time_ms(torch, lambda: F.conv2d(xn, wn)),
+            library_ms=time_ms(torch, calls[key][1]),
             dtype="float32",
             bytes=4 * (x.numel() + w.numel() + b * 26 * 26 * 32),
             flops=2 * b * 26 * 26 * 3 * 3 * 32)
+        if b in CONV_SWEEP:
+            out[key]["sweep"] = conv2d_sweep(torch, cv_mod, calls[key][0],
+                                             CONV_SWEEP[b])
 
     # the bf16 attention shapes whose key ranges the planners split, timed
     # again with every range whole (one piece, no combine)
@@ -1114,6 +1213,13 @@ def kernel_times(torch, device, ops, ref):
                     mock.patch.object(pa_mod, "plan", lambda b, kv, nb, n:
                                       pa_mod.Plan(nb, 1)):
                 out[key]["whole_ms"] = time_ms(torch, fn)
+
+    # graph replay: every kernel row and its library call (the plain
+    # versions keep the event timing)
+    for key, (fn, lib) in calls.items():
+        out[key]["graph_ms"] = graph_ms(torch, fn)
+        out[key]["library_graph_ms"] = (None if lib is None
+                                        else graph_ms(torch, lib))
 
     for rec in out.values():
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1313,7 +1419,8 @@ def main() -> int:
     times = kernel_times(torch, device, ops, ref)
     one = torch.zeros(1, device=device)
     log(f"time floor: one launch on one element (add_), same timing: "
-        f"{time_ms(torch, lambda: one.add_(1)):.4f} ms")
+        f"{time_ms(torch, lambda: one.add_(1)):.4f} ms; graph-replayed: "
+        f"{graph_ms(torch, lambda: one.add_(1)):.4f} ms")
     for name, key, what in (
             ("flash_attention", "flash_attention_512",
              "one causal row of S=512"),
@@ -1335,9 +1442,11 @@ def main() -> int:
         if "whole_ms" in t:
             split += f" (whole ranges: {t['whole_ms']:.4f} ms)"
         log(f"time {name} bf16 "
-            f"at {what}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"at {what}: {t['ms']:.4f} ms (graph-replayed "
+            f"{t['graph_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, sdpa "
-            f"{t['library_ms']:.4f} ms, kernel / sdpa "
+            f"{t['library_ms']:.4f} ms (graph-replayed "
+            f"{t['library_graph_ms']:.4f}), kernel / sdpa "
             f"{t['ms'] / t['library_ms']:.2f}{split}")
     records = []
     for name, key, replaces in (
@@ -1354,13 +1463,15 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "graph_ms": t["graph_ms"]})
     t = times["paged_attention"]
     sweep = ", ".join(f"{nb} blocks / {c}: {ms:.4f}"
                       for (nb, c), ms in t["sweep"].items())
     log(f"time paged_attention bf16 by blocks per piece (table width / "
         f"blocks per piece: ms): {sweep}")
     from repro_torch.kernels import attention_split
+    from repro_torch.kernels import conv2d as cv_mod
     from repro_torch.kernels import paged_attention as pa_mod
     res, fixed, combine, per_sm, tau, base = fit_planner(t["sweep"],
                                                          attention_split)
@@ -1373,7 +1484,8 @@ def main() -> int:
                       ("rwkv6_scan_4x1", "a decode step over 4 slots")):
         t = times[key]
         log(f"time rwkv6_scan float32 at {what} (32 heads of 64): "
-            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"{t['ms']:.4f} ms (graph-replayed {t['graph_ms']:.4f}), "
+            f"bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, no library "
             "call")
     t = times["rwkv6_scan_1x200"]
@@ -1384,14 +1496,23 @@ def main() -> int:
         "launches": launches["rwkv6_scan"],
         "max_abs_err": errs["rwkv6_scan"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None})
+        "bound_by": t["bound_by"], "library_ms": None,
+        "graph_ms": t["graph_ms"]})
     for b in (1, 32, 2000):
         t = times[f"conv2d_{b}"]
+        pl = cv_mod.launch_plan((b, 28, 28, 1), (3, 3, 1, 32), torch.float32,
+                                attention_split.sm_count(device))
         log(f"time conv2d float32 at B={b} (28x28x1 images, 32 filters of "
-            f"3x3): {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"3x3): {t['ms']:.4f} ms (graph-replayed {t['graph_ms']:.4f}), "
+            f"bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}: {t['bytes']} bytes read and written), "
             f"plain {t['plain_ms']:.4f} ms, cudnn {t['library_ms']:.4f} ms "
-            "(TF32 off)")
+            f"(graph-replayed {t['library_graph_ms']:.4f}; TF32 off); {pl}")
+        if "sweep" in t:
+            log(f"time conv2d float32 at B={b} by forced plan ((band rows, "
+                f"CTAs per SM, ring slots): event / graph-replayed ms): "
+                + ", ".join(f"{k}: {e:.4f} / {g:.4f}"
+                            for k, (e, g) in t["sweep"].items()))
     t = times["conv2d_32"]              # the micro-batched consumer's batch
     records.append({
         "name": "conv2d", "route": "cuda",
@@ -1399,7 +1520,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/conv2d.py:37",
         "launches": launches["conv2d"], "max_abs_err": errs["conv2d"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "graph_ms": t["graph_ms"]})
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Time the conv2d kernel of several checkouts on one card, in turns.
+
+    python3 conv2d_compare.py TREE [TREE ...]
+
+Each TREE is the root of a checkout holding ``src/repro_torch`` (for
+another commit: ``git archive <commit> | tar -x -C build/<dir>``).  The
+trees run in the order given and then in reverse (parent, change,
+change, parent), each in a child process of its own, since two
+``repro_torch`` packages cannot share one.  A child builds that tree's
+``conv2d`` kernel into the tree's ``build/``, holds it against the plain
+version, and times it at the paper's shape (28x28x1 images, 32 filters
+of 3x3, float32) for B = 1, 32 and 2000 with ``chip_smoke.py``'s two
+methods: events around one launch (``time_ms``) and CUDA-graph replay
+(``graph_ms``); beside it cuDNN (TF32 off) and the floor (one launch on
+one element), both ways.  Prints a line per run, the card's name and
+power limit, and a JSON object of every reading last.  Needs one NVIDIA
+GPU.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+BATCHES = (1, 32, 2000)
+
+
+def child(tree: Path) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(HERE))
+    sys.path.insert(0, str(tree / "src"))
+    import chip_smoke as cs
+    from repro_torch.kernels import conv2d as cv_mod
+    from repro_torch.kernels import ref
+
+    assert Path(cv_mod.__file__).resolve().is_relative_to(tree.resolve())
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    one = torch.zeros(1, device=dev)
+    res = {"floor": (cs.time_ms(torch, lambda: one.add_(1)),
+                     cs.graph_ms(torch, lambda: one.add_(1)))}
+    for b in BATCHES:
+        x = torch.rand(b, 28, 28, 1, generator=gen, device=dev)
+        w = torch.randn(3, 3, 1, 32, generator=gen, device=dev)
+        got, want = cv_mod.conv2d(x, w), ref.conv2d_ref(x, w)
+        torch.testing.assert_close(got, want,
+                                   **cs.KERNEL_TOL["conv2d", "float32"])
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        res[f"conv2d_{b}"] = (cs.time_ms(torch, lambda: cv_mod.conv2d(x, w)),
+                              cs.graph_ms(torch, lambda: cv_mod.conv2d(x, w)))
+        res[f"cudnn_{b}"] = (cs.time_ms(torch, lambda: F.conv2d(xn, wn)),
+                             cs.graph_ms(torch, lambda: F.conv2d(xn, wn)))
+    return res
+
+
+def main(argv) -> int:
+    if len(argv) >= 2 and argv[0] == "--child":
+        print(json.dumps(child(Path(argv[1]))))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available() or not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+
+    trees = [Path(t).resolve() for t in argv]
+    runs = []
+    for tree in trees + trees[::-1]:
+        out = subprocess.run([sys.executable, __file__, "--child", str(tree)],
+                             capture_output=True, text=True, check=False)
+        if out.returncode != 0:
+            print(out.stdout, out.stderr, file=sys.stderr)
+            return 1
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        runs.append({"tree": str(tree), **res})
+        print(f"{tree}: " + ", ".join(
+            f"{k} {e:.4f} / {g:.4f}" for k, (e, g) in res.items())
+            + "  (ms, event / graph-replayed)", flush=True)
+    smi = cs.nvidia_smi()
+    print(smi)
+    print(json.dumps({"card": smi, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -20,8 +20,11 @@ port (``repro_torch``), whose ``ops.conv2d`` takes its plain version
   128-term product, ~1e-6 apart), loss and accuracy likewise.
 
 On the card (tests marked ``cuda``, skipped elsewhere): the CUDA kernel
-against the plain version over the sweep and at the paper's shape for
-B = 1, 32, 1000 and 2000.  float32 ``atol=rtol=1e-5`` (FMA against a
+against the plain version over the sweep, at the paper's shape for
+B = 1, 32, 1000, 2000 and 5000 (each persistent CTA walking many items),
+on rows that are not multiples of 16 bytes (the bulk copies' ragged
+edges), with a Cout that is not a multiple of 4, and on an input that
+starts off a 16-byte boundary.  float32 ``atol=rtol=1e-5`` (FMA against a
 separate multiply and add over at most 75 terms).  bfloat16 ``atol=1e-3,
 rtol=2**-7``: both sides sum in float32 and round the output to bf16
 once, so an element may land one bf16 ulp (2**-7 of its size) apart.
@@ -189,7 +192,10 @@ def _card_tol(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", CONV_SHAPES + [
-    (b, 28, 28, 1, 3, 32) for b in (1, 32, 1000, 2000)], ids=str)
+    (b, 28, 28, 1, 3, 32) for b in (1, 32, 1000, 2000, 5000)] + [
+    (12, 15, 15, 1, 3, 12),      # bf16 rows of 30 and 312 bytes
+    (8, 20, 21, 2, 3, 6),        # Cout % 4 == 2; bf16 rows of 84 and 228
+], ids=str)
 def test_conv2d_kernel_matches_plain(cuda, shape, dtype):
     x, w = (torch.from_numpy(a).to(cuda, dtype) for a in conv_case(shape))
     before = ops.launch_counts()["conv2d"]
@@ -198,6 +204,26 @@ def test_conv2d_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert ops.launch_counts()["conv2d"] == before + 1
     assert out.dtype == dtype and out.shape == plain.shape
+    torch.testing.assert_close(out.float(), plain.float(), **_card_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 9, 9, 2, 1, 4), (12, 15, 15, 1, 3, 12)],
+                         ids=str)
+def test_conv2d_kernel_reads_an_input_off_a_16_byte_boundary(cuda, shape,
+                                                              dtype):
+    # x is the contiguous tail of a larger batch: in bfloat16 it starts 4
+    # (first shape) or 2 bytes past a 16-byte boundary, and ends off one
+    b = shape[0]
+    x, w = (torch.from_numpy(a).to(cuda, dtype)
+            for a in conv_case((b + 1,) + shape[1:]))
+    x = x[1:]
+    assert x.is_contiguous()
+    out = ops.conv2d(x, w)
+    plain = ref.conv2d_ref(x, w)
+    torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), plain.float(), **_card_tol(dtype))
 
 

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the reference package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``conv2d_compare.py`` import neither JAX nor anything of the reference
+package ``repro``."""
 import ast
 import os
 import pathlib
@@ -12,7 +13,7 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "conv2d_compare.py"]
 
 
 def _forbidden(name: str) -> bool:
