@@ -50,6 +50,18 @@ then runs seven phases, each raising on failure:
    and a POST load of 25 users through ``LoadGenerator`` on the
    micro-batched config under 5 % failures; ``conv2d`` launched once per
    forward pass;
+6b. digits, training: ``conv2d_wgrad`` against its plain version over
+   the same sweep plus the training step's B=64, float32 and bfloat16,
+   a repeat launch bit-identical; ``ops.conv2d``'s autograd Function (dx,
+   dw) against autograd through the plain ``conv2d_ref``; ``cnn_loss``'s
+   gradients for all six parameters, kernels vs plain; 4 sync rounds
+   through the kernels and through the plain versions from one seed;
+   then ``StratusPipeline.train`` at the reference benchmark's budget
+   (sync, 5 workers, 12,000 digits, 36 rounds of 2 steps): test accuracy
+   >= 0.98, ``conv2d`` launched 360 + 2 (``evaluate``) times and
+   ``conv2d_wgrad`` 360, its checkpoint restored and served; ``local_sgd``
+   and ``elastic`` at ``bench_strategies``' budget (8,000 / 24 / 2), each
+   >= 0.98;
 7. times: each kernel's time beside its bound, its plain version's and
    one PyTorch library call's where there is one (a yardstick only; the
    port never calls it), the kernel and the library call both by events
@@ -58,8 +70,9 @@ then runs seven phases, each raising on failure:
    attention shapes the kernel's ratio to SDPA, whether its key ranges
    were split (``paged_attention``: its grid's CTAs) and, where split,
    the time with them whole; ``conv2d``'s launch plan and its times
-   under forced plans; the floor of both methods (one launch on one
-   element).
+   under forced plans; ``conv2d_wgrad`` at B=64 and 2,000 beside
+   ``torch.nn.grad.conv2d_weight``; the floor of both methods (one launch
+   on one element).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -110,6 +123,30 @@ KERNEL_TOL = {
     # bf16 ulp (2**-7 of the value) apart at most
     ("conv2d", "bfloat16"): dict(atol=1e-3, rtol=2 ** -7),
 }
+# conv2d_wgrad and the conv's autograd Function, kernel vs plain: float32
+# sums in other orders over up to B*H'*W' (1.35 million at B=2,000)
+# products, so the rounding scales with the largest value: atol is this
+# many times max|plain|; bfloat16 adds one bf16 ulp (both sides round the
+# float32 sum once)
+WGRAD_TOL = {"float32": dict(scaled_atol=1e-5, rtol=1e-5),
+             "bfloat16": dict(scaled_atol=1e-5, rtol=2 ** -7)}
+# cnn_loss gradients at B=64, kernels vs plain path: float32, sums in
+# other orders (as tests/test_torch_autograd.py against jax.grad), where
+# every 2x2 max-pool picks the same element on both paths; a window whose
+# top two conv outputs lie within GRAD_TIE_MARGIN may route its gradient
+# to the other element (the dense layers' gradients stay held tight)
+GRAD_TOL = dict(atol=1e-6, rtol=1e-4)
+GRAD_TIE_MARGIN = 1e-5
+# the reference benchmark's budgets (benchmarks/run.py:
+# bench_train_time_accuracy, bench_strategies) and the accuracy each must
+# reach (the reference reaches 0.9995 and 0.998-1.000 at them on a CPU)
+TRAIN_BUDGET = dict(train_n=12_000, rounds=36, steps_per_round=2)
+STRATEGY_BUDGET = dict(train_n=8_000, rounds=24, steps_per_round=2)
+TRAIN_MIN_ACCURACY = 0.98
+# 4 sync rounds from one seed, kernels vs plain versions: each round's
+# loss; the conv sums differ in order and Adam's steps amplify rounding
+# where a gradient is near 0 (tests/test_torch_train.py)
+TRAIN_LOSS_RTOL = 1e-3
 # relative L2 error of logits, kernels vs plain versions through a model:
 # bf16 rounds activations in each of 28 layers, so kernel-side rounding
 # differences compound; float32 (2 layers) only reorders sums
@@ -384,7 +421,8 @@ def plain_ops(ops, ref):
                                paged_prefill=ref.paged_prefill_ref,
                                flash_attention=ref.flash_attention_ref,
                                rwkv6_scan=ref.rwkv6_scan_ref,
-                               conv2d=ref.conv2d_ref)
+                               conv2d=ref.conv2d_ref,
+                               conv2d_wgrad=ref.conv2d_wgrad_ref)
 
 
 def _clone(tree):
@@ -871,6 +909,195 @@ def digit_phase(torch, device, ops, ref) -> tuple:
     return err, launches
 
 
+# ---------------------------------------------------------------- training
+
+
+def assert_wgrad_close(torch, got, want, dtype_name) -> float:
+    """``WGRAD_TOL`` -> max abs error."""
+    tol = WGRAD_TOL[dtype_name]
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol["rtol"],
+                               atol=tol["scaled_atol"] * scale)
+    return (got.float() - want.float()).abs().max().item()
+
+
+def wgrad_parity(torch, device, ops, ref) -> float:
+    """Phase 6b: ``conv2d_wgrad`` against its plain version over
+    ``CONV_SHAPES`` and the training step's B=64, in float32 and
+    bfloat16 (inputs as ``conv2d_parity`` draws them, dy N(0, 1)); a
+    second launch must give the same bits; then ``ops.conv2d``'s dx and
+    dw against autograd through ``conv2d_ref``.  -> max abs error of the
+    kernel over the float32 cases."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    worst = 0.0
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for b, h, w, cin, k, cout in CONV_SHAPES + ((64, 28, 28, 1, 3, 32),):
+            draw = torch.rand if (h, cin, k) == (28, 1, 3) else torch.randn
+            x = draw(b, h, w, cin, generator=gen, device=device).to(dtype)
+            dy = torch.randn(b, h - k + 1, w - k + 1, cout, generator=gen,
+                             device=device).to(dtype)
+            out = ops.conv2d_wgrad(x, dy, k, k)
+            again = ops.conv2d_wgrad(x, dy, k, k)
+            plain = ref.conv2d_wgrad_ref(x, dy, k, k)
+            torch.cuda.synchronize()
+            assert torch.equal(out, again), "conv2d_wgrad repeat differs"
+            err = assert_wgrad_close(torch, out, plain, dtype_name)
+            log(f"parity conv2d_wgrad {dtype_name} x ({b},{h},{w},{cin}) dy "
+                f"({b},{h - k + 1},{w - k + 1},{cout}): max_abs_err="
+                f"{err:.3e} (max |dw| {plain.float().abs().max().item():.1f}"
+                "), repeat bit-identical")
+            if dtype_name == "float32":
+                worst = max(worst, err)
+            # the autograd Function's gradients, kernels vs plain path
+            wt = (torch.randn(k, k, cin, cout, generator=gen, device=device)
+                  * 0.2).to(dtype)
+            grads = []
+            for fn in (ops.conv2d, ref.conv2d_ref):
+                xg, wg = x.clone().requires_grad_(), wt.clone().requires_grad_()
+                fn(xg, wg).backward(dy)
+                grads.append((xg.grad, wg.grad))
+            torch.cuda.synchronize()
+            errs = [assert_wgrad_close(torch, got, want, dtype_name)
+                    for got, want in zip(*grads)]
+            log(f"  autograd Function vs plain autograd: dx max_abs_err "
+                f"{errs[0]:.3e}, dw {errs[1]:.3e}")
+    return worst
+
+
+def pool_routing(torch, cfg, params, images):
+    """The element each 2x2 max-pool window of the CNN picks, and the gap
+    between its top two values (the kernel path's conv)."""
+    from repro_torch.models.cnn import conv2d_valid
+
+    with torch.inference_mode():
+        y = torch.relu(conv2d_valid(images, params["conv_w"])
+                       + params["conv_b"])
+    b, h, w, c = y.shape
+    p = cfg.pool
+    win = (y[:, : h - h % p, : w - w % p, :]
+           .reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 5, 2, 4)
+           .reshape(b, h // p, w // p, c, p * p))
+    top2 = win.topk(2, -1).values
+    return win.argmax(-1), top2[..., 0] - top2[..., 1]
+
+
+def model_gradients(torch, device, ops, ref):
+    """Phase 6b: ``cnn_loss``'s gradients for the six parameters at B=64,
+    through the kernels and through the plain versions, on seeded weights
+    with drawn biases."""
+    from repro_torch.configs.mnist_cnn import CONFIG
+    from repro_torch.models.cnn import cnn_loss, cnn_schema
+    from repro_torch.models.module import init_params
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    params = init_params(cnn_schema(CONFIG), 7, "float32", device)
+    for name in ("conv_b", "dense1_b", "dense2_b"):
+        params[name] = torch.randn(params[name].shape, generator=gen,
+                                   device=device) * 0.1
+    x = torch.rand(64, 28, 28, 1, generator=gen, device=device)
+    labels = torch.randint(0, 10, (64,), generator=gen, device=device,
+                           dtype=torch.int32)
+    grads = {}
+    for name, ctx in (("kernel", contextlib.nullcontext()),
+                      ("plain", plain_ops(ops, ref))):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        with ctx:
+            loss, _ = cnn_loss(leaves, CONFIG, x, labels)
+            loss.backward()
+            routing = pool_routing(torch, CONFIG, params, x)
+        grads[name] = ({k: v.grad for k, v in leaves.items()}, routing,
+                       loss.item())
+    (kg, (kr, _), kl), (pg, (pr, gap), pl) = grads["kernel"], grads["plain"]
+    moved = kr != pr
+    assert bool((gap[moved] < GRAD_TIE_MARGIN).all()), "pool routing"
+    errs = {k: _rel_err(torch, kg[k], pg[k]) for k in params}
+    log(f"model mnist-cnn cnn_loss gradients B=64, kernels vs plain: loss "
+        f"{kl:.6f} / {pl:.6f}, pool windows routed apart "
+        f"{int(moved.sum())} (each within {GRAD_TIE_MARGIN}), relative L2 "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+    for k in params:
+        if int(moved.sum()) == 0 or k.startswith("dense"):
+            torch.testing.assert_close(kg[k], pg[k], **GRAD_TOL)
+
+
+def training_phase(torch, device, ops, ref, smi) -> tuple:
+    """Phase 6b: the paper's digit pipeline trained on the card.  -> (max
+    abs error of ``conv2d_wgrad`` vs plain in float32, {kernel: launches}
+    of the budget run)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.pipeline import StratusPipeline
+    from repro_torch.data import mnist
+
+    err = wgrad_parity(torch, device, ops, ref)
+    model_gradients(torch, device, ops, ref)
+
+    # kernels vs plain versions, 4 sync rounds from one seed
+    hist = {}
+    for name, ctx in (("kernel", contextlib.nullcontext()),
+                      ("plain", plain_ops(ops, ref))):
+        with ctx:
+            res = StratusPipeline(seed=0, device=device).train(
+                train_n=TRAIN_BUDGET["train_n"], rounds=4)
+        hist[name] = [h["loss"] for h in res["history"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(hist["kernel"],
+                                               hist["plain"])]
+    log(f"train sync 4 rounds, loss kernels {hist['kernel']} plain "
+        f"{hist['plain']}: worst relative difference {max(rel):.2e}")
+    assert max(rel) <= TRAIN_LOSS_RTOL, rel
+
+    # the paper's budget, sync over 5 workers
+    with tempfile.TemporaryDirectory() as root:
+        pipe = StratusPipeline(seed=0, device=device, ckpt_dir=root)
+        ops.reset_launch_counts()
+        res = pipe.train(**TRAIN_BUDGET)
+        ev = pipe.evaluate()
+        counts = ops.launch_counts()
+        with plain_ops(ops, ref):
+            ev_plain = pipe.evaluate()
+        last = res["history"][-1]["loss"]
+        log(f"train sync 5 workers {TRAIN_BUDGET}: {res['seconds']:.3f}s, "
+            f"last loss {last:.4f}, test accuracy "
+            f"{ev['test_accuracy']:.4f}, canvas {ev['canvas_accuracy']:.4f} "
+            f"(plain path on the same weights: test "
+            f"{ev_plain['test_accuracy']:.4f}, canvas "
+            f"{ev_plain['canvas_accuracy']:.4f}); launches conv2d="
+            f"{counts['conv2d']} conv2d_wgrad={counts['conv2d_wgrad']} | "
+            f"{smi}")
+        steps = (pipe.num_workers * TRAIN_BUDGET["rounds"]
+                 * TRAIN_BUDGET["steps_per_round"])
+        assert counts["conv2d"] == steps + 2, counts
+        assert counts["conv2d_wgrad"] == steps, counts
+        assert ev["test_accuracy"] >= TRAIN_MIN_ACCURACY, ev
+        served = StratusPipeline(seed=1, device=device)
+        step, tree = CheckpointManager(root).restore_latest(
+            {"params": served.params})
+    assert step == TRAIN_BUDGET["rounds"]
+    for name, t in tree["params"].items():
+        assert torch.equal(t, pipe.params[name]), name
+    served.params = tree["params"]
+    images, labels = mnist.canvas_digits(20, seed=42)
+    plain_digits, tie, _, _ = digit_predictions(torch, ops, ref, served,
+                                                images)
+    digits = served.predict_fn()(images).argmax(-1).tolist()
+    log(f"  restored checkpoint, 20 canvas digits: {digits} (labels "
+        f"{labels.tolist()})")
+    assert all(d == p or t for d, p, t in zip(digits, plain_digits, tie))
+
+    for strategy in ("local_sgd", "elastic"):
+        pipe = StratusPipeline(seed=0, device=device, strategy=strategy)
+        res = pipe.train(**STRATEGY_BUDGET)
+        ev = pipe.evaluate(test_n=1_000, canvas_n=400)
+        log(f"train {strategy} 5 workers {STRATEGY_BUDGET}: "
+            f"{res['seconds']:.3f}s, last loss "
+            f"{res['history'][-1]['loss']:.4f}, test accuracy "
+            f"{ev['test_accuracy']:.4f}, canvas {ev['canvas_accuracy']:.4f}")
+        assert ev["test_accuracy"] >= TRAIN_MIN_ACCURACY, (strategy, ev)
+    del pipe, served
+    torch.cuda.empty_cache()
+    return err, counts
+
+
 # ---------------------------------------------------------------- timing
 
 
@@ -1033,17 +1260,24 @@ def fit_planner(sweep, split, b=8, kv=8, sms=132):
 CONV_SWEEP = {32: ((1, 4, 8), (2, 2, 8), (4, 2, 8), (4, 4, 8), (2, 4, 2)),
               2000: ((4, 4, 8), (13, 4, 8), (26, 1, 8), (26, 2, 8),
                      (26, 4, 2))}
+CONV_SWEEP_ARGS = ("band_rows", "ctas_per_sm", "stages")
+# forced launch plans of conv2d_wgrad (batch: (CTAs per SM, pairs staged
+# at once)): how its time moves with the partials (pass 2's work) and the
+# staging group
+WGRAD_SWEEP = {64: ((1, 8), (4, 8), (8, 8), (2, 1), (2, 2)),
+               2000: ((1, 8), (4, 8), (8, 8), (2, 2), (2, 16))}
+WGRAD_SWEEP_ARGS = ("ctas_per_sm", "group")
 
 
-def conv2d_sweep(torch, cv_mod, fn, forced):
-    """``fn`` (a conv2d call) timed under each forced plan -> {(band rows,
-    CTAs per SM, ring slots): (event ms, graph-replayed ms)}."""
-    plan = cv_mod.plan
+def plan_sweep(torch, mod, fn, names, forced):
+    """``fn`` timed with ``mod.plan`` forced to each tuple of ``forced``
+    (values of the plan's keyword arguments ``names``) -> {tuple: (event
+    ms, graph-replayed ms)}."""
+    plan = mod.plan
     sweep = {}
     for key in forced:
-        rows, per_sm, stages = key
-        with mock.patch.object(cv_mod, "plan", functools.partial(
-                plan, band_rows=rows, ctas_per_sm=per_sm, stages=stages)):
+        with mock.patch.object(mod, "plan", functools.partial(
+                plan, **dict(zip(names, key)))):
             sweep[key] = (time_ms(torch, fn), graph_ms(torch, fn))
     return sweep
 
@@ -1054,6 +1288,7 @@ def kernel_times(torch, device, ops, ref):
     float32.  -> {kernel: record}."""
     from repro_torch.kernels import attention_split
     from repro_torch.kernels import conv2d as cv_mod
+    from repro_torch.kernels import conv2d_wgrad as wg_mod
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import paged_attention as pa_mod
     from repro_torch.kernels import paged_prefill as pp_mod
@@ -1200,8 +1435,36 @@ def kernel_times(torch, device, ops, ref):
             bytes=4 * (x.numel() + w.numel() + b * 26 * 26 * 32),
             flops=2 * b * 26 * 26 * 3 * 3 * 32)
         if b in CONV_SWEEP:
-            out[key]["sweep"] = conv2d_sweep(torch, cv_mod, calls[key][0],
-                                             CONV_SWEEP[b])
+            out[key]["sweep"] = plan_sweep(torch, cv_mod, calls[key][0],
+                                           CONV_SWEEP_ARGS, CONV_SWEEP[b])
+
+    # the filter gradient in float32 at the training step's B=64 and at
+    # 2,000; bytes: x and dy read, dw written; library: cuDNN's weight
+    # gradient on NCHW copies made here, TF32 off (``main``)
+    from torch.nn.grad import conv2d_weight
+
+    for b in (64, 2000):
+        x = torch.rand(b, 28, 28, 1, generator=gen, device=device)
+        dy = torch.randn(b, 26, 26, 32, generator=gen, device=device)
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        dyn = dy.permute(0, 3, 1, 2).contiguous()
+        key = f"conv2d_wgrad_{b}"
+        calls[key] = (lambda x=x, dy=dy: ops.conv2d_wgrad(x, dy, 3, 3),
+                      lambda xn=xn, dyn=dyn: conv2d_weight(xn, (32, 1, 3, 3),
+                                                           dyn))
+        torch.testing.assert_close(
+            calls[key][1]().permute(2, 3, 1, 0), calls[key][0](),
+            rtol=1e-5, atol=1e-5 * calls[key][0]().abs().max().item())
+        out[key] = dict(
+            ms=time_ms(torch, calls[key][0]),
+            plain_ms=time_ms(torch, lambda: ref.conv2d_wgrad_ref(x, dy, 3, 3)),
+            library_ms=time_ms(torch, calls[key][1]),
+            dtype="float32",
+            bytes=4 * (x.numel() + dy.numel() + 3 * 3 * 32),
+            flops=2 * b * 26 * 26 * 3 * 3 * 32,
+            plan=wg_mod.launch_plan(x.shape, 3, 3, 32, sms),
+            sweep=plan_sweep(torch, wg_mod, calls[key][0], WGRAD_SWEEP_ARGS,
+                             WGRAD_SWEEP[b]))
 
     # the bf16 attention shapes whose key ranges the planners split, timed
     # again with every range whole (one piece, no combine)
@@ -1307,8 +1570,8 @@ def main() -> int:
     cfg, model, params = serve.build_model(args)
     prompts = smoke_workload(cfg.vocab_size)
     sync = torch.cuda.synchronize
-    launches = {"conv2d": 0, "flash_attention": 0, "paged_attention": 0,
-                "paged_prefill": 0, "rwkv6_scan": 0}
+    launches = {"conv2d": 0, "conv2d_wgrad": 0, "flash_attention": 0,
+                "paged_attention": 0, "paged_prefill": 0, "rwkv6_scan": 0}
     for fusion in ("on", "off"):
         args.decode_fusion = fusion
         run_engine(serve.build_engine(args, model, params), prompts[:2], 2,
@@ -1415,6 +1678,14 @@ def main() -> int:
     # 6. the paper's digit pipeline
     errs["conv2d"], launches["conv2d"] = digit_phase(torch, device, ops, ref)
 
+    # 6b. the digit pipeline trained on the card
+    errs["conv2d_wgrad"], train_counts = training_phase(torch, device, ops,
+                                                        ref, smi)
+    log(f"conv2d launches: serving {launches['conv2d']}, training budget "
+        f"run {train_counts['conv2d']}")
+    launches["conv2d"] += train_counts["conv2d"]
+    launches["conv2d_wgrad"] = train_counts["conv2d_wgrad"]
+
     # 7. times
     times = kernel_times(torch, device, ops, ref)
     one = torch.zeros(1, device=device)
@@ -1520,6 +1791,29 @@ def main() -> int:
         "replaces": "src/repro/kernels/conv2d.py:37",
         "launches": launches["conv2d"], "max_abs_err": errs["conv2d"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "graph_ms": t["graph_ms"]})
+    for b in (64, 2000):
+        t = times[f"conv2d_wgrad_{b}"]
+        log(f"time conv2d_wgrad float32 at B={b} (28x28x1 images, 32 "
+            f"filters of 3x3): {t['ms']:.4f} ms (graph-replayed "
+            f"{t['graph_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {t['bytes']} bytes read and written), plain "
+            f"{t['plain_ms']:.4f} ms, torch.nn.grad.conv2d_weight "
+            f"{t['library_ms']:.4f} ms (graph-replayed "
+            f"{t['library_graph_ms']:.4f}; TF32 off); {t['plan']}")
+        log(f"time conv2d_wgrad float32 at B={b} by forced plan ((CTAs per "
+            f"SM, pairs staged at once): event / graph-replayed ms): "
+            + ", ".join(f"{k}: {e:.4f} / {g:.4f}"
+                        for k, (e, g) in t["sweep"].items()))
+    t = times["conv2d_wgrad_64"]        # one worker's training microbatch
+    records.append({
+        "name": "conv2d_wgrad", "route": "cuda",
+        "source": "src/repro_torch/csrc/conv2d_wgrad.cu",
+        "replaces": "src/repro/models/cnn.py:43",
+        "launches": launches["conv2d_wgrad"],
+        "max_abs_err": errs["conv2d_wgrad"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "graph_ms": t["graph_ms"]})
     print(json.dumps({"kernels": records}))

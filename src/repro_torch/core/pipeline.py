@@ -1,20 +1,20 @@
-"""The Stratus pipeline object, serving half: evaluate -> deploy -> serve
-(paper Fig. 1), the port of ``repro.core.pipeline``.
+"""The Stratus end-to-end pipeline object: train -> evaluate -> checkpoint
+-> deploy -> serve (paper Fig. 1), the port of ``repro.core.pipeline``.
 
 ``StratusPipeline`` holds the CNN's parameters on ``device`` (the card
-unless the caller asks for ``"cpu"``), evaluates them on the synthetic
-test and canvas sets, wraps them in a predict function and mounts that
-behind ``StratusApp`` (NGINX balancer -> Kafka broker -> consumer ->
-CouchDB).  Weights come from a seed, from ``bridge.params_from_jax``,
-or from a checkpoint that either package saved: assign the restored
-tree's ``"params"`` to ``pipeline.params``.  Training (the strategies,
-the trainer and the optimizers) is not ported yet (ROADMAP Queue 1
-item 9).
+unless the caller asks for ``"cpu"``), trains them with a Spark/Elephas
+strategy (``core.strategies``) over the synthetic digits, evaluates them
+on the synthetic test and canvas sets, wraps them in a predict function
+and mounts that behind ``StratusApp`` (NGINX balancer -> Kafka broker ->
+consumer -> CouchDB).  Weights come from a seed, from training, from
+``bridge.params_from_jax``, or from a checkpoint that either package
+saved: assign the restored tree's ``"params"`` to ``pipeline.params``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import time
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -22,9 +22,12 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.mnist_cnn import CONFIG as MNIST_CNN
 from repro_torch.configs.mnist_cnn import CNNConfig
+from repro_torch.core.strategies import make_strategy
+from repro_torch.core.trainer import Trainer, worker_batches
 from repro_torch.data import mnist
-from repro_torch.models.cnn import cnn_forward, cnn_schema
+from repro_torch.models.cnn import cnn_forward, cnn_loss, cnn_schema
 from repro_torch.models.module import init_params
+from repro_torch.optim import adam
 from repro_torch.serving.server import AppConfig, StratusApp
 from repro_torch.serving.sim import Clock
 
@@ -40,7 +43,8 @@ class PipelineReport:
 
 
 class StratusPipeline:
-    """checkpoint -> deploy -> serve; ``params`` is a plain attribute."""
+    """train -> checkpoint -> deploy -> serve; ``params`` is a plain
+    attribute."""
 
     def __init__(self, cfg: CNNConfig = MNIST_CNN, *, strategy: str = "sync",
                  num_workers: int = 5, ckpt_dir: Optional[str] = None,
@@ -53,12 +57,29 @@ class StratusPipeline:
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.params = init_params(cnn_schema(cfg), seed, cfg.dtype,
                                   self.device)
+        self._loss_fn = lambda p, b: cnn_loss(p, cfg, b["x"], b["y"])
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(
-            "StratusPipeline.train is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 9: strategies, trainer, optimizers); "
-            "restore a checkpoint or bridge trained weights into .params")
+    # ------------------------------------------------------------ train
+    def train(self, train_n: int = 12_000, rounds: int = 40,
+              steps_per_round: int = 2, log=lambda s: None) -> Dict[str, Any]:
+        """Paper Sec. II-C: batch 64, distributed over ``num_workers``
+        (5 Spark workers there).  Effective epochs scale with ``rounds``.
+        ``seconds`` covers the device's work: the trainer reads each
+        round's metrics back as floats."""
+        cfg = self.cfg
+        x, y = mnist.make_split(train_n, self.seed)
+        strategy = make_strategy(self.strategy_name, adam(1e-3),
+                                 self.num_workers)
+        trainer = Trainer(strategy, self._loss_fn, ckpt=self.ckpt,
+                          ckpt_every=0, log_every=max(rounds // 4, 1))
+        it = worker_batches(x, y, self.num_workers, steps_per_round,
+                            cfg.batch_size, self.seed, device=self.device)
+        t0 = time.perf_counter()
+        self.params, _, history = trainer.fit(self.params, it, rounds, log=log)
+        train_time = time.perf_counter() - t0
+        if self.ckpt:
+            self.ckpt.save(rounds, {"params": self.params})
+        return {"seconds": train_time, "history": history}
 
     def _images(self, images: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(

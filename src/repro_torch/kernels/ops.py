@@ -3,10 +3,21 @@
 A CUDA tensor goes to the hand-written kernel, which raises if it cannot
 be built or launched; a CPU tensor goes to the plain version in
 ``ref.py``.  There is no other switch: where the data lies decides.
+
+``conv2d`` differentiates, on both devices, through one autograd
+Function whose backward is written over these entries: the filter
+gradient through ``conv2d_wgrad``, the input gradient (only where the
+input needs one) through ``conv2d`` itself, as the full convolution of
+the padded output gradient with the flipped filter.  The raw kernel
+wrappers, and the attention and scan entries, refuse autograd.
 """
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
+
 from repro_torch.kernels import conv2d as _cv
+from repro_torch.kernels import conv2d_wgrad as _cw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_prefill as _pp
@@ -53,16 +64,52 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     return fn(r, k, v, w, u, s0)
 
 
+class _Conv2d(torch.autograd.Function):
+    """``conv2d`` with its backward; ``save`` is False where no gradient
+    can be asked for (grad mode off, as under ``torch.inference_mode()``,
+    or no input requiring one), and then nothing is kept."""
+
+    @staticmethod
+    def forward(ctx, x, w, save):
+        if save:
+            ctx.save_for_backward(x, w)
+        fn = _cv.conv2d if _on_cuda(x) else _ref.conv2d_ref
+        return fn(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        kh, kw = w.shape[0], w.shape[1]
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dyp = F.pad(dy, (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
+            dx = conv2d(dyp, w.flip(0, 1).transpose(2, 3).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = conv2d_wgrad(x, dy, kh, kw)
+        return dx, dw, None
+
+
 def conv2d(x, w):
     """Valid, stride-1 convolution: x (B,H,W,Cin) NHWC x w (KH,KW,Cin,Cout)
-    HWIO -> (B,H-KH+1,W-KW+1,Cout) in x's dtype, summed in float32."""
-    fn = _cv.conv2d if _on_cuda(x) else _ref.conv2d_ref
-    return fn(x, w)
+    HWIO -> (B,H-KH+1,W-KW+1,Cout) in x's dtype, summed in float32.
+    Differentiable in x and w."""
+    save = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    return _Conv2d.apply(x, w, save)
+
+
+def conv2d_wgrad(x, dy, kh: int, kw: int):
+    """The filter gradient of ``conv2d``: x (B,H,W,Cin), dy
+    (B,H-KH+1,W-KW+1,Cout) -> dw (KH,KW,Cin,Cout) in x's dtype, summed in
+    float32."""
+    fn = _cw.conv2d_wgrad if _on_cuda(x) else _ref.conv2d_wgrad_ref
+    return fn(x, dy, kh, kw)
 
 
 def launch_counts() -> dict:
     """Launches of each kernel since its count was last set to 0."""
     return {"conv2d": _cv.KERNEL.launches,
+            "conv2d_wgrad": _cw.KERNEL.launches,
             "flash_attention": _fa.KERNEL.launches,
             "paged_attention": _pa.KERNEL.launches,
             "paged_prefill": _pp.KERNEL.launches,
@@ -70,5 +117,5 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for mod in (_cv, _fa, _pa, _pp, _rw):
+    for mod in (_cv, _cw, _fa, _pa, _pp, _rw):
         mod.KERNEL.launches = 0

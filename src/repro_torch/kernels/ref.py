@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the attention kernels (and of the split-key
-combine pass of their bf16 tile), the WKV6 scan and the convolution.
+combine pass of their bf16 tile), the WKV6 scan, the convolution and its
+filter gradient.
 
 The kernels' plain versions define their semantics, copied from
 ``repro.kernels.ref``: the CUDA kernels are held to them on the card,
@@ -181,3 +182,25 @@ def conv2d_ref(x, w):
             tap = x32[:, i:i + ho, j:j + wo, :].reshape(b * ho * wo, cin)
             acc = acc + tap @ w32[i, j]
     return acc.reshape(b, ho, wo, cout).to(x.dtype)
+
+
+def conv2d_wgrad_ref(x, dy, kh: int, kw: int):
+    """The filter gradient of ``conv2d_ref``: x (B,H,W,Cin) NHWC and dy
+    (B,H-KH+1,W-KW+1,Cout) -> dw (KH,KW,Cin,Cout) in x's dtype,
+
+        dw[i, j, ci, co] = sum_{b, y, x'} x[b, y+i, x'+j, ci] dy[b, y, x', co]
+
+    Written as the TPU kernel's tap decomposition, transposed: per tap, the
+    float32 product ``x_tap(B*H'*W', Cin)^T @ dy(B*H'*W', Cout)``, cast to
+    x.dtype once.  No ``F.conv2d`` and no ``torch.nn.grad``.
+    """
+    b, _, _, cin = x.shape
+    _, ho, wo, cout = dy.shape
+    x32 = x.float()
+    d32 = dy.float().reshape(b * ho * wo, cout)
+    dw = torch.empty(kh, kw, cin, cout, dtype=torch.float32, device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            tap = x32[:, i:i + ho, j:j + wo, :].reshape(b * ho * wo, cin)
+            dw[i, j] = tap.T @ d32
+    return dw.to(x.dtype)

@@ -1,14 +1,18 @@
-"""The kernels refuse autograd; the plain path differentiates.
+"""The kernel wrappers refuse autograd; ``ops.conv2d`` and the plain path
+differentiate.
 
-The five CUDA wrappers fill their outputs through ctypes, so a result
+The six CUDA wrappers fill their outputs through ctypes, so a result
 would carry no ``grad_fn`` and an input that requires grad would get no
-gradient, silently.  Until a kernel has a backward, each wrapper raises
-when grad mode is on and a tensor input requires grad (on any device:
-the check comes before the device check), and launches as before under
-``torch.no_grad()`` or on detached inputs.  The plain versions, which
-``ops`` takes for CPU tensors, are ordinary PyTorch and differentiate:
-the port's ``cnn_loss`` gradients on the CPU match ``jax.grad`` of the
-reference's ``cnn_loss`` on the same weights and digits.  Tolerance:
+gradient, silently.  Each raw wrapper raises when grad mode is on and a
+tensor input requires grad (on any device: the check comes before the
+device check), and launches as before under ``torch.no_grad()`` or on
+detached inputs.  The convolution differentiates through the autograd
+Function in ``ops.conv2d`` (its backward runs ``conv2d_wgrad`` and
+``conv2d``, kernels on the card, plain versions on the CPU); the other
+plain versions, which ``ops`` takes for CPU tensors, are ordinary
+PyTorch.  The port's ``cnn_loss`` gradients on the CPU match
+``jax.grad`` of the reference's ``cnn_loss`` on the same weights and
+digits.  Tolerance:
 float32 on both sides, the gradients of a mean over 16 digits summed
 through 5,408 and 128 features in another order: ``atol=1e-6,
 rtol=1e-4``.
@@ -21,6 +25,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs.mnist_cnn import CONFIG  # noqa: E402
 from repro_torch.kernels import conv2d as cv_mod  # noqa: E402
+from repro_torch.kernels import conv2d_wgrad as cw_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp_mod  # noqa: E402
@@ -41,6 +46,11 @@ def kernel_inputs(name, device):
         args = [t(rng.normal(size=(2, 8, 8, 1)).astype(np.float32)),
                 t(rng.normal(size=(3, 3, 1, 4)).astype(np.float32))]
         return cv_mod.conv2d, cv_mod.KERNEL, args, (0, 1)
+    if name == "conv2d_wgrad":
+        args = [t(rng.normal(size=(2, 8, 8, 1)).astype(np.float32)),
+                t(rng.normal(size=(2, 6, 6, 4)).astype(np.float32))]
+        return (lambda x, dy: cw_mod.conv2d_wgrad(x, dy, 3, 3),
+                cw_mod.KERNEL, args, (0, 1))
     if name == "flash_attention":
         args = [t(rng.normal(size=(1, heads, 8, 16)).astype(np.float32))
                 for heads in (4, 2, 2)]
@@ -59,8 +69,8 @@ def kernel_inputs(name, device):
     return rw_mod.rwkv6_scan, rw_mod.KERNEL, args, (0, 1, 2, 3, 4, 5)
 
 
-KERNELS = ["conv2d", "flash_attention", "paged_attention", "paged_prefill",
-           "rwkv6_scan"]
+KERNELS = ["conv2d", "conv2d_wgrad", "flash_attention", "paged_attention",
+           "paged_prefill", "rwkv6_scan"]
 
 
 @pytest.mark.parametrize("name", KERNELS)

@@ -38,6 +38,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import attention_split as split  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import conv2d as cv_mod  # noqa: E402
+from repro_torch.kernels import conv2d_wgrad as cw_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp_mod  # noqa: E402
@@ -169,11 +170,11 @@ def test_cuda_sources_export_what_the_wrappers_bind():
     """Each ``csrc/<name>.cu`` defines the C symbols its wrapper binds
     with the argument count the wrapper declares (the compiler is not
     here to check it)."""
-    assert build.sources() == ["conv2d", "flash_attention",
+    assert build.sources() == ["conv2d", "conv2d_wgrad", "flash_attention",
                                "paged_attention", "paged_prefill",
                                "rwkv6_scan"]
-    for kern in (cv_mod.KERNEL, fa_mod.KERNEL, pa_mod.KERNEL, pp_mod.KERNEL,
-                 rw_mod.KERNEL):
+    for kern in (cv_mod.KERNEL, cw_mod.KERNEL, fa_mod.KERNEL, pa_mod.KERNEL,
+                 pp_mod.KERNEL, rw_mod.KERNEL):
         text = (build.CSRC / f"{kern.library}.cu").read_text()
         for sym, argtypes in ((kern.symbol, kern.argtypes),
                               (kern.smem_symbol, kern.smem_argtypes)):

@@ -210,7 +210,8 @@ def test_slot_engine_token_identical_to_reference(pair, reference_slot_run):
     ops.reset_launch_counts()
     eng = LLMEngine(tm, tparams, num_slots=3, cache_max=32)
     outs = _drain(eng, wl)
-    assert ops.launch_counts() == {"conv2d": 0, "flash_attention": 0,
+    assert ops.launch_counts() == {"conv2d": 0, "conv2d_wgrad": 0,
+                                   "flash_attention": 0,
                                    "paged_attention": 0, "paged_prefill": 0,
                                    "rwkv6_scan": 0}
     assert outs == ref_outs

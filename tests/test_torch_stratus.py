@@ -13,6 +13,12 @@
   both sides, probabilities below 1); 20 canvas digits posted through
   each ``StratusApp`` all return 200 and each ``req-N`` holds the same
   digit in both stores.
+* Training: the port's ``train`` (640 digits, 2 rounds, on the CPU) from
+  the reference's initial weights gives the reference's loss history
+  within ``rtol=1e-4`` (float32 gradients summed in another order, then
+  4 Adam steps) and the same ``evaluate``; the checkpoint it saves
+  restores bit for bit in the reference, whose ``predict_fn`` then gives
+  the port's probabilities within ``atol=rtol=1e-5``.
 * The serving substrate, exactly: GET load reports at the paper's three
   regimes equal the reference's string for string (the GET path charges
   no wall time, so both runs are deterministic), and the same operations
@@ -230,10 +236,59 @@ def test_posted_digits_match_reference(trained, port_pipe):
         np.testing.assert_allclose(ours["probs"], want["probs"], **PROB_TOL)
 
 
-def test_pipeline_refuses_to_train():
-    pipe = StratusPipeline(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pipe.train(train_n=640, rounds=1)
+@pytest.fixture(scope="module")
+def reference_training():
+    """The reference pipeline trained briefly: its initial weights, its
+    result, and its pipeline."""
+    pipe = JaxPipeline(seed=0)
+    initial = jax.tree.map(np.asarray, pipe.params)
+    result = pipe.train(train_n=640, rounds=2)
+    return initial, result, pipe
+
+
+@pytest.fixture(scope="module")
+def port_training(reference_training, tmp_path_factory):
+    """The port's pipeline on the CPU, from the reference's initial
+    weights, trained with the same arguments; its checkpoint directory."""
+    initial, _, _ = reference_training
+    root = tmp_path_factory.mktemp("port_ckpt")
+    pipe = StratusPipeline(seed=0, device="cpu", ckpt_dir=str(root))
+    pipe.params = _as_torch(initial)
+    ops.reset_launch_counts()
+    result = pipe.train(train_n=640, rounds=2)
+    assert set(ops.launch_counts().values()) == {0}
+    return pipe, result, str(root)
+
+
+def test_pipeline_train_matches_reference(reference_training, port_training):
+    _, want, jpipe = reference_training
+    pipe, got, _ = port_training
+    assert sorted(got) == ["history", "seconds"] and got["seconds"] > 0
+    assert [sorted(h) for h in got["history"]] == [["loss"]] * 2
+    np.testing.assert_allclose([h["loss"] for h in got["history"]],
+                               [h["loss"] for h in want["history"]],
+                               rtol=1e-4)
+    for name, t in pipe.params.items():
+        assert t.device.type == "cpu" and not t.requires_grad, name
+    assert pipe.evaluate(test_n=200, canvas_n=100) == jpipe.evaluate(
+        test_n=200, canvas_n=100)
+
+
+def test_port_training_checkpoint_restores_in_reference(port_training):
+    pipe, _, root = port_training
+    assert jstore.latest_step(root) == 2
+    jpipe = JaxPipeline(seed=1)
+    step, tree = jstore.CheckpointManager(root).restore_latest(
+        {"params": jpipe.params})
+    assert step == 2
+    jpipe.params = tree["params"]
+    for name, t in pipe.params.items():
+        assert np.asarray(jpipe.params[name]).tobytes() == \
+            t.numpy().tobytes(), name
+    images = jmnist.canvas_digits(32, 5)[0]
+    np.testing.assert_allclose(pipe.predict_fn()(images),
+                               jpipe.predict_fn()(images), atol=1e-5,
+                               rtol=1e-5)
 
 
 # ------------------------------------------------------------ substrate
