@@ -51,9 +51,10 @@ then runs seven phases, each raising on failure:
    micro-batched config under 5 % failures; ``conv2d`` launched once per
    forward pass;
 6b. digits, training: ``conv2d_wgrad`` against its plain version over
-   the same sweep plus the training step's B=64, float32 and bfloat16,
-   a repeat launch bit-identical; ``ops.conv2d``'s autograd Function (dx,
-   dw) against autograd through the plain ``conv2d_ref``; ``cnn_loss``'s
+   the same sweep plus the training step's B=64 and 320, float32 and
+   bfloat16, a repeat launch bit-identical; ``ops.conv2d``'s autograd
+   Function (dx, dw) against autograd through the plain ``conv2d_ref``;
+   ``cnn_loss``'s
    gradients for all six parameters, kernels vs plain; 4 sync rounds
    through the kernels and through the plain versions from one seed;
    then ``StratusPipeline.train`` at the reference benchmark's budget
@@ -70,8 +71,9 @@ then runs seven phases, each raising on failure:
    attention shapes the kernel's ratio to SDPA, whether its key ranges
    were split (``paged_attention``: its grid's CTAs) and, where split,
    the time with them whole; ``conv2d``'s launch plan and its times
-   under forced plans; ``conv2d_wgrad`` at B=64 and 2,000 beside
-   ``torch.nn.grad.conv2d_weight``; the floor of both methods (one launch
+   under forced plans; ``conv2d_wgrad`` at B=64, 320 and 2,000 beside
+   ``torch.nn.grad.conv2d_weight`` and ``dy.sum()`` (a read of the same
+   dy), its launch plan and its times under forced plans; the floor of both methods (one launch
    on one element).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
@@ -923,7 +925,7 @@ def assert_wgrad_close(torch, got, want, dtype_name) -> float:
 
 def wgrad_parity(torch, device, ops, ref) -> float:
     """Phase 6b: ``conv2d_wgrad`` against its plain version over
-    ``CONV_SHAPES`` and the training step's B=64, in float32 and
+    ``CONV_SHAPES``, the training step's B=64 and 320, in float32 and
     bfloat16 (inputs as ``conv2d_parity`` draws them, dy N(0, 1)); a
     second launch must give the same bits; then ``ops.conv2d``'s dx and
     dw against autograd through ``conv2d_ref``.  -> max abs error of the
@@ -932,7 +934,8 @@ def wgrad_parity(torch, device, ops, ref) -> float:
     worst = 0.0
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for b, h, w, cin, k, cout in CONV_SHAPES + ((64, 28, 28, 1, 3, 32),):
+        for b, h, w, cin, k, cout in CONV_SHAPES + ((64, 28, 28, 1, 3, 32),
+                                                    (320, 28, 28, 1, 3, 32)):
             draw = torch.rand if (h, cin, k) == (28, 1, 3) else torch.randn
             x = draw(b, h, w, cin, generator=gen, device=device).to(dtype)
             dy = torch.randn(b, h - k + 1, w - k + 1, cout, generator=gen,
@@ -1153,10 +1156,13 @@ def graph_ms(torch, fn, n=GRAPH_PAIRS, replays=GRAPH_REPLAYS):
     """Device time of one ``fn`` from CUDA-graph replay: ``n`` pairs of
     (L2 flush, ``fn``) captured into one graph, minus a graph of the same
     ``n`` flushes alone, over ``n``; the median of ``replays`` replays of
-    each, taken in turns.  No host launch and no event lies between the
-    pairs, so this reads below ``time_ms``'s floor: what remains beside
-    the device work is the graph's own gap between nodes, which the floor
-    row (one launch on one element) shows."""
+    each, taken in turns.  The capture runs on the stream the warm-up
+    ran on, so per-stream state a kernel keeps (``conv2d_wgrad``'s ticket
+    counter) is made before it, not inside the graph.  No host launch
+    and no event lies between the pairs, so this reads below
+    ``time_ms``'s floor: what remains beside the device work is the
+    graph's own gap between nodes, which the floor row (one launch on one
+    element) shows."""
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1168,7 +1174,7 @@ def graph_ms(torch, fn, n=GRAPH_PAIRS, replays=GRAPH_REPLAYS):
     graphs = []
     for with_fn in (True, False):
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with torch.cuda.graph(g, stream=side):
             for _ in range(n):
                 flush.zero_()
                 if with_fn:
@@ -1261,12 +1267,25 @@ CONV_SWEEP = {32: ((1, 4, 8), (2, 2, 8), (4, 2, 8), (4, 4, 8), (2, 4, 2)),
               2000: ((4, 4, 8), (13, 4, 8), (26, 1, 8), (26, 2, 8),
                      (26, 4, 2))}
 CONV_SWEEP_ARGS = ("band_rows", "ctas_per_sm", "stages")
-# forced launch plans of conv2d_wgrad (batch: (CTAs per SM, pairs staged
-# at once)): how its time moves with the partials (pass 2's work) and the
-# staging group
-WGRAD_SWEEP = {64: ((1, 8), (4, 8), (8, 8), (2, 1), (2, 2)),
-               2000: ((1, 8), (4, 8), (8, 8), (2, 2), (2, 16))}
-WGRAD_SWEEP_ARGS = ("ctas_per_sm", "group")
+# forced launch plans of conv2d_wgrad (batch: (CTAs per SM, cluster, most
+# ring slots, pairs a slot, consumer warps)), the planner's own first: how
+# its time moves with the CTAs, the merge (cluster 1: the last CTA sums
+# every CTA's partial; clusters of 4 leave SMs unused), the bytes in
+# flight and the warps
+WGRAD_SWEEP = {
+    64: ((1, 2, 8, 16, 16), (1, 1, 8, 16, 16), (1, 4, 8, 16, 16),
+         (2, 2, 8, 8, 8), (2, 1, 8, 8, 8), (1, 2, 8, 12, 12),
+         (1, 2, 8, 16, 8)),
+    320: ((1, 2, 8, 16, 16), (1, 1, 8, 16, 16), (2, 2, 8, 8, 8),
+          (1, 2, 2, 16, 16), (1, 2, 8, 32, 16), (1, 2, 8, 12, 12)),
+    2000: ((1, 2, 8, 16, 16), (1, 1, 8, 16, 16), (1, 4, 8, 16, 16),
+           (2, 2, 8, 8, 8), (2, 1, 8, 8, 8), (3, 2, 8, 8, 8),
+           (1, 2, 2, 16, 16), (1, 2, 8, 32, 16), (1, 2, 8, 12, 12),
+           (1, 2, 8, 16, 8))}
+WGRAD_SWEEP_ARGS = ("ctas_per_sm", "cluster", "stages", "slot_pairs",
+                    "warps")
+WGRAD_BATCHES = (64, 320, 2000)   # a worker's microbatch, five folded into
+                                  # one, evaluation's batch
 
 
 def plan_sweep(torch, mod, fn, names, forced):
@@ -1438,12 +1457,13 @@ def kernel_times(torch, device, ops, ref):
             out[key]["sweep"] = plan_sweep(torch, cv_mod, calls[key][0],
                                            CONV_SWEEP_ARGS, CONV_SWEEP[b])
 
-    # the filter gradient in float32 at the training step's B=64 and at
-    # 2,000; bytes: x and dy read, dw written; library: cuDNN's weight
-    # gradient on NCHW copies made here, TF32 off (``main``)
+    # the filter gradient in float32 at the training step's B=64, the five
+    # workers' microbatches as one (320) and 2,000; bytes: x and dy read,
+    # dw written; library: cuDNN's weight gradient on NCHW copies made
+    # here, TF32 off (``main``)
     from torch.nn.grad import conv2d_weight
 
-    for b in (64, 2000):
+    for b in WGRAD_BATCHES:
         x = torch.rand(b, 28, 28, 1, generator=gen, device=device)
         dy = torch.randn(b, 26, 26, 32, generator=gen, device=device)
         xn = x.permute(0, 3, 1, 2).contiguous()
@@ -1459,6 +1479,8 @@ def kernel_times(torch, device, ops, ref):
             ms=time_ms(torch, calls[key][0]),
             plain_ms=time_ms(torch, lambda: ref.conv2d_wgrad_ref(x, dy, 3, 3)),
             library_ms=time_ms(torch, calls[key][1]),
+            # what reading dy alone takes here (one reduction over it)
+            read_ms=graph_ms(torch, lambda dy=dy: dy.sum()),
             dtype="float32",
             bytes=4 * (x.numel() + dy.numel() + 3 * 3 * 32),
             flops=2 * b * 26 * 26 * 3 * 3 * 32,
@@ -1793,7 +1815,7 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "graph_ms": t["graph_ms"]})
-    for b in (64, 2000):
+    for b in WGRAD_BATCHES:
         t = times[f"conv2d_wgrad_{b}"]
         log(f"time conv2d_wgrad float32 at B={b} (28x28x1 images, 32 "
             f"filters of 3x3): {t['ms']:.4f} ms (graph-replayed "
@@ -1801,9 +1823,11 @@ def main() -> int:
             f"({t['bound_by']}: {t['bytes']} bytes read and written), plain "
             f"{t['plain_ms']:.4f} ms, torch.nn.grad.conv2d_weight "
             f"{t['library_ms']:.4f} ms (graph-replayed "
-            f"{t['library_graph_ms']:.4f}; TF32 off); {t['plan']}")
+            f"{t['library_graph_ms']:.4f}; TF32 off), dy.sum() over the "
+            f"same dy {t['read_ms']:.4f} ms graph-replayed; {t['plan']}")
         log(f"time conv2d_wgrad float32 at B={b} by forced plan ((CTAs per "
-            f"SM, pairs staged at once): event / graph-replayed ms): "
+            f"SM, cluster, most ring slots, pairs a slot, consumer warps): "
+            f"event / graph-replayed ms): "
             + ", ".join(f"{k}: {e:.4f} / {g:.4f}"
                         for k, (e, g) in t["sweep"].items()))
     t = times["conv2d_wgrad_64"]        # one worker's training microbatch

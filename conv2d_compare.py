@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Time the conv2d kernel of several checkouts on one card, in turns.
+"""Time a conv kernel of several checkouts on one card, in turns.
 
-    python3 conv2d_compare.py TREE [TREE ...]
+    python3 conv2d_compare.py [--kernel conv2d|conv2d_wgrad] TREE [TREE ...]
 
 Each TREE is the root of a checkout holding ``src/repro_torch`` (for
 another commit: ``git archive <commit> | tar -x -C build/<dir>``).  The
 trees run in the order given and then in reverse (parent, change,
 change, parent), each in a child process of its own, since two
 ``repro_torch`` packages cannot share one.  A child builds that tree's
-``conv2d`` kernel into the tree's ``build/``, holds it against the plain
-version, and times it at the paper's shape (28x28x1 images, 32 filters
-of 3x3, float32) for B = 1, 32 and 2000 with ``chip_smoke.py``'s two
-methods: events around one launch (``time_ms``) and CUDA-graph replay
-(``graph_ms``); beside it cuDNN (TF32 off) and the floor (one launch on
-one element), both ways.  Prints a line per run, the card's name and
-power limit, and a JSON object of every reading last.  Needs one NVIDIA
-GPU.
+kernel into the tree's ``build/``, holds it against the plain version,
+and times it at the paper's shape (28x28x1 images, 32 filters of 3x3,
+float32) with ``chip_smoke.py``'s two methods: events around one launch
+(``time_ms``) and CUDA-graph replay (``graph_ms``); beside it cuDNN (TF32
+off) and the floor (one launch on one element), both ways.  ``conv2d``
+(the default): the forward conv at B = 1, 32 and 2000, beside
+``F.conv2d``.  ``conv2d_wgrad``: the filter gradient at B = 64, 320 and
+2000, beside ``torch.nn.grad.conv2d_weight``.  Prints a line per run,
+the card's name and power limit, and a JSON object of every reading
+last.  Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -25,17 +27,19 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-BATCHES = (1, 32, 2000)
+BATCHES = {"conv2d": (1, 32, 2000), "conv2d_wgrad": (64, 320, 2000)}
 
 
-def child(tree: Path) -> dict:
+def child(tree: Path, kernel: str) -> dict:
     import torch
     import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
 
     sys.path.insert(0, str(HERE))
     sys.path.insert(0, str(tree / "src"))
     import chip_smoke as cs
     from repro_torch.kernels import conv2d as cv_mod
+    from repro_torch.kernels import conv2d_wgrad as wg_mod
     from repro_torch.kernels import ref
 
     assert Path(cv_mod.__file__).resolve().is_relative_to(tree.resolve())
@@ -45,27 +49,42 @@ def child(tree: Path) -> dict:
     one = torch.zeros(1, device=dev)
     res = {"floor": (cs.time_ms(torch, lambda: one.add_(1)),
                      cs.graph_ms(torch, lambda: one.add_(1)))}
-    for b in BATCHES:
+    for b in BATCHES[kernel]:
         x = torch.rand(b, 28, 28, 1, generator=gen, device=dev)
-        w = torch.randn(3, 3, 1, 32, generator=gen, device=dev)
-        got, want = cv_mod.conv2d(x, w), ref.conv2d_ref(x, w)
-        torch.testing.assert_close(got, want,
-                                   **cs.KERNEL_TOL["conv2d", "float32"])
-        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-        res[f"conv2d_{b}"] = (cs.time_ms(torch, lambda: cv_mod.conv2d(x, w)),
-                              cs.graph_ms(torch, lambda: cv_mod.conv2d(x, w)))
-        res[f"cudnn_{b}"] = (cs.time_ms(torch, lambda: F.conv2d(xn, wn)),
-                             cs.graph_ms(torch, lambda: F.conv2d(xn, wn)))
+        xn = x.permute(0, 3, 1, 2)
+        if kernel == "conv2d":
+            w = torch.randn(3, 3, 1, 32, generator=gen, device=dev)
+            wn = w.permute(3, 2, 0, 1)
+            got, want = cv_mod.conv2d(x, w), ref.conv2d_ref(x, w)
+            torch.testing.assert_close(got, want,
+                                       **cs.KERNEL_TOL["conv2d", "float32"])
+            fn, lib = (lambda: cv_mod.conv2d(x, w),
+                       lambda: F.conv2d(xn, wn))
+        else:
+            dy = torch.randn(b, 26, 26, 32, generator=gen, device=dev)
+            dyn = dy.permute(0, 3, 1, 2).contiguous()
+            xn = xn.contiguous()
+            cs.assert_wgrad_close(torch, wg_mod.conv2d_wgrad(x, dy, 3, 3),
+                                  ref.conv2d_wgrad_ref(x, dy, 3, 3),
+                                  "float32")
+            fn, lib = (lambda: wg_mod.conv2d_wgrad(x, dy, 3, 3),
+                       lambda: conv2d_weight(xn, (32, 1, 3, 3), dyn))
+        res[f"{kernel}_{b}"] = (cs.time_ms(torch, fn), cs.graph_ms(torch, fn))
+        res[f"cudnn_{b}"] = (cs.time_ms(torch, lib), cs.graph_ms(torch, lib))
     return res
 
 
 def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] == "--child":
-        print(json.dumps(child(Path(argv[1]))))
+    if len(argv) >= 3 and argv[0] == "--child":
+        print(json.dumps(child(Path(argv[1]), argv[2])))
         return 0
+    kernel = "conv2d"
+    if argv[:1] == ["--kernel"] and len(argv) >= 2:
+        kernel, argv = argv[1], argv[2:]
     import torch
 
-    if not torch.cuda.is_available() or not argv:
+    if (not torch.cuda.is_available() or not argv
+            or kernel not in BATCHES):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
@@ -74,7 +93,8 @@ def main(argv) -> int:
     trees = [Path(t).resolve() for t in argv]
     runs = []
     for tree in trees + trees[::-1]:
-        out = subprocess.run([sys.executable, __file__, "--child", str(tree)],
+        out = subprocess.run([sys.executable, __file__, "--child", str(tree),
+                              kernel],
                              capture_output=True, text=True, check=False)
         if out.returncode != 0:
             print(out.stdout, out.stderr, file=sys.stderr)
@@ -86,7 +106,7 @@ def main(argv) -> int:
             + "  (ms, event / graph-replayed)", flush=True)
     smi = cs.nvidia_smi()
     print(smi)
-    print(json.dumps({"card": smi, "runs": runs}))
+    print(json.dumps({"card": smi, "kernel": kernel, "runs": runs}))
     return 0
 
 
