@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a),
-then runs seven phases, each raising on failure:
+then runs its phases, each raising on failure:
 
 1. device: the card's name and power limit, the kernels' build time;
 2. kernel parity: each kernel against its plain PyTorch version at the
@@ -12,8 +12,10 @@ then runs seven phases, each raising on failure:
    and the fusion-off engine's, both split, and at 24 rows, whole;
    ``paged_prefill`` at a chunk's, at the fused decode dispatch's and at
    slot decode's, ``flash_attention`` at the slot engine's whole-prompt
-   prefill up to 2,048 tokens) in bfloat16 and float32, ``rwkv6_scan`` at
-   the rwkv6 slot path's prefill and decode in float32;
+   prefill up to 2,048 tokens; ``paged_prefill`` at the speculative
+   verify dispatch and ``flash_attention`` at the draft model's padded
+   one-row forwards) in bfloat16 and float32, ``rwkv6_scan`` at the
+   rwkv6 slot path's prefill and decode in float32;
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
    random weights): one ragged prefill dispatch and one decode step of
    the paged path, and two whole-prompt prefills and one decode step of
@@ -29,6 +31,19 @@ then runs seven phases, each raising on failure:
    ``paged_attention`` included; then at full
    width with 2 layers in float32 the paged engine's two modes and the
    slot engine must emit identical tokens;
+4b. engine features: through the same serve path at full width in bf16,
+   on the smoke prompts and 8 seeded ``repetitive_workload`` prompts,
+   the serial scheduler (exactly 28 ``paged_prefill`` launches per
+   admission step and 28 ``paged_attention`` per decode step), n-gram
+   and one-layer-draft speculation at k=4 (verify windows wider than one
+   lane in ``paged_prefill``, no ``paged_attention``; the draft's
+   ``flash_attention`` launches equal its counted forwards), and the
+   observability hooks (a trace that validates, every span closed, the
+   spec counters in ``metrics.render()``); tokens/s and spec gauges per
+   mode; how many bf16 tokens each mode shares with the continuous one,
+   with the top-2 logit margin at each first flip; then at 2 layers in
+   float32 serial, fusion off, n-gram k=1 and 4 and draft k=4 must emit
+   the continuous mode's tokens;
 5. rwkv6: with the qwen3 model freed, rwkv6-1.6b at its published
    width (24 layers, bfloat16, seeded random weights with the
    reference's zero-initialised leaves drawn too) through the serve
@@ -68,7 +83,8 @@ then runs seven phases, each raising on failure:
    port never calls it), the kernel and the library call both by events
    around one launch (``time_ms``) and by CUDA-graph replay
    (``graph_ms``), which reads below the events' floor; for the bf16
-   attention shapes the kernel's ratio to SDPA, whether its key ranges
+   attention shapes (the spec verify dispatch and the draft's forwards
+   among them) the kernel's ratio to SDPA, whether its key ranges
    were split (``paged_attention``: its grid's CTAs) and, where split,
    the time with them whole; ``conv2d``'s launch plan and its times
    under forced plans; ``conv2d_wgrad`` at B=64, 320 and 2,000 beside
@@ -258,6 +274,57 @@ def slot_decode_case(torch, gen, device, dtype, b=4, lanes=256, h=16, kv=8,
     return q.to(dtype), k.to(dtype), v.to(dtype), kpos, qpos
 
 
+def verify_case(torch, gen, device, dtype, chunks=(16, 11), windows=8,
+                pad_rows=6, s=16, h=16, kv=8, hd=128, prefix=256, take=5,
+                bs=16):
+    """The spec engine's fused dispatch: 2 chunk rows, ``windows`` verify
+    rows of ``take`` lanes starting mid-block, padding rows of one lane
+    over an empty prefix (16 rows, c_pad 16, tables of 16 blocks)."""
+    b = len(chunks) + windows + pad_rows
+    L = prefix + s
+    q = torch.randn(b, s, h, hd, generator=gen, device=device)
+    k = torch.randn(b, L, kv, hd, generator=gen, device=device)
+    v = torch.randn(b, L, kv, hd, generator=gen, device=device)
+    kpos = torch.full((b, L), -1, dtype=torch.int32, device=device)
+    qpos = torch.zeros(b, s, dtype=torch.int32, device=device)
+
+    def randint(lo, hi):
+        return int(torch.randint(lo, hi, (1,), generator=gen, device=device))
+
+    for i in range(b):
+        if i < len(chunks):
+            n, start = chunks[i], bs * randint(0, prefix // bs)
+        elif i < len(chunks) + windows:
+            n, start = take, bs * randint(0, prefix // bs - 1) + \
+                randint(1, bs)
+        else:
+            n, start = 1, 0
+        kpos[i, :start] = torch.arange(start, device=device)
+        qpos[i] = start + torch.arange(s, device=device)
+        kpos[i, prefix:prefix + n] = qpos[i, :n]
+    return q.to(dtype), k.to(dtype), v.to(dtype), kpos, qpos
+
+
+# the draft model's forwards (one row, causal, right-padded to a power of
+# two of at least 8): (S, valid tokens).  Phase 4b's drafter runs at S=64,
+# 128 and 256 and asserts that every length it ran is listed here; S=40,
+# no bucket, holds a tile's ragged edge
+DRAFT_SHAPES = ((8, 5), (16, 11), (40, 40), (64, 33), (128, 100),
+                (256, 130))
+
+
+def draft_case(torch, gen, device, dtype, s, valid, h=16, kv=8, hd=128):
+    """flash_case at a draft shape: the tail past ``valid`` repeats one
+    pad token's projections."""
+    def operand(heads):
+        a = torch.randn(1, s, heads, hd, generator=gen, device=device)
+        if valid < s:
+            a[:, valid:] = a[:, valid:valid + 1]
+        return a.to(dtype).transpose(1, 2)
+
+    return operand(h), operand(kv), operand(kv)
+
+
 def flash_case(torch, gen, device, dtype, b=1, h=16, kv=8, hd=128, sq=512,
                sk=None):
     """Whole-prompt operands as the slot prefill passes them: (B,S,heads,
@@ -317,10 +384,12 @@ def prefill_visible(torch, kpos, qpos, window):
 
 def kernel_parity(torch, device, ops, ref):
     """Phase 2: paged decode at ``PAGED_DECODE_SHAPES``; prefill at a chunk
-    shape (4 rows, S=256), at the fused decode dispatch's (8 rows, S=1)
-    and at slot decode's (4 slots of 256 lanes, S=1); flash at one prompt
-    row of 37 and 512 tokens (windows 0 and 64) and 2,048 tokens, and
-    non-causal with 37 queries over 100 keys; the WKV6 scan at
+    shape (4 rows, S=256), at the fused decode dispatch's (8 rows, S=1),
+    at slot decode's (4 slots of 256 lanes, S=1) and at the spec engine's
+    verify dispatch (``verify_case``); flash at one prompt row of 37 and
+    512 tokens (windows 0 and 64) and 2,048 tokens, non-causal with 37
+    queries over 100 keys, and at the draft's ``DRAFT_SHAPES``; the WKV6
+    scan at
     rwkv6-1.6b's 32 heads: one prompt row of 37 and 200 tokens and a
     decode step over 4 slots, each also against the scan in float64.
     -> {kernel: max abs error over its bfloat16 cases (``rwkv6_scan``:
@@ -329,6 +398,9 @@ def kernel_parity(torch, device, ops, ref):
     from repro_torch.kernels import paged_attention as pa_mod
 
     gen = torch.Generator(device=device).manual_seed(0)
+    # speculative decoding's shapes draw from their own generator, so the
+    # other cases keep the inputs of earlier runs
+    spec_gen = torch.Generator(device=device).manual_seed(4)
     errs = {"paged_attention": 0.0, "paged_prefill": 0.0,
             "flash_attention": 0.0, "rwkv6_scan": 0.0}
     for b, s in RWKV_SHAPES:
@@ -368,6 +440,21 @@ def kernel_parity(torch, device, ops, ref):
                 f"causal={causal} window={window}: max_abs_err={err:.3e}")
             if dtype_name == "bfloat16":
                 errs["flash_attention"] = max(errs["flash_attention"], err)
+        for s, valid in DRAFT_SHAPES:
+            q, k, v = draft_case(torch, spec_gen, device, dtype, s, valid)
+            out = ops.flash_attention(q, k, v)[:, :, :valid]
+            plain = ref.flash_attention_ref(
+                *(t[:, :, :valid] for t in (q, k, v)))
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            torch.testing.assert_close(
+                out.float(), plain.float(),
+                **KERNEL_TOL["flash_attention", dtype_name])
+            log(f"parity flash_attention {dtype_name} draft S={s} "
+                f"({valid} valid, the rest padding) against the plain "
+                f"version on the {valid} valid rows: max_abs_err={err:.3e}")
+            if dtype_name == "bfloat16":
+                errs["flash_attention"] = max(errs["flash_attention"], err)
         for window in (0, 64):
             for b, nb, nulls in PAGED_DECODE_SHAPES:
                 args = decode_case(torch, gen, device, dtype, b=b, nb=nb,
@@ -391,9 +478,11 @@ def kernel_parity(torch, device, ops, ref):
                     errs["paged_attention"] = max(errs["paged_attention"],
                                                   err)
 
-            for b, s in ((4, 256), (8, 1), ("slot", 1)):
+            for b, s in ((4, 256), (8, 1), ("slot", 1), ("verify", 16)):
                 if b == "slot":
                     b, args = 4, slot_decode_case(torch, gen, device, dtype)
+                elif b == "verify":
+                    b, args = 16, verify_case(torch, spec_gen, device, dtype)
                 else:
                     args = prefill_case(torch, gen, device, dtype, b=b, s=s)
                 out = ops.paged_prefill(*args, window=window)
@@ -574,9 +663,11 @@ RWKV_ARGV = ["--arch", "rwkv6-1.6b", "--no-reduced", "--engine", "slot",
              "--slots", "4", "--cache-max", "256", "--max-new", "16"]
 
 
-def run_engine(engine, prompts, max_new, sync, stats=None):
+def run_engine(engine, prompts, max_new, sync, stats=None,
+               after_step=None):
     """Submit every prompt, drain; -> ({rid: tokens}, seconds).  A
-    ``stats`` dict receives the number of engine steps."""
+    ``stats`` dict receives the number of engine steps; ``after_step``
+    is called after each step."""
     for p in prompts:
         engine.submit(p, max_new=max_new)
     sync()
@@ -587,6 +678,8 @@ def run_engine(engine, prompts, max_new, sync, stats=None):
         steps += 1
         for r in engine.step():
             outs[r.rid] = list(r.out_tokens)
+        if after_step is not None:
+            after_step()
     sync()
     if stats is not None:
         stats["steps"] = steps
@@ -728,6 +821,305 @@ def rwkv6_phase(torch, device, ops, ref, serve, Model, write_slot, validate,
     assert tokens["kernel"] == tokens["plain"], "rwkv6 kernel/plain tokens"
     log("engine rwkv6 float32 slot, kernel and plain: token-identical")
     return counts["rwkv6_scan"]
+
+
+# phase 4b's engine modes: serve-CLI flags over ``SERVE_ARGV``
+FEATURE_MODES = {
+    "continuous": {},
+    "serial": dict(scheduler="serial"),
+    "ngram": dict(spec_decode="ngram", spec_k=4),
+    "draft": dict(spec_decode="draft", spec_k=4, draft_layers=1),
+}
+# instrumentation's cost is read from this many alternating pairs of the
+# n-gram run with and without obs: one run's tokens/s moves by more than
+# that cost between runs of one call
+OBS_PAIRS = 7
+# at 2 layers in float32 every mode must emit the continuous mode's tokens
+IDENTITY_MODES = {
+    "fusion off": dict(decode_fusion="off"),
+    "serial": dict(scheduler="serial"),
+    "ngram k=1": dict(spec_decode="ngram", spec_k=1),
+    "ngram k=4": dict(spec_decode="ngram", spec_k=4),
+    "draft k=4": dict(spec_decode="draft", spec_k=4, draft_layers=1),
+}
+
+
+def mode_args(serve, **flags):
+    args = serve.make_parser().parse_args(SERVE_ARGV)
+    for key, value in flags.items():
+        setattr(args, key, value)
+    serve.check_args(args)
+    return args
+
+
+def logit_margin(torch, model, params, prompt, agreed):
+    """Top-1 minus top-2 logit of the target at the first position where
+    two modes' tokens part (prompt + the tokens both emitted before it),
+    through the kernels.  -> (margin, top-1 token, top-2 token)."""
+    import numpy as np
+
+    seq = np.concatenate([prompt, np.asarray(agreed, np.int32)])
+    toks = torch.from_numpy(seq[None]).to(model.device)
+    with torch.inference_mode():
+        logits, _ = model.prefill(params, {"tokens": toks},
+                                  cache_max=len(seq))
+    top = torch.topk(logits[0, -1].float(), 2)
+    return ((top.values[0] - top.values[1]).item(), int(top.indices[0]),
+            int(top.indices[1]))
+
+
+def draft_parity(torch, ops, ref, model, params, cache_max):
+    """The drafter on the card against the same drafter under the plain
+    ops: a one-layer ``layer_truncated_draft`` of ``model`` (2 layers,
+    float32) proposes k=4 tokens from seeded histories whose last forward
+    falls in each bucket of ``DRAFT_SHAPES``; a forward of each history
+    right-padded to each S agrees at its valid rows within 1e-4, and the
+    proposals are equal."""
+    import numpy as np
+
+    from repro_torch.serving.spec_decode import (layer_truncated_draft,
+                                                 make_drafter)
+
+    dmodel, dparams = layer_truncated_draft(model, params, 1)
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for s, valid in DRAFT_SHAPES:
+        # k=4 forwards at lengths valid-3 .. valid, the last in bucket s
+        history = rng.integers(0, model.cfg.vocab_size, valid - 3)
+        row = torch.from_numpy(
+            np.pad(history, (0, s - len(history)))[None].astype(np.int32)
+        ).to(model.device)
+        got = {}
+        for name, ctx in (("kernel", contextlib.nullcontext()),
+                          ("plain", plain_ops(ops, ref))):
+            with ctx:
+                drafter = make_drafter("draft", draft_model=dmodel,
+                                       draft_params=dparams,
+                                       max_len=cache_max)
+                proposal = drafter.propose(history, 4)
+                with torch.inference_mode():
+                    logits = dmodel.forward(dparams, {"tokens": row})
+            got[name] = (proposal, logits[0, :len(history)].float())
+        if s & (s - 1) == 0:                    # s is a bucket
+            assert s in drafter._sigs, (s, drafter._sigs)
+        err = (got["kernel"][1] - got["plain"][1]).abs().max().item()
+        torch.testing.assert_close(got["kernel"][1], got["plain"][1],
+                                   atol=1e-4, rtol=1e-4)
+        assert got["kernel"][0] == got["plain"][0], got
+        worst = max(worst, err)
+        log(f"draft qwen3-0.6b float32 1 of 2 layers, history of "
+            f"{len(history)}: proposals {got['kernel'][0]} equal the plain "
+            f"ops'; logits at S={s} max_abs_err={err:.3e}")
+    return worst
+
+
+def engine_features_phase(torch, ops, ref, serve, model, params,
+                          small_model, small_params, prompts, sync,
+                          validate, smi) -> dict:
+    """Phase 4b: the paged engine's serial scheduler, speculative
+    decoding (n-gram and a one-layer draft, k=4) and observability hooks,
+    at full width in bf16 through ``serve.build_engine``, on the smoke
+    workload and on 8 seeded ``repetitive_workload`` prompts; then the
+    drafter against its plain ops (``draft_parity``) and token identity
+    across every mode at 2 layers in float32.  -> launch counts summed
+    over its full-width runs (each read just after its run)."""
+    import collections
+    import statistics
+
+    from repro_torch.obs import (Observability, span_report,
+                                 validate_chrome_trace)
+    from repro_torch.serving.loadgen import repetitive_workload
+
+    cfg = model.cfg
+    layers = cfg.num_layers
+    workloads = {"smoke": prompts,
+                 "repetitive": repetitive_workload(
+                     num_requests=8, vocab_size=cfg.vocab_size,
+                     prompt_len=32, max_new=16, seed=0).prompts}
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    tokens = {}
+
+    def drive(args, work, obs=None, after_step=None):
+        # the warm-up serves the same work, so the timed run meets no
+        # shape (window width, c_pad bucket, draft length) first
+        run_engine(serve.build_engine(args, model, params), work,
+                   args.max_new, sync)
+        engine = serve.build_engine(args, model, params, obs=obs)
+        run = {}
+        ops.reset_launch_counts()
+        outs, secs = run_engine(engine, work, args.max_new, sync, run,
+                                after_step and (lambda: after_step(engine)))
+        counts = ops.launch_counts()
+        return engine, outs, secs, counts, validate(engine.stats()), \
+            run["steps"]
+
+    for wname, work in workloads.items():
+        for mode, flags in FEATURE_MODES.items():
+            args = mode_args(serve, **flags)
+            per_step = []
+            engine, outs, secs, counts, stats, steps = drive(
+                args, work, after_step=lambda e: per_step.append(
+                    ops.launch_counts()))
+            tokens[wname, mode] = outs
+            ntok = sum(len(t) for t in outs.values())
+            log(f"engine qwen3-0.6b bf16 28 layers {mode} on {wname}: "
+                f"{len(outs)} requests, {ntok} tokens in {secs:.3f}s "
+                f"({ntok / secs:.1f} tok/s; {smi}), {steps} steps, "
+                f"preemptions={stats['preemptions']} "
+                f"spec_verify_rows={engine.spec_verify_rows} "
+                f"spec_proposed={engine.spec_proposed} "
+                f"tokens_per_verify={stats['accepted_tokens_per_step']:.3f} "
+                f"draft_hit_rate={stats['draft_hit_rate']:.3f} "
+                f"rollbacks={stats['spec_rollbacks']} "
+                f"launches={counts}")
+            assert len(outs) == len(work)
+            assert all(len(t) == args.max_new for t in outs.values())
+            for k, n in counts.items():
+                launches[k] += n
+            if mode == "serial":
+                # each step one dispatch: a whole-prompt prefill (one
+                # paged_prefill a layer) or a decode step of every row
+                # (one paged_attention a layer)
+                deltas = [{k: b[k] - a.get(k, 0) for k in b} for a, b in
+                          zip([{}] + per_step, per_step)]
+                pre = [d for d in deltas if d["paged_prefill"]]
+                dec = [d for d in deltas if d["paged_attention"]]
+                assert len(pre) + len(dec) == len(deltas) == steps
+                assert all(d["paged_prefill"] == layers
+                           and d["paged_attention"] == 0 for d in pre), pre
+                assert all(d["paged_attention"] == layers
+                           and d["paged_prefill"] == 0 for d in dec), dec
+                assert len(pre) == stats["admissions"]
+                # no decode row rides the ragged dispatch
+                assert not any(sig[3] for sig in engine._prefill_sigs)
+                assert stats["decode_kernel"] == 1
+                assert stats["decode_fusion"] == 0
+                log(f"  serial: {len(pre)} admission steps x {layers} "
+                    f"paged_prefill, {len(dec)} decode steps x {layers} "
+                    "paged_attention")
+            elif mode in ("ngram", "draft"):
+                assert counts["paged_attention"] == 0
+                assert counts["paged_prefill"] > 0
+                assert engine.spec_verify_rows > 0
+                assert stats["spec_k"] == 4
+                if mode == "draft" or wname == "repetitive":
+                    # drafted lanes (windows wider than one lane) reached
+                    # paged_prefill, the only attention kernel launched
+                    assert engine.spec_proposed > 0
+            if mode == "ngram" and wname == "repetitive":
+                assert stats["draft_hit_rate"] > 0
+                assert stats["spec_rollbacks"] > 0
+            if mode == "draft":
+                # the one-layer draft: one flash_attention a forward
+                assert counts["flash_attention"] == \
+                    engine.drafter.forwards * 1 > 0, (
+                        counts, engine.drafter.forwards)
+                log(f"  draft: {engine.drafter.forwards} forwards at "
+                    f"lengths {sorted(engine.drafter._sigs)}")
+                # every length it ran is held against the plain version
+                # in phase 2 and timed in phase 7
+                assert engine.drafter._sigs <= {s for s, _ in DRAFT_SHAPES}
+            else:
+                assert counts["flash_attention"] == 0
+
+    # the observability hooks on the n-gram run, exported and read back
+    obs = Observability.create(trace=True)
+    args = mode_args(serve, **FEATURE_MODES["ngram"])
+    engine, outs, secs, counts, stats, steps = drive(
+        args, workloads["repetitive"], obs=obs)
+    for k, n in counts.items():
+        launches[k] += n
+    assert outs == tokens["repetitive", "ngram"], "obs changed a token"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        n_events = obs.trace.export(str(path))
+        trace = json.loads(path.read_text())
+    assert validate_chrome_trace(trace, sorted(outs)) == []
+    spans = span_report(trace)
+    assert all(spans[r]["opens"] == spans[r]["closes"] == 1 for r in outs)
+    # each verify window's width: its drafted tokens and lane 0
+    widths = collections.Counter(
+        ev["args"]["proposed"] + 1 for ev in trace["traceEvents"]
+        if ev["name"] == "spec_verify")
+    assert sum(widths.values()) == engine.spec_verify_rows
+    assert max(widths) > 1, widths
+    page = obs.metrics.render()
+    for name in ("engine_spec_proposed_total", "engine_spec_accepted_total",
+                 "engine_spec_rollbacks_total",
+                 "engine_spec_accepted_tokens_bucket"):
+        assert name in page, name
+    ntok = sum(len(t) for t in outs.values())
+    log(f"engine qwen3-0.6b bf16 28 layers ngram + obs (trace and metrics) "
+        f"on repetitive: {ntok / secs:.1f} tok/s ({smi}), {steps} steps, "
+        f"{n_events} trace events, every span closed, "
+        f"{len(page.splitlines())} metric lines; verify window widths "
+        f"(lanes: rows) {dict(sorted(widths.items()))}")
+
+    # instrumentation's cost: the same warmed run with and without obs,
+    # in pairs whose order alternates (not counted as launches)
+    rates = {"off": [], "on": []}
+    for i in range(OBS_PAIRS):
+        for side in ("off", "on")[::1 if i % 2 == 0 else -1]:
+            on = Observability.create(trace=True) if side == "on" else None
+            outs, secs = run_engine(serve.build_engine(args, model, params,
+                                                       obs=on),
+                                    workloads["repetitive"], args.max_new,
+                                    sync)
+            assert outs == tokens["repetitive", "ngram"]
+            rates[side].append(ntok / secs)
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    log(f"obs cost, ngram on repetitive, {OBS_PAIRS} alternating pairs "
+        f"({smi}): tok/s off {[round(r, 1) for r in rates['off']]}, on "
+        f"{[round(r, 1) for r in rates['on']]}; medians {med['off']:.1f} / "
+        f"{med['on']:.1f} (on / off {med['on'] / med['off']:.3f}); obs "
+        f"slower in {sum(a < b for a, b in zip(rates['on'], rates['off']))}"
+        f" of {OBS_PAIRS} pairs")
+
+    # bf16 at 28 layers: how many tokens each mode shares with continuous
+    for (wname, mode), outs in sorted(tokens.items()):
+        if mode == "continuous":
+            continue
+        want = tokens[wname, "continuous"]
+        agree = total = 0
+        for rid, toks in outs.items():
+            same = next((i for i, (a, b) in enumerate(zip(toks, want[rid]))
+                         if a != b), len(toks))
+            agree += same
+            total += len(toks)
+            if same < len(toks):
+                margin, t1, t2 = logit_margin(
+                    torch, model, params, workloads[wname][rid - 1],
+                    toks[:same])
+                log(f"  bf16 {mode} vs continuous on {wname}, request "
+                    f"{rid}: first flip at token {same} ({toks[same]} vs "
+                    f"{want[rid][same]}); target's top-2 logit margin there "
+                    f"{margin:.4f} (top-1 {t1}, top-2 {t2})")
+        log(f"engine bf16 28 layers {mode} vs continuous on {wname}: "
+            f"{agree} of {total} tokens agree before the first flip")
+
+    draft_parity(torch, ops, ref, small_model, small_params,
+                 mode_args(serve).cache_max)
+
+    # 2 layers in float32: every mode emits the continuous mode's tokens
+    for wname, work in workloads.items():
+        base = mode_args(serve)
+        want, _ = run_engine(serve.build_engine(base, small_model,
+                                                small_params), work,
+                             base.max_new, sync)
+        for mode, flags in IDENTITY_MODES.items():
+            args = mode_args(serve, **flags)
+            engine = serve.build_engine(args, small_model, small_params)
+            got, secs = run_engine(engine, work, args.max_new, sync)
+            s = validate(engine.stats())
+            log(f"engine qwen3-0.6b float32 2 layers {mode} on {wname}: "
+                f"{sum(map(len, got.values())) / secs:.1f} tok/s, "
+                f"preemptions={s['preemptions']} "
+                f"hit_rate={s['hit_rate']:.2f} "
+                f"draft_hit_rate={s['draft_hit_rate']:.3f}")
+            assert got == want, f"{mode} tokens differ from continuous"
+    log("engine float32 2 layers: serial, fusion off, ngram k=1/4 and "
+        "draft k=4 token-identical to continuous")
+    return launches
 
 
 # ---------------------------------------------------------------- digits
@@ -1313,6 +1705,7 @@ def kernel_times(torch, device, ops, ref):
     from repro_torch.kernels import paged_prefill as pp_mod
 
     gen = torch.Generator(device=device).manual_seed(2)
+    spec_gen = torch.Generator(device=device).manual_seed(6)
     dt = torch.bfloat16
     elt = 2
     sms = attention_split.sm_count(device)
@@ -1373,12 +1766,16 @@ def kernel_times(torch, device, ops, ref):
         split=pp_mod.plan(b, s, k.shape[1], h, kv, sms).split)
 
     # one query lane per row: the fused decode dispatch (8 rows, 512
-    # prefix lanes) and slot decode (4 slots of 256 lanes)
+    # prefix lanes) and slot decode (4 slots of 256 lanes); then the spec
+    # engine's verify dispatch (8 windows of 5 lanes beside 2 chunk rows,
+    # 16 rows of 16 lanes over 256 prefix lanes)
     for key, args in (
             ("paged_prefill_s1",
              prefill_case(torch, gen, device, dt, b=8, s=1)),
             ("paged_prefill_slot",
-             slot_decode_case(torch, gen, device, dt))):
+             slot_decode_case(torch, gen, device, dt)),
+            ("paged_prefill_verify",
+             verify_case(torch, spec_gen, device, dt))):
         q, k, v, kpos, qpos = args
         vis = prefill_visible(torch, kpos, qpos, 0)
         nbytes = (2 * q.numel() * elt + kpos.numel() * 4 + qpos.numel() * 4
@@ -1395,7 +1792,8 @@ def kernel_times(torch, device, ops, ref):
                 q, k, v, kpos, qpos)),
             library_ms=time_ms(torch, calls[key][1]),
             bytes=nbytes, flops=4 * hd * h * int(vis.sum()),
-            split=pp_mod.plan(q.shape[0], 1, k.shape[1], h, kv, sms).split)
+            split=pp_mod.plan(q.shape[0], q.shape[1], k.shape[1], h, kv,
+                              sms).split)
 
     # the slot engine's whole-prompt prefill: one row, causal, window 0
     for s in (512, 2048):
@@ -1412,6 +1810,23 @@ def kernel_times(torch, device, ops, ref):
             plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v)),
             library_ms=time_ms(torch, calls[key][1]),
             bytes=nbytes, flops=4 * hd * h * b * (s * (s + 1) // 2),
+            split=fa_mod.plan(b, h, k.shape[1], s, s, True, 0, sms).split)
+
+    # the draft model's forwards: one row, causal, at its padded lengths
+    for s, valid in DRAFT_SHAPES:
+        q, k, v = draft_case(torch, spec_gen, device, dt, s, valid)
+        b, h, _, hd = q.shape
+        key = f"flash_attention_draft_{s}"
+        split_fns[key] = (lambda q=q, k=k, v=v:
+                          ops.flash_attention(q, k, v))
+        calls[key] = (split_fns[key], lambda q=q, k=k, v=v:
+                      sdpa(torch, q, k, v, causal=True))
+        out[key] = dict(
+            ms=time_ms(torch, split_fns[key]),
+            plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v)),
+            library_ms=time_ms(torch, calls[key][1]),
+            bytes=(2 * q.numel() + k.numel() + v.numel()) * elt,
+            flops=4 * hd * h * b * (s * (s + 1) // 2),
             split=fa_mod.plan(b, h, k.shape[1], s, s, True, 0, sms).split)
 
     # the rwkv6 slot path: a prompt row of S=200 and a decode step over 4
@@ -1691,6 +2106,12 @@ def main() -> int:
     assert tokens["slot"] == tokens["on"], "slot and paged tokens differ"
     log("engine float32 paged fusion on/off and slot: token-identical")
 
+    # 4b. the serial scheduler, speculative decoding, observability
+    for k, n in engine_features_phase(torch, ops, ref, serve, model, params,
+                                      small_model, small_params, prompts,
+                                      sync, validate, smi).items():
+        launches[k] += n
+
     # 5. rwkv6-1.6b through the slot engine, the qwen3 models freed first
     del model, params, small_model, small_params, engine
     torch.cuda.empty_cache()
@@ -1725,6 +2146,12 @@ def main() -> int:
              "fused decode (8 rows, S=1, 512 prefix lanes)"),
             ("paged_prefill", "paged_prefill_slot",
              "slot decode (4 slots, S=1, 256 lanes)"),
+            ("paged_prefill", "paged_prefill_verify",
+             "spec verify (16 rows: 8 windows of 5 lanes, 2 chunks, S=16, "
+             "256 prefix lanes)"),
+            *(("flash_attention", f"flash_attention_draft_{s}",
+               f"a draft forward (one causal row of S={s})")
+              for s, _ in DRAFT_SHAPES),
             ("paged_attention", "paged_attention",
              "paged decode (8 rows, 32 blocks of 16, 16/8 heads)")):
         t = times[key]

@@ -26,13 +26,21 @@ rwkv6-1.6b is served by the slot engine only, its recurrence in the
 engine (the default) it exits with "recurrent-state slots ... are not
 ported to repro_torch yet".
 
-Flags of features the port does not carry yet are refused with a message:
-``--scheduler serial``, ``--spec-decode``, ``--replicas`` > 1,
-``--metrics`` and ``--trace-out``, and any value other than the default
-of ``--decode-kernel``, ``--window-accounting``, ``--affinity``,
-``--spec-k`` and ``--draft-layers``.  ``--replicas`` and
-``--spec-decode`` with ``--engine slot`` exit with the reference's
-"needs the paged engine".
+``--scheduler serial`` admits one request a step, prefills its whole
+prompt (``paged_prefill``) and decodes in the separate dispatch
+(``paged_attention``).  ``--spec-decode ngram`` drafts up to
+``--spec-k`` tokens per request by prompt lookup, ``--spec-decode
+draft`` with the target's first ``--draft-layers`` layers (their
+forwards through ``flash_attention``); the target verifies each window
+in the ragged ``paged_prefill`` dispatch, token-identical to ``off``.
+``--metrics`` prints the Prometheus text page at exit, ``--trace-out
+PATH`` writes a Chrome trace-event JSON of the run.
+
+Flags of features the port does not carry yet are refused with a
+message: ``--replicas`` > 1, and any value other than the default of
+``--decode-kernel``, ``--window-accounting`` and ``--affinity``.
+``--replicas`` and ``--spec-decode`` with ``--engine slot`` exit with
+the reference's "needs the paged engine".
 """
 from __future__ import annotations
 
@@ -44,7 +52,9 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.models.api import Model
+from repro_torch.obs import Observability
 from repro_torch.serving.server import LLMEngine, PagedLLMEngine
+from repro_torch.serving.spec_decode import layer_truncated_draft
 
 
 def _fmt_stats(stats: dict) -> str:
@@ -94,7 +104,9 @@ def make_parser() -> argparse.ArgumentParser:
                          "off (exact shapes), or a comma list like 8,16,64")
     ap.add_argument("--scheduler", choices=("continuous", "serial"),
                     default="continuous",
-                    help="continuous only (serial is not ported yet)")
+                    help="continuous: multi-admission + chunked prefill "
+                         "interleaved with decode; serial: one whole-"
+                         "prompt admission per step (paged engine only)")
     ap.add_argument("--prefill-chunk", type=int, default=256,
                     help="prompt tokens per prefill chunk (snapped to a "
                          "length bucket and capped by --cache-max)")
@@ -103,9 +115,12 @@ def make_parser() -> argparse.ArgumentParser:
                          "(default: one chunk)")
     ap.add_argument("--spec-decode", choices=("off", "ngram", "draft"),
                     default="off",
-                    help="off only (speculative decoding is not ported yet)")
+                    help="speculative decoding: ngram = prompt-lookup "
+                         "drafting, draft = the target's first "
+                         "--draft-layers layers; tokens stay identical to "
+                         "off (paged engine, continuous scheduler only)")
     ap.add_argument("--spec-k", type=int, default=4,
-                    help="speculative decoding only (not ported yet)")
+                    help="max drafted tokens per request per step")
     ap.add_argument("--decode-fusion", choices=("on", "off"), default="on",
                     help="run decode through the fused ragged dispatch as "
                          "length-1 windows (on) or the separate decode "
@@ -119,7 +134,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--affinity", choices=("on", "off"), default="on",
                     help="cluster tier only (not ported yet)")
     ap.add_argument("--draft-layers", type=int, default=1,
-                    help="speculative decoding only (not ported yet)")
+                    help="layers kept in the --spec-decode draft "
+                         "truncation")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -127,9 +143,10 @@ def make_parser() -> argparse.ArgumentParser:
                     help="per-request cache strip (slot) / max_len (paged)")
     ap.add_argument("--stats-every", type=int, default=16)
     ap.add_argument("--metrics", action="store_true",
-                    help="not ported yet")
+                    help="print the Prometheus text exposition at exit")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
-                    help="not ported yet")
+                    help="write a Chrome trace-event JSON of the run "
+                         "(open in Perfetto)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -142,18 +159,12 @@ def check_args(args) -> None:
         if args.spec_decode != "off":
             raise SystemExit("--spec-decode needs the paged engine")
     refusals = [
-        (args.scheduler != "continuous", "--scheduler serial"),
-        (args.spec_decode != "off", "--spec-decode: speculative decoding"),
         (args.replicas > 1, "--replicas: the cluster tier"),
-        (args.metrics, "--metrics: the observability layer"),
-        (args.trace_out is not None, "--trace-out: the observability layer"),
         (args.decode_kernel == "off", "--decode-kernel off: the plain "
                                       "decode gather"),
         (args.window_accounting != "on", "--window-accounting off: "
                                          "sliding-window layers"),
         (args.affinity != "on", "--affinity off: the cluster tier"),
-        (args.spec_k != 4, "--spec-k: speculative decoding"),
-        (args.draft_layers != 1, "--draft-layers: speculative decoding"),
     ]
     for refused, what in refusals:
         if refused:
@@ -178,13 +189,17 @@ def build_model(args):
     return cfg, model, model.init(args.seed)
 
 
-def build_engine(args, model, params):
+def build_engine(args, model, params, obs=None):
     if args.engine == "slot":
         return LLMEngine(model, params, num_slots=args.slots,
-                         cache_max=args.cache_max)
+                         cache_max=args.cache_max, obs=obs)
     buckets = args.prefill_buckets
     if buckets not in ("auto", "off"):
         buckets = [int(b) for b in buckets.split(",")]
+    draft_model = draft_params = None
+    if args.spec_decode == "draft":
+        draft_model, draft_params = layer_truncated_draft(
+            model, params, args.draft_layers)
     return PagedLLMEngine(model, params, num_blocks=args.num_blocks,
                           block_size=args.block_size,
                           max_batch=args.max_batch,
@@ -195,14 +210,21 @@ def build_engine(args, model, params):
                           prefill_chunk=args.prefill_chunk,
                           step_token_budget=args.step_token_budget,
                           spec_decode=args.spec_decode,
-                          decode_fusion=args.decode_fusion == "on")
+                          spec_k=args.spec_k,
+                          draft_model=draft_model,
+                          draft_params=draft_params,
+                          decode_fusion=args.decode_fusion == "on",
+                          obs=obs)
 
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
     check_args(args)
     cfg, model, params = build_model(args)
-    engine = build_engine(args, model, params)
+    obs = None
+    if args.metrics or args.trace_out:
+        obs = Observability.create(trace=args.trace_out is not None)
+    engine = build_engine(args, model, params, obs=obs)
 
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
@@ -227,6 +249,11 @@ def main(argv=None):
     for r in finished[:3]:
         print(f"  req {r.rid}: {len(r.out_tokens)} tokens "
               f"{r.out_tokens[:8]}...")
+    if obs is not None and args.trace_out:
+        n = obs.trace.export(args.trace_out)
+        print(f"trace: {n} events -> {args.trace_out}")
+    if obs is not None and args.metrics:
+        print(obs.metrics.render(), end="")
 
 
 if __name__ == "__main__":

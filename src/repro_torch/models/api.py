@@ -1,7 +1,9 @@
 """Model API for inference (the port of ``repro.models.api.Model``).
 
 ``Model(cfg, device)`` carries the schema, a seeded ``init``, and the
-entry points the serving engines call.  The slot engine's:
+entry points the serving engines call: ``forward(params, batch)``
+(logits at every position, no cache: the speculative draft's), the slot
+engine's:
 
     cache_init(batch, cache_max)               slot caches (pos lanes -1)
     prefill(params, batch, cache_max=...)      (last logits, caches)
@@ -58,6 +60,23 @@ class Model:
 
     def init(self, seed: int = 0):
         return init_params(self.schema(), seed, self.cfg.dtype, self.device)
+
+    # ------------------------------------------------------------ forward
+    def forward(self, params, batch):
+        """Cacheless forward over ``batch["tokens"]`` (B,S) at positions
+        0..S-1, attention through ``ops.flash_attention`` (the CUDA
+        kernel on the card): what the draft model of speculative decoding
+        runs.  -> logits (B,S,V) at every position.  Inference only: the
+        kernels have no backward, and the reference's second output (the
+        MoE router loss) has no counterpart in a dense stack."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=self.device)
+        x = embed_apply(params["embed"], tokens)
+        x = tf.stack_apply(params["stack"], cfg, x, positions)
+        x = norm_apply(params["final_norm"], x, cfg.norm_kind)
+        return unembed_apply(params["embed"], cfg, x)
 
     # ------------------------------------------------------------ slot
     def cache_init(self, batch: int, cache_max: int):

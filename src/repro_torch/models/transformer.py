@@ -1,5 +1,7 @@
-"""Layer blocks and period-stacked stacks: the slot path (whole-prompt
-prefill, one-token decode against slot caches) and the paged path.
+"""Layer blocks and period-stacked stacks: the cacheless forward
+(``stack_apply``, what the speculative draft runs), the slot path
+(whole-prompt prefill, one-token decode against slot caches) and the
+paged path.
 
 Parameters, pools and caches keep the reference's layout
 (``repro.models.transformer``): ``{"periods": {"slot{j}": leaves with a
@@ -9,9 +11,9 @@ reference scans over the period axis, the port runs a Python loop and
 indexes that axis; indexing gives views, so a pool written in place by
 layer i is the stacked pool's slice i.
 
-Ported so far: layer kinds ``"attn"`` (dense MLP) on both paths and
+Ported so far: layer kinds ``"attn"`` (dense MLP) on every path and
 ``"rwkv6"`` (time-mix + channel-mix, recurrent state as the cache) on
-the slot path.
+the slot path and in the cacheless forward.
 """
 from __future__ import annotations
 
@@ -136,6 +138,27 @@ def _rwkv_block(p, cfg: ModelConfig, x, state):
     h2 = norm_apply(p["norm2"], x, cfg.norm_kind)
     y2, x_cm = rwkv_mod.channel_mix(p["ffn"], cfg, h2, state["x_cm"])
     return x + y2, {"s": part["s"], "x_tm": part["x_tm"], "x_cm": x_cm}
+
+
+def block_apply(p, cfg: ModelConfig, x, positions, *, kind: str):
+    """Cacheless forward of one layer at contiguous ``positions`` (S,):
+    attention through ``attn_apply``'s kernel branch (rwkv6: its state
+    from zeros).  -> x."""
+    if kind == "rwkv6":
+        return _rwkv_block(p, cfg, x, rwkv_mod.init_state(
+            cfg, x.shape[0], x.dtype, x.device))[0]
+    h = norm_apply(p["norm1"], x, cfg.norm_kind)
+    x = x + attn.attn_apply(p["mix"], cfg, h, positions, kind=kind,
+                            allow_kernel=True)
+    h = norm_apply(p["norm2"], x, cfg.norm_kind)
+    return x + mlp_apply(p["ffn"], h, cfg.mlp_kind)
+
+
+def stack_apply(params, cfg: ModelConfig, x, positions):
+    """Cacheless forward of the whole stack.  -> x."""
+    for p, kind in zip(layer_views(cfg, params), layer_kinds(cfg)):
+        x = block_apply(p, cfg, x, positions, kind=kind)
+    return x
 
 
 def block_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,

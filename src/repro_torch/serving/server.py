@@ -9,20 +9,23 @@ Outcomes follow the paper's failure modes: 429 when the balancer or
 Flask is saturated, 503 when a partition is full, 504 on a timeout.
 
 The rest is the port of ``repro.serving.server``'s two engines for
-decoder-only attention stacks.  ``LLMEngine`` is the slot baseline: one whole-prompt
-prefill per admission (``Model.prefill``, the ``flash_attention``
-kernel) or one decode step over every slot.  ``PagedLLMEngine`` is the
-production path, with the reference's scheduler, block accounting,
-prefix cache and bucketing.  On the same weights and prompts each emits
-the tokens of its reference counterpart.  Each engine step is eager
-PyTorch work on ``model.device``; greedy tokens come back to the host
-as integers only.
+decoder-only attention stacks.  ``LLMEngine`` is the slot baseline: one
+whole-prompt prefill per admission (``Model.prefill``, the
+``flash_attention`` kernel) or one decode step over every slot.
+``PagedLLMEngine`` is the production path, with the reference's two
+schedulers (continuous and serial), block accounting, prefix cache,
+bucketing and speculative decoding (``serving/spec_decode.py``: verify
+windows in the ragged ``paged_prefill`` dispatch, draft forwards through
+``flash_attention``).  Both engines take the reference's observability
+hooks (``obs=``, ``repro_torch.obs``).  On the same weights and prompts
+each emits the tokens of its reference counterpart.  Each engine step is
+eager PyTorch work on ``model.device``; greedy tokens come back to the
+host as integers only.
 
 The slot engine also serves recurrent rwkv6 stacks: their caches are
 the layers' states, spliced into a slot at admission like a strip.  Not
-ported yet, and refused at construction: speculative decoding, the
-serial scheduler, the observability hooks, stacks with window layers
-(``Model`` refuses those), and recurrent stacks on the paged engine
+ported yet, and refused at construction: stacks with window layers
+(``Model`` refuses those) and recurrent stacks on the paged engine
 (their state slots).
 """
 from __future__ import annotations
@@ -35,13 +38,15 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.obs.engine import EngineObs
 from repro_torch.serving.balancer import LoadBalancer, Overloaded
 from repro_torch.serving.broker import Broker, PartitionFull
 from repro_torch.serving.kvcache import (BlockAllocator, SlotManager,
                                          copy_blocks, invalidate_blocks,
-                                         scrub_null_block,
+                                         invalidate_lanes, scrub_null_block,
                                          write_chunk_tokens, write_slot)
 from repro_torch.serving.prefix_cache import MatchResult, PrefixCache
+from repro_torch.serving.spec_decode import make_drafter
 from repro_torch.serving.sim import Clock, QueuedResource
 from repro_torch.serving.store import ResultStore
 
@@ -229,15 +234,63 @@ class GenRequest:
     finished_at: Optional[float] = None
 
 
-def _note_token(req: GenRequest, now: float) -> None:
-    """One output token emitted for ``req`` at ``now``: track the first
-    and last token timestamps."""
-    if req.first_token_at is None:
-        req.first_token_at = now
-    req.last_token_at = now
+class _EngineObsMixin:
+    """Instrumentation shared by both engines: an optional ``EngineObs``
+    facade plus the per-token timestamps that feed the TTFT and
+    inter-token histograms.  Each engine provides ``_step(now)`` and
+    ``_occupancy()`` -> (active requests, free slots or blocks, pool
+    occupancy)."""
+
+    obs: Optional[EngineObs] = None
+    _engine_kind = "slot"
+
+    def attach_obs(self, obs, replica=None) -> None:
+        """Bind (or re-bind) an ``Observability`` bundle; ``None``
+        detaches.  ``replica`` adds a per-replica label to the engine
+        metrics; the request latency histograms stay unlabeled."""
+        self.obs = EngineObs(obs, self._engine_kind, replica) \
+            if obs is not None else None
+
+    def _note_token(self, req: GenRequest, now: float) -> None:
+        """One output token emitted for ``req`` at ``now``: track the
+        first and last token timestamps and feed the TTFT and
+        inter-token histograms."""
+        if req.first_token_at is None:
+            req.first_token_at = now
+            if self.obs:
+                self.obs.first_token(req.rid, now, now - req.submitted)
+        elif self.obs:
+            gap = None if req.last_token_at is None \
+                else now - req.last_token_at
+            self.obs.token(req.rid, now, gap)
+        req.last_token_at = now
+
+    def step(self, now: float = 0.0) -> List[GenRequest]:
+        """One scheduler step (the engine's ``_step``), reported to the
+        attached ``EngineObs`` when there is one.  Returns finished
+        requests."""
+        if self.obs is None:
+            return self._step(now)
+        t0 = time.perf_counter()
+        pre = (self.admissions, self.prefill_tokens, self.generated_tokens,
+               len(self._prefill_sigs) + len(self._decode_sigs))
+        self._decode_batch_last = 0
+        done = self._step(now)
+        active, free_blocks, occupancy = self._occupancy()
+        self.obs.step(
+            now, time.perf_counter() - t0,
+            admitted=self.admissions - pre[0],
+            chunk_tokens=self.prefill_tokens - pre[1],
+            decode_batch=self._decode_batch_last,
+            tokens=self.generated_tokens - pre[2],
+            retraced=len(self._prefill_sigs) + len(self._decode_sigs)
+            > pre[3],
+            queue_depth=len(self.queue), active=active,
+            free_blocks=free_blocks, pool_occupancy=occupancy)
+        return done
 
 
-class LLMEngine:
+class LLMEngine(_EngineObsMixin):
     """Continuous-batching decode over fixed cache slots.
 
     Every ``step()`` either admits the queue's head into a free slot (one
@@ -250,12 +303,11 @@ class LLMEngine:
     state does not grow).
     """
 
+    _engine_kind = "slot"
+
     def __init__(self, model, params, num_slots: int = 4,
                  cache_max: int = 512, eos_id: Optional[int] = None,
                  obs=None):
-        if obs is not None:
-            raise NotImplementedError("the observability hooks (obs=) are "
-                                      "not ported to repro_torch yet")
         self.model = model
         self.params = params
         self.device = model.device
@@ -270,23 +322,33 @@ class LLMEngine:
         self._rid = 0
         self.admissions = 0
         self.finished_count = 0
+        self.prefill_tokens = 0
+        self.generated_tokens = 0
+        self._decode_batch_last = 0
         self._prefill_sigs: set = set()   # prompt lengths prefilled
         self._decode_sigs: set = set()
+        self.attach_obs(obs)
 
     def submit(self, prompt: np.ndarray, max_new: int = 16,
                now: float = 0.0) -> int:
         self._rid += 1
         self.queue.append(GenRequest(self._rid, np.asarray(prompt, np.int32),
                                      max_new, submitted=now))
+        if self.obs:
+            self.obs.request_queued(self._rid, now, len(prompt), max_new)
         return self._rid
 
     @property
     def idle(self) -> bool:
         return not self.queue and not self.active
 
-    def step(self, now: float = 0.0) -> List[GenRequest]:
+    def _occupancy(self) -> tuple:
+        return (len(self.active), self.slots.num_free,
+                len(self.active) / max(self.num_slots, 1))
+
+    def _step(self, now: float) -> List[GenRequest]:
         """Admit one queued request (prefill) OR advance all live slots by
-        one token.  Returns finished requests."""
+        one token."""
         if self.queue and self.slots.num_free > 0:
             return self._admit(now)
         if self.active:
@@ -304,8 +366,14 @@ class LLMEngine:
         self.pos[slot] = len(req.prompt)
         tok = int(torch.argmax(logits[0, -1]))
         self.admissions += 1
+        self.prefill_tokens += len(req.prompt)
+        self.generated_tokens += 1
+        if self.obs:
+            self.obs.admitted(req.rid, now, resume=False, cached_blocks=0,
+                              cow=False)
+            self.obs.prefill_chunk(req.rid, now, 0, len(req.prompt))
         req.out_tokens.append(tok)
-        _note_token(req, now)
+        self._note_token(req, now)
         self.active[slot] = req
         return self._collect(now)
 
@@ -316,6 +384,7 @@ class LLMEngine:
         for s in live:
             tokens[s, 0] = self.active[s].out_tokens[-1]
         self._decode_sigs.add(self.num_slots)
+        self._decode_batch_last = len(live)
         dev = self.device
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, torch.from_numpy(tokens).to(dev),
@@ -324,7 +393,8 @@ class LLMEngine:
         for s in live:
             req = self.active[s]
             req.out_tokens.append(int(arr[s]))
-            _note_token(req, now)
+            self.generated_tokens += 1
+            self._note_token(req, now)
             self.pos[s] += 1
         return self._collect(now)
 
@@ -342,6 +412,9 @@ class LLMEngine:
                 self.slots.free(s)
                 self.pos[s] = -1
                 self.finished_count += 1
+                if self.obs:
+                    self.obs.finished(req.rid, now, now - req.submitted,
+                                      len(req.out_tokens))
         return done
 
     def stats(self) -> Dict[str, float]:
@@ -412,15 +485,18 @@ def ragged_dispatch(model, params, pools, tokens, block_table, starts,
     return logits
 
 
-class PagedLLMEngine:
+class PagedLLMEngine(_EngineObsMixin):
     """Continuous batching over a block-paged KV pool with an
     admission-aware scheduler.
 
-    Every ``step()`` admits all admissible queued requests (scanning an
-    ``admission_window``-deep prefix of the queue), advances every
-    pending prefill by up to ``prefill_chunk`` tokens under a per-step
-    ``step_token_budget``, and advances every decoding request by one
-    token:
+    ``scheduler="continuous"`` (default): every ``step()`` admits all
+    admissible queued requests (scanning an ``admission_window``-deep
+    prefix of the queue), advances every pending prefill by up to
+    ``prefill_chunk`` tokens under a per-step ``step_token_budget``, and
+    advances every decoding request.  ``scheduler="serial"``: admit at
+    most the queue's head per step, prefill its whole prompt in one
+    chunk, and decode only on steps that prefilled nothing (the
+    reference's baseline).
 
       * memory is a shared pool of ``num_blocks`` x ``block_size``-token
         blocks; a request holds ``ceil(len/block_size)`` of them;
@@ -443,11 +519,19 @@ class PagedLLMEngine:
     power-of-two block bucket; the chunk's KV is scattered into the pool
     in the same dispatch.
 
-    ``decode_fusion=True`` (default) runs decode rows through that same
-    ragged dispatch as length-1 windows (``paged_prefill`` attention);
-    ``False`` restores the separate decode dispatch, whose attention is
-    ``ops.paged_attention`` (the CUDA kernel on the card).
+    The continuous scheduler with ``decode_fusion=True`` (default) or a
+    drafter runs decode rows through that same ragged dispatch as verify
+    windows (``paged_prefill`` attention): the last emitted token plus up
+    to ``spec_k`` drafted tokens (``spec_decode="ngram"`` or ``"draft"``
+    with ``draft_model``/``draft_params``; none with speculation off).
+    Greedy acceptance keeps the longest matching drafted prefix plus a
+    bonus token, so the output is token-identical to plain greedy
+    decode; rejected lanes roll back.  The serial scheduler and
+    ``decode_fusion=False`` run the separate decode dispatch, whose
+    attention is ``ops.paged_attention`` (the CUDA kernel on the card).
     """
+
+    _engine_kind = "paged"
 
     def __init__(self, model, params, num_blocks: int = 32,
                  block_size: int = 16, max_batch: int = 8,
@@ -457,7 +541,8 @@ class PagedLLMEngine:
                  prefill_chunk: int = 256,
                  step_token_budget: Optional[int] = None,
                  scheduler: str = "continuous",
-                 spec_decode: str = "off",
+                 spec_decode: str = "off", spec_k: int = 4,
+                 draft_model=None, draft_params=None,
                  admission_window: int = 4,
                  decode_fusion: bool = True,
                  obs=None):
@@ -465,20 +550,20 @@ class PagedLLMEngine:
             raise ValueError(f"{model.cfg.name}: paged engine needs a "
                              "decoder-only token stack")
         model.check_paged()
-        if scheduler != "continuous":
-            raise NotImplementedError(
-                f"scheduler={scheduler!r}: repro_torch ports the continuous "
-                "scheduler only so far")
-        if spec_decode != "off":
-            raise NotImplementedError(
-                f"spec_decode={spec_decode!r}: speculative decoding is not "
-                "ported to repro_torch yet")
-        if obs is not None:
-            raise NotImplementedError("the observability hooks (obs=) are "
-                                      "not ported to repro_torch yet")
+        if scheduler not in ("continuous", "serial"):
+            raise ValueError(f"scheduler must be 'continuous' or 'serial', "
+                             f"got {scheduler!r}")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, "
                              f"got {prefill_chunk}")
+        if spec_decode not in ("off", "ngram", "draft"):
+            raise ValueError(f"spec_decode must be 'off', 'ngram' or "
+                             f"'draft', got {spec_decode!r}")
+        if spec_decode != "off" and scheduler != "continuous":
+            raise ValueError("spec_decode needs scheduler='continuous' "
+                             "(verify rows ride the ragged chunk dispatch)")
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if admission_window < 1:
             raise ValueError(f"admission_window must be >= 1, "
                              f"got {admission_window}")
@@ -489,6 +574,7 @@ class PagedLLMEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.eos_id = eos_id
+        self.scheduler = scheduler
         self.allocator = BlockAllocator(num_blocks, block_size)
         self.pools = model.pool_init(num_blocks, block_size)
         self.prefix_cache: Optional[PrefixCache] = \
@@ -508,9 +594,24 @@ class PagedLLMEngine:
         self.prefill_tokens = 0
         self.generated_tokens = 0
         self.cow_copies = 0
+        self._decode_batch_last = 0
+        self._preempted_rids: set = set()
         self.admission_window = admission_window
         self.admission_skips = 0
-        self.decode_fusion = bool(decode_fusion)
+        self.drafter = make_drafter(spec_decode, draft_model=draft_model,
+                                    draft_params=draft_params,
+                                    max_len=max_len)
+        self.spec_decode = spec_decode
+        self.spec_k = spec_k
+        self.spec_proposed = 0       # drafted tokens sent to verify
+        self.spec_accepted = 0       # drafted tokens that matched argmax
+        self.spec_emitted = 0        # tokens emitted by verify rows
+        self.spec_verify_rows = 0    # verify rows dispatched
+        self.spec_rollbacks = 0      # verify rows that rolled back lanes
+        # decode rides the ragged dispatch as verify windows; the serial
+        # scheduler keeps the separate decode dispatch
+        self._fused_decode = scheduler == "continuous" and \
+            (self.drafter is not None or bool(decode_fusion))
         # paged_attention launches made by this engine's decode dispatch:
         # the decode_kernel gauge reports what ran, not what was asked for
         self.decode_kernel_launches = 0
@@ -522,6 +623,7 @@ class PagedLLMEngine:
             step_token_budget else self.prefill_chunk
         self._prefill_sigs: set = set()   # _ragged_dispatch shapes
         self._decode_sigs: set = set()
+        self.attach_obs(obs)
 
     def _resolve_buckets(self, spec) -> Optional[List[int]]:
         """"auto" / "off" / explicit ascending lengths -> bucket list
@@ -578,6 +680,8 @@ class PagedLLMEngine:
         self._rid += 1
         self.queue.append(GenRequest(self._rid, prompt, max_new,
                                      submitted=now))
+        if self.obs:
+            self.obs.request_queued(self._rid, now, len(prompt), max_new)
         return self._rid
 
     @property
@@ -610,15 +714,17 @@ class PagedLLMEngine:
             "prefill_compiles": len(self._prefill_sigs),
             "decode_compiles": len(self._decode_sigs),
             "decode_kernel": int(self.decode_kernel_launches > 0),
-            "decode_fusion": int(self.decode_fusion),
+            "decode_fusion": int(self._fused_decode),
             "admission_skips": self.admission_skips,
             "window_blocks_freed": 0,
             "state_slots_used": 0,
-            "spec_decode": "off",
-            "spec_k": 0,
-            "accepted_tokens_per_step": 0.0,
-            "draft_hit_rate": 0.0,
-            "spec_rollbacks": 0,
+            "spec_decode": self.spec_decode,
+            "spec_k": self.spec_k if self.drafter is not None else 0,
+            "accepted_tokens_per_step":
+                self.spec_emitted / max(self.spec_verify_rows, 1),
+            "draft_hit_rate":
+                self.spec_accepted / max(self.spec_proposed, 1),
+            "spec_rollbacks": self.spec_rollbacks,
         }
 
     # ------------------------------------------------------------ sched
@@ -700,32 +806,44 @@ class PagedLLMEngine:
         if released:
             invalidate_blocks(self.pools, released)
 
-    def step(self, now: float = 0.0) -> List[GenRequest]:
-        """One scheduler step: admit every admissible queued request,
-        advance pending prefills by one token-budgeted ragged chunk
-        dispatch, and advance the decode batch one token.  Returns
-        finished requests."""
+    def _occupancy(self) -> tuple:
+        alloc = self.allocator
+        return (len(self.active) + len(self.prefilling), alloc.num_free,
+                alloc.num_live / max(alloc.num_usable, 1))
+
+    def _step(self, now: float) -> List[GenRequest]:
+        """Continuous: admit every admissible queued request, advance
+        pending prefills by one token-budgeted ragged chunk dispatch that
+        also carries every decoding row's verify window (or, unfused,
+        decode in the separate dispatch after it).  Serial: admit at most
+        the head, prefill its whole prompt, decode only on steps that
+        prefilled nothing."""
         self._admit_all(now)
-        if self.decode_fusion:
-            return self._fused_step(now)
+        if self._fused_decode:
+            return self._spec_step(now)
         done: List[GenRequest] = []
+        prefilled = bool(self.prefilling)
         if self.prefilling:
             self._prefill_chunks(now)
             # requests satisfied at prefill (max_new == 1 / max_len edge)
             # must leave before the decode below hands them another token
             done = self._collect(now)
+        if self.scheduler == "serial" and prefilled:
+            return done
         if self.active:
             return done + self._decode_all(now)
         return done + self._collect(now)
 
     def _admit_all(self, now: float) -> None:
-        """Admit queued requests, scanning an ``admission_window``-deep
-        prefix of the queue in FIFO order: a head that can't admit (pool
-        too tight, or deferred behind a prefix writer) does not block a
-        later request that can."""
+        """Admit queued requests.  The continuous scheduler scans an
+        ``admission_window``-deep prefix of the queue in FIFO order: a
+        head that can't admit (pool too tight, or deferred behind a
+        prefix writer) does not block a later request that can.  The
+        serial scheduler admits at most the head, once a step."""
+        window = 1 if self.scheduler == "serial" else self.admission_window
         while self.queue and self._free_row() is not None:
             picked = None
-            for i, req in enumerate(self.queue[:self.admission_window]):
+            for i, req in enumerate(self.queue[:window]):
                 if self._defer_for_prefix(req):
                     continue
                 if self._admission_ok(req):
@@ -736,6 +854,8 @@ class PagedLLMEngine:
             if picked:
                 self.admission_skips += 1
             self._admit_setup(self.queue.pop(picked), now)
+            if self.scheduler == "serial":
+                return
 
     def _defer_for_prefix(self, req: GenRequest) -> bool:
         """Hold a request back while a still-prefilling request is
@@ -797,19 +917,27 @@ class PagedLLMEngine:
         self.admissions += 1
         self.peak_active = max(self.peak_active,
                                len(self.active) + len(self.prefilling))
+        resume = req.rid in self._preempted_rids
+        self._preempted_rids.discard(req.rid)
+        if self.obs:
+            self.obs.admitted(req.rid, now, resume=resume,
+                              cached_blocks=k, cow=bool(j))
 
     def _select_chunks(self) -> tuple:
         """Pick this step's prefill chunks: oldest request first, each up
         to ``prefill_chunk`` tokens, total capped by ``step_token_budget``
-        (the oldest row always gets at least one token).  Pure.
-        -> [(row, take)]."""
+        (the oldest row always gets at least one token).  The serial
+        scheduler takes each request's whole remaining sequence instead.
+        Pure.  -> ([(row, take)], budget left)."""
         order = sorted(self.prefilling,
                        key=lambda r: self.prefilling[r].req.rid)
         budget = self.step_token_budget
         sel: List[tuple] = []
         for r in order:
             st = self.prefilling[r]
-            take = min(self.prefill_chunk, len(st.seq) - st.done, budget)
+            remaining = len(st.seq) - st.done
+            take = remaining if self.scheduler == "serial" else \
+                min(self.prefill_chunk, remaining, budget)
             if take <= 0:
                 break                             # budget exhausted
             budget -= take
@@ -818,7 +946,8 @@ class PagedLLMEngine:
             r = order[0]
             st = self.prefilling[r]
             sel = [(r, min(self.prefill_chunk, len(st.seq) - st.done))]
-        return sel
+            budget = 0
+        return sel, max(budget, 0)
 
     def _ragged_dispatch(self, rows: List[tuple], *, all_logits: bool):
         """ONE bucketed masked dispatch over a ragged batch of rows.
@@ -867,6 +996,8 @@ class PagedLLMEngine:
         prefill completes."""
         for i, (r, take) in enumerate(sel):
             st = self.prefilling[r]
+            if self.obs:
+                self.obs.prefill_chunk(st.req.rid, now, st.done, take)
             st.done += take
             self.prefill_tokens += take
             if st.done == len(st.seq):
@@ -874,67 +1005,104 @@ class PagedLLMEngine:
 
     def _prefill_chunks(self, now: float) -> None:
         """Advance every pending prefill by up to one chunk in one ragged
-        dispatch (the unfused path, ``decode_fusion=False``)."""
-        sel = self._select_chunks()
+        dispatch (the unfused path: the serial scheduler or
+        ``decode_fusion=False``)."""
+        sel, _ = self._select_chunks()
         last = self._ragged_dispatch(self._chunk_rows(sel), all_logits=False)
         self._account_chunks(sel, lambda i, take: int(last[i]), now)
 
-    def _fused_step(self, now: float) -> List[GenRequest]:
+    def _spec_step(self, now: float) -> List[GenRequest]:
         """ONE ragged dispatch carries this step's prefill chunks AND one
-        length-1 window per decoding request (its last emitted token),
-        run through the masked prefill entry at per-lane logits."""
-        sel = self._select_chunks()
-        decode_rows = self._plan_decode(now)
+        verify window per decoding request: its last emitted token plus
+        up to ``spec_k`` drafted tokens (none without a drafter: plain
+        decode as a length-1 window), at per-lane greedy tokens.  Drafted
+        tokens are charged to what the chunks left of the step token
+        budget; every decoding row verifies at least its one-token
+        window.  Acceptance then keeps the longest drafted prefix that
+        matches the target's argmax plus the bonus token, and rejected
+        lanes roll back."""
+        sel, budget_left = self._select_chunks()
+        verify = self._plan_verify(budget_left, now)
         # planning may preempt (growth under a dry pool) — drop entries
         # whose row was reclaimed
         sel = [(r, t) for r, t in sel if r in self.prefilling]
-        decode_rows = [r for r in decode_rows if r in self.active]
-        if not sel and not decode_rows:
+        verify = [(r, w) for r, w in verify if r in self.active]
+        if not sel and not verify:
             return self._collect(now)
         rows = self._chunk_rows(sel) + [
-            (np.asarray([self.active[r].out_tokens[-1]], np.int32),
-             int(self.pos[r]), self.row_blocks[r]) for r in decode_rows]
+            (np.asarray(w, np.int32), int(self.pos[r]), self.row_blocks[r])
+            for r, w in verify]
+        self._decode_batch_last = len(verify)
         greedy = self._ragged_dispatch(rows, all_logits=True)
+        nchunk = len(sel)
         self._account_chunks(sel, lambda i, take: int(greedy[i, take - 1]),
                              now)
-        for j, row in enumerate(decode_rows):
-            self._emit(row, int(greedy[len(sel) + j, 0]), now)
-            self.pos[row] += 1
+        stale_b, stale_l = [], []
+        for j, (row, window) in enumerate(verify):
+            self._accept_verify(row, window, greedy[nchunk + j], now,
+                                stale_b, stale_l)
+        if stale_b:
+            # one batched kill of the rolled-back lanes in kept blocks
+            invalidate_lanes(self.pools, np.concatenate(stale_b),
+                             np.concatenate(stale_l))
         return self._collect(now)
 
-    def _plan_decode(self, now: float) -> List[int]:
-        """Rows that decode this step, oldest request first, each with a
-        private writable block for lane ``pos`` (growing, evicting or
-        preempting as needed)."""
-        plan: List[int] = []
+    def _plan_verify(self, budget: int, now: float) -> List[tuple]:
+        """This step's verify windows, oldest request first: the last
+        emitted token plus up to ``spec_k`` drafted tokens, capped by the
+        request's remaining ``max_new`` (acceptance may emit the whole
+        window) and by the budget left; ``_prepare_verify_row`` secures
+        private writable lanes for each, shrinking the window, evicting
+        or preempting as needed.  -> [(row, window)]."""
+        plan: List[tuple] = []
         for row in sorted(self.active, key=lambda r: self.active[r].rid):
-            if row in self.active and self._prepare_decode_row(row, now):
-                plan.append(row)
+            if row not in self.active:
+                continue        # preempted while preparing an earlier row
+            req = self.active[row]
+            remaining = req.max_new - len(req.out_tokens)
+            cap = 0 if self.drafter is None else \
+                min(self.spec_k, remaining - 1, budget)
+            drafts = self.drafter.propose(self._seq_for(req), cap) \
+                if cap > 0 else []
+            take = self._prepare_verify_row(row, 1 + len(drafts), now)
+            if take is None:
+                continue        # the row itself got preempted
+            budget -= take - 1
+            plan.append((row, [req.out_tokens[-1]] + drafts[:take - 1]))
         return plan
 
-    def _prepare_decode_row(self, row: int, now: float) -> bool:
-        """Secure a private, writable KV lane ``pos`` for a decode row:
-        grow the block table (evicting cold cached blocks first, then
-        preempting the youngest); a write block still shared with the
-        radix tree or another request is copied to a private block
-        first.  False if the row itself was preempted."""
+    def _prepare_verify_row(self, row: int, take: int,
+                            now: float) -> Optional[int]:
+        """Secure private, writable KV lanes ``[pos, pos+take)`` for a
+        verify row: grow the block table (evicting cold cached blocks
+        first, then preempting the youngest); when the pool cannot cover
+        the drafted lanes the window shrinks instead, so speculation never
+        preempts anyone plain decode would not; a write-range block
+        still shared with the radix tree or another request is copied to
+        a private block first (a speculative write must never touch a
+        block with refcount > 1).  -> the window length, or None if the
+        row itself was preempted."""
         bs = self.block_size
         while row in self.active:
             p = int(self.pos[row])
             blocks = self.row_blocks[row]
-            need = self.allocator.blocks_for(p + 1)
+            need = self.allocator.blocks_for(p + take)
             if len(blocks) < need:
                 got = self._alloc_or_evict(1)
                 if got is not None:
                     blocks.append(got[0])
                     self.block_table[row, len(blocks) - 1] = got[0]
                     continue
+                fit = len(blocks) * bs - p       # lanes already covered
+                if fit >= 1:
+                    take = min(take, fit)        # sacrifice drafts
+                    continue
                 self._preempt_or_fail(now)
                 continue
             shared = next((i for i in range(p // bs, need)
                            if self.allocator.refcount(blocks[i]) > 1), None)
             if shared is None:
-                return True
+                return take
             got = self._alloc_or_evict(1)
             if got is None:
                 self._preempt_or_fail(now)
@@ -944,7 +1112,60 @@ class PagedLLMEngine:
             blocks[shared] = got[0]
             self.block_table[row, shared] = got[0]
             self.cow_copies += 1
-        return False
+        return None
+
+    def _accept_verify(self, row: int, window: List[int], row_greedy,
+                       now: float, stale_b: List, stale_l: List) -> None:
+        """Greedy acceptance and rollback for one verify row.
+        ``window[0]`` is the last emitted token (its KV lands at lane
+        ``pos``), drafts follow; ``row_greedy`` (c_pad,) holds the
+        target's greedy token at every window lane.  Accept drafts while
+        they equal the argmax, emit the bonus token from the first
+        mismatch, truncate at EOS.  Lanes past the accepted cursor roll
+        back: whole tail blocks are freed (invalidated on release), the
+        stale lanes of the last kept block go to ``stale_b``/``stale_l``
+        for the step's one batched ``invalidate_lanes``."""
+        req = self.active[row]
+        take = len(window)
+        p = int(self.pos[row])
+        g = row_greedy[:take]
+        a = 0
+        while a < take - 1 and window[a + 1] == int(g[a]):
+            a += 1
+        newly = [int(t) for t in window[1:a + 1]] + [int(g[a])]
+        if self.eos_id is not None and self.eos_id in newly:
+            newly = newly[:newly.index(self.eos_id) + 1]
+        m = len(newly)
+        rolled = take - m
+        if self.drafter is not None:
+            # length-1 windows without a drafter (plain fused decode)
+            # would only dilute the spec ratios: not counted
+            self.spec_verify_rows += 1
+            self.spec_proposed += take - 1
+            self.spec_accepted += a
+            self.spec_emitted += m
+            if rolled > 0:
+                self.spec_rollbacks += 1
+        for t in newly:
+            self._emit(row, t, now)
+        self.pos[row] = p + m
+        blocks = self.row_blocks[row]
+        keep = self.allocator.blocks_for(p + m)
+        if keep < len(blocks):
+            tail = blocks[keep:]
+            del blocks[keep:]
+            self.block_table[row, keep:] = 0
+            self._free_blocks(tail)
+        stale_lo = p + m
+        stale_hi = min(p + take, keep * self.block_size)
+        if stale_hi > stale_lo:
+            lanes = np.arange(stale_lo, stale_hi)
+            stale_b.append(np.asarray(blocks, np.int32)
+                           [lanes // self.block_size])
+            stale_l.append((lanes % self.block_size).astype(np.int32))
+        if self.obs and self.drafter is not None:
+            self.obs.spec_verify(req.rid, now, proposed=take - 1,
+                                 accepted=a, emitted=m, rolled_back=rolled)
 
     def _preempt_or_fail(self, now: float) -> None:
         if len(self.active) + len(self.prefilling) == 1:
@@ -956,7 +1177,7 @@ class PagedLLMEngine:
         req = self.active[row]
         req.out_tokens.append(tok)
         self.generated_tokens += 1
-        _note_token(req, now)
+        self._note_token(req, now)
 
     def _finish_prefill(self, row: int, tok: int, now: float) -> None:
         """Last chunk written: emit the first token and move the row to
@@ -979,6 +1200,7 @@ class PagedLLMEngine:
         rows.update(self.active)
         row = max(rows, key=lambda r: rows[r].rid)
         req = rows[row]
+        where = "prefill" if row in self.prefilling else "decode"
         if row in self.prefilling:
             self._free_blocks(self.prefilling.pop(row).all_blocks)
         else:
@@ -988,12 +1210,16 @@ class PagedLLMEngine:
         self.pos[row] = 0
         self.queue.insert(0, req)             # resumes as soon as blocks free
         self.preemptions += 1
+        self._preempted_rids.add(req.rid)
+        if self.obs:
+            self.obs.preempted(req.rid, now, where)
 
     def _decode_all(self, now: float) -> List[GenRequest]:
-        """The separate decode dispatch (``decode_fusion=False``): grow
-        block tables for the next write, oldest request first (evicting,
-        then preempting the youngest when the pool is dry), then advance
-        every active row one token through ``decode_step_paged``."""
+        """The separate decode dispatch (the serial scheduler or
+        ``decode_fusion=False``): grow block tables for the next write,
+        oldest request first (evicting, then preempting the youngest when
+        the pool is dry), then advance every active row one token through
+        ``decode_step_paged``."""
         for row in sorted(self.active, key=lambda r: self.active[r].rid):
             while row in self.active and \
                     int(self.pos[row]) // self.block_size >= \
@@ -1016,6 +1242,7 @@ class PagedLLMEngine:
             pos[row] = self.pos[row]
             active_mask[row] = True
         self._decode_sigs.add((self.max_batch, self.nb_max))
+        self._decode_batch_last = len(self.active)
         dev = self.device
         before = kernel_ops.launch_counts()["paged_attention"]
         logits, self.pools = self.model.decode_step_paged(
@@ -1057,4 +1284,7 @@ class PagedLLMEngine:
                 self.block_table[row, :] = 0
                 self.pos[row] = 0
                 self.finished_count += 1
+                if self.obs:
+                    self.obs.finished(req.rid, now, now - req.submitted,
+                                      len(req.out_tokens))
         return done

@@ -145,11 +145,17 @@ def test_decode_kernel_gauge_reads_launches(models):
 
 
 def test_engine_refuses_unported_features(models):
-    _, _, tm, tparams = models
-    for kw in (dict(scheduler="serial"), dict(spec_decode="ngram"),
-               dict(obs=object())):
-        with pytest.raises(NotImplementedError):
-            PagedLLMEngine(tm, tparams, **kw)
+    """What the reference refuses, the port refuses with the same
+    ``ValueError``s: speculative decoding under the serial scheduler,
+    and ``spec_k`` below 1."""
+    jm, jparams, tm, tparams = models
+    for kw, match in ((dict(scheduler="serial", spec_decode="ngram"),
+                       "continuous"),
+                      (dict(spec_decode="ngram", spec_k=0), "spec_k")):
+        for cls, m, p in ((PagedLLMEngine, tm, tparams),
+                          (JaxEngine, jm, jparams)):
+            with pytest.raises(ValueError, match=match):
+                cls(m, p, **kw)
 
 
 # ------------------------------------------------------------ pool edits
@@ -236,16 +242,69 @@ def test_serve_cli_fusion_on_off_same_tokens():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--engine", "slot", "--replicas", "2"], ["--scheduler", "serial"],
-    ["--spec-decode", "ngram"], ["--replicas", "2"], ["--metrics"],
-    ["--trace-out", "t.json"], ["--arch", "gemma3-4b"],
-    ["--decode-kernel", "off"], ["--window-accounting", "off"],
-    ["--affinity", "off"], ["--engine", "slot", "--spec-decode", "ngram"],
-    ["--spec-k", "2"], ["--draft-layers", "2"],
+    ["--engine", "slot", "--replicas", "2"], ["--replicas", "2"],
+    ["--arch", "gemma3-4b"], ["--decode-kernel", "off"],
+    ["--window-accounting", "off"], ["--affinity", "off"],
+    ["--engine", "slot", "--spec-decode", "ngram"],
 ])
 def test_serve_cli_refuses_unported_flags(argv):
     with pytest.raises((SystemExit, KeyError)):
         _serve(*argv)
+
+
+def _req_lines(lines):
+    return [ln for ln in lines if ln.strip().startswith("req ")]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--scheduler", "serial"], ["--spec-decode", "ngram"], ["--metrics"],
+    ["--trace-out", "TRACE"], ["--spec-k", "2"], ["--draft-layers", "2"],
+    ["--spec-decode", "draft", "--spec-k", "3"],
+])
+def test_serve_cli_serves_like_the_reference_cli(models, monkeypatch,
+                                                tmp_path, argv):
+    """The flags the port now carries serve: with the reference's seed-0
+    weights bridged in, each argv prints the reference CLI's ``req N:``
+    lines for the same argv; ``--metrics`` prints the Prometheus page
+    and ``--trace-out`` writes a trace that validates."""
+    from repro.launch import serve as jserve
+    from repro_torch.obs import validate_chrome_trace
+
+    _, _, _, tparams = models
+    argv = [str(tmp_path / "t.json") if a == "TRACE" else a for a in argv]
+    build_model = serve.build_model
+    monkeypatch.setattr(serve, "build_model",
+                        lambda args: build_model(args)[:2] + (tparams,))
+    lines = _serve(*argv)
+    # the reference writes its own trace, so the port's stays to be read
+    ref_argv = [str(tmp_path / "ref.json") if a.endswith("t.json") else a
+                for a in argv]
+    monkeypatch.setattr("sys.argv", ["serve", "--requests", "4",
+                                     "--prompt-len", "12", "--max-new", "5",
+                                     "--stats-every", "0", *ref_argv])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jserve.main()
+    want = _req_lines(buf.getvalue().splitlines())
+    assert len(want) == 3
+    assert _req_lines(lines) == want
+    assert lines[0].startswith("4 requests, 20 tokens")
+    if "--metrics" in argv:
+        assert "engine_requests_total{engine=\"paged\"} 4" in lines
+    if "--trace-out" in argv:
+        import json
+
+        def events(path):
+            with open(path) as f:
+                trace = json.load(f)
+            return trace, [(ev["name"], ev["ph"], ev["pid"], ev["tid"])
+                           for ev in trace["traceEvents"]]
+
+        trace, got = events(argv[-1])
+        assert validate_chrome_trace(trace, [1, 2, 3, 4]) == []
+        # wall-clock traces: the same events for the same requests, in
+        # the same order, as the reference CLI's
+        assert got == events(ref_argv[-1])[1]
 
 
 @pytest.mark.parametrize("argv", [["--engine", "slot"], ["--slots", "2"]])

@@ -494,3 +494,85 @@ def test_bf16_wrappers_refuse_what_the_tile_does_not_take(cuda):
     wide = torch.zeros(1, 4, 8, 68, **bf)[..., :64]
     with pytest.raises(ValueError, match="multiples of 8"):
         fa_mod.flash_attention(wide, k, k)
+
+
+# ----------------------------------------- speculative decoding's shapes
+
+
+def verify_case(rng, chunks=(16, 11), windows=8, pad_rows=6, s=16, h=16,
+                kv=8, hd=128, prefix=256, take=5, bs=16):
+    """A fused verify dispatch as the engine assembles it: chunk rows of
+    ``chunks`` valid lanes, ``windows`` verify rows of ``take`` lanes
+    starting mid-block (their prefix keys guarded below the start), and
+    padding rows of one lane over an empty prefix; every row's tail
+    lanes padded (kpos -1)."""
+    b = len(chunks) + windows + pad_rows
+    L = prefix + s
+    q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, L, kv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, L, kv, hd)).astype(np.float32)
+    kpos = np.full((b, L), -1, np.int32)
+    qpos = np.zeros((b, s), np.int32)
+    for i in range(b):
+        if i < len(chunks):
+            n, start = chunks[i], bs * int(rng.integers(0, prefix // bs))
+        elif i < len(chunks) + windows:
+            n = take
+            start = bs * int(rng.integers(0, prefix // bs - 1)) + \
+                int(rng.integers(1, bs))
+        else:
+            n, start = 1, 0
+        kpos[i, :start] = np.arange(start)
+        qpos[i] = start + np.arange(s)
+        kpos[i, prefix:prefix + n] = qpos[i, :n]
+    return q, k, v, kpos, qpos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("take", [2, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_prefill_kernel_at_verify_shape(cuda, take, dtype):
+    """Verify windows of ``take`` lanes beside two chunk rows, as the
+    spec engine's ragged dispatch runs them (qwen3-0.6b's heads)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(take)
+    q, k, v, kpos, qpos = (torch.from_numpy(a).to(cuda) for a in
+                           verify_case(rng, take=take))
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    n0 = pp_mod.KERNEL.launches
+    out = ops.paged_prefill(q, k, v, kpos, qpos)
+    torch.cuda.synchronize()
+    assert pp_mod.KERNEL.launches == n0 + 1
+    plain = ref.paged_prefill_ref(q, k, v, kpos, qpos)
+    lanes = ((kpos[:, None, :] >= 0)
+             & (kpos[:, None, :] <= qpos[:, :, None])).any(-1)
+    assert int(lanes[2:10].sum()) == 8 * 16          # every window lane
+    torch.testing.assert_close(out[lanes].float(), plain[lanes].float(),
+                               **_tol("paged_prefill", dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,valid", [(8, 5), (16, 11), (40, 40), (64, 33),
+                                     (128, 100), (256, 130)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_at_draft_shapes(cuda, s, valid, dtype):
+    """The draft model's cacheless forwards: one row, qwen3-0.6b's
+    heads, causal, ``valid`` tokens right-padded to ``s`` (a pad token's
+    projections repeated), in the model's transposed views.  Every valid
+    row must match the plain version on the unpadded row."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(s)
+
+    def operand(heads):
+        a = rng.normal(size=(1, s, heads, 128)).astype(np.float32)
+        a[:, valid:] = a[:, valid:valid + 1] if valid < s else 0
+        return torch.from_numpy(a).to(cuda, dt).transpose(1, 2)
+
+    q, k, v = operand(16), operand(8), operand(8)
+    n0 = fa_mod.KERNEL.launches
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_mod.KERNEL.launches == n0 + 1
+    plain = ref.flash_attention_ref(*(t[:, :, :valid] for t in (q, k, v)))
+    torch.testing.assert_close(out[:, :, :valid].float(), plain.float(),
+                               **_tol("flash_attention", dt))

@@ -240,6 +240,18 @@ def test_slot_engine_token_identical_to_paged_engine(pair):
 
 
 def test_slot_engine_refuses_obs(pair):
+    """The slot engine takes the observability hooks: instrumentation on
+    (metrics and a trace) and off give the same tokens, and every span
+    closes."""
+    from repro_torch.obs import Observability, validate_chrome_trace
+
     _, _, tm, tparams = pair
-    with pytest.raises(NotImplementedError):
-        LLMEngine(tm, tparams, obs=object())
+    wl = _workload(tm.cfg.vocab_size)
+    obs = Observability.create(trace=True, trace_mode="sim")
+    inst = _drain(LLMEngine(tm, tparams, num_slots=3, cache_max=40,
+                            obs=obs), wl)
+    assert inst == _drain(LLMEngine(tm, tparams, num_slots=3, cache_max=40),
+                          wl)
+    assert validate_chrome_trace(obs.trace.to_chrome(), sorted(inst)) == []
+    assert obs.metrics.counter("engine_finished_total",
+                               labels={"engine": "slot"}).value == len(inst)
