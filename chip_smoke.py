@@ -15,7 +15,11 @@ then runs its phases, each raising on failure:
    prefill up to 2,048 tokens; ``paged_prefill`` at the speculative
    verify dispatch and ``flash_attention`` at the draft model's padded
    one-row forwards) in bfloat16 and float32, ``rwkv6_scan`` at the
-   rwkv6 slot path's prefill and decode in float32;
+   rwkv6 slot path's prefill and decode in float32; then the three
+   attention kernels in bfloat16 at phi4-mini-3.8b's heads (24/8, a
+   group of 3) and qwen1.5-110b's (64/8): the fused decode dispatch and a
+   chunk of ``paged_prefill``, ``paged_attention`` over tables of 16
+   blocks, ``flash_attention`` at S=512;
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
    random weights): one ragged prefill dispatch and one decode step of
    the paged path, and two whole-prompt prefills and one decode step of
@@ -44,6 +48,28 @@ then runs its phases, each raising on failure:
    with the top-2 logit margin at each first flip; then at 2 layers in
    float32 serial, fusion off, n-gram k=1 and 4 and draft k=4 must emit
    the continuous mode's tokens;
+4c. cluster: the serve path's paged config as 1, 2 and 4 replicas of the
+   one weight copy behind the balancer and broker
+   (``serving/cluster.py``), affinity on and off, on a multi-tenant
+   workload beside the smoke prompts: tokens/s, cluster and engine
+   steps, hit rates, 429s, the balancer's gauges; ``paged_prefill``
+   launches exactly layers x engine steps; a replay from the seed routes
+   alike; affinity keeps each tenant on one replica and serves at least
+   as much from the caches; a balancer 429 and a broker 429, every
+   accepted request whole and the broker drained; fusion off launches
+   ``paged_attention`` exactly layers x decode dispatches; the merged
+   TTFT histogram counts every request; bf16 tokens shared with 1
+   replica before each first flip, with the top-2 logit margin there;
+   at 2 layers in float32 every replica count, affinity on and off, and
+   the slot engine emit the same tokens; the serve CLI's ``--replicas
+   2 --metrics``;
+4d. dense configs: with qwen3 freed, phi4-mini-3.8b at its published
+   width (32 layers, 24/8 heads) and qwen1.5-110b at 4 of its 80
+   full-width layers (64/8 heads, seeded non-zero q/k/v biases), bf16,
+   seeded weights: model parity kernels vs plain on the paged and slot
+   paths; phi4-mini's paged engine, fusion on and off, and slot engine,
+   qwen1.5's paged engine, on the smoke prompts with exact launch
+   counts; each config's memory high-water mark;
 5. rwkv6: with the qwen3 model freed, rwkv6-1.6b at its published
    width (24 layers, bfloat16, seeded random weights with the
    reference's zero-initialised leaves drawn too) through the serve
@@ -89,8 +115,9 @@ then runs its phases, each raising on failure:
    the time with them whole; ``conv2d``'s launch plan and its times
    under forced plans; ``conv2d_wgrad`` at B=64, 320 and 2,000 beside
    ``torch.nn.grad.conv2d_weight`` and ``dy.sum()`` (a read of the same
-   dy), its launch plan and its times under forced plans; the floor of both methods (one launch
-   on one element).
+   dy), its launch plan and its times under forced plans; the attention
+   kernels at the dense configs' heads as in phase 2; the floor of both
+   methods (one launch on one element).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -101,6 +128,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import subprocess
 import sys
@@ -360,6 +388,10 @@ RWKV_SHAPES = ((1, 37), (1, 200), (4, 1))     # (rows, S): prefill, decode
 # the fusion-off engine's (8 rows, cache-max 256 over blocks of 16), both
 # split on an H100, and 24 rows (192 CTAs), which the planner leaves whole
 PAGED_DECODE_SHAPES = ((8, 32, (5,)), (8, 16, (2,)), (24, 16, (3, 17)))
+# the dense configs' attention heads (query, KV; head_dim 128): phi4-mini-
+# 3.8b's group of 3 (a bf16 tile holds 21 positions x 3 heads, 63 of its 64
+# rows) and qwen1.5-110b's group of 8 over 64 query heads
+DENSE_HEADS = {"phi4-mini-3.8b": (24, 8), "qwen1.5-110b": (64, 8)}
 
 
 def decode_visible(torch, kpos_pool, bt, pos, window):
@@ -502,6 +534,47 @@ def kernel_parity(torch, device, ops, ref):
                     f"({int(lanes.sum())} visible lanes)")
                 if dtype_name == "bfloat16":
                     errs["paged_prefill"] = max(errs["paged_prefill"], err)
+    return errs
+
+
+def dense_head_parity(torch, device, ops, ref):
+    """Phase 2, the dense configs' heads (``DENSE_HEADS``) in bfloat16 at
+    the engines' shapes: ``paged_prefill`` at a fused decode dispatch (8
+    rows, S=1, 512 prefix lanes) and at a 256-token chunk (4 rows),
+    ``paged_attention`` over the fusion-off engine's tables of 16 blocks
+    (8 rows, one all-null), ``flash_attention`` at one causal row of
+    S=512.  -> {kernel: max abs error}."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    dt = torch.bfloat16
+    errs = dict.fromkeys(("paged_attention", "paged_prefill",
+                          "flash_attention"), 0.0)
+
+    def check(kernel, what, out, plain):
+        torch.cuda.synchronize()
+        err = (out.float() - plain.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), plain.float(),
+                                   **KERNEL_TOL[kernel, "bfloat16"])
+        log(f"parity {kernel} bfloat16 {what}: max_abs_err={err:.3e}")
+        errs[kernel] = max(errs[kernel], err)
+
+    for arch, (h, kv) in DENSE_HEADS.items():
+        heads = f"{arch} heads ({h}/{kv})"
+        for b, s in ((8, 1), (4, 256)):
+            args = prefill_case(torch, gen, device, dt, b=b, s=s, h=h, kv=kv)
+            lanes = prefill_visible(torch, args[3], args[4], 0).any(-1)
+            check("paged_prefill", f"{heads} {b} rows S={s} L={s + 512}",
+                  ops.paged_prefill(*args)[lanes],
+                  ref.paged_prefill_ref(*args)[lanes])
+        args = decode_case(torch, gen, device, dt, b=8, h=h, kv=kv, nb=16,
+                           null_rows=(2,))
+        out = ops.paged_attention(*args)
+        assert torch.all(out[2] == 0), "all-null rows must be zeros"
+        check("paged_attention", f"{heads} 8 rows x 16 blocks", out,
+              ref.paged_attention_ref(*args))
+        q, k, v = flash_case(torch, gen, device, dt, h=h, kv=kv, sq=512)
+        check("flash_attention", f"{heads} Sq=Sk=512 causal",
+              ops.flash_attention(q, k, v),
+              ref.flash_attention_ref(q, k, v))
     return errs
 
 
@@ -1119,6 +1192,430 @@ def engine_features_phase(torch, ops, ref, serve, model, params,
             assert got == want, f"{mode} tokens differ from continuous"
     log("engine float32 2 layers: serial, fusion off, ngram k=1/4 and "
         "draft k=4 token-identical to continuous")
+    return launches
+
+
+# ---------------------------------------------------------------- cluster
+
+
+# phase 4c's workload: the port's multi-tenant generator (3 tenants' 32-
+# token system prompts, 2 bursts of 4, user turns of up to 24 tokens, up
+# to 16 new tokens), then the 8 smoke prompts as a fourth tenant (their
+# shared 32-token head), 16 new tokens each
+CLUSTER_WORKLOAD = dict(num_tenants=3, num_bursts=2, burst_size=4,
+                        prefix_len=32, max_suffix=24, max_new=16, seed=0)
+CLUSTER_REPLICAS = (1, 2, 4)
+
+
+def cluster_workload(vocab_size, smoke_prompts):
+    """-> (prompts, max_news, tenant ids) in submission order."""
+    from repro_torch.serving.loadgen import multi_tenant_workload
+
+    wl = multi_tenant_workload(vocab_size=vocab_size, **CLUSTER_WORKLOAD)
+    n = len(smoke_prompts)
+    return (list(wl.prompts) + list(smoke_prompts),
+            list(wl.max_news) + [16] * n,
+            list(wl.tenant_ids) + [wl.num_tenants] * n)
+
+
+@contextlib.contextmanager
+def counting_dispatches(model):
+    """Count ``model``'s paged dispatches (``prefill_paged`` and
+    ``decode_step_paged`` calls) while the block runs.  -> the counts."""
+    n = {"prefill_paged": 0, "decode_step_paged": 0}
+    for name in n:
+        def counted(*a, _fn=getattr(model, name), _name=name, **kw):
+            n[_name] += 1
+            return _fn(*a, **kw)
+        setattr(model, name, counted)
+    try:
+        yield n
+    finally:
+        for name in n:
+            delattr(model, name)
+
+
+def drive_cluster(ops, serve, args, model, params, work, replicas, sync, *,
+                  affinity=True, **kw):
+    """Submit ``work`` to a ``ServingCluster`` of ``replicas`` engines that
+    ``serve.build_engine(args, ...)`` builds from the one ``(model,
+    params)`` (one copy of the weights), drain it.  -> dict: the cluster,
+    the cluster ids in submission order (None: a 429), {cid: tokens},
+    seconds, cluster steps, each replica's engine steps, the model's
+    dispatches and the launch counts of the run."""
+    from repro_torch.serving.cluster import Rejected, ServingCluster
+
+    cl = ServingCluster(lambda i: serve.build_engine(args, model, params),
+                        replicas, affinity=affinity, seed=args.seed, **kw)
+    assert all(e.params is params for e in cl.engines)
+    engine_steps = [0] * replicas
+    for i, eng in enumerate(cl.engines):
+        def counted(now=0.0, _step=eng.step, _i=i):
+            engine_steps[_i] += 1
+            return _step(now)
+        eng.step = counted
+    ops.reset_launch_counts()
+    with counting_dispatches(model) as dispatches:
+        sync()
+        t0 = time.perf_counter()
+        cids = []
+        for p, n in zip(*work[:2]):
+            try:
+                cids.append(cl.submit(p, max_new=n,
+                                      now=time.perf_counter() - t0))
+            except Rejected:
+                cids.append(None)
+        outs, steps = {}, 0
+        while not cl.idle:
+            steps += 1
+            for r in cl.step(now=time.perf_counter() - t0):
+                outs[r.cid] = list(r.out_tokens)
+        sync()
+        secs = time.perf_counter() - t0
+    return dict(cluster=cl, cids=cids, outs=outs, secs=secs, steps=steps,
+                engine_steps=engine_steps, dispatches=dict(dispatches),
+                counts=ops.launch_counts())
+
+
+def fleet_hit_rate(cluster) -> float:
+    """Prompt tokens served from the replicas' radix caches, over all."""
+    hit = sum(e.prefix_cache.hit_tokens for e in cluster.engines)
+    miss = sum(e.prefix_cache.miss_tokens for e in cluster.engines)
+    return hit / max(hit + miss, 1)
+
+
+def first_flip(toks, want) -> int:
+    """Tokens two runs share before the first that differs."""
+    return next((i for i, (a, b) in enumerate(zip(toks, want)) if a != b),
+                len(toks))
+
+
+def cluster_phase(torch, ops, serve, model, params, small_model,
+                  small_params, prompts, sync, validate, smi) -> dict:
+    """Phase 4c: the cluster tier through ``serve.build_engine``'s paged
+    config (32 blocks of 16 a replica, max batch 8, cache-max 256, prefix
+    cache on), qwen3-0.6b at full width in bf16, 1, 2 and 4 replicas on
+    the one card sharing one weight copy, affinity on and off, on
+    ``cluster_workload``; a replay, the 429 paths, fusion off, merged
+    metrics, bf16 shares against 1 replica, identity at 2 layers in
+    float32, and the serve CLI's ``--replicas 2``.  -> launch counts
+    summed over its full-width runs (each read just after its run)."""
+    from repro_torch.obs import summarize_latencies
+
+    args = mode_args(serve)
+    layers = model.cfg.num_layers
+    work = cluster_workload(model.cfg.vocab_size, prompts)
+    n_req = len(work[0])
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+
+    def drive(a, replicas, **kw):
+        run = drive_cluster(ops, serve, a, model, params, work, replicas,
+                            sync, **kw)
+        for k, n in run["counts"].items():
+            launches[k] += n
+        cl = run["cluster"]
+        s = validate(cl.stats())
+        ntok = sum(map(len, run["outs"].values()))
+        rates = [round(e.stats()["hit_rate"], 3) for e in cl.engines]
+        log(f"cluster qwen3-0.6b {model.cfg.dtype} {layers} layers, "
+            f"{replicas} replicas, "
+            f"affinity {'on' if cl.affinity else 'off'}"
+            f"{'' if a is args else ', ' + a.label}: {s['finished']} of "
+            f"{n_req} requests, {ntok} tokens in {run['secs']:.3f}s "
+            f"({ntok / run['secs']:.1f} tok/s; {smi}), {run['steps']} "
+            f"cluster steps, engine steps {run['engine_steps']}, hit rates "
+            f"{rates} (fleet {fleet_hit_rate(cl):.3f}), affinity "
+            f"hits={s['affinity_hits']} misses={s['affinity_misses']}, "
+            f"429s={s['rejected_429']}, dispatches {run['dispatches']}, "
+            f"launches={run['counts']}")
+        log("  " + serve._fmt_stats(cl.balancer.stats()).replace(
+            "\n", "\n  "))
+        # every accepted request finishes whole, nothing stays queued
+        news = dict(zip(run["cids"], work[1]))
+        assert sorted(run["outs"]) == sorted(c for c in run["cids"] if c)
+        assert all(len(t) == news[c] for c, t in run["outs"].items())
+        assert s["finished"] == s["submitted"] == n_req - s["rejected_429"]
+        assert cl.broker.total_depth(cl.GROUP) == 0
+        assert all(r.in_flight == 0 for r in cl.balancer.replicas)
+        if a.decode_fusion == "on":
+            # each engine step is one fused dispatch: a paged_prefill a
+            # layer, never paged_attention
+            assert run["dispatches"] == {
+                "prefill_paged": sum(run["engine_steps"]),
+                "decode_step_paged": 0}, run
+            assert run["counts"]["paged_prefill"] == \
+                layers * sum(run["engine_steps"]), run
+            assert run["counts"]["paged_attention"] == 0, run
+        assert run["counts"]["flash_attention"] == 0, run
+        return run
+
+    def labelled(label, **flags):
+        a = mode_args(serve, **flags)
+        a.label = label
+        return a
+
+    drive_cluster(ops, serve, args, model, params, work, 2, sync)   # warm-up
+    runs = {(n, aff): drive(args, n, affinity=aff, obs=n == 2 and aff)
+            for n in CLUSTER_REPLICAS for aff in (True, False)}
+
+    # routing: a replay from the seed makes the same decisions; affinity
+    # keeps each tenant on one replica and serves more from the caches
+    again, first = drive(args, 2), runs[2, True]
+    assert again["cluster"].route_log == first["cluster"].route_log
+    same = again["outs"] == first["outs"]
+    log(f"cluster replay, 2 replicas, affinity on, seed {args.seed}: "
+        f"route_log identical ({len(again['cluster'].route_log)} "
+        f"decisions); tokens {'identical' if same else 'differ'}")
+    for n in CLUSTER_REPLICAS[1:]:
+        on, off = runs[n, True]["cluster"], runs[n, False]["cluster"]
+        placed = {}
+        for (_, rid, _), tenant in zip(on.route_log, work[2]):
+            placed.setdefault(tenant, set()).add(rid)
+        assert all(len(r) == 1 for r in placed.values()), placed
+        assert on.affinity_hits > 0
+        assert fleet_hit_rate(on) >= fleet_hit_rate(off), n
+        log(f"cluster {n} replicas: tenants on replicas "
+            f"{ {t: sorted(r)[0] for t, r in sorted(placed.items())} } with "
+            f"affinity on; fleet hit rate {fleet_hit_rate(on):.3f} on, "
+            f"{fleet_hit_rate(off):.3f} off")
+
+    # merged metrics: the fleet's TTFT histogram counts every request
+    cl = runs[2, True]["cluster"]
+    lat = summarize_latencies(cl.merged_metrics())
+    assert lat["requests"] == cl.finished_count == n_req, lat
+    log(f"cluster merged metrics (2 replicas): {lat}")
+
+    # backpressure: a balancer 429 (4 in flight a replica, no queue) and a
+    # broker 429 (partitions of 3 records)
+    for a, kw in ((labelled("max batch 4, queue limit 0", max_batch=4),
+                   dict(queue_limit=0)),
+                  (labelled("partitions of 3"),
+                   dict(queue_limit=64, broker_depth=3))):
+        run = drive(a, 2, affinity=False, **kw)
+        cl = run["cluster"]
+        rejected = run["cids"].count(None)
+        assert rejected > 0 and cl.rejected_429 == rejected
+        if "broker_depth" in kw:
+            assert cl.balancer.cancelled == rejected
+        else:
+            assert cl.balancer.rejected == rejected
+
+    # decode fusion off: each decode dispatch a paged_attention a layer
+    run = drive(labelled("decode fusion off", decode_fusion="off"), 2)
+    d = run["dispatches"]
+    assert run["counts"]["paged_attention"] == \
+        layers * d["decode_step_paged"] > 0, run
+    assert run["counts"]["paged_prefill"] == layers * d["prefill_paged"], run
+
+    # bf16 at 28 layers: tokens each run shares with 1 replica, affinity
+    # on, before a request's first flip, and the top-2 margin there
+    base = runs[1, True]["outs"]
+    for (n, aff), run in sorted(runs.items()):
+        if (n, aff) == (1, True):
+            continue
+        agree = total = flips = 0
+        for cid, toks in sorted(run["outs"].items()):
+            same = first_flip(toks, base[cid])
+            agree += same
+            total += len(toks)
+            if same < len(toks):
+                flips += 1
+                margin, t1, t2 = logit_margin(torch, model, params,
+                                              work[0][cid - 1], toks[:same])
+                log(f"  {n} replicas affinity {'on' if aff else 'off'}"
+                    f" vs 1 replica, request {cid}: first flip at token "
+                    f"{same}; target's top-2 logit margin there "
+                    f"{margin:.4f} (top-1 {t1}, top-2 {t2})")
+        log(f"cluster {model.cfg.dtype} {layers} layers, {n} replicas "
+            f"affinity {'on' if aff else 'off'} vs 1 replica: {agree} of "
+            f"{total} tokens agree before the first flip ({flips} requests "
+            f"flip)")
+
+    # 2 layers in float32: every replica count, affinity on and off, and
+    # the slot engine emit the same tokens; and, with no EOS, scheduling
+    # reads lengths, not token values, so each run routes, steps and hits
+    # the caches as its 28-layer bf16 run did
+    want = None
+    for n in CLUSTER_REPLICAS:
+        for aff in (True, False):
+            run = drive_cluster(ops, serve, args, small_model, small_params,
+                                work, n, sync, affinity=aff)
+            got = [run["outs"][c] for c in run["cids"]]
+            want = got if want is None else want
+            assert got == want, (n, aff)
+            bf16 = runs[n, aff]
+            assert run["cluster"].route_log == bf16["cluster"].route_log
+            assert run["engine_steps"] == bf16["engine_steps"], (n, aff)
+            assert [e.stats()["hit_rate"] for e in run["cluster"].engines] \
+                == [e.stats()["hit_rate"] for e in bf16["cluster"].engines]
+            log(f"cluster {small_model.cfg.dtype} 2 layers, {n} replicas, "
+                f"affinity {'on' if aff else 'off'}: engine steps "
+                f"{run['engine_steps']}, routing and hit rates as at "
+                f"{layers} layers in bf16")
+    slot = serve.build_engine(serve.make_parser().parse_args(SLOT_ARGV),
+                              small_model, small_params)
+    for p, m in zip(*work[:2]):
+        slot.submit(p, max_new=m)
+    outs = {}
+    while not slot.idle:
+        for r in slot.step():
+            outs[r.rid] = list(r.out_tokens)
+    assert [outs[i + 1] for i in range(n_req)] == want
+    log("cluster float32 2 layers: 1, 2 and 4 replicas, affinity on and "
+        "off, and the slot engine token-identical")
+
+    # the serve CLI's cluster tier, in this process
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--no-reduced", "--replicas", "2", "--requests", "8",
+                    "--prompt-len", "32", "--max-new", "16", "--metrics"])
+    for k, n in ops.launch_counts().items():
+        launches[k] += n
+    lines = buf.getvalue().splitlines()
+    at = next(i for i, line in enumerate(lines)
+              if line.startswith("8 requests"))
+    for line in lines[at:at + 8]:
+        log(f"  serve --replicas 2: {line}")
+    assert lines[at].startswith("8 requests (0 rejected 429), 128 tokens")
+    assert lines[at + 1].startswith("[cluster] replicas=2 affinity=on")
+    assert "request_ttft_seconds_count 8" in lines, lines
+    return launches
+
+
+# ---------------------------------------------------------------- dense
+
+
+# phase 4d: each config at its published width, or cut in depth where its
+# weights outgrow one card; the engine modes each runs
+DENSE_CONFIGS = (("phi4-mini-3.8b", None, ("on", "off", "slot")),
+                 ("qwen1.5-110b", 4, ("on",)))
+
+
+def seeded_qkv_bias(torch, params, seed):
+    """Draw every ``bq``/``bk``/``bv`` leaf (the init's zeros) from
+    N(0, 0.5), in place, in sorted key order."""
+    gen = None
+
+    def walk(node):
+        nonlocal gen
+        for key in sorted(node):
+            leaf = node[key]
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif key in ("bq", "bk", "bv"):
+                gen = gen or torch.Generator(device=leaf.device).manual_seed(
+                    seed)
+                leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                       device=leaf.device) * 0.5)
+
+    walk(params)
+    return params
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def dense_phase(torch, device, ops, ref, serve, Model, ragged_dispatch,
+                write_slot, validate, sync, smi) -> dict:
+    """Phase 4d: phi4-mini-3.8b at its published width (32 layers) and
+    qwen1.5-110b at 4 full-width layers (seeded non-zero q/k/v biases),
+    bf16, seeded weights: model parity kernels vs plain on the paged and
+    slot paths, then the serve path's engines on the smoke prompts with
+    exact launch counts, and the card's memory high-water mark.  ->
+    launch counts summed over its engine runs."""
+    from repro_torch.configs.base import get_config
+
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    for arch, depth, modes in DENSE_CONFIGS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        args = mode_args(serve, arch=arch)
+        if depth is None:
+            cfg, model, params = serve.build_model(args)
+        else:
+            cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+            model = Model(cfg, device=device)
+            params = model.init(seed=args.seed)
+        if cfg.qkv_bias:
+            seeded_qkv_bias(torch, params, seed=1)
+        init_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        layers = cfg.num_layers
+        what = f"{arch} {cfg.dtype} {layers} layers"
+        if depth is not None:
+            what += f" (cut from {get_config(arch).num_layers})"
+        log(f"dense {what}: {tree_bytes(params) / 2**30:.2f} GiB of "
+            f"weights, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+            f"{cfg.resolved_head_dim}, d_model {cfg.d_model}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+            f"{cfg.tie_embeddings}, qkv bias {cfg.qkv_bias}")
+        for path, rel in (
+                ("paged", model_parity(torch, device, model, params, ops,
+                                       ref, ragged_dispatch)),
+                ("slot", slot_model_parity(torch, device, model, params,
+                                           ops, ref, write_slot))):
+            log(f"model {what} {path} path, kernels vs plain: prefill "
+                f"rel_err={rel['prefill']:.3e} decode "
+                f"rel_err={rel['decode']:.3e}")
+            assert max(rel.values()) <= MODEL_TOL["bfloat16"], (path, rel)
+
+        prompts = smoke_workload(cfg.vocab_size)
+        for mode in modes:
+            if mode == "slot":
+                a = serve.make_parser().parse_args(SLOT_ARGV)
+                a.arch = arch
+            else:
+                a = mode_args(serve, arch=arch, decode_fusion=mode)
+            run_engine(serve.build_engine(a, model, params), prompts[:2], 2,
+                       sync)                                  # warm-up
+            engine = serve.build_engine(a, model, params)
+            run = {}
+            ops.reset_launch_counts()
+            with counting_dispatches(model) as d:
+                outs, secs = run_engine(engine, prompts, a.max_new, sync, run)
+            counts = ops.launch_counts()
+            for k, n in counts.items():
+                launches[k] += n
+            stats = validate(engine.stats())
+            ntok = sum(len(t) for t in outs.values())
+            log(f"engine {what} "
+                f"{'slot' if mode == 'slot' else 'decode_fusion=' + mode}: "
+                f"{len(outs)} requests, {ntok} tokens in {secs:.3f}s "
+                f"({ntok / secs:.1f} tok/s; {smi}), {run['steps']} steps, "
+                f"preemptions={stats['preemptions']} "
+                f"admissions={stats['admissions']} "
+                f"dispatches={dict(d)} launches={counts}")
+            assert len(outs) == len(prompts)
+            assert all(len(t) == a.max_new for t in outs.values())
+            if mode == "slot":
+                # one flash_attention a layer per admission; decode
+                # through paged_prefill
+                assert counts["flash_attention"] == \
+                    layers * stats["admissions"] == layers * len(prompts)
+                assert counts["paged_prefill"] > 0
+                assert counts["paged_attention"] == 0
+            elif mode == "on":
+                assert d == {"prefill_paged": run["steps"],
+                             "decode_step_paged": 0}, d
+                assert counts["paged_prefill"] == layers * run["steps"]
+                assert counts["paged_attention"] == 0
+            else:
+                assert counts["paged_attention"] == \
+                    layers * d["decode_step_paged"] > 0
+                assert counts["paged_prefill"] == layers * d["prefill_paged"]
+            if mode != "slot":
+                assert counts["flash_attention"] == 0
+        log(f"dense {what}: memory high-water mark (torch.cuda."
+            f"max_memory_allocated; {smi}) while drawing the weights "
+            f"{init_peak / 2**30:.2f} GiB (each leaf drawn in float32), "
+            f"then through parity and the engines "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model, params, engine
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1903,6 +2400,75 @@ def kernel_times(torch, device, ops, ref):
             sweep=plan_sweep(torch, wg_mod, calls[key][0], WGRAD_SWEEP_ARGS,
                              WGRAD_SWEEP[b]))
 
+    # the dense configs' heads (``DENSE_HEADS``) at the engines' shapes,
+    # counted as the rows above: the fused decode dispatch and a chunk of
+    # paged_prefill, paged decode over tables of 16 blocks, and S=512
+    hgen = torch.Generator(device=device).manual_seed(8)
+    for arch, (h, kv) in DENSE_HEADS.items():
+        for key, args in (
+                (f"paged_prefill_s1_{arch}",
+                 prefill_case(torch, hgen, device, dt, b=8, s=1, h=h, kv=kv)),
+                (f"paged_prefill_{arch}",
+                 prefill_case(torch, hgen, device, dt, h=h, kv=kv))):
+            q, k, v, kpos, qpos = args
+            b, s, _, hd = q.shape
+            vis = prefill_visible(torch, kpos, qpos, 0)
+            split_fns[key] = (lambda q=q, k=k, v=v, kpos=kpos, qpos=qpos:
+                              ops.paged_prefill(q, k, v, kpos, qpos))
+            calls[key] = (split_fns[key],
+                          lambda q=q, k=k, v=v, mask=vis[:, None]:
+                          sdpa(torch, *(t.transpose(1, 2) for t in (q, k, v)),
+                               mask))
+            out[key] = dict(
+                ms=time_ms(torch, split_fns[key]),
+                plain_ms=time_ms(torch, lambda: ref.paged_prefill_ref(
+                    q, k, v, kpos, qpos)),
+                library_ms=time_ms(torch, calls[key][1]),
+                bytes=(2 * q.numel() * elt + kpos.numel() * 4
+                       + qpos.numel() * 4
+                       + int(vis.any(1).sum()) * 2 * kv * hd * elt),
+                flops=4 * hd * h * int(vis.sum()),
+                split=pp_mod.plan(b, s, k.shape[1], h, kv, sms).split)
+
+        q, k, v, kp, bt, pos = decode_case(torch, hgen, device, dt, h=h,
+                                           kv=kv, nb=16, null_rows=(2,))
+        b, _, hd = q.shape
+        bs = k.shape[1]
+        vis = decode_visible(torch, kp, bt, pos, 0)
+        live = int(vis.reshape(b, -1, bs).any(-1).sum())
+        gk = k[bt.long()].reshape(b, -1, kv, hd).transpose(1, 2)
+        gv = v[bt.long()].reshape(b, -1, kv, hd).transpose(1, 2)
+        key = f"paged_attention_{arch}"
+        pl = pa_mod.plan(b, kv, bt.shape[1], sms)
+        split_fns[key] = (lambda q=q, k=k, v=v, kp=kp, bt=bt, pos=pos:
+                          ops.paged_attention(q, k, v, kp, bt, pos))
+        calls[key] = (split_fns[key],
+                      lambda q=q, gk=gk, gv=gv, mask=vis[:, None, None, :]:
+                      sdpa(torch, q[:, :, None], gk, gv, mask))
+        out[key] = dict(
+            ms=time_ms(torch, split_fns[key]),
+            plain_ms=time_ms(torch, lambda: ref.paged_attention_ref(
+                q, k, v, kp, bt, pos)),
+            library_ms=time_ms(torch, calls[key][1]),
+            bytes=(2 * q.numel() * elt + bt.numel() * 4 + pos.numel() * 4
+                   + live * (2 * bs * kv * hd * elt + bs * 4)),
+            flops=4 * hd * h * int(vis.sum()), split=pl.split,
+            ctas=pl.ctas(b, kv))
+
+        q, k, v = flash_case(torch, hgen, device, dt, h=h, kv=kv, sq=512)
+        b, _, s, hd = q.shape
+        key = f"flash_attention_512_{arch}"
+        split_fns[key] = lambda q=q, k=k, v=v: ops.flash_attention(q, k, v)
+        calls[key] = (split_fns[key], lambda q=q, k=k, v=v:
+                      sdpa(torch, q, k, v, causal=True))
+        out[key] = dict(
+            ms=time_ms(torch, split_fns[key]),
+            plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v)),
+            library_ms=time_ms(torch, calls[key][1]),
+            bytes=(2 * q.numel() + k.numel() + v.numel()) * elt,
+            flops=4 * hd * h * b * (s * (s + 1) // 2),
+            split=fa_mod.plan(b, h, kv, s, s, True, 0, sms).split)
+
     # the bf16 attention shapes whose key ranges the planners split, timed
     # again with every range whole (one piece, no combine)
     for key, fn in split_fns.items():
@@ -1980,8 +2546,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    # 2. kernel parity
+    # 2. kernel parity, then at the dense configs' heads
     errs = kernel_parity(torch, device, ops, ref)
+    for k, err in dense_head_parity(torch, device, ops, ref).items():
+        errs[k] = max(errs[k], err)
 
     # 3. model at full width, paged and slot paths
     full = get_config("qwen3-0.6b")
@@ -2112,9 +2680,21 @@ def main() -> int:
                                       sync, validate, smi).items():
         launches[k] += n
 
-    # 5. rwkv6-1.6b through the slot engine, the qwen3 models freed first
+    # 4c. the cluster tier: replicas of the one qwen3-0.6b weight copy
+    for k, n in cluster_phase(torch, ops, serve, model, params, small_model,
+                              small_params, prompts, sync, validate,
+                              smi).items():
+        launches[k] += n
+
+    # 4d. phi4-mini-3.8b and qwen1.5-110b, the qwen3 models freed first
     del model, params, small_model, small_params, engine
     torch.cuda.empty_cache()
+    for k, n in dense_phase(torch, device, ops, ref, serve, Model,
+                            ragged_dispatch, write_slot, validate, sync,
+                            smi).items():
+        launches[k] += n
+
+    # 5. rwkv6-1.6b through the slot engine
     launches["rwkv6_scan"] = rwkv6_phase(torch, device, ops, ref, serve,
                                          Model, write_slot, validate, sync)
 
@@ -2153,7 +2733,19 @@ def main() -> int:
                f"a draft forward (one causal row of S={s})")
               for s, _ in DRAFT_SHAPES),
             ("paged_attention", "paged_attention",
-             "paged decode (8 rows, 32 blocks of 16, 16/8 heads)")):
+             "paged decode (8 rows, 32 blocks of 16, 16/8 heads)"),
+            *((kernel, f"{prefix}{arch}", f"{what} at {arch}'s heads "
+               f"({h}/{kv})")
+              for arch, (h, kv) in DENSE_HEADS.items()
+              for kernel, prefix, what in (
+                  ("paged_prefill", "paged_prefill_s1_",
+                   "fused decode (8 rows, S=1, 512 prefix lanes)"),
+                  ("paged_prefill", "paged_prefill_",
+                   "a chunk (4 rows, S=256, 512 prefix lanes)"),
+                  ("paged_attention", "paged_attention_",
+                   "paged decode (8 rows, 16 blocks of 16)"),
+                  ("flash_attention", "flash_attention_512_",
+                   "one causal row of S=512")))):
         t = times[key]
         split = (f", key ranges split={t['split']}" if "split" in t
                  else "")

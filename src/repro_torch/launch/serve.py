@@ -36,11 +36,26 @@ in the ragged ``paged_prefill`` dispatch, token-identical to ``off``.
 ``--metrics`` prints the Prometheus text page at exit, ``--trace-out
 PATH`` writes a Chrome trace-event JSON of the run.
 
+``--replicas N`` (N > 1, paged engine only) serves through the cluster
+tier (``serving/cluster.py``): N broker-fed paged-engine replicas behind
+the occupancy-aware balancer, sharing one copy of the weights, each with
+its own block pool.  ``--affinity on`` (default) routes each request to
+the replica already holding its longest cached prefix, ``off`` leaves
+routing to the balancer's policy; saturation rejects a submission with a
+counted 429.  The workload is the reference CLI's: half of each prompt is
+one of up to 4 tenant prefixes, drawn from ``--seed``.  It prints the
+``[cluster]`` and ``[lb]`` gauge lines and ``req N: ... rM via
+affinity|policy`` routing tags; ``--metrics`` prints the replicas'
+registries merged into one page.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
+        --replicas 2 --affinity on --requests 8 --prompt-len 32
+
 Flags of features the port does not carry yet are refused with a
-message: ``--replicas`` > 1, and any value other than the default of
-``--decode-kernel``, ``--window-accounting`` and ``--affinity``.
-``--replicas`` and ``--spec-decode`` with ``--engine slot`` exit with
-the reference's "needs the paged engine".
+message: any value other than the default of ``--decode-kernel`` and
+``--window-accounting``.  ``--replicas`` and ``--spec-decode`` with
+``--engine slot`` exit with the reference's "needs the paged engine", and
+``--trace-out`` with ``--replicas`` with its "per-engine" refusal.
 """
 from __future__ import annotations
 
@@ -53,12 +68,32 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.models.api import Model
 from repro_torch.obs import Observability
+from repro_torch.serving.cluster import Rejected, ServingCluster
 from repro_torch.serving.server import LLMEngine, PagedLLMEngine
 from repro_torch.serving.spec_decode import layer_truncated_draft
 
 
 def _fmt_stats(stats: dict) -> str:
-    """Render the stats-schema gauges (``serving/stats_schema.py``)."""
+    """Render the stats-schema gauges (``serving/stats_schema.py``) or,
+    for a balancer snapshot (``LoadBalancer.stats()``), its dispatch
+    counters with each replica's engine gauges."""
+    if "replica_loads" in stats:
+        line = (f"[lb] picks={stats.get('picks', 0)} "
+                f"rejections={stats.get('rejections', 0)} "
+                f"releases={stats.get('releases', 0)} "
+                f"imbalance={stats.get('imbalance', 0.0):.2f} "
+                f"loads={stats.get('replica_loads', [])}")
+        for rid, es in sorted(stats.get("engines", {}).items()):
+            line += f"\n  r{rid} " + _fmt_stats(es)
+        return line
+    if stats.get("engine") == "cluster":
+        return (f"[cluster] replicas={stats.get('replicas', 0)} "
+                f"affinity={'on' if stats.get('affinity') else 'off'} "
+                f"hits={stats.get('affinity_hits', 0)} "
+                f"misses={stats.get('affinity_misses', 0)} "
+                f"429={stats.get('rejected_429', 0)} "
+                f"submitted={stats.get('submitted', 0)} "
+                f"finished={stats.get('finished', 0)}")
     line = (f"[{stats.get('engine', '?')}] "
             f"queue={stats.get('queue_depth', 0)} "
             f"active={stats.get('active', 0)} "
@@ -130,9 +165,12 @@ def make_parser() -> argparse.ArgumentParser:
                     help="on only (sliding-window layers are not ported "
                          "yet)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="1 only (the cluster tier is not ported yet)")
+                    help="serve through the cluster tier with N broker-"
+                         "fed engine replicas (paged engine only)")
     ap.add_argument("--affinity", choices=("on", "off"), default="on",
-                    help="cluster tier only (not ported yet)")
+                    help="prefix-affinity routing: send each request to "
+                         "the replica already holding its longest cached "
+                         "prefix (cluster tier only)")
     ap.add_argument("--draft-layers", type=int, default=1,
                     help="layers kept in the --spec-decode draft "
                          "truncation")
@@ -152,19 +190,21 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def check_args(args) -> None:
-    """Refuse flags of features the port does not carry yet."""
+    """Refuse what the reference CLI refuses, and flags of features the
+    port does not carry yet."""
     if args.engine == "slot":
         if args.replicas > 1:
             raise SystemExit("--replicas needs the paged engine")
         if args.spec_decode != "off":
             raise SystemExit("--spec-decode needs the paged engine")
+    if args.replicas > 1 and args.trace_out:
+        raise SystemExit("--trace-out is per-engine; not supported "
+                         "with --replicas")
     refusals = [
-        (args.replicas > 1, "--replicas: the cluster tier"),
         (args.decode_kernel == "off", "--decode-kernel off: the plain "
                                       "decode gather"),
         (args.window_accounting != "on", "--window-accounting off: "
                                          "sliding-window layers"),
-        (args.affinity != "on", "--affinity off: the cluster tier"),
     ]
     for refused, what in refusals:
         if refused:
@@ -221,6 +261,9 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     check_args(args)
     cfg, model, params = build_model(args)
+    if args.replicas > 1:
+        _serve_cluster(args, cfg, model, params)
+        return
     obs = None
     if args.metrics or args.trace_out:
         obs = Observability.create(trace=args.trace_out is not None)
@@ -254,6 +297,55 @@ def main(argv=None):
         print(f"trace: {n} events -> {args.trace_out}")
     if obs is not None and args.metrics:
         print(obs.metrics.render(), end="")
+
+
+def _serve_cluster(args, cfg, model, params):
+    """Drive ``--requests`` prompts through the cluster tier, as the
+    reference CLI does: half of each prompt is one of a few tenant
+    prefixes, so ``--affinity on`` has something to route on, and a
+    saturated cluster counts 429s instead of stalling.  Every replica is
+    built from the one ``(model, params)``."""
+    cluster = ServingCluster(
+        lambda i: build_engine(args, model, params),
+        args.replicas, affinity=args.affinity == "on",
+        seed=args.seed, obs=args.metrics)
+    rng = np.random.default_rng(args.seed)
+    tenants = [rng.integers(1, cfg.vocab_size,
+                            max(args.prompt_len // 2, 1)).astype(np.int32)
+               for _ in range(min(4, args.requests))]
+    t0 = time.time()
+    rejected = 0
+    for i in range(args.requests):
+        tail = rng.integers(1, cfg.vocab_size,
+                            size=(max(args.prompt_len
+                                      - len(tenants[0]), 1),))
+        prompt = np.concatenate([tenants[i % len(tenants)],
+                                 tail.astype(np.int32)])
+        try:
+            cluster.submit(prompt, max_new=args.max_new,
+                           now=time.time() - t0)
+        except Rejected:
+            rejected += 1
+    finished = []
+    steps = 0
+    while not cluster.idle:
+        finished.extend(cluster.step(now=time.time() - t0))
+        steps += 1
+        if args.stats_every and steps % args.stats_every == 0:
+            print(_fmt_stats(cluster.stats()))
+    dt = time.time() - t0
+    total_new = sum(len(r.out_tokens) for r in finished)
+    print(f"{len(finished)} requests ({rejected} rejected 429), "
+          f"{total_new} tokens in {dt:.2f}s ({total_new/dt:.1f} tok/s, "
+          f"{steps} cluster steps, replicas={args.replicas}, "
+          f"device={args.device})")
+    print(_fmt_stats(cluster.stats()))
+    print(_fmt_stats(cluster.balancer.stats()))
+    for r in sorted(finished, key=lambda r: r.cid)[:3]:
+        print(f"  req {r.cid}: {len(r.out_tokens)} tokens "
+              f"{r.out_tokens[:8]}... r{r.replica} via {r.routed_by}")
+    if args.metrics:
+        print(cluster.merged_metrics().render(), end="")
 
 
 if __name__ == "__main__":

@@ -688,6 +688,18 @@ class PagedLLMEngine(_EngineObsMixin):
     def idle(self) -> bool:
         return not self.queue and not self.active and not self.prefilling
 
+    def prefix_probe(self, prompt) -> int:
+        """How many leading tokens of ``prompt`` the radix cache could
+        serve now, admitting nothing: no LRU touch, no hit/miss count.
+        The cluster tier's cold-map routing probes each replica with it.
+        0 with the prefix cache off.  The last token is reserved as
+        admission reserves it (its logits produce the first output
+        token), so it is never served from the cache."""
+        if self.prefix_cache is None:
+            return 0
+        m = self.prefix_cache.probe(np.asarray(prompt, np.int32)[:-1])
+        return len(m.blocks) * self.block_size + m.partial_len
+
     def stats(self) -> Dict[str, float]:
         """Gauges per ``serving/stats_schema.py``."""
         alloc = self.allocator

@@ -242,9 +242,11 @@ def test_serve_cli_fusion_on_off_same_tokens():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--engine", "slot", "--replicas", "2"], ["--replicas", "2"],
+    ["--engine", "slot", "--replicas", "2"],
+    ["--replicas", "2", "--trace-out", "T"],
     ["--arch", "gemma3-4b"], ["--decode-kernel", "off"],
-    ["--window-accounting", "off"], ["--affinity", "off"],
+    ["--window-accounting", "off"],
+    ["--engine", "slot", "--affinity", "off", "--replicas", "2"],
     ["--engine", "slot", "--spec-decode", "ngram"],
 ])
 def test_serve_cli_refuses_unported_flags(argv):
@@ -305,6 +307,63 @@ def test_serve_cli_serves_like_the_reference_cli(models, monkeypatch,
         # wall-clock traces: the same events for the same requests, in
         # the same order, as the reference CLI's
         assert got == events(ref_argv[-1])[1]
+
+
+def _reference_cli(monkeypatch, argv):
+    """The reference CLI's stdout lines for ``argv`` (after ``_serve``'s
+    defaults, less ``--device``)."""
+    from repro.launch import serve as jserve
+
+    monkeypatch.setattr("sys.argv", ["serve", "--requests", "4",
+                                     "--prompt-len", "12", "--max-new", "5",
+                                     "--stats-every", "0", *argv])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jserve.main()
+    return buf.getvalue().splitlines()
+
+
+@pytest.mark.parametrize("affinity", ["on", "off"])
+def test_serve_cli_cluster_serves_like_the_reference_cli(models, monkeypatch,
+                                                         affinity):
+    """``--replicas 2`` at ``--device cpu``, the reference's seed-0 weights
+    bridged in: the ``[cluster]`` line, the ``[lb]`` line with each
+    replica's gauges, and the ``req N: ... rM via ...`` routing tags equal
+    the reference CLI's for the same argv.  A 32-token prompt gives a
+    16-token tenant prefix, one whole block, so affinity on routes by it
+    (hits > 0)."""
+    _, _, _, tparams = models
+    build_model = serve.build_model
+    monkeypatch.setattr(serve, "build_model",
+                        lambda args: build_model(args)[:2] + (tparams,))
+    argv = ["--replicas", "2", "--affinity", affinity, "--requests", "8",
+            "--prompt-len", "32"]
+    lines = _serve(*argv)
+    want = _reference_cli(monkeypatch, argv)
+    assert lines[0].startswith("8 requests (0 rejected 429), 40 tokens")
+    assert "replicas=2, device=cpu)" in lines[0]
+    assert lines[1:] == want[1:]
+    assert lines[1].startswith(f"[cluster] replicas=2 affinity={affinity}")
+    hits = int(lines[1].split("hits=")[1].split()[0])
+    assert (hits > 0) == (affinity == "on")
+    tags = [ln.split("tokens")[1] for ln in _req_lines(lines)]
+    assert len(tags) == 3 and all(" via " in t for t in tags)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--replicas", "2", "--engine", "slot"],
+    ["--replicas", "2", "--trace-out", "T"],
+])
+def test_serve_cli_cluster_refusals_are_the_reference_clis(monkeypatch,
+                                                           tmp_path, argv):
+    argv = [str(tmp_path / "t.json") if a == "T" else a for a in argv]
+    with pytest.raises(SystemExit) as ours:
+        _serve(*argv)
+    with pytest.raises(SystemExit) as theirs:
+        _reference_cli(monkeypatch, argv)
+    assert str(ours.value) == str(theirs.value)
+    assert "--replicas needs the paged engine" in str(ours.value) or \
+        "--trace-out is per-engine" in str(ours.value)
 
 
 @pytest.mark.parametrize("argv", [["--engine", "slot"], ["--slots", "2"]])

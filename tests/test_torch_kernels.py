@@ -221,6 +221,10 @@ PA_CARD_CASES = [(shape, (1,), None) for shape in DECODE_SHAPES] + [
     ((2, 6, 2, 64, 2 * 24 + 1, 16, 24), (1,), True),
     ((3, 8, 4, 32, 3 * 20 + 1, 24, 20), (0,), True),
     ((8, 16, 8, 128, 8 * 20 + 1, 16, 20), (0, 3, 7), True),
+    # phi4-mini-3.8b's heads (24 / 8: a group of 3) and qwen1.5-110b's
+    # (64 / 8) at the fusion-off engine's tables of 16 blocks
+    ((8, 24, 8, 128, 8 * 16 + 1, 16, 16), (5,), None),
+    ((8, 64, 8, 128, 8 * 16 + 1, 16, 16), (5,), None),
 ]
 
 
@@ -276,7 +280,11 @@ def test_paged_attention_refuses_what_it_does_not_take(cuda):
 PP_CARD_SHAPES = PREFILL_SHAPES + [
     (2, 40, 16, 8, 128, 70), (8, 1, 16, 8, 128, 512), (4, 1, 16, 8, 128, 255),
     (2, 37, 8, 8, 16, 100), (3, 100, 8, 2, 32, 64), (2, 200, 16, 2, 64, 40),
-    (3, 1, 8, 1, 128, 300)]
+    (3, 1, 8, 1, 128, 300),
+    # phi4-mini-3.8b's heads (24 / 8: a group of 3, 21 positions a tile)
+    # and qwen1.5-110b's (64 / 8): a chunk and the fused decode dispatch
+    (2, 100, 24, 8, 128, 70), (8, 1, 24, 8, 128, 512),
+    (2, 100, 64, 8, 128, 70), (8, 1, 64, 8, 128, 512)]
 
 
 @pytest.mark.cuda
@@ -326,7 +334,11 @@ FA_CARD_CASES = (
                              ((2, 16, 2, 1, 1, 32), False)]
        for causal, window in [(True, 0), (True, 48)]]
     + [((1, 8, 2, 190, 50, 32), False, 20, True),
-       ((1, 16, 8, 300, 70, 128), False, 0, False)])
+       ((1, 16, 8, 300, 70, 128), False, 0, False)]
+    # phi4-mini-3.8b's heads (24 / 8: a group of 3) and qwen1.5-110b's
+    # (64 / 8), as the slot engine admits a prompt
+    + [((1, h, 8, s, s, 128), True, window, True)
+       for h in (24, 64) for s in (37, 512) for window in (0, 64)])
 
 
 @pytest.mark.cuda
