@@ -70,6 +70,17 @@ then runs its phases, each raising on failure:
    paths; phi4-mini's paged engine, fusion on and off, and slot engine,
    qwen1.5's paged engine, on the smoke prompts with exact launch
    counts; each config's memory high-water mark;
+4e. gemma3-4b: at its published width (34 layers: 29 sliding-window
+   ``attn_local`` layers of 1,024 and 5 global ones, 8/4 heads of 256,
+   GeGLU, tied 262,144 vocab), bf16, seeded weights: the three
+   attention kernels at head_dim 256 against their plain versions in
+   bfloat16 and float32, window 0 and 1,024; model parity kernels vs
+   plain past the window (paged: chunks after prefixes of 1,400 and 900
+   tokens and a decode step; slot: a 1,500-token prompt, the local rings
+   wrapped, and 2 decode steps); the paged engine (fusion on and off)
+   and the slot engine on the smoke prompts and two of 1,100-2,000
+   tokens, with exact launch counts; a profile of the fused engine; the
+   weights' size and the memory high-water marks;
 5. rwkv6: with the qwen3 model freed, rwkv6-1.6b at its published
    width (24 layers, bfloat16, seeded random weights with the
    reference's zero-initialised leaves drawn too) through the serve
@@ -116,8 +127,11 @@ then runs its phases, each raising on failure:
    under forced plans; ``conv2d_wgrad`` at B=64, 320 and 2,000 beside
    ``torch.nn.grad.conv2d_weight`` and ``dy.sum()`` (a read of the same
    dy), its launch plan and its times under forced plans; the attention
-   kernels at the dense configs' heads as in phase 2; the floor of both
-   methods (one launch on one element).
+   kernels at the dense configs' heads as in phase 2, and at gemma3-4b's
+   heads of 256 as in phase 4e (window 0 and, where the band cuts,
+   1,024: the bound counts only the keys inside each query's band;
+   SDPA with the band as a mask, the kernel it ran named); the floor
+   of both methods (one launch on one element).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -268,9 +282,10 @@ def decode_case(torch, gen, device, dtype, b=8, h=16, kv=8, hd=128, bs=16,
 
 
 def prefill_case(torch, gen, device, dtype, b=4, s=256, h=16, kv=8, hd=128,
-                 prefix=512):
+                 prefix=512, min_start=0):
     """Keys as the engine assembles them: a gathered prefix (null past
-    each row's cursor) then the chunk, per-row cursors, padded lanes."""
+    each row's cursor, which is at least ``min_start``) then the chunk,
+    per-row cursors, padded lanes."""
     L = prefix + s
     q = torch.randn(b, s, h, hd, generator=gen, device=device)
     k = torch.randn(b, L, kv, hd, generator=gen, device=device)
@@ -278,8 +293,8 @@ def prefill_case(torch, gen, device, dtype, b=4, s=256, h=16, kv=8, hd=128,
     kpos = torch.full((b, L), -1, dtype=torch.int32, device=device)
     qpos = torch.zeros(b, s, dtype=torch.int32, device=device)
     for i in range(b):
-        start = int(torch.randint(0, prefix + 1, (1,), generator=gen,
-                                  device=device))
+        start = int(torch.randint(min_start, prefix + 1, (1,),
+                                  generator=gen, device=device))
         n = int(torch.randint(1, s + 1, (1,), generator=gen, device=device))
         kpos[i, :start] = torch.arange(start, device=device)
         qpos[i] = start + torch.arange(s, device=device)
@@ -1619,6 +1634,311 @@ def dense_phase(torch, device, ops, ref, serve, Model, ragged_dispatch,
     return launches
 
 
+# ---------------------------------------------------------------- gemma3
+
+
+# phase 4e: gemma3-4b at its published width (34 layers: 5 windowed
+# ``attn_local`` layers of 1,024 to each global one, 8 / 4 heads of 256,
+# GeGLU, tied 262,144 vocab), bf16.  The engines get the smoke prompts and
+# two prompts past the window; the pool holds both long prompts whole
+GEMMA3_ARGV = ["--arch", "gemma3-4b", "--no-reduced", "--num-blocks", "400",
+               "--block-size", "16", "--cache-max", "2304", "--max-new",
+               "16", "--prefix-cache", "on"]
+GEMMA3_SLOT_ARGV = ["--arch", "gemma3-4b", "--no-reduced", "--engine",
+                    "slot", "--slots", "4", "--cache-max", "2304",
+                    "--max-new", "16"]
+GEMMA3_LONG = (1100, 2000)      # long prompts' lengths: seeded in between
+# gemma3-4b's attention heads (query, KV, head_dim) and its local window
+GEMMA3_HEADS = dict(h=8, kv=4, hd=256)
+GEMMA3_WINDOW = 1024
+# the kernels' hd-256 shapes: paged_prefill at the fused decode dispatch
+# (8 rows, one lane, 512 prefix lanes), a chunk (4 rows, S=256, 512 prefix
+# lanes) and a chunk whose queries sit past position 1,024 (2 rows, S=64,
+# cursors in [1,100, 1,536]); paged_attention over tables of 16 and of
+# 128 blocks of 16 (rows past position 1,024); flash_attention at one
+# causal row of S=512 and S=2048: (name, prefill/decode case kwargs)
+GEMMA3_PP_SHAPES = (("fused decode", dict(b=8, s=1)),
+                    ("chunk", dict(b=4, s=256)),
+                    ("chunk past 1,024", dict(b=2, s=64, prefix=1536,
+                                              min_start=1100)))
+GEMMA3_PA_SHAPES = ((16, (5,)), (128, (2,)))        # (table blocks, nulls)
+GEMMA3_FA_SHAPES = (512, 2048)
+
+
+def gemma3_kernel_parity(torch, device, ops, ref):
+    """Phase 4e, kernels: the three attention kernels at head_dim 256 and
+    gemma3-4b's 8 / 4 heads (``GEMMA3_*_SHAPES``), bfloat16 and float32,
+    window 0 and 1,024, against their plain versions.  -> {kernel: max
+    abs error over its bfloat16 cases}."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    errs = dict.fromkeys(("paged_attention", "paged_prefill",
+                          "flash_attention"), 0.0)
+
+    def check(kernel, dtype_name, what, out, plain):
+        torch.cuda.synchronize()
+        err = (out.float() - plain.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), plain.float(),
+                                   **KERNEL_TOL[kernel, dtype_name])
+        log(f"parity {kernel} {dtype_name} head_dim 256 {what}: "
+            f"max_abs_err={err:.3e}")
+        if dtype_name == "bfloat16":
+            errs[kernel] = max(errs[kernel], err)
+
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for window in (0, GEMMA3_WINDOW):
+            for what, kw in GEMMA3_PP_SHAPES:
+                args = prefill_case(torch, gen, device, dt, **kw,
+                                    **GEMMA3_HEADS)
+                lanes = prefill_visible(torch, args[3], args[4],
+                                        window).any(-1)
+                check("paged_prefill", dtype_name,
+                      f"{what} ({kw['b']} rows, S={kw['s']}, "
+                      f"L={args[1].shape[1]}) window={window}",
+                      ops.paged_prefill(*args, window=window)[lanes],
+                      ref.paged_prefill_ref(*args, window=window)[lanes])
+            for nb, nulls in GEMMA3_PA_SHAPES:
+                args = decode_case(torch, gen, device, dt, nb=nb,
+                                   null_rows=nulls, **GEMMA3_HEADS)
+                out = ops.paged_attention(*args, window=window)
+                assert all(torch.all(out[r] == 0) for r in nulls)
+                check("paged_attention", dtype_name,
+                      f"8 rows x {nb} blocks (positions to "
+                      f"{int(args[5].max())}) window={window}", out,
+                      ref.paged_attention_ref(*args, window=window))
+            for s in GEMMA3_FA_SHAPES:
+                q, k, v = flash_case(torch, gen, device, dt, sq=s,
+                                     **GEMMA3_HEADS)
+                check("flash_attention", dtype_name,
+                      f"one causal row of S={s} window={window}",
+                      ops.flash_attention(q, k, v, window=window),
+                      ref.flash_attention_ref(q, k, v, window=window))
+    return errs
+
+
+def gemma3_model_parity(torch, device, model, params, ops, ref,
+                        ragged_dispatch):
+    """Phase 4e, model: kernels vs plain versions past the window.  Paged:
+    two rows' prefixes of 1,400 and 900 tokens written through the
+    kernels, then one ragged dispatch of chunks of 100 and 64 tokens
+    (every lane's logits) and one decode step at positions 1,500 and 964
+    over identical pools.  Slot: a whole prompt of 1,500 tokens (the
+    local layers' 1,024-lane rings wrap), then 2 decode steps.  -> {path:
+    {"prefill": rel_err, "decode": rel_err}}."""
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(12)
+    bs, prefix, chunk = 16, [1400, 900], [100, 64]
+    rows = len(prefix)
+    nb = -(-max(p + c + 1 for p, c in zip(prefix, chunk)) // bs)
+    pools = model.pool_init(rows * nb + 1, bs)
+    bt = (torch.arange(rows * nb, device=device, dtype=torch.int32)
+          .reshape(rows, nb) + 1)
+
+    def tokens(b, n):
+        return torch.randint(1, cfg.vocab_size, (b, n), generator=gen,
+                             device=device, dtype=torch.int32)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
+    ragged_dispatch(model, params, pools, tokens(rows, max(prefix)), bt,
+                    i32([0] * rows), i32(prefix), block_size=bs,
+                    all_logits=False)
+    toks = tokens(rows, max(chunk))
+    logits = {}
+    for name, ctx in (("kernel", contextlib.nullcontext()),
+                      ("plain", plain_ops(ops, ref))):
+        with ctx:
+            logits[name], _ = model.prefill_paged(
+                params, {"tokens": toks}, pools, bt, i32(prefix),
+                seq_len=i32(chunk), all_logits=True)
+    lanes = torch.arange(toks.shape[1], device=device)[None, :] < \
+        i32(chunk)[:, None]
+    out = {"paged": {"prefill": _rel_err(torch, logits["kernel"][lanes],
+                                         logits["plain"][lanes])}}
+    pos = i32([p + c for p, c in zip(prefix, chunk)])
+    step = tokens(rows, 1)
+    for name, ctx in (("kernel", contextlib.nullcontext()),
+                      ("plain", plain_ops(ops, ref))):
+        step_pools = _clone(pools)
+        with ctx:
+            logits[name], _ = model.decode_step_paged(
+                params, step_pools, bt, step, pos,
+                torch.ones(rows, dtype=torch.bool, device=device))
+        del step_pools
+    out["paged"]["decode"] = _rel_err(torch, logits["kernel"],
+                                      logits["plain"])
+    del pools
+
+    prompt = tokens(1, 1500)
+    arms = (contextlib.nullcontext(), plain_ops(ops, ref))
+    last, cache = [], None
+    for ctx in arms:
+        with ctx:
+            lg, c = model.prefill(params, {"tokens": prompt}, cache_max=2304)
+        last.append(lg)
+        cache = c if cache is None else cache   # the kernels' caches
+    out["slot"] = {"prefill": _rel_err(torch, last[0], last[1])}
+    # a local layer keeps a ring of the window's lanes, a global one the
+    # whole strip
+    assert cache["periods"]["slot0"]["k"].shape[2] == GEMMA3_WINDOW
+    assert cache["periods"]["slot5"]["k"].shape[2] == 2304
+    steps = tokens(2, 1)
+    dec = ([], [])
+    for arm, ctx in enumerate(arms):
+        c = _clone(cache)
+        for i in range(2):
+            with ctx:
+                lg, c = model.decode_step(params, c, steps[i:i + 1],
+                                          i32([1500 + i]))
+            dec[arm].append(lg)
+    out["slot"]["decode"] = _rel_err(torch, torch.stack(dec[0]),
+                                     torch.stack(dec[1]))
+    return out
+
+
+def gemma3_workload(vocab_size):
+    """The 8 smoke prompts, then two seeded prompts of
+    ``GEMMA3_LONG`` lengths (past the 1,024-token window)."""
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    longs = [rng.integers(1, vocab_size, int(n)).astype(np.int32)
+             for n in rng.integers(*GEMMA3_LONG, size=2)]
+    return smoke_workload(vocab_size) + longs
+
+
+def gemma3_phase(torch, device, ops, ref, serve, ragged_dispatch, validate,
+                 sync, smi) -> tuple:
+    """Phase 4e: gemma3-4b at its published width through the serve
+    path: kernel parity at head_dim 256, model parity past the window,
+    the paged engine (fusion on and off) and the slot engine on prompts
+    past the window with exact launch counts, a profile of the fused
+    engine, weight bytes and memory high-water marks.  -> (launch counts
+    summed over its engine runs, {kernel: max abs error})."""
+    errs = gemma3_kernel_parity(torch, device, ops, ref)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve.make_parser().parse_args(GEMMA3_ARGV)
+    serve.check_args(args)
+    cfg, model, params = serve.build_model(args)
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    layers = cfg.num_layers
+    kinds = cfg.kinds_for_layers
+    what = f"gemma3-4b {cfg.dtype} {layers} layers"
+    log(f"{what}: {tree_bytes(params) / 2**30:.2f} GiB of weights, "
+        f"{kinds.count('attn_local')} attn_local layers (window "
+        f"{cfg.sliding_window}, RoPE base {cfg.rope_theta_local:g}) and "
+        f"{kinds.count('attn')} attn layers (base {cfg.rope_theta:g}), "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_model {cfg.d_model}, d_ff {cfg.d_ff} "
+        f"({cfg.mlp_kind}), vocab {cfg.vocab_size}, tied "
+        f"{cfg.tie_embeddings}")
+    for path, rel in gemma3_model_parity(torch, device, model, params, ops,
+                                         ref, ragged_dispatch).items():
+        log(f"model {what} {path} path past the window, kernels vs plain: "
+            f"prefill rel_err={rel['prefill']:.3e} decode "
+            f"rel_err={rel['decode']:.3e}")
+        assert max(rel.values()) <= MODEL_TOL["bfloat16"], (path, rel)
+    parity_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    prompts = gemma3_workload(cfg.vocab_size)
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    outs_by_mode = {}
+    for mode in ("on", "off", "slot"):
+        if mode == "slot":
+            a = serve.make_parser().parse_args(GEMMA3_SLOT_ARGV)
+        else:
+            a = serve.make_parser().parse_args(GEMMA3_ARGV)
+            a.decode_fusion = mode
+        serve.check_args(a)
+        run_engine(serve.build_engine(a, model, params), prompts[:2], 2,
+                   sync)                                      # warm-up
+        engine = serve.build_engine(a, model, params)
+        run = {}
+        ops.reset_launch_counts()
+        with counting_dispatches(model) as d:
+            outs, secs = run_engine(engine, prompts, a.max_new, sync, run)
+        counts = ops.launch_counts()
+        for k, n in counts.items():
+            launches[k] += n
+        stats = validate(engine.stats())
+        ntok = sum(len(t) for t in outs.values())
+        log(f"engine {what} "
+            f"{'slot' if mode == 'slot' else 'decode_fusion=' + mode}: "
+            f"{len(outs)} requests ({len(prompts) - 2} of 32-200 tokens, "
+            f"2 of {len(prompts[-2])} and {len(prompts[-1])}), {ntok} "
+            f"tokens in {secs:.3f}s ({ntok / secs:.1f} tok/s; {smi}), "
+            f"{run['steps']} steps, preemptions={stats['preemptions']} "
+            f"admissions={stats['admissions']} "
+            f"hit_rate={stats.get('hit_rate', 0.0):.2f} "
+            f"window_blocks_freed={stats.get('window_blocks_freed', 0)} "
+            f"dispatches={dict(d)} launches={counts}")
+        assert len(outs) == len(prompts)
+        assert all(len(t) == a.max_new for t in outs.values())
+        # window accounting is inert: the global layers read every block
+        assert stats.get("window_blocks_freed", 0) == 0
+        if mode == "slot":
+            # one flash_attention a layer per admission, one
+            # paged_prefill a layer per decode step
+            assert counts["flash_attention"] == \
+                layers * stats["admissions"] == layers * len(prompts)
+            assert counts["paged_prefill"] == \
+                layers * (run["steps"] - stats["admissions"]) > 0
+            assert counts["paged_attention"] == 0
+        elif mode == "on":
+            assert d == {"prefill_paged": run["steps"],
+                         "decode_step_paged": 0}, d
+            assert counts["paged_prefill"] == layers * run["steps"]
+            assert counts["paged_attention"] == 0
+        else:
+            assert counts["paged_attention"] == \
+                layers * d["decode_step_paged"] > 0
+            assert counts["paged_prefill"] == layers * d["prefill_paged"]
+        if mode != "slot":
+            assert counts["flash_attention"] == 0
+        outs_by_mode[mode] = outs
+    shared = {m: sum(sum(1 for x, y in zip(outs_by_mode[m][r],
+                                           outs_by_mode["on"][r]) if x == y)
+                     for r in outs_by_mode["on"]) for m in ("off", "slot")}
+    log(f"engine {what}: tokens equal to decode_fusion=on's at the same "
+        f"lane (bf16; exact identity is a float32 fact): {shared} of "
+        f"{sum(map(len, outs_by_mode['on'].values()))}")
+
+    a = serve.make_parser().parse_args(GEMMA3_ARGV)
+    engine = serve.build_engine(a, model, params)
+    secs, busy, rows = profile_engine(
+        torch, lambda: run_engine(engine, prompts, a.max_new, sync)[1])
+    log(f"profile engine {what} decode_fusion=on: wall {secs:.3f}s under "
+        f"the profiler, device busy {busy:.3f}s "
+        f"({100 * busy / secs:.1f}%)")
+    for us, n, key in rows[:12]:
+        log(f"  {us / 1e3:9.2f} ms {n:6d}x  {key[:90]}")
+    # the attention kernels beside what assembles their keys: each layer
+    # gathers the row's whole block table (k, v, pos) and concatenates the
+    # chunk's K/V after it, local layers too
+    sums = {name: (sum(us for us, _, key in rows if pat in key) / 1e3,
+                   sum(n for _, n, key in rows if pat in key))
+            for name, pat in (("paged_prefill (tile and combine)",
+                               "paged_prefill"),
+                              ("gathers", "gather_kernel"),
+                              ("concatenations", "CatArrayBatchedCopy"))}
+    log("profile engine " + what + " decode_fusion=on, device ms "
+        "(launches): " + ", ".join(f"{k} {ms:.2f} ({n})"
+                                   for k, (ms, n) in sums.items()))
+    log(f"gemma3-4b memory high-water marks (torch.cuda.max_memory_"
+        f"allocated; {smi}): drawing the weights {init_peak / 2**30:.2f} "
+        f"GiB (each leaf in float32 before its cast), model parity "
+        f"{parity_peak / 2**30:.2f} GiB, the engines and the profile "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, params, engine
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
 # ---------------------------------------------------------------- digits
 
 
@@ -2085,6 +2405,16 @@ def graph_ms(torch, fn, n=GRAPH_PAIRS, replays=GRAPH_REPLAYS):
     return (med[0] - med[1]) / n
 
 
+def sdpa_backend(torch, q, k, v, mask=None, causal=False) -> str:
+    """The backend ``sdpa`` runs on these inputs: SDPA's own choice
+    function (flash, memory-efficient, cuDNN or math)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, attn_mask=mask, dropout_p=0.0, is_causal=causal,
+        enable_gqa=True)).name
+
+
 def sdpa(torch, q, k, v, mask=None, causal=False):
     """One PyTorch call for attention with an explicit boolean mask or
     the causal one: q (B,H,Sq,hd), k/v (B,KV,Sk,hd), mask (B,1,Sq,Sk)."""
@@ -2469,6 +2799,110 @@ def kernel_times(torch, device, ops, ref):
             flops=4 * hd * h * b * (s * (s + 1) // 2),
             split=fa_mod.plan(b, h, kv, s, s, True, 0, sms).split)
 
+    # gemma3-4b's heads at head_dim 256 (``GEMMA3_*_SHAPES``), window 0
+    # and, where the band cuts, 1,024; bytes and operations count only the
+    # keys inside each query's band; SDPA with ``enable_gqa`` and, for a
+    # windowed row, the band as an explicit mask (``backend``: the one it
+    # ran)
+    ggen = torch.Generator(device=device).manual_seed(13)
+    for what, kw in GEMMA3_PP_SHAPES:
+        args = prefill_case(torch, ggen, device, dt, **kw, **GEMMA3_HEADS)
+        q, k, v, kpos, qpos = args
+        b, s, h, hd = q.shape
+        kv = k.shape[2]
+        for window in (0, GEMMA3_WINDOW) if kw.get("min_start") else (0,):
+            vis = prefill_visible(torch, kpos, qpos, window)
+            key = f"paged_prefill_hd256_{what}_w{window}"
+            split_fns[key] = (lambda args=args, window=window:
+                              ops.paged_prefill(*args, window=window))
+            calls[key] = (split_fns[key],
+                          lambda q=q, k=k, v=v, mask=vis[:, None]:
+                          sdpa(torch, *(t.transpose(1, 2) for t in (q, k, v)),
+                               mask))
+            out[key] = dict(
+                ms=time_ms(torch, split_fns[key]),
+                plain_ms=time_ms(torch, lambda args=args, window=window:
+                                 ref.paged_prefill_ref(*args, window=window)),
+                library_ms=time_ms(torch, calls[key][1]),
+                bytes=(2 * q.numel() * elt + kpos.numel() * 4
+                       + qpos.numel() * 4
+                       + int(vis.any(1).sum()) * 2 * kv * hd * elt),
+                flops=4 * hd * h * int(vis.sum()),
+                split=pp_mod.plan(b, s, k.shape[1], h, kv, sms).split,
+                backend=sdpa_backend(torch, *(t.transpose(1, 2)
+                                              for t in (q, k, v)),
+                                     vis[:, None]),
+                kernel="paged_prefill", window=window,
+                what=f"{what} ({b} rows, S={s}, {k.shape[1] - s} prefix "
+                     "lanes)")
+    for nb, nulls in GEMMA3_PA_SHAPES:
+        q, k, v, kp, bt, pos = decode_case(torch, ggen, device, dt, nb=nb,
+                                           null_rows=nulls, **GEMMA3_HEADS)
+        b, h, hd = q.shape
+        bs, kv = k.shape[1], k.shape[2]
+        gk = k[bt.long()].reshape(b, -1, kv, hd).transpose(1, 2)
+        gv = v[bt.long()].reshape(b, -1, kv, hd).transpose(1, 2)
+        pl = pa_mod.plan(b, kv, bt.shape[1], sms)
+        for window in (0, GEMMA3_WINDOW) if nb * bs > GEMMA3_WINDOW \
+                else (0,):
+            vis = decode_visible(torch, kp, bt, pos, window)
+            live = int(vis.reshape(b, -1, bs).any(-1).sum())
+            key = f"paged_attention_hd256_{nb}_w{window}"
+            split_fns[key] = (lambda q=q, k=k, v=v, kp=kp, bt=bt, pos=pos,
+                              window=window: ops.paged_attention(
+                                  q, k, v, kp, bt, pos, window=window))
+            calls[key] = (split_fns[key],
+                          lambda q=q, gk=gk, gv=gv,
+                          mask=vis[:, None, None, :]:
+                          sdpa(torch, q[:, :, None], gk, gv, mask))
+            out[key] = dict(
+                ms=time_ms(torch, split_fns[key]),
+                plain_ms=time_ms(torch, lambda q=q, k=k, v=v, kp=kp, bt=bt,
+                                 pos=pos, window=window:
+                                 ref.paged_attention_ref(
+                                     q, k, v, kp, bt, pos, window=window)),
+                library_ms=time_ms(torch, calls[key][1]),
+                bytes=(2 * q.numel() * elt + bt.numel() * 4
+                       + pos.numel() * 4
+                       + live * (2 * bs * kv * hd * elt + bs * 4)),
+                flops=4 * hd * h * int(vis.sum()), split=pl.split,
+                ctas=pl.ctas(b, kv), kernel="paged_attention",
+                backend=sdpa_backend(torch, q[:, :, None], gk, gv,
+                                     vis[:, None, None, :]),
+                window=window,
+                what=f"paged decode (8 rows, {nb} blocks of 16)")
+    for s in GEMMA3_FA_SHAPES:
+        q, k, v = flash_case(torch, ggen, device, dt, sq=s, **GEMMA3_HEADS)
+        b, h, _, hd = q.shape
+        kv = k.shape[1]
+        for window in (0, GEMMA3_WINDOW) if s > GEMMA3_WINDOW else (0,):
+            i = torch.arange(s, device=device)
+            band = i[None, :] <= i[:, None]
+            if window:
+                band &= i[:, None] - i[None, :] < window
+            key = f"flash_attention_hd256_{s}_w{window}"
+            split_fns[key] = (lambda q=q, k=k, v=v, window=window:
+                              ops.flash_attention(q, k, v, window=window))
+            calls[key] = (split_fns[key],
+                          (lambda q=q, k=k, v=v, mask=band[None, None]:
+                           sdpa(torch, q, k, v, mask)) if window else
+                          (lambda q=q, k=k, v=v:
+                           sdpa(torch, q, k, v, causal=True)))
+            out[key] = dict(
+                ms=time_ms(torch, split_fns[key]),
+                plain_ms=time_ms(torch, lambda q=q, k=k, v=v, window=window:
+                                 ref.flash_attention_ref(q, k, v,
+                                                         window=window)),
+                library_ms=time_ms(torch, calls[key][1]),
+                bytes=(2 * q.numel() + k.numel() + v.numel()) * elt,
+                flops=4 * hd * h * b * int(band.sum()),
+                split=fa_mod.plan(b, h, kv, s, s, True, window, sms).split,
+                backend=(sdpa_backend(torch, q, k, v, band[None, None])
+                         if window else
+                         sdpa_backend(torch, q, k, v, causal=True)),
+                kernel="flash_attention", window=window,
+                what=f"one causal row of S={s}")
+
     # the bf16 attention shapes whose key ranges the planners split, timed
     # again with every range whole (one piece, no combine)
     for key, fn in split_fns.items():
@@ -2694,6 +3128,14 @@ def main() -> int:
                             smi).items():
         launches[k] += n
 
+    # 4e. gemma3-4b at its published width: windowed layers, head_dim 256
+    g_launches, g_errs = gemma3_phase(torch, device, ops, ref, serve,
+                                      ragged_dispatch, validate, sync, smi)
+    for k, n in g_launches.items():
+        launches[k] += n
+    for k, err in g_errs.items():
+        errs[k] = max(errs[k], err)
+
     # 5. rwkv6-1.6b through the slot engine
     launches["rwkv6_scan"] = rwkv6_phase(torch, device, ops, ref, serve,
                                          Model, write_slot, validate, sync)
@@ -2759,6 +3201,22 @@ def main() -> int:
             f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, sdpa "
             f"{t['library_ms']:.4f} ms (graph-replayed "
             f"{t['library_graph_ms']:.4f}), kernel / sdpa "
+            f"{t['ms'] / t['library_ms']:.2f}{split}")
+    for key, t in times.items():
+        if "_hd256_" not in key:
+            continue
+        split = f", key ranges split={t['split']}"
+        if "ctas" in t:
+            split += f" ({t['ctas']} CTAs)"
+        if "whole_ms" in t:
+            split += f" (whole ranges: {t['whole_ms']:.4f} ms)"
+        log(f"time {t['kernel']} bf16 at {t['what']} at gemma3-4b's heads "
+            f"(8/4 of 256), window {t['window']}: {t['ms']:.4f} ms "
+            f"(graph-replayed {t['graph_ms']:.4f}), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms "
+            f"(graph-replayed {t['library_graph_ms']:.4f}; backend "
+            f"{t['backend']}), kernel / sdpa "
             f"{t['ms'] / t['library_ms']:.2f}{split}")
     records = []
     for name, key, replaces in (

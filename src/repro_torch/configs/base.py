@@ -16,6 +16,7 @@ _MODULE_FOR = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen1.5-110b": "qwen1_5_110b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "gemma3-4b": "gemma3_4b",
 }
 
 

@@ -10,7 +10,12 @@
 // the FlashAttention-2 way:
 //
 //   * Q is staged once through shared memory into mma.sync.m16n8k16 A
-//     fragments (ldmatrix) and stays in registers;
+//     fragments (ldmatrix) and stays in registers; at head_dim 256
+//     (kQSmem) it stays in shared memory instead, each fragment read by
+//     ldmatrix where Q.K^T needs it: a thread's 128 float32 accumulator
+//     registers plus 64 of Q would pass the 255 a thread can have, as in
+//     FlashAttention-2's head_dim-256 tile (Q re-read from shared memory
+//     costs 32 KB a key tile against K's and V's 128 KB each);
 //   * K and V tiles stay bf16 in shared memory, rows padded by 16 bytes
 //     so that the 8 rows one ldmatrix phase reads fall in distinct banks;
 //     one buffer each, as in FlashAttention-2: V(t) is copied with
@@ -206,9 +211,13 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes,
   return err;
 }
 
+// head dims past 128 keep Q in shared memory (see the header)
+__host__ __device__ constexpr bool q_in_smem(int hd) { return hd > 128; }
+
 __host__ __device__ constexpr size_t smem_bytes(int hd) {
-  // a K and a V tile, then K's key positions and the rows' lanes and heads
-  return (size_t)2 * kTK * (hd + kPad) * sizeof(bf16) +
+  // a K and a V tile (and at q_in_smem a Q tile of kRows = kTK rows),
+  // then K's key positions and the rows' lanes and heads
+  return (size_t)(q_in_smem(hd) ? 3 : 2) * kTK * (hd + kPad) * sizeof(bf16) +
          (kTK + 2 * kRows) * sizeof(int);
 }
 
@@ -238,19 +247,23 @@ __device__ __forceinline__ float row_reduce(const float (&s)[NB][4], int i) {
 // otherwise they are the key and query indices.
 template <int HD, bool kPaged, bool kCausal, bool kSplitP, bool kWarpKeys>
 __device__ __forceinline__ void attend_piece(const Params& p) {
-  static_assert(HD % 16 == 0 && HD <= 128, "head_dim: a multiple of 16");
+  static_assert(HD % 16 == 0 && HD <= 256, "head_dim: a multiple of 16");
+  static_assert(kRows == kTK, "a Q tile is laid out as a K tile");
+  constexpr bool kQSmem = q_in_smem(HD);
   constexpr int kPitch = HD + kPad;      // bf16 per shared-memory row
   constexpr int kChunks = HD / 8;        // 16-byte chunks per row
   constexpr int NB = kWarpKeys ? 2 : 8;  // 8-key score blocks per warp
   constexpr int ND = HD / 8;             // 8-dim output blocks
   extern __shared__ __align__(16) unsigned char mma_smem[];
-  // one K tile, one V tile (Q is staged where V goes), K's positions
+  // one K tile, one V tile (Q is staged where V goes, or at kQSmem in a
+  // tile of its own after it), K's positions
   bf16* const sK = reinterpret_cast<bf16*>(mma_smem);
   bf16* const sV = sK + kTK * kPitch;
-  int* const sPos = reinterpret_cast<int*>(sV + kTK * kPitch);
+  bf16* const sQ = kQSmem ? sV + kTK * kPitch : sV;
+  int* const sPos = reinterpret_cast<int*>(sV + (kQSmem ? 2 : 1) * kTK *
+                                                     kPitch);
   int* const sRowS = sPos + kTK;     // row r -> its query lane, or -1
   int* const sRowH = sRowS + kRows;  // row r -> its query head
-  bf16* const sQ = sV;
 
   const int bkv = p.B * p.KV;
   const int x = blockIdx.x / bkv;
@@ -389,12 +402,16 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   cp_async_wait<0>();
   __syncthreads();
 
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  // Q's A fragment of dims [16 kk, 16 kk + 16) for the warp's rows
+  auto q_frag = [&](uint32_t (&r)[4], int kk) {
     const int m = lane / 8;
-    ldmatrix_x4(qf[kk], sQ + (rbase + (m % 2) * 8 + lane % 8) * kPitch +
-                            kk * 16 + (m / 2) * 8);
+    ldmatrix_x4(r, sQ + (rbase + (m % 2) * 8 + lane % 8) * kPitch +
+                       kk * 16 + (m / 2) * 8);
+  };
+  uint32_t qf[kQSmem ? 1 : HD / 16][4];
+  if constexpr (!kQSmem) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) q_frag(qf[kk], kk);
   }
   __syncthreads();  // the V tile is free now
 
@@ -420,6 +437,13 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQSmem) {
+        q_frag(qa, kk);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      }
 #pragma unroll
       for (int np = 0; np < NB / 2; ++np) {
         const int m = lane / 8;
@@ -427,8 +451,8 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
         ldmatrix_x4(kb, sK + (kw + np * 16 + (m / 2) * 8 + lane % 8) *
                                  kPitch +
                              kk * 16 + (m % 2) * 8);
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
       }
     }
 

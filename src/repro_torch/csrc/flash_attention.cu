@@ -188,6 +188,7 @@ static int launch_mma_hd(int hd, const mma::Params& p, cudaStream_t stream) {
     case 32: return launch_mma<32, kCausal>(p, stream);
     case 64: return launch_mma<64, kCausal>(p, stream);
     case 128: return launch_mma<128, kCausal>(p, stream);
+    case 256: return launch_mma<256, kCausal>(p, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

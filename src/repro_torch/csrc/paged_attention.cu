@@ -38,11 +38,14 @@
 //   * Loads: a warp copies its chunk's K and V rows straight from the
 //     pool with cp.async, 16 bytes a lane, coalesced along hd and
 //     zero-filled where a key is invisible, into its own two-stage ring,
-//     so the next chunk is in flight while the current one is reduced.
-//     No CTA-wide barrier inside the loop.
+//     so the next chunk is in flight while the current one is reduced
+//     (one stage at float32 head_dim 256, where two would not fit four
+//     warps' rings in shared memory). No CTA-wide barrier inside the loop.
 //   * Math in float32 registers: each lane holds a 16-byte slice of the g
-//     query rows (pre-scaled into base 2); a key's score is a dot product
-//     over hd / (16 / sizeof(T)) lanes, and the chunk's partial products
+//     query rows (pre-scaled into base 2; at float32 head_dim 256 two
+//     slices, so a key spans no more than a warp's 32 lanes); a key's
+//     score is a dot product over hd / (16 / sizeof(T)) lanes (at most
+//     32), and the chunk's partial products
 //     are summed by one reduce-scatter over those lanes (at qwen3's shape
 //     15 shuffles for 32 scores); the chunk's online-softmax update is one
 //     max and one sum over 16 lanes; each lane accumulates p x V for its
@@ -50,7 +53,7 @@
 //   * One merge per CTA: the key groups of a warp by shuffles, the four
 //     warps by log-sum-exp through shared memory.
 //
-// head_dim 16, 32, 64 or 128, groups up to 8 query heads per KV head
+// head_dim 16, 32, 64, 128 or 256, groups up to 8 query heads per KV head
 // (compiled for 1, 2, 4 and 8 rows), any block size; the wrapper refuses
 // the rest before launching.
 #include <cooperative_groups.h>
@@ -126,16 +129,36 @@ __device__ __forceinline__ void reduce_scatter(float* v, int lane) {
   }
 }
 
+// Elements of 16 bytes of T, unpacked to floats: E / Vec<T>::N loads
+template <typename T, int E>
+__device__ __forceinline__ void load_f(const T* src, float (&f)[E]) {
+  constexpr int N = Vec<T>::N;
+#pragma unroll
+  for (int u = 0; u < E / N; ++u) {
+    float t[N];
+    unpack(*reinterpret_cast<const uint4*>(src + u * N), t);
+#pragma unroll
+    for (int e = 0; e < N; ++e) f[u * N + e] = t[e];
+  }
+}
+
 template <typename T, int HD>
 struct Layout {
-  static constexpr int kVec = Vec<T>::N;         // elements a lane loads
-  static constexpr int kLanesPerKey = HD / kVec;  // lanes over one key's hd
+  static constexpr int kVec = Vec<T>::N;   // elements of one 16-byte load
+  // elements of one key a lane holds: one load, or as many as keep a key
+  // within 32 lanes (float32 at head_dim 256: two)
+  static constexpr int kElems = HD / kVec > 32 ? HD / 32 : kVec;
+  static constexpr int kLanesPerKey = HD / kElems;  // lanes over one key
   static constexpr int kKeysPerRound = 32 / kLanesPerKey;
   static constexpr int kRounds = kChunk / kKeysPerRound;
-  static_assert(kLanesPerKey >= 1 && kLanesPerKey <= 32, "head_dim");
-  // a warp's ring: two stages of K and V chunks
+  static_assert(kLanesPerKey >= 1 && kLanesPerKey <= 32 &&
+                    kElems % kVec == 0 && kLanesPerKey * kElems == HD,
+                "head_dim");
+  // a warp's ring of K and V chunks: two stages, or one where two would
+  // not fit four warps' rings in shared memory (float32 at head_dim 256)
   static constexpr size_t kStageBytes = (size_t)2 * kChunk * HD * sizeof(T);
-  static constexpr size_t kWarpBytes = 2 * kStageBytes;
+  static constexpr int kStages = kStageBytes > 16384 ? 1 : 2;
+  static constexpr size_t kWarpBytes = kStages * kStageBytes;
 };
 
 __host__ __device__ constexpr int chunks_per_block(int bs) {
@@ -154,7 +177,7 @@ template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const Args a) {
   using L = Layout<T, HD>;
-  constexpr int kVec = L::kVec, kLPK = L::kLanesPerKey;
+  constexpr int kVec = L::kVec, kE = L::kElems, kLPK = L::kLanesPerKey;
   constexpr int kKPR = L::kKeysPerRound, kRounds = L::kRounds;
   // partial scores a lane sums per chunk, whole ones it keeps after the
   // reduce-scatter, and lanes that share each
@@ -183,29 +206,28 @@ __global__ void __launch_bounds__(kThreads)
   const int qp = a.pos[b];
 
   // the lane's slice of every query row, scaled into base 2
-  const int x0 = (lane % kLPK) * kVec;
-  float q[G][kVec];
+  const int x0 = (lane % kLPK) * kE;
+  float q[G][kE];
 #pragma unroll
   for (int r = 0; r < G; ++r) {
     if (r < g) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          static_cast<const T*>(a.q) + ((size_t)b * a.H + kvh * g + r) * HD +
-          x0);
-      unpack(raw, q[r]);
+      load_f<T, kE>(static_cast<const T*>(a.q) +
+                        ((size_t)b * a.H + kvh * g + r) * HD + x0,
+                    q[r]);
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) q[r][e] *= a.scale_log2;
+      for (int e = 0; e < kE; ++e) q[r][e] *= a.scale_log2;
     } else {
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) q[r][e] = 0.f;
+      for (int e = 0; e < kE; ++e) q[r][e] = 0.f;
     }
   }
-  float m_run[G], l_run[G], acc[G][kVec];
+  float m_run[G], l_run[G], acc[G][kE];
 #pragma unroll
   for (int r = 0; r < G; ++r) {
     m_run[r] = kNegInf;
     l_run[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < kE; ++e) acc[r][e] = 0.f;
   }
 
   const int nch = chunks_per_block(a.bs);
@@ -270,19 +292,22 @@ __global__ void __launch_bounds__(kThreads)
           const int e = i * 32 + lane, c = e / kLPK;
           const bool ok = (msk >> c) & 1u;
           const size_t src =
-              ((row0 + (ok ? c : 0)) * a.KV + kvh) * HD + (e % kLPK) * kVec;
-          mma::cp_async16(dk + e * kVec, kp_ + src, ok);
-          mma::cp_async16(dv + e * kVec, vp_ + src, ok);
+              ((row0 + (ok ? c : 0)) * a.KV + kvh) * HD + (e % kLPK) * kE;
+#pragma unroll
+          for (int u = 0; u < kE; u += kVec) {
+            mma::cp_async16(dk + e * kE + u, kp_ + src + u, ok);
+            mma::cp_async16(dv + e * kE + u, vp_ + src + u, ok);
+          }
         }
       }
       mma::cp_async_commit();
     };
 
-    fetch(0, 0);
-    fetch(1, 1);
+#pragma unroll
+    for (int st = 0; st < L::kStages; ++st) fetch(st, st);
     for (int idx = 0; idx < n_mine; ++idx) {
-      const int st = idx & 1;
-      mma::cp_async_wait<1>();
+      const int st = idx % L::kStages;
+      mma::cp_async_wait<L::kStages - 1>();
       __syncwarp();
       const T* sk = ring + st * (2 * kChunk * HD);
       const T* sv = sk + kChunk * HD;
@@ -293,14 +318,13 @@ __global__ void __launch_bounds__(kThreads)
       float s[kV];
 #pragma unroll
       for (int i = 0; i < kRounds; ++i) {
-        float kf[kVec];
-        unpack(*reinterpret_cast<const uint4*>(
-                   sk + (i * kKPR + lane / kLPK) * HD + x0), kf);
+        float kf[kE];
+        load_f<T, kE>(sk + (i * kKPR + lane / kLPK) * HD + x0, kf);
 #pragma unroll
         for (int r = 0; r < G; ++r) {
           float t = 0.f;
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) t = fmaf(q[r][e], kf[e], t);
+          for (int e = 0; e < kE; ++e) t = fmaf(q[r][e], kf[e], t);
           s[i * G + r] = t;
         }
       }
@@ -340,24 +364,24 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int r = 0; r < G; ++r)
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[r][e] *= alpha[r];
+        for (int e = 0; e < kE; ++e) acc[r][e] *= alpha[r];
       __syncwarp();
       // p x V over the lane's keys and slice of hd
 #pragma unroll
       for (int i = 0; i < kRounds; ++i) {
         const int ck = i * kKPR + lane / kLPK;
-        float vf[kVec];
-        unpack(*reinterpret_cast<const uint4*>(sv + ck * HD + x0), vf);
+        float vf[kE];
+        load_f<T, kE>(sv + ck * HD + x0, vf);
 #pragma unroll
         for (int r = 0; r < G; ++r) {
           const float pr = ps[ck * G + r];
 #pragma unroll
-          for (int e = 0; e < kVec; ++e)
+          for (int e = 0; e < kE; ++e)
             acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
         }
       }
       __syncwarp();           // the stage and ps are free for reuse
-      fetch(idx + 2, st);
+      fetch(idx + L::kStages, st);
     }
     mma::cp_async_wait<0>();
   }
@@ -368,7 +392,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < G; ++r)
 #pragma unroll
-      for (int e = 0; e < kVec; ++e)
+      for (int e = 0; e < kE; ++e)
         acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
   // each warp's state into its own ring, then the CTA merges the four
   float* wst = reinterpret_cast<float*>(ring);     // [G][HD] acc, m, l
@@ -377,7 +401,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < G; ++r)
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) wst[r * HD + x0 + e] = acc[r][e];
+      for (int e = 0; e < kE; ++e) wst[r * HD + x0 + e] = acc[r][e];
   if (lane == 0)
 #pragma unroll
     for (int r = 0; r < G; ++r) {
@@ -488,6 +512,7 @@ static int launch_hd(int hd, const Args& a, int B, cudaStream_t stream) {
     case 32: return launch_g<T, 32>(a, B, stream);
     case 64: return launch_g<T, 64>(a, B, stream);
     case 128: return launch_g<T, 128>(a, B, stream);
+    case 256: return launch_g<T, 256>(a, B, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -503,7 +528,8 @@ static size_t smem_hd(int hd, int g) {
     REPRO_PA_CASE(32, 4) REPRO_PA_CASE(32, 8) REPRO_PA_CASE(64, 1)
     REPRO_PA_CASE(64, 2) REPRO_PA_CASE(64, 4) REPRO_PA_CASE(64, 8)
     REPRO_PA_CASE(128, 1) REPRO_PA_CASE(128, 2) REPRO_PA_CASE(128, 4)
-    REPRO_PA_CASE(128, 8)
+    REPRO_PA_CASE(128, 8) REPRO_PA_CASE(256, 1) REPRO_PA_CASE(256, 2)
+    REPRO_PA_CASE(256, 4) REPRO_PA_CASE(256, 8)
 #undef REPRO_PA_CASE
   }
   return 0;

@@ -183,6 +183,7 @@ static int launch_mma_hd(int hd, const mma::Params& p, cudaStream_t stream) {
     case 32: return launch_mma<32, kWarpKeys>(p, stream);
     case 64: return launch_mma<64, kWarpKeys>(p, stream);
     case 128: return launch_mma<128, kWarpKeys>(p, stream);
+    case 256: return launch_mma<256, kWarpKeys>(p, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

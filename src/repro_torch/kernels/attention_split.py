@@ -28,7 +28,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-MMA_HEAD_DIMS = (16, 32, 64, 128)   # head dims the bf16 tile compiles
+MMA_HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the bf16 tile compiles
 TILE_KEYS = 64          # keys per tile; piece boundaries fall on multiples
 SKEW = 4                # split when a range exceeds this many times the mean
 FIXED_TILES = 2.0       # a CTA's set-up and write-out, in tile times

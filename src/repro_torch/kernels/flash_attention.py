@@ -18,10 +18,14 @@ see.  bfloat16 runs on the tensor cores (``csrc/attention_mma.cuh``:
 mma.sync with float32 sums, K/V tiles of 64 keys copied into
 shared memory, the online softmax in registers), heaviest query tiles
 first, key ranges split by ``attention_split.plan`` where the grid
-would leave SMs idle; head_dim 16, 32, 64 or 128, 16-byte aligned
-operands, strides a multiple of 8 elements, or it raises.  float32 keeps
-the CUDA-core tile (``attention_tile.cuh``): on the tensor cores float32
-means TF32.  Operands are read through element strides, so the model's
+would leave SMs idle; head_dim 16, 32, 64, 128 or 256 (at 256 Q stays
+in shared memory, read a fragment at a time, so the accumulator keeps
+its registers), 16-byte aligned operands, strides a multiple of 8
+elements, or it raises.  float32 keeps the CUDA-core tile
+(``attention_tile.cuh``): on the tensor cores float32 means TF32; its
+shared memory (q, k padded to hd + 1, v, scores, acc, float32) holds a
+tile of at most 64 query vectors at head_dim 256 (206,080 bytes of
+232,448), and the wrapper refuses a shape that needs more.  Operands are read through element strides, so the model's
 ``(B,S,H,hd) -> (B,H,S,hd)`` transposed views go in without copies, and
 the output takes q's layout.  Queries that see no key (only when
 ``Sq > Sk`` with a window) come out 0, where the plain version averages

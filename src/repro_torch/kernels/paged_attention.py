@@ -21,8 +21,10 @@ table into pieces where (request, KV head) pairs alone would leave SMs
 idle; a split launch runs the pieces of a (request, KV head) as one
 thread-block cluster, which merges their float32 partial states over
 distributed shared memory (the combine pass; plain version
-``ref.attention_combine_ref``).  head_dim 16, 32, 64 or 128, up to 8
-query heads per KV head, 16-byte aligned operands, or it raises.
+``ref.attention_combine_ref``).  head_dim 16, 32, 64, 128 or 256 (at
+float32 and 256 a lane holds two 16-byte slices of a key and the ring
+has one stage), up to 8 query heads per KV head, 16-byte aligned
+operands, or it raises.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from repro_torch.kernels.build import CudaKernel, refuse_autograd
 
 MAX_SMEM = 232_448          # bytes of shared memory one CTA may use (H100)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)   # head dims the kernel compiles
+HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the kernel compiles
 MAX_GROUP = 8                   # query heads per KV head it compiles for
 MAX_PIECES = 8                  # pieces of a table: a portable cluster
 

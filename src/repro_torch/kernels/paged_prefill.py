@@ -18,9 +18,11 @@ padding, future keys).  bfloat16 runs on the tensor cores
 in shared memory, the softmax in registers; with 16 rows
 or fewer the four warps split each tile's keys); the key lanes are split
 by ``attention_split.plan`` where the grid would leave SMs idle (decode
-steps: 8 rows x 8 KV heads, or 4 slots x 8); head_dim 16, 32, 64 or 128
-and 16-byte aligned operands, or it raises.  float32 keeps the CUDA-core
-tile (``attention_tile.cuh``).  Query lanes with no visible key come out
+steps: 8 rows x 8 KV heads, or 4 slots x 8); head_dim 16, 32, 64, 128
+or 256 (at 256 Q stays in shared memory) and 16-byte aligned operands,
+or it raises.  float32 keeps the CUDA-core tile (``attention_tile.cuh``;
+at head_dim 256 a tile of 64 query vectors takes 206,080 bytes of
+shared memory, within the 232,448 a CTA may use).  Query lanes with no visible key come out
 0, where the plain version averages every key; the engine discards such
 lanes (padding), so comparisons hold valid lanes only.
 """

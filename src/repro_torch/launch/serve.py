@@ -8,6 +8,8 @@ card unless ``--device cpu`` is given.
         --slots 4 --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --engine slot --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+        --no-reduced --cache-max 2304
 
 Takes the flags of ``repro.launch.serve`` and prints the same ``req N:
 [...]`` lines.  ``--reduced`` (the default, as in the reference) serves
@@ -36,6 +38,15 @@ in the ragged ``paged_prefill`` dispatch, token-identical to ``off``.
 ``--metrics`` prints the Prometheus text page at exit, ``--trace-out
 PATH`` writes a Chrome trace-event JSON of the run.
 
+gemma3-4b mixes sliding-window (``attn_local``, window 1,024) and global
+layers; both engines serve it, its head_dim 256 in the same three
+kernels.  ``--window-accounting on`` (default) frees a request's blocks
+once they slide out of the window where every layer is windowed; as in
+the reference it is inert on every stock architecture (gemma3-4b's
+global layers read the whole prefix), and ``off`` keeps the
+window-blind accounting.  The gauge line shows ``wfreed=`` once a block
+was so freed.
+
 ``--replicas N`` (N > 1, paged engine only) serves through the cluster
 tier (``serving/cluster.py``): N broker-fed paged-engine replicas behind
 the occupancy-aware balancer, sharing one copy of the weights, each with
@@ -52,8 +63,7 @@ registries merged into one page.
         --replicas 2 --affinity on --requests 8 --prompt-len 32
 
 Flags of features the port does not carry yet are refused with a
-message: any value other than the default of ``--decode-kernel`` and
-``--window-accounting``.  ``--replicas`` and ``--spec-decode`` with
+message: ``--decode-kernel off``.  ``--replicas`` and ``--spec-decode`` with
 ``--engine slot`` exit with the reference's "needs the paged engine", and
 ``--trace-out`` with ``--replicas`` with its "per-engine" refusal.
 """
@@ -108,6 +118,8 @@ def _fmt_stats(stats: dict) -> str:
         line += (f" hit={stats.get('hit_rate', 0.0):.2f} "
                  f"cached={stats.get('cached_blocks', 0)} "
                  f"evict={stats.get('evictions', 0)}")
+    if stats.get("window_blocks_freed"):
+        line += f" wfreed={stats.get('window_blocks_freed', 0)}"
     return line
 
 
@@ -162,8 +174,9 @@ def make_parser() -> argparse.ArgumentParser:
                          "dispatch (off)")
     ap.add_argument("--window-accounting", choices=("on", "off"),
                     default="on",
-                    help="on only (sliding-window layers are not ported "
-                         "yet)")
+                    help="eagerly free KV blocks that slide out of a "
+                         "bounded attention window (stacks with no global "
+                         "layer; off = window-blind block accounting)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="serve through the cluster tier with N broker-"
                          "fed engine replicas (paged engine only)")
@@ -200,15 +213,9 @@ def check_args(args) -> None:
     if args.replicas > 1 and args.trace_out:
         raise SystemExit("--trace-out is per-engine; not supported "
                          "with --replicas")
-    refusals = [
-        (args.decode_kernel == "off", "--decode-kernel off: the plain "
-                                      "decode gather"),
-        (args.window_accounting != "on", "--window-accounting off: "
-                                         "sliding-window layers"),
-    ]
-    for refused, what in refusals:
-        if refused:
-            raise SystemExit(f"{what} is not ported to repro_torch yet")
+    if args.decode_kernel == "off":
+        raise SystemExit("--decode-kernel off: the plain decode gather is "
+                         "not ported to repro_torch yet")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch.cuda.is_available() is "
                          "False (pass --device cpu to run on the CPU)")
@@ -254,6 +261,7 @@ def build_engine(args, model, params, obs=None):
                           draft_model=draft_model,
                           draft_params=draft_params,
                           decode_fusion=args.decode_fusion == "on",
+                          window_accounting=args.window_accounting == "on",
                           obs=obs)
 
 

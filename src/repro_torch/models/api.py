@@ -21,11 +21,15 @@ Parameters are nested dicts of tensors in the reference's tree
 (``repro_torch.bridge``) drop in.  Everything runs on ``device``, which
 defaults to the card; the CPU runs only when asked for.
 
-Stacks of ``"attn"`` layers take both engines.  Stacks with recurrent
+Stacks of ``"attn"`` and ``"attn_local"`` layers take both engines
+(``paged_live_window`` tells the paged engine how far back every layer
+reads).  Stacks with recurrent
 ``"rwkv6"`` layers take the slot engine only: the paged entry points
 refuse them until the reference's recurrent-state slots are ported.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -129,6 +133,27 @@ class Model:
         """Does the paged stack carry recurrent (non-KV) layer state?"""
         return self.supports_paged and any(
             k in ("mamba", "rwkv6") for k in self.cfg.kinds_for_layers)
+
+    def paged_live_window(self) -> Optional[int]:
+        """Token window bounding every layer's KV residency, or None when
+        some layer reads unboundedly far back (any global-attention
+        layer, or a local one with window 0).  When bounded, a request
+        only ever needs ceil(W/block_size)+1 live blocks, so the paged
+        engine may free blocks that have slid wholly out of the window.
+        Recurrent layers keep state, not KV: a pure recurrent stack
+        gives 1."""
+        cfg = self.cfg
+        if not self.supports_paged:
+            return None
+        w = 1
+        for k in cfg.kinds_for_layers:
+            if k == "attn":
+                return None
+            if k == "attn_local":
+                if not cfg.sliding_window:
+                    return None
+                w = max(w, cfg.sliding_window)
+        return w
 
     def check_paged(self) -> None:
         """Raise for a stack the port's paged path cannot serve yet."""

@@ -1,5 +1,5 @@
-"""Shared layer library: rmsnorm and layernorm, RoPE, the swiglu MLP,
-embeddings.
+"""Shared layer library: rmsnorm and layernorm, RoPE, the gated MLPs
+(swiglu, geglu), embeddings.
 
 Plain functions on tensors with the arithmetic of ``repro.models.layers``:
 norms and RoPE compute in float32 and cast back to the input dtype;
@@ -73,8 +73,11 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------- MLP
 
 
+GATED_MLPS = ("swiglu", "geglu")
+
+
 def mlp_schema(cfg: ModelConfig):
-    if cfg.mlp_kind != "swiglu":
+    if cfg.mlp_kind not in GATED_MLPS:
         raise ValueError(f"mlp_kind {cfg.mlp_kind!r} is not ported yet")
     d, f = cfg.d_model, cfg.d_ff
     return {
@@ -85,10 +88,15 @@ def mlp_schema(cfg: ModelConfig):
 
 
 def mlp_apply(p, x, kind: str):
-    if kind != "swiglu":
+    """Gated MLP: act(x @ gate) * (x @ up) @ down, act = silu (swiglu) or
+    gelu (geglu).  geglu takes gelu's tanh form, as ``jax.nn.gelu``'s
+    default (``approximate=True``) in the reference; the erf form moves
+    logits by ~1e-3."""
+    if kind not in GATED_MLPS:
         raise ValueError(f"mlp_kind {kind!r} is not ported yet")
-    h = F.silu(x @ p["gate"]) * (x @ p["up"])
-    return h @ p["down"]
+    g = x @ p["gate"]
+    g = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
+    return (g * (x @ p["up"])) @ p["down"]
 
 
 # ---------------------------------------------------------------- embeddings

@@ -11,9 +11,10 @@ reference scans over the period axis, the port runs a Python loop and
 indexes that axis; indexing gives views, so a pool written in place by
 layer i is the stacked pool's slice i.
 
-Ported so far: layer kinds ``"attn"`` (dense MLP) on every path and
-``"rwkv6"`` (time-mix + channel-mix, recurrent state as the cache) on
-the slot path and in the cacheless forward.
+Ported so far: layer kinds ``"attn"`` and ``"attn_local"`` (dense MLP;
+the local kind masks to ``cfg.sliding_window`` and takes the local RoPE
+base) on every path, and ``"rwkv6"`` (time-mix + channel-mix, recurrent
+state as the cache) on the slot path and in the cacheless forward.
 """
 from __future__ import annotations
 
@@ -50,18 +51,19 @@ def slot_sig(cfg: ModelConfig, j: int) -> Tuple[str, bool]:
     return kind, cfg.layer_is_moe(j)
 
 
-PORTED_KINDS = ("attn", "rwkv6")
+PORTED_KINDS = ("attn", "attn_local", "rwkv6")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is a dense ``"attn"`` or ``"rwkv6"``
-    layer."""
+    """Raise unless every layer is a dense ``"attn"``, ``"attn_local"``
+    or ``"rwkv6"`` layer."""
     for i in range(cfg.num_layers):
         kind, moe = slot_sig(cfg, i)
         if kind not in PORTED_KINDS or moe:
             raise ValueError(f"{cfg.name}: layer {i} is {kind!r}"
                              f"{' (MoE)' if moe else ''}; repro_torch ports "
-                             "dense 'attn' and 'rwkv6' layers only so far")
+                             "dense 'attn', 'attn_local' and 'rwkv6' layers "
+                             "only so far")
 
 
 def layer_kinds(cfg: ModelConfig) -> list:
@@ -243,9 +245,10 @@ def stack_decode_paged(params, cfg: ModelConfig, x, pools, block_table, pos,
     allocation per request covers the whole stack — each layer owns its
     own physical pool, indexed by the same table).  Pools are written in
     place and returned."""
-    for p, pool in zip(layer_views(cfg, params), layer_views(cfg, pools)):
+    for p, pool, kind in zip(layer_views(cfg, params),
+                             layer_views(cfg, pools), layer_kinds(cfg)):
         x = block_decode_paged(p, cfg, x, pool, block_table, pos, active,
-                               kind="attn")
+                               kind=kind)
     return x, pools
 
 
@@ -268,9 +271,10 @@ def stack_prefill_paged(params, cfg: ModelConfig, x, positions, pools,
     """-> (x, caches), caches in the pool layout: period slots stacked on
     a leading n_periods axis, remainder layers by name."""
     caches = []
-    for p, pool in zip(layer_views(cfg, params), layer_views(cfg, pools)):
+    for p, pool, kind in zip(layer_views(cfg, params),
+                             layer_views(cfg, pools), layer_kinds(cfg)):
         x, c = block_prefill_paged(p, cfg, x, positions, pool, block_table,
-                                   start_pos, kind="attn", seq_len=seq_len)
+                                   start_pos, kind=kind, seq_len=seq_len)
         caches.append(c)
     return x, _to_layout(cfg, caches)
 
@@ -278,7 +282,9 @@ def stack_prefill_paged(params, cfg: ModelConfig, x, positions, pools,
 def stack_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,
                     dtype, device):
     """Zero block pools for the whole stack (pos lanes -1), in the cache
-    layout: period-stacked leaves lead with ``n_periods``."""
+    layout: period-stacked leaves lead with ``n_periods``.  Every layer's
+    pool has full ``block_size`` blocks, window layers too: as in the
+    reference, their window is kept by the mask, not by a ring."""
     return _to_layout(cfg, [attn.paged_pool_init(cfg, num_blocks,
                                                  block_size, dtype, device)
                             for _ in range(cfg.num_layers)])

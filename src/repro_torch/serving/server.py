@@ -23,10 +23,13 @@ eager PyTorch work on ``model.device``; greedy tokens come back to the
 host as integers only.
 
 The slot engine also serves recurrent rwkv6 stacks: their caches are
-the layers' states, spliced into a slot at admission like a strip.  Not
-ported yet, and refused at construction: stacks with window layers
-(``Model`` refuses those) and recurrent stacks on the paged engine
-(their state slots).
+the layers' states, spliced into a slot at admission like a strip.
+Sliding-window (``attn_local``) layers serve on both engines: a ring
+strip of ``sliding_window`` lanes in a slot, full blocks in the pool
+with the window kept by the mask, and the paged engine's window
+accounting frees blocks that slide out of the window where no layer is
+global.  Not ported yet, and refused at construction: recurrent stacks
+on the paged engine (their state slots).
 """
 from __future__ import annotations
 
@@ -510,7 +513,14 @@ class PagedLLMEngine(_EngineObsMixin):
         full prompt blocks into new requests' block tables (refcounted
         sharing); a divergence inside a matched block is served
         copy-on-write, and unheld cached blocks are LRU-evicted before
-        any preemption.
+        any preemption;
+      * with ``window_accounting=True`` (default) and every layer's
+        reach bounded (``Model.paged_live_window``: no global layer), a
+        request's blocks that slide wholly out of the window are freed
+        as its cursor passes them, so it never holds more than
+        ceil(W/block_size)+1; the prefix cache is then forced off (a
+        freed block must never be published).  Inert on stacks with a
+        global layer, gemma3-4b's among them.
 
     Every prefill chunk goes through ``Model.prefill_paged`` in one
     ragged dispatch: rows pad to a power-of-two row bucket, tokens to a
@@ -545,6 +555,7 @@ class PagedLLMEngine(_EngineObsMixin):
                  draft_model=None, draft_params=None,
                  admission_window: int = 4,
                  decode_fusion: bool = True,
+                 window_accounting: bool = True,
                  obs=None):
         if not model.supports_paged:
             raise ValueError(f"{model.cfg.name}: paged engine needs a "
@@ -577,6 +588,19 @@ class PagedLLMEngine(_EngineObsMixin):
         self.scheduler = scheduler
         self.allocator = BlockAllocator(num_blocks, block_size)
         self.pools = model.pool_init(num_blocks, block_size)
+        # the sliding-window residency bound: where every layer's reach
+        # is bounded, blocks wholly behind the window are freed eagerly
+        # (``_window_shrink``); ``window_accounting=False`` keeps the
+        # window-blind accounting
+        self.window_accounting = bool(window_accounting)
+        lw = model.paged_live_window() if self.window_accounting else None
+        self.live_window = lw
+        self.window_bound = None if lw is None else -(-lw // block_size) + 1
+        self.window_blocks_freed = 0
+        if lw is not None:
+            # a window-freed block must never be published to the radix
+            # tree: prefix reuse is off (the gauge reports prefix_cache=0)
+            prefix_cache = False
         self.prefix_cache: Optional[PrefixCache] = \
             PrefixCache(block_size) if prefix_cache else None
         self.nb_max = -(-max_len // block_size)
@@ -728,7 +752,7 @@ class PagedLLMEngine(_EngineObsMixin):
             "decode_kernel": int(self.decode_kernel_launches > 0),
             "decode_fusion": int(self._fused_decode),
             "admission_skips": self.admission_skips,
-            "window_blocks_freed": 0,
+            "window_blocks_freed": self.window_blocks_freed,
             "state_slots_used": 0,
             "spec_decode": self.spec_decode,
             "spec_k": self.spec_k if self.drafter is not None else 0,
@@ -813,10 +837,37 @@ class PagedLLMEngine(_EngineObsMixin):
     def _free_blocks(self, blocks: List[int]) -> None:
         """Drop this request's hold; invalidate only the blocks whose
         last holder released them (blocks the prefix cache still holds
-        keep their KV readable for future matches)."""
+        keep their KV readable for future matches).  0 entries are
+        window-freed logical slots, already released: skipped."""
         released = self.allocator.free([b for b in blocks if b])
         if released:
             invalidate_blocks(self.pools, released)
+
+    def _window_shrink(self, blocks: List[int], next_pos: int,
+                       table=None) -> None:
+        """Free the blocks that have slid wholly out of the live window
+        before the query at ``next_pos``.  ``blocks`` keeps its length:
+        logical slot l stays at table column l, and a freed entry
+        becomes 0 (the null block, masked by every read), in the list
+        and in ``table`` (the row of ``block_table``; None while
+        prefilling, whose dispatches build their own tables).  The write
+        block ``next_pos // block_size`` is always kept, so a request's
+        live blocks never exceed ``window_bound``."""
+        if self.window_bound is None:
+            return
+        bs = self.block_size
+        dead = min(max(0, (next_pos - self.live_window + 1) // bs),
+                   next_pos // bs)
+        freed = []
+        for l in range(min(dead, len(blocks))):
+            if blocks[l]:
+                freed.append(blocks[l])
+                blocks[l] = 0
+                if table is not None:
+                    table[l] = 0
+        if freed:
+            self._free_blocks(freed)
+            self.window_blocks_freed += len(freed)
 
     def _occupancy(self) -> tuple:
         alloc = self.allocator
@@ -1012,6 +1063,9 @@ class PagedLLMEngine(_EngineObsMixin):
                 self.obs.prefill_chunk(st.req.rid, now, st.done, take)
             st.done += take
             self.prefill_tokens += take
+            # blocks the chunk slid out of the live window are freed now
+            # (the next query position is st.done)
+            self._window_shrink(st.all_blocks, st.done)
             if st.done == len(st.seq):
                 self._finish_prefill(r, tok_at(i, take), now)
 
@@ -1175,6 +1229,7 @@ class PagedLLMEngine(_EngineObsMixin):
             stale_b.append(np.asarray(blocks, np.int32)
                            [lanes // self.block_size])
             stale_l.append((lanes % self.block_size).astype(np.int32))
+        self._window_shrink(blocks, p + m, self.block_table[row])
         if self.obs and self.drafter is not None:
             self.obs.spec_verify(req.rid, now, proposed=take - 1,
                                  accepted=a, emitted=m, rolled_back=rolled)
@@ -1270,6 +1325,8 @@ class PagedLLMEngine(_EngineObsMixin):
         for row in list(self.active):
             self._emit(row, int(arr[row]), now)
             self.pos[row] += 1
+            self._window_shrink(self.row_blocks[row], int(self.pos[row]),
+                                self.block_table[row])
         return self._collect(now)
 
     def _collect(self, now: float) -> List[GenRequest]:

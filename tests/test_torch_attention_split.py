@@ -298,3 +298,41 @@ def test_bf16_probabilities_need_a_hi_lo_pair(mode, fits):
     the rounded P; the pair keeps every element inside (worst 0.78x)."""
     over, worst = _p_rounding_excess(mode)
     assert (over == 0) == fits, (over, worst)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "paged_prefill"])
+def test_bf16_sources_compile_the_planners_head_dims(kernel):
+    """The head dims each bf16 source instantiates the tile at are the
+    wrappers' ``MMA_HEAD_DIMS`` (the compiler is not here to check it),
+    and from head_dim 256 on Q stays in shared memory, in a third tile
+    beside K and V: 102,144 bytes, two CTAs to an SM's 228 KB."""
+    import re
+
+    text = (build.CSRC / f"{kernel}.cu").read_text()
+    cases = re.findall(r"case (\d+): return launch_mma<\1,", text)
+    assert tuple(map(int, cases)) == split.MMA_HEAD_DIMS
+    tile = (build.CSRC / "attention_mma.cuh").read_text()
+    assert "constexpr bool q_in_smem(int hd) { return hd > 128; }" in tile
+    pitch, rows, ints = 256 + 8, 64, (64 + 2 * 64) * 4
+    assert 3 * rows * pitch * 2 + ints == 102_144
+    assert 2 * (102_144 + 1024) <= 233_472        # the SM's 228 KB
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8])
+def test_float32_tile_fits_at_head_dim_256(g):
+    """The float32 CUDA-core tile's shared memory (``attention_tile.cuh``
+    ``tile_smem_bytes``: q, k padded to hd + 1, v, scores, acc, row
+    state, positions) at head_dim 256 and the query tile the wrappers
+    pick (``ROWS_PER_CTA // g`` lanes) fits what a CTA may use, so no
+    group needs a smaller tile."""
+    text = (build.CSRC / "attention_tile.cuh").read_text()
+    assert ("size_t floats = (size_t)R * hd + (size_t)TK * (hd + 1) + "
+            "(size_t)TK * hd +") in text
+    hd, tk = 256, 32
+    for mod in (fa_mod, pp_mod):
+        rows = (mod.ROWS_PER_CTA // g) * g
+        floats = rows * hd + tk * (hd + 1) + tk * hd + rows * tk \
+            + rows * hd + 3 * rows
+        assert floats * 4 + (tk + rows) * 4 <= fa_mod.MAX_SMEM
+    if g == 2:                                    # gemma3-4b's group
+        assert floats * 4 + (tk + rows) * 4 == 206_080

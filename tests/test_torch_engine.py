@@ -244,8 +244,8 @@ def test_serve_cli_fusion_on_off_same_tokens():
 @pytest.mark.parametrize("argv", [
     ["--engine", "slot", "--replicas", "2"],
     ["--replicas", "2", "--trace-out", "T"],
-    ["--arch", "gemma3-4b"], ["--decode-kernel", "off"],
-    ["--window-accounting", "off"],
+    ["--arch", "dbrx-132b"], ["--decode-kernel", "off"],
+    ["--arch", "jamba-1.5-large-398b"],
     ["--engine", "slot", "--affinity", "off", "--replicas", "2"],
     ["--engine", "slot", "--spec-decode", "ngram"],
 ])

@@ -83,10 +83,11 @@ def decode_case(rng, b, h, kv, hd, nb_pool, bs, nb, null_rows=()):
     return q, k_pool, v_pool, pos_pool, bt, pos
 
 
-def prefill_case(rng, b, s, h, kv, hd, prefix):
+def prefill_case(rng, b, s, h, kv, hd, prefix, min_start=0):
     """Assembled keys as ``attn_prefill_paged`` builds them: a gathered
-    prefix (null-padded past each row's cursor) followed by the chunk,
-    per-row offsets and bucket-padded chunk lanes (kpos -1)."""
+    prefix (null-padded past each row's cursor, which is at least
+    ``min_start``) followed by the chunk, per-row offsets and
+    bucket-padded chunk lanes (kpos -1)."""
     L = prefix + s
     q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
     k = rng.normal(size=(b, L, kv, hd)).astype(np.float32)
@@ -94,7 +95,7 @@ def prefill_case(rng, b, s, h, kv, hd, prefix):
     kpos = np.full((b, L), -1, np.int32)
     qpos = np.zeros((b, s), np.int32)
     for i in range(b):
-        start = int(rng.integers(0, prefix + 1))
+        start = int(rng.integers(min_start, prefix + 1))
         n = int(rng.integers(1, s + 1))
         kpos[i, :start] = np.arange(start)
         qpos[i] = start + np.arange(s)
@@ -108,6 +109,7 @@ DECODE_SHAPES = [
     (2, 4, 2, 32, 9, 8, 3),       # GQA 2:1
     (2, 8, 1, 64, 7, 16, 2),      # MQA
     (3, 16, 8, 128, 9, 16, 2),    # qwen3-0.6b heads
+    (2, 8, 4, 256, 9, 16, 4),     # gemma3-4b heads
 ]
 
 
@@ -133,6 +135,7 @@ PREFILL_SHAPES = [
     (3, 8, 4, 2, 32, 16),         # GQA 2:1
     (2, 5, 8, 1, 64, 9),          # MQA, unaligned
     (4, 1, 4, 2, 32, 13),         # one query lane: fused decode rows
+    (2, 8, 8, 4, 256, 20),        # gemma3-4b heads
 ]
 
 
@@ -588,3 +591,98 @@ def test_flash_attention_kernel_at_draft_shapes(cuda, s, valid, dtype):
     plain = ref.flash_attention_ref(*(t[:, :, :valid] for t in (q, k, v)))
     torch.testing.assert_close(out[:, :, :valid].float(), plain.float(),
                                **_tol("flash_attention", dt))
+
+
+# ------------------------------------------------- gemma3-4b's head_dim 256
+
+
+# gemma3-4b's heads (8 query, 4 KV heads of 256) with its local layers'
+# window of 1,024 and without: paged_prefill at the fused decode dispatch
+# (8 rows, one lane, 512 prefix lanes), a chunk (4 rows, S=256, 512 prefix
+# lanes) and a chunk whose queries sit past position 1,024 (2 rows, S=64,
+# cursors in [1,100, 1,536]), so the band cuts the prefix
+GEMMA3_PP_CARD_SHAPES = [((8, 1, 8, 4, 256, 512), 0),
+                         ((4, 256, 8, 4, 256, 512), 0),
+                         ((2, 64, 8, 4, 256, 1536), 1100)]
+# flash_attention: one causal row of S=512 and S=2048 (the band cuts at
+# 2048), in the model's transposed views
+GEMMA3_FA_CARD_SHAPES = [(1, 8, 4, 512, 512, 256), (1, 8, 4, 2048, 2048, 256)]
+# paged_attention: 8 rows over tables of 16 blocks of 16, and of 128
+# blocks, where rows past position 1,024 are cut by the band
+GEMMA3_PA_CARD_SHAPES = [((8, 8, 4, 256, 8 * 16 + 1, 16, 16), (5,)),
+                         ((8, 8, 4, 256, 8 * 128 + 1, 16, 128), (2,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,min_start", GEMMA3_PP_CARD_SHAPES)
+@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_prefill_kernel_at_head_dim_256(cuda, shape, min_start,
+                                               window, dtype):
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(shape) + window)
+    q, k, v, kpos, qpos = (torch.from_numpy(a).to(cuda) for a in
+                           prefill_case(rng, *shape, min_start=min_start))
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    n0 = pp_mod.KERNEL.launches
+    out = ops.paged_prefill(q, k, v, kpos, qpos, window=window)
+    torch.cuda.synchronize()
+    assert pp_mod.KERNEL.launches == n0 + 1
+    plain = ref.paged_prefill_ref(q, k, v, kpos, qpos, window=window)
+    qp, kp = qpos[:, :, None], kpos[:, None, :]
+    vis = (kp >= 0) & (kp <= qp)
+    if window:
+        cut = vis & (qp - kp >= window)
+        assert cut.any() == (min_start > 0)
+        vis &= ~cut
+    lanes = vis.any(-1)
+    torch.testing.assert_close(out[lanes].float(), plain[lanes].float(),
+                               **_tol("paged_prefill", dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GEMMA3_FA_CARD_SHAPES)
+@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_at_head_dim_256(cuda, shape, window, dtype):
+    b, h, kv, sq, sk, hd = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sq + window)
+
+    def operand(heads):
+        return torch.from_numpy(rng.normal(size=(b, sq, heads, hd))
+                                .astype(np.float32)).to(cuda, dt) \
+            .transpose(1, 2)
+
+    q, k, v = operand(h), operand(kv), operand(kv)
+    n0 = fa_mod.KERNEL.launches
+    out = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa_mod.KERNEL.launches == n0 + 1
+    plain = ref.flash_attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("flash_attention", dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,null_rows", GEMMA3_PA_CARD_SHAPES)
+@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_at_head_dim_256(cuda, shape, null_rows,
+                                                window, dtype):
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(shape) + window)
+    q, k, v, kp, bt, pos = (torch.from_numpy(a).to(cuda) for a in
+                            decode_case(rng, *shape, null_rows=null_rows))
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    if shape[-1] * shape[-2] > 1024:
+        assert int(pos.max()) >= 1024          # the band cuts some row
+    n0 = pa_mod.KERNEL.launches
+    out = ops.paged_attention(q, k, v, kp, bt, pos, window=window)
+    torch.cuda.synchronize()
+    assert pa_mod.KERNEL.launches == n0 + 1
+    plain = ref.paged_attention_ref(q, k, v, kp, bt, pos, window=window)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("paged_attention", dt))
+    for r in null_rows:
+        assert torch.all(out[r] == 0)
