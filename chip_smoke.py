@@ -17,9 +17,13 @@ then runs its phases, each raising on failure:
    one-row forwards) in bfloat16 and float32, ``rwkv6_scan`` at the
    rwkv6 slot path's prefill and decode in float32; then the three
    attention kernels in bfloat16 at phi4-mini-3.8b's heads (24/8, a
-   group of 3) and qwen1.5-110b's (64/8): the fused decode dispatch and a
+   group of 3), qwen1.5-110b's and jamba's (64/8) and dbrx-132b's and
+   grok-1-314b's (48/8, a group of 6): the fused decode dispatch and a
    chunk of ``paged_prefill``, ``paged_attention`` over tables of 16
-   blocks, ``flash_attention`` at S=512;
+   blocks, ``flash_attention`` at S=512; ``ssm_scan`` at jamba's
+   d_inner 16,384 (1 and 8 rows, S = 1, 64 and 256, plain and with
+   ``dt`` 0 past per-row lengths) in float32 beside the scan in float64,
+   a masked row's state bit-equal to its unpadded run's;
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
    random weights): one ragged prefill dispatch and one decode step of
    the paged path, and two whole-prompt prefills and one decode step of
@@ -81,6 +85,19 @@ then runs its phases, each raising on failure:
    and the slot engine on the smoke prompts and two of 1,100-2,000
    tokens, with exact launch counts; a profile of the fused engine; the
    weights' size and the memory high-water marks;
+4f. MoE and mamba: dbrx-132b (4 of 40 layers), grok-1-314b (2 of 64)
+   and jamba-1.5-large-398b (5 of 72: mamba, mamba + MoE, mamba, mamba +
+   MoE, attention), every width published, bf16, seeded weights (mamba's
+   constant leaves drawn), one after another: model parity kernels vs
+   plain on the paged and slot paths; the serve path's engines (jamba:
+   paged fusion on and off and slot; dbrx: fusion on and slot; grok:
+   fusion on) on the smoke prompts with exact launches per dispatch (a
+   jamba dispatch: 4 ``ssm_scan`` and one ``paged_prefill``, or one
+   ``paged_attention`` on a decode dispatch), tokens/s, steps,
+   preemptions, the peak of ``state_slots_used``, memory high-water
+   marks; a profile of jamba's fused engine; then the three reduced
+   configs in float32 under dropless capacity: paged fusion on, off and
+   slot emit identical tokens;
 5. rwkv6: with the qwen3 model freed, rwkv6-1.6b at its published
    width (24 layers, bfloat16, seeded random weights with the
    reference's zero-initialised leaves drawn too) through the serve
@@ -88,8 +105,12 @@ then runs its phases, each raising on failure:
    ``rwkv6_scan`` and through its plain version agree, in bfloat16 and
    in float32, each beside the scan in float64; the engine
    answers 8 requests with ``rwkv6_scan`` launched 24 times per engine
-   step and no attention kernel; at 2 layers in float32 the engine
-   emits the same tokens through the kernel and the plain version;
+   step and no attention kernel; the paged engine, fusion on and off,
+   24 ``rwkv6_scan`` per dispatch and no attention kernel; a masked
+   ragged dispatch's final states against the plain masked scan on each
+   layer's own inputs; at 2 layers in float32 the slot engine emits the
+   same tokens through the kernel and the plain version, and the paged
+   engine (fusion on and off) the slot engine's;
 6. digits: the paper's pipeline (mnist-cnn at its published width,
    float32, seeded weights saved and restored through the checkpoint
    store): ``conv2d`` against its plain version over the reference's
@@ -130,8 +151,10 @@ then runs its phases, each raising on failure:
    kernels at the dense configs' heads as in phase 2, and at gemma3-4b's
    heads of 256 as in phase 4e (window 0 and, where the band cuts,
    1,024: the bound counts only the keys inside each query's band;
-   SDPA with the band as a mask, the kernel it ran named); the floor
-   of both methods (one launch on one element).
+   SDPA with the band as a mask, the kernel it ran named); ``ssm_scan``
+   at phase 2's shapes beside its bound and its plain version (no
+   library call computes the selective scan); the floor of both
+   methods (one launch on one element).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -142,6 +165,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import subprocess
@@ -176,6 +200,11 @@ KERNEL_TOL = {
     # another order, the state carrying the rounding across 200 steps,
     # outputs reaching ~100
     ("rwkv6_scan", "float32"): dict(atol=1e-4, rtol=1e-4),
+    # float32 only (the model calls it so): each step's 16-term output sum
+    # in another order, expf against torch.exp and fused multiply-adds,
+    # the state carrying the rounding across up to 256 steps; outputs of
+    # a few units
+    ("ssm_scan", "float32"): dict(atol=1e-4, rtol=1e-4),
     # an FMA chain against the plain version's products and adds, over at
     # most 75 terms of outputs below ~10
     ("conv2d", "float32"): dict(atol=1e-5, rtol=1e-5),
@@ -399,14 +428,36 @@ def rwkv_case(torch, gen, device, b=1, h=32, s=200, hd=64):
 
 
 RWKV_SHAPES = ((1, 37), (1, 200), (4, 1))     # (rows, S): prefill, decode
+# mamba's selective scan at jamba-1.5-large-398b's width (d_inner 16,384,
+# 16 states), (rows, S): decode steps over 1 and 8 rows (the fusion-off
+# decode dispatch), a prompt row and a ragged chunk dispatch of 64, and of
+# 256 (a whole chunk)
+SSM_SHAPES = ((1, 1), (8, 1), (1, 64), (8, 64), (1, 256), (8, 256))
+SSM_D_INNER = 16384
 # paged decode (rows, table width, all-null rows): decode_case's shape and
 # the fusion-off engine's (8 rows, cache-max 256 over blocks of 16), both
 # split on an H100, and 24 rows (192 CTAs), which the planner leaves whole
 PAGED_DECODE_SHAPES = ((8, 32, (5,)), (8, 16, (2,)), (24, 16, (3, 17)))
-# the dense configs' attention heads (query, KV; head_dim 128): phi4-mini-
-# 3.8b's group of 3 (a bf16 tile holds 21 positions x 3 heads, 63 of its 64
-# rows) and qwen1.5-110b's group of 8 over 64 query heads
-DENSE_HEADS = {"phi4-mini-3.8b": (24, 8), "qwen1.5-110b": (64, 8)}
+# the dense and MoE configs' attention heads (query, KV; head_dim 128):
+# phi4-mini-3.8b's group of 3 (a bf16 tile holds 21 positions x 3 heads, 63
+# of its 64 rows), qwen1.5-110b's (and jamba-1.5-large-398b's) group of 8
+# over 64 query heads, dbrx-132b's and grok-1-314b's group of 6 over 48
+DENSE_HEADS = {"phi4-mini-3.8b": (24, 8), "qwen1.5-110b": (64, 8),
+               "dbrx-132b": (48, 8)}
+
+
+def ssm_case(torch, gen, device, b, s, di=SSM_D_INNER, n=16):
+    """Selective-scan operands as the mamba layer passes them: softplus
+    step sizes around 0.3, N(0, 1) projections and inputs, decays
+    -exp(N(0, 1)), a start state; float32, contiguous."""
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    dt = F.softplus(randn(b, s, di) * 0.5 - 1.0)
+    return (dt, randn(b, s, n), randn(b, s, n), randn(b, s, di),
+            -torch.exp(randn(di, n)), randn(b, di, n))
 
 
 def decode_visible(torch, kpos_pool, bt, pos, window):
@@ -593,6 +644,50 @@ def dense_head_parity(torch, device, ops, ref):
     return errs
 
 
+def ssm_parity(torch, device, ops, ref) -> float:
+    """Phase 2, mamba's selective scan at ``SSM_SHAPES``, float32, plain
+    and with ``dt`` 0 past per-row lengths (the masked route): kernel
+    against its plain version within ``KERNEL_TOL``, both beside the scan
+    in float64; a masked row's final state equals, bit for bit, the
+    kernel's state after its valid lanes.  -> max abs error."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    worst = 0.0
+    for b, s in SSM_SHAPES:
+        for masked in (False, True):
+            args = list(ssm_case(torch, gen, device, b, s))
+            lens = torch.randint(1, s + 1, (b,), generator=gen,
+                                 device=device)
+            if masked:
+                lanes = torch.arange(s, device=device)[None, :]
+                args[0] = torch.where((lanes < lens[:, None])[..., None],
+                                      args[0], 0.0)
+            y, h = ops.ssm_scan(*args)
+            plain_y, plain_h = ref.ssm_scan_ref(*args)
+            torch.cuda.synchronize()
+            for got, want in ((y, plain_y), (h, plain_h)):
+                torch.testing.assert_close(
+                    got, want, **KERNEL_TOL["ssm_scan", "float32"])
+            err = max((y - plain_y).abs().max().item(),
+                      (h - plain_h).abs().max().item())
+            exact_y, exact_h = ref.ssm_scan_ref(*(t.double() for t in args))
+            log(f"parity ssm_scan float32 {b} rows S={s} d_inner "
+                f"{SSM_D_INNER}{' masked' if masked else ''}: max_abs_err="
+                f"{err:.3e} (max |y| {plain_y.abs().max().item():.1f}, "
+                f"|h| {plain_h.abs().max().item():.1f}); against the "
+                f"float64 scan: kernel "
+                f"{max((y - exact_y).abs().max().item(), (h - exact_h).abs().max().item()):.3e}, "
+                f"plain "
+                f"{max((plain_y - exact_y).abs().max().item(), (plain_h - exact_h).abs().max().item()):.3e}")
+            worst = max(worst, err)
+            if masked:
+                n = int(lens[0])
+                _, h0 = ops.ssm_scan(*(t[:1, :n].contiguous()
+                                       for t in args[:4]), args[4],
+                                     args[5][:1].contiguous())
+                assert torch.equal(h[:1], h0), "masked lanes moved the state"
+    return worst
+
+
 def plain_ops(ops, ref):
     """Route the models' kernels to the plain versions for one comparison
     run (patching the ops module the models call through)."""
@@ -600,6 +695,7 @@ def plain_ops(ops, ref):
                                paged_prefill=ref.paged_prefill_ref,
                                flash_attention=ref.flash_attention_ref,
                                rwkv6_scan=ref.rwkv6_scan_ref,
+                               ssm_scan=ref.ssm_scan_ref,
                                conv2d=ref.conv2d_ref,
                                conv2d_wgrad=ref.conv2d_wgrad_ref)
 
@@ -619,7 +715,8 @@ def model_parity(torch, device, model, params, ops, ref, ragged_dispatch):
     prefix_lens = [48, 112, 0, 200]
     chunk_lens = [64, 16, 96, 1]
     nb = -(-max(p + c + 1 for p, c in zip(prefix_lens, chunk_lens)) // bs)
-    pools = model.pool_init(rows * nb + 1, bs)
+    # recurrent layers: row i's state in slot i (a spare last slot)
+    pools = model.pool_init(rows * nb + 1, bs, state_batch=rows + 1)
     bt = (torch.arange(rows * nb, device=device, dtype=torch.int32)
           .reshape(rows, nb) + 1)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -853,10 +950,55 @@ def rwkv_model_parity(torch, device, model, params, ops, ref, write_slot):
     assert worst["kernel"] <= 2 * worst["plain"], worst
 
 
+def rwkv_masked_parity(torch, device, model, params, ops, ref):
+    """One ragged paged dispatch of 4 rows right-padded to 64 lanes (64,
+    17, 1 and 40 valid), recorded on the plain path: on each layer's own
+    masked scan inputs (decay 1, key 0 past a row's length) the kernel's
+    final states equal the plain scan's within ``KERNEL_TOL``, and each
+    row's equals, bit for bit, the kernel's state after its valid lanes
+    alone."""
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(5)
+    lens = [64, 17, 1, 40]
+    toks = torch.randint(1, cfg.vocab_size, (4, 64), generator=gen,
+                         device=device, dtype=torch.int32)
+    i32 = functools.partial(torch.tensor, dtype=torch.int32, device=device)
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return ref.rwkv6_scan_ref(*args)
+
+    pools = model.pool_init(2, 16, state_batch=5)
+    with mock.patch.object(ops, "rwkv6_scan", record):
+        model.prefill_paged(params, {"tokens": toks}, pools,
+                            torch.zeros(4, 1, dtype=torch.int32,
+                                        device=device),
+                            i32([0] * 4), seq_len=i32(lens))
+    worst = 0.0
+    for args in calls:
+        _, sf = ops.rwkv6_scan(*args)
+        _, plain_sf = ref.rwkv6_scan_ref(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(sf, plain_sf,
+                                   **KERNEL_TOL["rwkv6_scan", "float32"])
+        worst = max(worst, (sf - plain_sf).abs().max().item())
+        for i, n in enumerate(lens):
+            _, cut = ops.rwkv6_scan(*(t[i:i + 1, :, :n] for t in args[:4]),
+                                    args[4], args[5][i:i + 1])
+            assert torch.equal(sf[i:i + 1], cut), "masked lanes moved S"
+    log(f"parity rwkv6_scan masked ragged dispatch ({cfg.dtype}, rows of "
+        f"{lens} valid lanes padded to 64) on the {len(calls)} layers' own "
+        f"inputs: final states max_abs_err={worst:.3e} against the plain "
+        f"masked scan; each row's state equals the kernel's over its valid "
+        f"lanes alone, bit for bit")
+
+
 def rwkv6_phase(torch, device, ops, ref, serve, Model, write_slot, validate,
                 sync) -> int:
     """Phase 5: rwkv6-1.6b at full width through the serve path's slot
-    engine.  -> ``rwkv6_scan`` launches of its engine run."""
+    engine and paged engine (fusion on and off).  -> ``rwkv6_scan``
+    launches of its engine runs."""
     args = serve.make_parser().parse_args(RWKV_ARGV)
     serve.check_args(args)
     cfg, model, params = serve.build_model(args)
@@ -884,6 +1026,40 @@ def rwkv6_phase(torch, device, ops, ref, serve, Model, write_slot, validate,
     assert counts["rwkv6_scan"] == cfg.num_layers * run["steps"], counts
     assert counts["flash_attention"] == counts["paged_attention"] == \
         counts["paged_prefill"] == 0, counts
+    total = counts["rwkv6_scan"]
+
+    # the paged engine: recurrent-state slots beside an unused block pool;
+    # one rwkv6_scan a layer per dispatch, no attention kernel
+    for fusion in ("on", "off"):
+        a = mode_args(serve, arch="rwkv6-1.6b", decode_fusion=fusion)
+        run_engine(serve.build_engine(a, model, params), prompts[:2], 2,
+                   sync)                                      # warm-up
+        engine = serve.build_engine(a, model, params)
+        run = {}
+        ops.reset_launch_counts()
+        with counting_dispatches(model) as d:
+            outs, secs = run_engine(engine, prompts, a.max_new, sync, run)
+        counts = ops.launch_counts()
+        stats = validate(engine.stats())
+        ntok = sum(len(t) for t in outs.values())
+        log(f"engine rwkv6-1.6b bf16 24 layers paged decode_fusion={fusion}: "
+            f"{len(outs)} requests, {ntok} tokens in {secs:.3f}s "
+            f"({ntok / secs:.1f} tok/s), {run['steps']} steps, "
+            f"preemptions={stats['preemptions']} window_blocks_freed="
+            f"{stats['window_blocks_freed']} dispatches={dict(d)} "
+            f"launches={counts}")
+        assert len(outs) == len(prompts)
+        assert all(len(t) == a.max_new for t in outs.values())
+        assert counts["rwkv6_scan"] == cfg.num_layers * (
+            d["prefill_paged"] + d["decode_step_paged"]), (counts, d)
+        if fusion == "on":
+            assert d == {"prefill_paged": run["steps"],
+                         "decode_step_paged": 0}, d
+        assert counts["flash_attention"] == counts["paged_attention"] == \
+            counts["paged_prefill"] == counts["ssm_scan"] == 0, counts
+        assert stats["prefix_cache"] == 0
+        total += counts["rwkv6_scan"]
+    rwkv_masked_parity(torch, device, model, params, ops, ref)
     del model, params, engine
     torch.cuda.empty_cache()
 
@@ -908,7 +1084,14 @@ def rwkv6_phase(torch, device, ops, ref, serve, Model, write_slot, validate,
             f"{sum(map(len, tokens[name].values())) / secs:.1f} tok/s")
     assert tokens["kernel"] == tokens["plain"], "rwkv6 kernel/plain tokens"
     log("engine rwkv6 float32 slot, kernel and plain: token-identical")
-    return counts["rwkv6_scan"]
+    for fusion in ("on", "off"):
+        a = mode_args(serve, arch="rwkv6-1.6b", decode_fusion=fusion)
+        got, _ = run_engine(serve.build_engine(a, small_model, small_params),
+                            prompts, a.max_new, sync)
+        assert got == tokens["kernel"], f"rwkv6 paged {fusion} vs slot"
+    log("engine rwkv6 float32 2 layers paged fusion on/off and slot: "
+        "token-identical")
+    return total
 
 
 # phase 4b's engine modes: serve-CLI flags over ``SERVE_ARGV``
@@ -1939,6 +2122,228 @@ def gemma3_phase(torch, device, ops, ref, serve, ragged_dispatch, validate,
     return launches, errs
 
 
+# ---------------------------------------------------------------- MoE, mamba
+
+
+# phase 4f: the MoE and hybrid configs at their published widths, cut in
+# depth to fit one card (bf16 weights: dbrx 26.6 GiB at 4 of 40 layers,
+# grok 21.3 at 2 of 64, jamba 44.7 at 5 of 72: mamba, mamba + MoE, mamba,
+# mamba + MoE, attention), one after another; the engine modes each runs
+MOE_CONFIGS = (("dbrx-132b", 4, ("on", "slot")),
+               ("grok-1-314b", 2, ("on",)),
+               ("jamba-1.5-large-398b", 5, ("on", "off", "slot")))
+
+
+def perturb_mamba(torch, params, seed):
+    """Draw the mamba leaves that the init (as the reference's) sets to
+    constants, in place: ``dt_bias`` (zeros) N(-1, 0.5), ``a_log`` (ones)
+    N(0, 1), so that step sizes and decays differ by channel."""
+    gen = None
+
+    def walk(node):
+        nonlocal gen
+        for key in sorted(node):
+            leaf = node[key]
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif key in ("dt_bias", "a_log"):
+                gen = gen or torch.Generator(device=leaf.device).manual_seed(
+                    seed)
+                new = torch.randn(leaf.shape, generator=gen,
+                                  device=leaf.device)
+                leaf.copy_(new * 0.5 - 1.0 if key == "dt_bias" else new)
+
+    walk(params)
+    return params
+
+
+def check_launches(cfg, mode, counts, d, run, stats):
+    """Exact launches of one engine run: each dispatch launches each
+    mamba layer's ``ssm_scan`` once and each attention layer's kernel
+    once (fused and prefill dispatches ``paged_prefill``, fusion-off
+    decode dispatches ``paged_attention``; the slot engine's admissions
+    ``flash_attention``, its decode steps ``paged_prefill``)."""
+    kinds = cfg.kinds_for_layers
+    mamba, attn = kinds.count("mamba"), kinds.count("attn")
+    if mode == "slot":
+        steps, adm = run["steps"], stats["admissions"]
+        want = {"ssm_scan": mamba * steps, "flash_attention": attn * adm,
+                "paged_prefill": attn * (steps - adm), "paged_attention": 0}
+    else:
+        want = {"ssm_scan": mamba * (d["prefill_paged"]
+                                     + d["decode_step_paged"]),
+                "paged_prefill": attn * d["prefill_paged"],
+                "paged_attention": attn * d["decode_step_paged"],
+                "flash_attention": 0}
+        if mode == "on":
+            assert d == {"prefill_paged": run["steps"],
+                         "decode_step_paged": 0}, d
+    got = {k: counts[k] for k in want}
+    assert got == want, (mode, got, want)
+    assert counts["rwkv6_scan"] == 0, counts
+
+
+def moe_config(torch, device, ops, ref, serve, Model, ragged_dispatch,
+               write_slot, validate, sync, smi, arch, depth, modes) -> dict:
+    """Phase 4f for one config (``MOE_CONFIGS``).  -> launch counts
+    summed over its engine runs."""
+    from repro_torch.configs.base import get_config
+
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+    model = Model(cfg, device=device)
+    params = perturb_mamba(torch, model.init(seed=0), seed=1)
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    what = (f"{arch} {cfg.dtype} {depth} layers (cut from "
+            f"{get_config(arch).num_layers})")
+    sigs = [("mamba" if k == "mamba" else "attn")
+            + ("+MoE" if cfg.layer_is_moe(i) else "")
+            for i, k in enumerate(cfg.kinds_for_layers)]
+    log(f"moe {what}: {tree_bytes(params) / 2**30:.2f} GiB of weights, "
+        f"layers {sigs}, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok} ({cfg.mlp_kind}, d_ff {cfg.d_ff}, "
+        f"capacity factor {cfg.moe_capacity_factor}), "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {cfg.norm_kind}, pos {cfg.pos_kind}")
+    for path, rel in (
+            ("paged", model_parity(torch, device, model, params, ops,
+                                   ref, ragged_dispatch)),
+            ("slot", slot_model_parity(torch, device, model, params,
+                                       ops, ref, write_slot))):
+        log(f"model {what} {path} path, kernels vs plain: prefill "
+            f"rel_err={rel['prefill']:.3e} decode "
+            f"rel_err={rel['decode']:.3e}")
+        assert max(rel.values()) <= MODEL_TOL["bfloat16"], (path, rel)
+    # a reading beside the gate: the same weights under dropless capacity,
+    # where a routing flip drops no later token of its row
+    dropless = Model(dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_experts / cfg.num_experts_per_tok),
+        device=device)
+    rel = model_parity(torch, device, dropless, params, ops, ref,
+                       ragged_dispatch)
+    log(f"model {what} paged path at dropless capacity (a reading, no "
+        f"limit), kernels vs plain: prefill rel_err={rel['prefill']:.3e} "
+        f"decode rel_err={rel['decode']:.3e}")
+
+    prompts = smoke_workload(cfg.vocab_size)
+    for mode in modes:
+        if mode == "slot":
+            a = serve.make_parser().parse_args(SLOT_ARGV)
+            a.arch = arch
+        else:
+            a = mode_args(serve, arch=arch, decode_fusion=mode)
+        run_engine(serve.build_engine(a, model, params), prompts[:2], 2,
+                   sync)                                  # warm-up
+        engine = serve.build_engine(a, model, params)
+        run = {}
+        peak = [0]
+
+        def note(engine=engine, peak=peak):
+            peak[0] = max(peak[0], engine.stats().get(
+                "state_slots_used", 0))
+
+        ops.reset_launch_counts()
+        with counting_dispatches(model) as d:
+            outs, secs = run_engine(engine, prompts, a.max_new, sync,
+                                    run, after_step=note)
+        counts = ops.launch_counts()
+        for k, n in counts.items():
+            launches[k] += n
+        stats = validate(engine.stats())
+        ntok = sum(len(t) for t in outs.values())
+        log(f"engine {what} "
+            f"{'slot' if mode == 'slot' else 'decode_fusion=' + mode}: "
+            f"{len(outs)} requests, {ntok} tokens in {secs:.3f}s "
+            f"({ntok / secs:.1f} tok/s; {smi}), {run['steps']} steps, "
+            f"preemptions={stats['preemptions']} "
+            f"admissions={stats['admissions']} state_slots_used peak "
+            f"{peak[0]} dispatches={dict(d)} launches={counts}")
+        assert len(outs) == len(prompts)
+        assert all(len(t) == a.max_new for t in outs.values())
+        check_launches(cfg, mode, counts, d, run, stats)
+        if mode != "slot" and "mamba" in cfg.kinds_for_layers:
+            assert peak[0] >= 2 and stats["prefix_cache"] == 0
+    if "mamba" in cfg.kinds_for_layers:
+        a = mode_args(serve, arch=arch, decode_fusion="on")
+        engine = serve.build_engine(a, model, params)
+        secs, busy, rows = profile_engine(torch, lambda: run_engine(
+            engine, prompts, a.max_new, sync)[1])
+        log(f"profile engine {what} decode_fusion=on: wall {secs:.3f}s "
+            f"under the profiler, device busy {busy:.3f}s "
+            f"({100 * busy / secs:.1f}%)")
+        for us, n, key in rows[:12]:
+            log(f"  {us / 1e3:9.2f} ms {n:6d}x  {key[:90]}")
+        # cuBLAS's GEMMs on Hopper run as ``nvjet_*`` kernels
+        for label, pats in (("ssm_scan", ("ssm_scan",)),
+                            ("paged_prefill", ("paged_prefill",)),
+                            ("GEMMs (cuBLAS nvjet / gemm)",
+                             ("nvjet", "gemm"))):
+            sel = [r for r in rows if any(p in r[2].lower() for p in pats)]
+            log(f"  {label}: {sum(r[0] for r in sel) / 1e3:.2f} ms in "
+                f"{sum(r[1] for r in sel)} launches "
+                f"({100 * sum(r[0] for r in sel) / max(busy * 1e6, 1):.1f}"
+                f"% of busy)")
+    log(f"moe {what}: memory high-water mark (torch.cuda."
+        f"max_memory_allocated; {smi}) while drawing the weights "
+        f"{init_peak / 2**30:.2f} GiB (each leaf drawn in float32), "
+        f"then through parity and the engines "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def moe_phase(torch, device, ops, ref, serve, Model, ragged_dispatch,
+              write_slot, validate, sync, smi) -> tuple:
+    """Phase 4f: dbrx-132b, grok-1-314b and jamba-1.5-large-398b, cut in
+    depth, every width published, bf16, seeded weights (mamba's constant
+    leaves drawn): model parity kernels vs plain on the paged and slot
+    paths; the serve path's engines on the smoke prompts with exact
+    launches per dispatch, tokens/s, steps, preemptions, the peak of
+    ``state_slots_used``, memory high-water marks; a profile of jamba's
+    fused engine; then the reduced configs in float32 under dropless
+    capacity: paged fusion on and off and slot emit the same tokens.
+    -> launch counts summed over its bf16 engine runs."""
+    from repro_torch.configs.base import get_config
+
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    for arch, depth, modes in MOE_CONFIGS:
+        # one config at a time: its weights die with the call's frame
+        for k, n in moe_config(torch, device, ops, ref, serve, Model,
+                               ragged_dispatch, write_slot, validate, sync,
+                               smi, arch, depth, modes).items():
+            launches[k] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # float32 identity at the reduced configs under dropless capacity
+    for arch, _, _ in MOE_CONFIGS:
+        red = get_config(arch).reduced()
+        red = dataclasses.replace(
+            red, moe_capacity_factor=red.num_experts / red.num_experts_per_tok)
+        small = Model(red, device=device)
+        small_params = perturb_mamba(torch, small.init(seed=0), seed=1)
+        work = smoke_workload(red.vocab_size)
+        tokens = {}
+        for mode in ("on", "off", "slot"):
+            if mode == "slot":
+                a = serve.make_parser().parse_args(SLOT_ARGV)
+                a.arch = arch
+            else:
+                a = mode_args(serve, arch=arch, decode_fusion=mode)
+            tokens[mode], _ = run_engine(serve.build_engine(a, small,
+                                                            small_params),
+                                         work, a.max_new, sync)
+        assert tokens["on"] == tokens["off"] == tokens["slot"], arch
+        log(f"engine {red.name} float32 dropless: paged fusion on/off and "
+            f"slot token-identical ({sum(map(len, tokens['on'].values()))} "
+            f"tokens)")
+        del small, small_params
+    return launches
+
+
 # ---------------------------------------------------------------- digits
 
 
@@ -2522,8 +2927,8 @@ def plan_sweep(torch, mod, fn, names, forced):
 
 def kernel_times(torch, device, ops, ref):
     """Phase 7, at the parity phase's main-path shapes, the attention
-    kernels in bfloat16 with window 0, ``rwkv6_scan`` and ``conv2d`` in
-    float32.  -> {kernel: record}."""
+    kernels in bfloat16 with window 0, ``rwkv6_scan``, ``ssm_scan`` and
+    ``conv2d`` in float32.  -> {kernel: record}."""
     from repro_torch.kernels import attention_split
     from repro_torch.kernels import conv2d as cv_mod
     from repro_torch.kernels import conv2d_wgrad as wg_mod
@@ -2674,6 +3079,27 @@ def kernel_times(torch, device, ops, ref):
             library_ms=None, dtype="float32",
             bytes=4 * (5 * r.numel() + u.numel() + 2 * s0.numel()),
             flops=(5 * hd * hd + 5 * hd) * b * h * s)
+
+    # mamba's selective scan at jamba's width (phase 2's shapes), float32,
+    # from a generator of its own (the conv cases keep earlier inputs);
+    # bytes: dt, x read and y written (B,S,di), bm, cm (B,S,N), a (di,N),
+    # h0 read and h_final written (B,di,N); operations: 7 N + 1 per (row,
+    # step, channel): dt a, its exponential, the decay and input products
+    # and their sum, the output term and its sum, dt x
+    ssm_gen = torch.Generator(device=device).manual_seed(9)
+    for b, s in SSM_SHAPES:
+        args = ssm_case(torch, ssm_gen, device, b, s)
+        di, n = args[4].shape
+        key = f"ssm_scan_{b}x{s}"
+        calls[key] = (lambda args=args: ops.ssm_scan(*args), None)
+        out[key] = dict(
+            ms=time_ms(torch, calls[key][0]),
+            plain_ms=time_ms(torch, lambda args=args: ref.ssm_scan_ref(
+                *args)),
+            library_ms=None, dtype="float32",
+            bytes=4 * (3 * b * s * di + 2 * b * s * n + di * n
+                       + 2 * b * di * n),
+            flops=(7 * n + 1) * b * s * di)
 
     # the digit CNN's conv layer in float32 (the model's dtype) at the
     # consumer's batches of 1 and 32 and evaluation's 2,000 test digits;
@@ -2984,6 +3410,7 @@ def main() -> int:
     errs = kernel_parity(torch, device, ops, ref)
     for k, err in dense_head_parity(torch, device, ops, ref).items():
         errs[k] = max(errs[k], err)
+    errs["ssm_scan"] = ssm_parity(torch, device, ops, ref)
 
     # 3. model at full width, paged and slot paths
     full = get_config("qwen3-0.6b")
@@ -3009,8 +3436,7 @@ def main() -> int:
     cfg, model, params = serve.build_model(args)
     prompts = smoke_workload(cfg.vocab_size)
     sync = torch.cuda.synchronize
-    launches = {"conv2d": 0, "conv2d_wgrad": 0, "flash_attention": 0,
-                "paged_attention": 0, "paged_prefill": 0, "rwkv6_scan": 0}
+    launches = dict.fromkeys(ops.launch_counts(), 0)
     for fusion in ("on", "off"):
         args.decode_fusion = fusion
         run_engine(serve.build_engine(args, model, params), prompts[:2], 2,
@@ -3136,9 +3562,15 @@ def main() -> int:
     for k, err in g_errs.items():
         errs[k] = max(errs[k], err)
 
-    # 5. rwkv6-1.6b through the slot engine
-    launches["rwkv6_scan"] = rwkv6_phase(torch, device, ops, ref, serve,
-                                         Model, write_slot, validate, sync)
+    # 4f. dbrx-132b, grok-1-314b and jamba-1.5-large-398b: MoE and mamba
+    for k, n in moe_phase(torch, device, ops, ref, serve, Model,
+                          ragged_dispatch, write_slot, validate, sync,
+                          smi).items():
+        launches[k] += n
+
+    # 5. rwkv6-1.6b through the slot and paged engines
+    launches["rwkv6_scan"] += rwkv6_phase(torch, device, ops, ref, serve,
+                                          Model, write_slot, validate, sync)
 
     # 6. the paper's digit pipeline
     errs["conv2d"], launches["conv2d"] = digit_phase(torch, device, ops, ref)
@@ -3265,6 +3697,23 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv6_scan.py:90",
         "launches": launches["rwkv6_scan"],
         "max_abs_err": errs["rwkv6_scan"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "graph_ms": t["graph_ms"]})
+    for b, s in SSM_SHAPES:
+        t = times[f"ssm_scan_{b}x{s}"]
+        log(f"time ssm_scan float32 at {b} rows S={s} (d_inner "
+            f"{SSM_D_INNER}, 16 states): {t['ms']:.4f} ms (graph-replayed "
+            f"{t['graph_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, no library "
+            "call")
+    t = times["ssm_scan_8x256"]         # a whole chunk of 8 rows
+    records.append({
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/models/ssm.py:113",
+        "launches": launches["ssm_scan"],
+        "max_abs_err": errs["ssm_scan"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "graph_ms": t["graph_ms"]})

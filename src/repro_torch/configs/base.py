@@ -17,6 +17,9 @@ _MODULE_FOR = {
     "qwen1.5-110b": "qwen1_5_110b",
     "rwkv6-1.6b": "rwkv6_1_6b",
     "gemma3-4b": "gemma3_4b",
+    "dbrx-132b": "dbrx_132b",
+    "grok-1-314b": "grok1_314b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 

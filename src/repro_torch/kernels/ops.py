@@ -23,6 +23,7 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_prefill as _pp
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rwkv6_scan as _rw
+from repro_torch.kernels import ssm_scan as _ss
 
 
 def _on_cuda(t) -> bool:
@@ -62,6 +63,14 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     s_final (B,H,hd,hd) float32)."""
     fn = _rw.rwkv6_scan if _on_cuda(r) else _ref.rwkv6_scan_ref
     return fn(r, k, v, w, u, s0)
+
+
+def ssm_scan(dt, bm, cm, x, a, h0):
+    """Mamba's selective scan: dt / x (B,S,di), bm / cm (B,S,N), a (di,N)
+    float32 decays (negative), h0 (B,di,N) -> (y (B,S,di), h_final
+    (B,di,N)) float32."""
+    fn = _ss.ssm_scan if _on_cuda(dt) else _ref.ssm_scan_ref
+    return fn(dt, bm, cm, x, a, h0)
 
 
 class _Conv2d(torch.autograd.Function):
@@ -113,9 +122,10 @@ def launch_counts() -> dict:
             "flash_attention": _fa.KERNEL.launches,
             "paged_attention": _pa.KERNEL.launches,
             "paged_prefill": _pp.KERNEL.launches,
-            "rwkv6_scan": _rw.KERNEL.launches}
+            "rwkv6_scan": _rw.KERNEL.launches,
+            "ssm_scan": _ss.KERNEL.launches}
 
 
 def reset_launch_counts() -> None:
-    for mod in (_cv, _cw, _fa, _pa, _pp, _rw):
+    for mod in (_cv, _cw, _fa, _pa, _pp, _rw, _ss):
         mod.KERNEL.launches = 0

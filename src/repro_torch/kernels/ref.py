@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the attention kernels (and of the split-key
-combine pass of their bf16 tile), the WKV6 scan, the convolution and its
-filter gradient.
+combine pass of their bf16 tile), the WKV6 scan, mamba's selective
+scan, the convolution and its filter gradient.
 
 The kernels' plain versions define their semantics, copied from
-``repro.kernels.ref``: the CUDA kernels are held to them on the card,
+``repro.kernels.ref`` (the selective scan from the ``lax.scan`` step of
+``repro.models.ssm``): the CUDA kernels are held to them on the card,
 and a CPU tensor is served by them (``kernels/ops.py``).
 """
 from __future__ import annotations
@@ -160,6 +161,29 @@ def rwkv6_scan_ref(r, k, v, w, u, s0=None):
                                  state + u32 * kv))
         state = w32[:, :, t, :, None] * state + kv
     return torch.stack(outs, dim=2).to(r.dtype), state
+
+
+def ssm_scan_ref(dt, bm, cm, x, a, h0):
+    """Mamba's selective scan, one time step at a time in float32
+    (float64 for float64 inputs).  dt (B,S,di) step sizes, bm / cm
+    (B,S,N) input and output projections, x (B,S,di) the scanned input
+    (cast to float32), a (di,N) the negative state decays, h0 (B,di,N)
+    the start state.  -> (y (B,S,di), h_final (B,di,N)), float32 (or
+    float64).
+
+        h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) B_t
+        y_t = h_t . C_t
+    """
+    s = dt.shape[1]
+    ft = torch.promote_types(dt.dtype, torch.float32)
+    dt, bm, cm, x, a = (t.to(ft) for t in (dt, bm, cm, x, a))
+    h = h0.to(ft)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t, :, None] * a[None])
+        h = decay * h + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cm[:, t]))
+    return torch.stack(ys, dim=1), h
 
 
 def conv2d_ref(x, w):

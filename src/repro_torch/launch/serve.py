@@ -7,7 +7,9 @@ card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --engine slot \\
         --slots 4 --no-reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
-        --engine slot --no-reduced
+        --no-reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-1.5-large-398b --device cpu --engine slot
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
         --no-reduced --cache-max 2304
 
@@ -23,10 +25,14 @@ of this launcher, not with the reference's.  ``--decode-fusion on``
 whole (``flash_attention`` kernel) and decodes every slot through
 ``paged_prefill`` with one query lane; as in the reference, it takes
 ``--slots`` and ``--cache-max`` and ignores the paged-only flags.
-rwkv6-1.6b is served by the slot engine only, its recurrence in the
-``rwkv6_scan`` kernel for prefill and decode alike; with the paged
-engine (the default) it exits with "recurrent-state slots ... are not
-ported to repro_torch yet".
+``--engine`` defaults to paged for every stack that pages (all the
+port carries), as in the reference.  Recurrent stacks serve on both
+engines: rwkv6-1.6b's recurrence in the ``rwkv6_scan`` kernel, jamba's
+mamba layers in ``ssm_scan``, their states in per-request slots beside
+the paged pool; the prefix cache is off for them and ``--spec-decode``
+is refused, as in the reference.  dbrx-132b, grok-1-314b and jamba's
+MoE FFNs serve on both engines (at full width, cut in depth to fit a
+card: see ``chip_smoke.py``).
 
 ``--scheduler serial`` admits one request a step, prefills its whole
 prompt (``paged_prefill``) and decodes in the separate dispatch
@@ -131,9 +137,10 @@ def make_parser() -> argparse.ArgumentParser:
                     help="serve the CPU-smoke variant (default); "
                          "--no-reduced serves the published width")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--engine", choices=("paged", "slot"), default="paged",
+    ap.add_argument("--engine", choices=("paged", "slot"), default=None,
                     help="paged: block-paged continuous batching; slot: "
-                         "fixed cache slots, whole-prompt prefill")
+                         "fixed cache slots, whole-prompt prefill "
+                         "(default: paged where the stack pages)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,
                     help="cache slots of the slot engine")
@@ -223,16 +230,14 @@ def check_args(args) -> None:
 
 def build_model(args):
     """-> (cfg, model, params) for ``args.arch`` at the chosen width,
-    weights drawn from ``args.seed``."""
+    weights drawn from ``args.seed``; an unset ``--engine`` resolves to
+    paged where the stack pages, as in the reference CLI."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = Model(cfg, device=args.device)
-    if args.engine == "paged":
-        try:
-            model.check_paged()
-        except NotImplementedError as e:
-            raise SystemExit(str(e)) from None
+    if args.engine is None:
+        args.engine = "paged" if model.supports_paged else "slot"
     return cfg, model, model.init(args.seed)
 
 

@@ -11,7 +11,7 @@ engine's:
 
 and the paged engine's:
 
-    pool_init(num_blocks, block_size)          block pools (pos lanes -1)
+    pool_init(num_blocks, block_size, state_batch)   pools (pos lanes -1)
     prefill_paged(params, batch, pools, ...)   (logits, suffix caches)
     decode_step_paged(params, pools, ...)      (logits, pools)
 
@@ -21,11 +21,13 @@ Parameters are nested dicts of tensors in the reference's tree
 (``repro_torch.bridge``) drop in.  Everything runs on ``device``, which
 defaults to the card; the CPU runs only when asked for.
 
-Stacks of ``"attn"`` and ``"attn_local"`` layers take both engines
-(``paged_live_window`` tells the paged engine how far back every layer
-reads).  Stacks with recurrent
-``"rwkv6"`` layers take the slot engine only: the paged entry points
-refuse them until the reference's recurrent-state slots are ported.
+Every decoder-only token stack takes both engines: attention layers
+(``"attn"``, ``"attn_local"``; ``paged_live_window`` tells the paged
+engine how far back every layer reads) page their KV through the block
+pool, recurrent layers (``"mamba"``, ``"rwkv6"``) carry per-request
+state slots beside it (``pool_init(..., state_batch)``,
+``prefill_paged(..., state_rows=)``), and any layer may take an MoE
+FFN.
 """
 from __future__ import annotations
 
@@ -48,7 +50,6 @@ class Model:
         if cfg.kv_cache_quant:
             raise ValueError(f"{cfg.name}: the int8 KV cache is not ported "
                              "yet")
-        tf.check_supported(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but "
@@ -72,7 +73,7 @@ class Model:
         kernel on the card): what the draft model of speculative decoding
         runs.  -> logits (B,S,V) at every position.  Inference only: the
         kernels have no backward, and the reference's second output (the
-        MoE router loss) has no counterpart in a dense stack."""
+        MoE router loss, a training term) is not returned."""
         cfg = self.cfg
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -155,23 +156,20 @@ class Model:
                 w = max(w, cfg.sliding_window)
         return w
 
-    def check_paged(self) -> None:
-        """Raise for a stack the port's paged path cannot serve yet."""
-        if self.paged_has_state:
-            raise NotImplementedError(
-                f"{self.cfg.name}: paged serving of recurrent layers needs "
-                "recurrent-state slots, which are not ported to repro_torch "
-                "yet (serve it with the slot engine, --engine slot)")
-
-    def pool_init(self, num_blocks: int, block_size: int):
-        """Zero block pools for every layer (pos lanes -1).  Block 0 is
-        the reserved null block — allocators must never hand it out."""
-        self.check_paged()
+    def pool_init(self, num_blocks: int, block_size: int,
+                  state_batch: int = 1):
+        """Zero pools for every layer (pos lanes -1).  Block 0 is the
+        reserved null block — allocators must never hand it out.
+        ``state_batch`` sizes the recurrent layers' state-slot axis
+        (engine rows plus one trash row); pure attention stacks ignore
+        it."""
         return tf.stack_pool_init(self.cfg, num_blocks, block_size,
-                                  torch_dtype(self.cfg.dtype), self.device)
+                                  torch_dtype(self.cfg.dtype), self.device,
+                                  state_batch=state_batch)
 
     def prefill_paged(self, params, batch, pools, block_table, start_pos, *,
-                      seq_len=None, all_logits: bool = False):
+                      seq_len=None, all_logits: bool = False,
+                      state_rows=None):
         """Padding-masked position-offset prefill: the paged engine's one
         prefill entry (fresh prompts, preempt-resume, prefix-cache
         suffixes, continuous-batching chunks).
@@ -184,8 +182,13 @@ class Model:
         from ``pools`` through ``block_table`` (0-padded).  -> (last-valid
         logits (B,1,V), the chunk's caches in the pool layout, S lanes
         per row with ``pos`` -1 on padded lanes); ``all_logits=True``
-        returns (B,S,V) logits for every lane."""
-        self.check_paged()
+        returns (B,S,V) logits for every lane.
+
+        ``state_rows`` (B,) int32 maps dispatch rows to recurrent-state
+        slots (None: row i is slot i); a recurrent layer's returned
+        "cache" is its chunk-exit state, to scatter back through those
+        rows (``kvcache.write_chunk_tokens``).  Rows starting at
+        position 0 read zeros, not their slot."""
         cfg = self.cfg
         tokens = batch["tokens"]
         s = tokens.shape[1]
@@ -196,7 +199,8 @@ class Model:
         x = embed_apply(params["embed"], tokens)
         x, caches = tf.stack_prefill_paged(params["stack"], cfg, x, positions,
                                            pools, block_table, sp,
-                                           seq_len=seq_len)
+                                           seq_len=seq_len,
+                                           state_rows=state_rows)
         x = norm_apply(params["final_norm"], x, cfg.norm_kind)
         if all_logits:
             return unembed_apply(params["embed"], cfg, x), caches
@@ -213,9 +217,9 @@ class Model:
         """Paged one-token step.  tokens (B,1) int32, pos (B,) absolute
         position, block_table (B, nb) int32, active (B,) bool.  Attention
         reads through ``ops.paged_attention`` (the CUDA kernel on the
-        card).  Pools are written in place.
+        card); recurrent layers read and write state slot i for row i,
+        active rows only.  Pools are written in place.
         -> (logits (B,1,V), pools)."""
-        self.check_paged()
         cfg = self.cfg
         x = embed_apply(params["embed"], tokens)
         x, pools = tf.stack_decode_paged(params["stack"], cfg, x, pools,

@@ -10,6 +10,9 @@ the reference's scale rules:
   ``scale_dim`` (a negative axis, so layer stacking keeps it);
 * ``"zeros"`` / ``"ones"`` as named.
 
+A spec's ``dtype`` overrides the model dtype for its leaf (the MoE
+router is float32 whatever the model dtype, as in the reference).
+
 The numbers differ from ``jax.random``'s for the same seed; tests that
 compare the two packages bridge the reference's weights instead
 (``repro_torch.bridge``).
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +42,7 @@ class ParamSpec:
     shape: Tuple[int, ...]
     init: str = "normal"          # normal | zeros | ones | scaled | embed
     scale_dim: int = -1           # fan-in axis for "normal"/"scaled"
+    dtype: Optional[str] = None   # overrides the model dtype
 
 
 def init_params(schema, seed: int, dtype: str, device) -> dict:
@@ -46,19 +50,20 @@ def init_params(schema, seed: int, dtype: str, device) -> dict:
     key order, so the weights depend only on the schema and the seed."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    dt = torch_dtype(dtype)
 
     def draw(spec: ParamSpec):
+        dt = torch_dtype(spec.dtype or dtype)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dt, device=device)
+        # scaled in place: one float32 transient per leaf, not two
         v = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                         device=device)
         if spec.init == "embed":
-            return (v * 0.02).to(dt)
+            return v.mul_(0.02).to(dt)
         fan_in = spec.shape[spec.scale_dim] if spec.shape else 1
-        return (v / math.sqrt(max(fan_in, 1))).to(dt)
+        return v.div_(math.sqrt(max(fan_in, 1))).to(dt)
 
     def walk(node):
         if isinstance(node, dict):
@@ -74,4 +79,4 @@ def stack_specs(spec_tree, n: int):
         return {k: stack_specs(v, n) for k, v in spec_tree.items()}
     s = spec_tree
     assert s.scale_dim < 0, "use negative scale_dim so stacking preserves it"
-    return ParamSpec((n,) + s.shape, s.init, s.scale_dim)
+    return ParamSpec((n,) + s.shape, s.init, s.scale_dim, s.dtype)

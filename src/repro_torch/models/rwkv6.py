@@ -17,9 +17,12 @@ head-norm instead of GroupNorm):
   never read ``cfg.mlp_kind``).
 
 The recurrence always goes through ``ops.rwkv6_scan``: the CUDA kernel on
-the card, its plain version on the CPU, for a whole prompt and for one
-decode token alike.  The reference's masked per-row scan (``seq_len``,
-for right-padded ragged paged prefill) is not ported yet.
+the card, its plain version on the CPU, for a whole prompt, a ragged
+chunk and one decode token alike.  The reference's masked per-row scan
+(``seq_len``, right-padded ragged paged prefill) takes the same scan:
+past a row's valid lanes the decay is 1 and the key 0, so ``S = 1 S +
+0 (x) v`` carries the state through exactly where the reference freezes
+it.
 """
 from __future__ import annotations
 
@@ -67,13 +70,13 @@ def channel_mix_schema(cfg: ModelConfig):
     }
 
 
-def channel_mix(p, cfg: ModelConfig, x, x_prev):
+def channel_mix(p, cfg: ModelConfig, x, x_prev, seq_len=None):
     """RWKV channel-mix: squared-ReLU FFN on the token-shifted input.
-    x (B,S,D), x_prev (B,D) -> (y, new x_prev = x's last lane)."""
+    x (B,S,D), x_prev (B,D) -> (y, new x_prev = x's last valid lane)."""
     prev = _token_shift(x, x_prev)
     xk = x + (prev - x) * p["mu_k"]
     k = torch.square(F.relu(xk @ p["wk_cm"]))
-    return k @ p["wv_cm"], _last_valid(x)
+    return k @ p["wv_cm"], _last_valid(x, seq_len)
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype, device):
@@ -93,9 +96,13 @@ def _token_shift(x, x_prev):
     return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _last_valid(x):
-    """x (B,S,D) -> lane S-1 (B,D) (the unpadded full-sequence path)."""
-    return x[:, -1, :]
+def _last_valid(x, seq_len=None):
+    """x (B,S,D) -> lane seq_len-1 of each row (B,D); lane S-1 when
+    ``seq_len`` is None (the unpadded full-sequence path)."""
+    if seq_len is None:
+        return x[:, -1, :]
+    idx = (seq_len.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+    return torch.gather(x, 1, idx)[:, 0, :]
 
 
 def _mix_heads(p, cfg, x, xx):
@@ -127,11 +134,12 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, state, seq_len=None):
     """x (B,S,D), state {"s", "x_tm", ...} -> (y (B,S,D), {"s": final
     state, "x_tm": x's last lane}); the caller adds "x_cm" after the
     channel-mix.  The WKV recurrence runs through ``ops.rwkv6_scan`` on
-    float32 (B,H,S,hd) views of the (B,S,H,hd) projections."""
-    if seq_len is not None:
-        raise NotImplementedError(
-            "rwkv_time_mix: the masked per-row scan (seq_len, ragged paged "
-            "prefill) is not ported to repro_torch yet")
+    float32 (B,H,S,hd) views of the (B,S,H,hd) projections.
+
+    ``seq_len`` (B,) marks each row's valid lanes when x is right-padded
+    (ragged paged prefill): past them the scan sees decay 1 and key 0,
+    so its state stops at lane seq_len, and ``x_tm`` is lane seq_len-1;
+    outputs at padded lanes are garbage the caller discards."""
     b, s, d = x.shape
     h, hd = num_heads(cfg), cfg.rwkv_head_dim
     prev = _token_shift(x, state["x_tm"])
@@ -143,6 +151,11 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, state, seq_len=None):
     g = F.silu(xg @ p["wg"])
     w = _decay(p, xw).reshape(b, s, h, hd)             # float32
     u = p["u"].float()
+    if seq_len is not None:
+        pad = (torch.arange(s, device=x.device)[None, :]
+               >= seq_len.long()[:, None])[:, :, None, None]
+        w = torch.where(pad, 1.0, w)
+        k = torch.where(pad, 0.0, k.float())
 
     def heads_first(t):                                # (B,H,S,hd) view
         return t.float().transpose(1, 2)
@@ -154,4 +167,4 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, state, seq_len=None):
     o = _headnorm(o, p["head_scale"].float())
     o = o.reshape(b, s, d).to(x.dtype) * g
     y = o @ p["wo"]
-    return y, {"s": s_final, "x_tm": _last_valid(x)}
+    return y, {"s": s_final, "x_tm": _last_valid(x, seq_len)}

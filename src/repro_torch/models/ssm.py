@@ -1,0 +1,106 @@
+"""Mamba-style selective SSM layer (jamba's recurrent half).
+
+The port of ``repro.models.ssm``, per layer:
+
+    (x_in, z) = in_proj(x)                       # each (B, S, d_in)
+    x_c       = causal_depthwise_conv(x_in)      # width ``ssm_conv_width``
+    (dt, B, C) = x_proj(silu(x_c))               # dt scalar/token + bias
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t     # A = -exp(A_log), (d_in, N)
+    y_t = (C_t . h_t) * silu(z_t)
+    out = out_proj(y)
+
+The recurrence always goes through ``ops.ssm_scan``: the CUDA kernel on
+the card, its plain version on the CPU, for a whole prompt, a ragged
+chunk and one decode token alike.  The state is ``{"h": (B, d_in, N)
+float32, "conv": (B, W-1, d_in)}`` in the model dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.module import ParamSpec
+
+
+def d_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm_expand * cfg.d_model
+
+
+def ssm_schema(cfg: ModelConfig):
+    d, n, w = cfg.d_model, cfg.ssm_state_dim, cfg.ssm_conv_width
+    di = d_inner(cfg)
+    return {
+        "in_proj": ParamSpec((d, 2 * di), scale_dim=-2),
+        "conv": ParamSpec((w, di), init="scaled", scale_dim=-2),
+        "x_proj": ParamSpec((di, 2 * n + 1), scale_dim=-2),
+        "dt_bias": ParamSpec((di,), init="zeros"),
+        "a_log": ParamSpec((di, n), init="ones"),
+        "out_proj": ParamSpec((di, d), scale_dim=-2),
+    }
+
+
+def init_state(cfg: ModelConfig, batch: int, dtype, device):
+    """Zero state of one layer: ``h`` (B, d_in, N) float32, ``conv``
+    (B, W-1, d_in) in the model dtype."""
+    di, n, w = d_inner(cfg), cfg.ssm_state_dim, cfg.ssm_conv_width
+    return {
+        "h": torch.zeros(batch, di, n, dtype=torch.float32, device=device),
+        "conv": torch.zeros(batch, w - 1, di, dtype=dtype, device=device),
+    }
+
+
+def _causal_conv(p, x_in, prev):
+    """Depthwise causal conv over time.  x_in (B,S,di), ``prev``
+    (B,W-1,di) the left context.  -> (out (B,S,di), xp = [prev | x_in]
+    (B,S+W-1,di))."""
+    w, s = p["conv"].shape[0], x_in.shape[1]
+    xp = torch.cat([prev.to(x_in.dtype), x_in], dim=1)
+    out = xp[:, 0:s] * p["conv"][0]
+    for i in range(1, w):
+        out = out + xp[:, i:i + s] * p["conv"][i]
+    return out, xp
+
+
+def _selective_terms(p, cfg: ModelConfig, x_c):
+    """-> dt (B,S,di), bm (B,S,N), cm (B,S,N) float32, xc = silu(x_c)."""
+    n = cfg.ssm_state_dim
+    xc = F.silu(x_c)
+    proj = xc.float() @ p["x_proj"].float()
+    v = proj[..., :1] + p["dt_bias"].float()
+    dt = torch.logaddexp(v, torch.zeros_like(v))          # softplus
+    return dt, proj[..., 1:1 + n], proj[..., 1 + n:], xc
+
+
+def ssm_forward(p, cfg: ModelConfig, x, state, seq_len=None):
+    """x (B,S,D), state {"h", "conv"} -> (y (B,S,D), new state).
+
+    ``seq_len`` (B,) marks each row's valid lanes when ``x`` is
+    right-padded to a bucket (the paged engine's ragged chunks): the
+    conv state is taken from the last W-1 valid lanes, and ``dt`` is 0
+    past them, where the step carries ``h`` through exactly (exp(0) = 1,
+    0 * x = 0), so the returned state is an unpadded run's over the
+    first ``seq_len`` tokens.  Outputs at padded lanes are garbage the
+    caller discards."""
+    s, w = x.shape[1], cfg.ssm_conv_width
+    di = d_inner(cfg)
+    xz = x @ p["in_proj"]
+    x_in, z = xz[..., :di], xz[..., di:]
+    x_c, xp = _causal_conv(p, x_in, state["conv"])
+    dt, bm, cm, xc = _selective_terms(p, cfg, x_c)
+    a = -torch.exp(p["a_log"].float())                   # (di, N)
+    if seq_len is None:
+        new_conv = xp[:, -(w - 1):]
+    else:
+        sl = seq_len.long()
+        lanes = torch.arange(s, device=x.device)
+        idx = sl[:, None] + torch.arange(w - 1, device=x.device)[None, :]
+        new_conv = torch.gather(xp, 1, idx[..., None].expand(-1, -1, di))
+        dt = torch.where((lanes[None, :] < sl[:, None])[..., None], dt, 0.0)
+    y, h_final = kernel_ops.ssm_scan(
+        dt.contiguous(), bm.contiguous(), cm.contiguous(),
+        xc.float().contiguous(), a.contiguous(),
+        state["h"].float().contiguous())
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"], {"h": h_final, "conv": new_conv.contiguous()}

@@ -11,10 +11,12 @@ reference scans over the period axis, the port runs a Python loop and
 indexes that axis; indexing gives views, so a pool written in place by
 layer i is the stacked pool's slice i.
 
-Ported so far: layer kinds ``"attn"`` and ``"attn_local"`` (dense MLP;
-the local kind masks to ``cfg.sliding_window`` and takes the local RoPE
-base) on every path, and ``"rwkv6"`` (time-mix + channel-mix, recurrent
-state as the cache) on the slot path and in the cacheless forward.
+Every layer kind of the reference's decoder-only stacks is ported on
+every path: ``"attn"`` and ``"attn_local"`` (the local kind masks to
+``cfg.sliding_window`` and takes the local RoPE base), ``"mamba"`` and
+``"rwkv6"`` (recurrent state as the slot cache, per-request state slots
+beside the paged pool), each with a dense MLP or an MoE FFN (rwkv6's
+channel-mix takes the FFN's place).
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (mlp_apply, mlp_schema, norm_apply,
                                        norm_schema)
 from repro_torch.models.module import stack_specs
@@ -51,24 +55,17 @@ def slot_sig(cfg: ModelConfig, j: int) -> Tuple[str, bool]:
     return kind, cfg.layer_is_moe(j)
 
 
-PORTED_KINDS = ("attn", "attn_local", "rwkv6")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is a dense ``"attn"``, ``"attn_local"``
-    or ``"rwkv6"`` layer."""
-    for i in range(cfg.num_layers):
-        kind, moe = slot_sig(cfg, i)
-        if kind not in PORTED_KINDS or moe:
-            raise ValueError(f"{cfg.name}: layer {i} is {kind!r}"
-                             f"{' (MoE)' if moe else ''}; repro_torch ports "
-                             "dense 'attn', 'attn_local' and 'rwkv6' layers "
-                             "only so far")
+RECURRENT_KINDS = ("mamba", "rwkv6")
 
 
 def layer_kinds(cfg: ModelConfig) -> list:
     """Each layer's kind, in stack order (that of ``layer_views``)."""
     return [slot_sig(cfg, i)[0] for i in range(cfg.num_layers)]
+
+
+def layer_sigs(cfg: ModelConfig) -> list:
+    """Each layer's (kind, is_moe), in stack order."""
+    return [slot_sig(cfg, i) for i in range(cfg.num_layers)]
 
 
 def layer_views(cfg: ModelConfig, tree) -> list:
@@ -91,15 +88,18 @@ def _index(tree, i: int):
 
 
 def block_schema(cfg: ModelConfig, kind: str, moe: bool):
-    if kind not in PORTED_KINDS or moe:
-        raise ValueError(f"layer kind {kind!r} (moe={moe}) is not ported yet")
-    s = {"norm1": norm_schema(cfg), "norm2": norm_schema(cfg)}
-    if kind == "rwkv6":
+    s: Dict[str, Any] = {"norm1": norm_schema(cfg), "norm2": norm_schema(cfg)}
+    if kind in ("attn", "attn_local"):
+        s["mix"] = attn.attn_schema(cfg)
+    elif kind == "mamba":
+        s["mix"] = ssm_mod.ssm_schema(cfg)
+    elif kind == "rwkv6":
         s["mix"] = rwkv_mod.rwkv_schema(cfg)
         s["ffn"] = rwkv_mod.channel_mix_schema(cfg)
+        return s
     else:
-        s["mix"] = attn.attn_schema(cfg)
-        s["ffn"] = mlp_schema(cfg)
+        raise ValueError(f"layer kind {kind!r} is not ported")
+    s["ffn"] = moe_mod.moe_schema(cfg) if moe else mlp_schema(cfg)
     return s
 
 
@@ -131,58 +131,82 @@ def _to_layout(cfg: ModelConfig, per_layer: list):
 # ------------------------------------------------------------ slot path
 
 
-def _rwkv_block(p, cfg: ModelConfig, x, state):
-    """rwkv6 layer body from ``state``: time-mix, then the channel-mix in
-    place of the MLP.  -> (x, new state {"s", "x_tm", "x_cm"})."""
+def _ffn(p, cfg: ModelConfig, x, moe: bool):
+    """The block's FFN: the MoE (its router loss dropped: inference
+    only) or the dense MLP."""
+    if moe:
+        return moe_mod.moe_apply(p["ffn"], cfg, x)[0]
+    return mlp_apply(p["ffn"], x, cfg.mlp_kind)
+
+
+def _init_state(cfg: ModelConfig, kind: str, batch: int, dtype, device):
+    mod = ssm_mod if kind == "mamba" else rwkv_mod
+    return mod.init_state(cfg, batch, dtype, device)
+
+
+def _recurrent_fwd(p, cfg: ModelConfig, x, st, *, kind: str, moe: bool,
+                   seq_len=None):
+    """A mamba or rwkv6 layer's body from the state ``st`` (rwkv6: the
+    time-mix, then the channel-mix in place of the FFN).  -> (x, new
+    state)."""
     h = norm_apply(p["norm1"], x, cfg.norm_kind)
-    y, part = rwkv_mod.rwkv_time_mix(p["mix"], cfg, h, state)
+    if kind == "mamba":
+        y, new_st = ssm_mod.ssm_forward(p["mix"], cfg, h, st,
+                                        seq_len=seq_len)
+        x = x + y
+        h = norm_apply(p["norm2"], x, cfg.norm_kind)
+        return x + _ffn(p, cfg, h, moe), new_st
+    y, part = rwkv_mod.rwkv_time_mix(p["mix"], cfg, h, st, seq_len=seq_len)
     x = x + y
     h2 = norm_apply(p["norm2"], x, cfg.norm_kind)
-    y2, x_cm = rwkv_mod.channel_mix(p["ffn"], cfg, h2, state["x_cm"])
+    y2, x_cm = rwkv_mod.channel_mix(p["ffn"], cfg, h2, st["x_cm"],
+                                    seq_len=seq_len)
     return x + y2, {"s": part["s"], "x_tm": part["x_tm"], "x_cm": x_cm}
 
 
-def block_apply(p, cfg: ModelConfig, x, positions, *, kind: str):
+def block_apply(p, cfg: ModelConfig, x, positions, *, kind: str,
+                moe: bool = False):
     """Cacheless forward of one layer at contiguous ``positions`` (S,):
-    attention through ``attn_apply``'s kernel branch (rwkv6: its state
-    from zeros).  -> x."""
-    if kind == "rwkv6":
-        return _rwkv_block(p, cfg, x, rwkv_mod.init_state(
-            cfg, x.shape[0], x.dtype, x.device))[0]
+    attention through ``attn_apply``'s kernel branch (mamba, rwkv6: their
+    state from zeros).  -> x."""
+    if kind in RECURRENT_KINDS:
+        st = _init_state(cfg, kind, x.shape[0], x.dtype, x.device)
+        return _recurrent_fwd(p, cfg, x, st, kind=kind, moe=moe)[0]
     h = norm_apply(p["norm1"], x, cfg.norm_kind)
     x = x + attn.attn_apply(p["mix"], cfg, h, positions, kind=kind,
                             allow_kernel=True)
     h = norm_apply(p["norm2"], x, cfg.norm_kind)
-    return x + mlp_apply(p["ffn"], h, cfg.mlp_kind)
+    return x + _ffn(p, cfg, h, moe)
 
 
 def stack_apply(params, cfg: ModelConfig, x, positions):
     """Cacheless forward of the whole stack.  -> x."""
-    for p, kind in zip(layer_views(cfg, params), layer_kinds(cfg)):
-        x = block_apply(p, cfg, x, positions, kind=kind)
+    for p, (kind, moe) in zip(layer_views(cfg, params), layer_sigs(cfg)):
+        x = block_apply(p, cfg, x, positions, kind=kind, moe=moe)
     return x
 
 
 def block_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
-                  cache_max: int):
-    """Whole-prompt forward of one layer + its decode cache (rwkv6: its
-    state after the prompt, from zeros).  -> (x, cache)."""
-    if kind == "rwkv6":
-        return _rwkv_block(p, cfg, x, rwkv_mod.init_state(
-            cfg, x.shape[0], x.dtype, x.device))
+                  cache_max: int, moe: bool = False):
+    """Whole-prompt forward of one layer + its decode cache (mamba,
+    rwkv6: the state after the prompt, from zeros).  -> (x, cache)."""
+    if kind in RECURRENT_KINDS:
+        st = _init_state(cfg, kind, x.shape[0], x.dtype, x.device)
+        return _recurrent_fwd(p, cfg, x, st, kind=kind, moe=moe)
     h = norm_apply(p["norm1"], x, cfg.norm_kind)
     y, cache = attn.attn_prefill(p["mix"], cfg, h, positions, kind=kind,
                                  cache_max=cache_max)
     x = x + y
     h = norm_apply(p["norm2"], x, cfg.norm_kind)
-    return x + mlp_apply(p["ffn"], h, cfg.mlp_kind), cache
+    return x + _ffn(p, cfg, h, moe), cache
 
 
-def block_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str):
+def block_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str,
+                 moe: bool = False):
     """One-token step of one layer; its cache is written in place.
     x (B,1,D), pos (B,).  -> (x, cache)."""
-    if kind == "rwkv6":
-        x, new = _rwkv_block(p, cfg, x, cache)
+    if kind in RECURRENT_KINDS:
+        x, new = _recurrent_fwd(p, cfg, x, cache, kind=kind, moe=moe)
         for key, leaf in new.items():
             cache[key].copy_(leaf)
         return x, cache
@@ -190,14 +214,14 @@ def block_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str):
     y, cache = attn.attn_decode(p["mix"], cfg, h, cache, pos, kind=kind)
     x = x + y
     h = norm_apply(p["norm2"], x, cfg.norm_kind)
-    return x + mlp_apply(p["ffn"], h, cfg.mlp_kind), cache
+    return x + _ffn(p, cfg, h, moe), cache
 
 
 def stack_prefill(params, cfg: ModelConfig, x, positions, *, cache_max: int):
     """-> (x, caches), caches in the stack layout."""
     caches = []
-    for p, kind in zip(layer_views(cfg, params), layer_kinds(cfg)):
-        x, c = block_prefill(p, cfg, x, positions, kind=kind,
+    for p, (kind, moe) in zip(layer_views(cfg, params), layer_sigs(cfg)):
+        x, c = block_prefill(p, cfg, x, positions, kind=kind, moe=moe,
                              cache_max=cache_max)
         caches.append(c)
     return x, _to_layout(cfg, caches)
@@ -206,20 +230,21 @@ def stack_prefill(params, cfg: ModelConfig, x, positions, *, cache_max: int):
 def stack_decode(params, cfg: ModelConfig, x, caches, pos):
     """-> (x, caches).  Each layer's cache (a view into the stacked
     leaves) is written in place; the caches are returned."""
-    for p, cache, kind in zip(layer_views(cfg, params),
-                              layer_views(cfg, caches), layer_kinds(cfg)):
-        x, _ = block_decode(p, cfg, x, cache, pos, kind=kind)
+    for p, cache, (kind, moe) in zip(layer_views(cfg, params),
+                                     layer_views(cfg, caches),
+                                     layer_sigs(cfg)):
+        x, _ = block_decode(p, cfg, x, cache, pos, kind=kind, moe=moe)
     return x, caches
 
 
 def stack_cache_init(cfg: ModelConfig, batch: int, cache_max: int, dtype,
                      device):
     """Zero slot caches for the whole stack (attention strips with every
-    pos lane -1, rwkv6 states of zeros), in the layout of the
+    pos lane -1, mamba and rwkv6 states of zeros), in the layout of the
     reference's ``stack_cache_abstract``."""
     def one(kind):
-        if kind == "rwkv6":
-            return rwkv_mod.init_state(cfg, batch, dtype, device)
+        if kind in RECURRENT_KINDS:
+            return _init_state(cfg, kind, batch, dtype, device)
         return attn.init_cache(cfg, kind, batch, cache_max, dtype, device)
 
     return _to_layout(cfg, [one(kind) for kind in layer_kinds(cfg)])
@@ -228,15 +253,42 @@ def stack_cache_init(cfg: ModelConfig, batch: int, cache_max: int, dtype,
 # ------------------------------------------------------------ paged path
 
 
+def _state_read(pool, rows, start_pos, batch: int):
+    """Gather each dispatch row's recurrent state from its slot of a
+    state pool (``rows`` (B,); a copy).  Rows whose chunk starts at
+    position 0 read zeros instead: that covers fresh admissions and
+    preempt-resume re-prefills with no host-side slot reset."""
+    sp = torch.as_tensor(start_pos, device=rows.device).expand(batch)
+    fresh = sp == 0
+
+    def read(leaf):
+        v = leaf[rows]
+        m = fresh.reshape((batch,) + (1,) * (v.dim() - 1))
+        return torch.where(m, torch.zeros_like(v), v)
+
+    return {k: read(v) for k, v in pool.items()}
+
+
 def block_decode_paged(p, cfg: ModelConfig, x, pool, block_table, pos, active,
-                       *, kind: str):
-    """One-token step of one layer against its block-paged pool (written
-    in place).  -> x."""
+                       *, kind: str, moe: bool = False):
+    """One-token step of one layer against its pool (written in place):
+    attention layers read and write the block-paged KV pool, recurrent
+    layers the state slots, where dispatch row i is slot i (the state
+    pool's extra last row is the trash slot of padded prefill rows) and
+    inactive rows keep their state.  -> x."""
+    if kind in RECURRENT_KINDS:
+        b = x.shape[0]
+        st = {k: v[:b] for k, v in pool.items()}
+        x, new = _recurrent_fwd(p, cfg, x, st, kind=kind, moe=moe)
+        for key, leaf in st.items():
+            keep = active.reshape((b,) + (1,) * (leaf.dim() - 1))
+            leaf.copy_(torch.where(keep, new[key].to(leaf.dtype), leaf))
+        return x
     h = norm_apply(p["norm1"], x, cfg.norm_kind)
     x = x + attn.attn_decode_paged(p["mix"], cfg, h, pool, block_table, pos,
                                    active, kind=kind)
     h = norm_apply(p["norm2"], x, cfg.norm_kind)
-    return x + mlp_apply(p["ffn"], h, cfg.mlp_kind)
+    return x + _ffn(p, cfg, h, moe)
 
 
 def stack_decode_paged(params, cfg: ModelConfig, x, pools, block_table, pos,
@@ -245,46 +297,69 @@ def stack_decode_paged(params, cfg: ModelConfig, x, pools, block_table, pos,
     allocation per request covers the whole stack — each layer owns its
     own physical pool, indexed by the same table).  Pools are written in
     place and returned."""
-    for p, pool, kind in zip(layer_views(cfg, params),
-                             layer_views(cfg, pools), layer_kinds(cfg)):
+    for p, pool, (kind, moe) in zip(layer_views(cfg, params),
+                                    layer_views(cfg, pools),
+                                    layer_sigs(cfg)):
         x = block_decode_paged(p, cfg, x, pool, block_table, pos, active,
-                               kind=kind)
+                               kind=kind, moe=moe)
     return x, pools
 
 
 def block_prefill_paged(p, cfg: ModelConfig, x, positions, pool, block_table,
-                        start_pos, *, kind: str, seq_len=None):
+                        start_pos, *, kind: str, moe: bool = False,
+                        seq_len=None, state_rows=None):
     """Suffix-chunk prefill for one layer: each row attends to its cached
     prefix (through ``block_table``) plus the chunk itself, and emits the
-    chunk's cache for the engine to scatter.  -> (x, cache)."""
+    chunk's cache for the engine to scatter.  Recurrent layers carry
+    their chunk-entry state in slots instead: ``state_rows`` (B,) maps
+    each dispatch row to its slot (None: row i is slot i), and the
+    emitted "cache" is the chunk-exit state.  -> (x, cache)."""
+    if kind in RECURRENT_KINDS:
+        b = x.shape[0]
+        rows = (torch.arange(b, device=x.device) if state_rows is None
+                else state_rows.long())
+        st = _state_read(pool, rows, start_pos, b)
+        return _recurrent_fwd(p, cfg, x, st, kind=kind, moe=moe,
+                              seq_len=seq_len)
     h = norm_apply(p["norm1"], x, cfg.norm_kind)
     y, cache = attn.attn_prefill_paged(p["mix"], cfg, h, positions, pool,
                                        block_table, start_pos, kind=kind,
                                        seq_len=seq_len)
     x = x + y
     h = norm_apply(p["norm2"], x, cfg.norm_kind)
-    return x + mlp_apply(p["ffn"], h, cfg.mlp_kind), cache
+    return x + _ffn(p, cfg, h, moe), cache
 
 
 def stack_prefill_paged(params, cfg: ModelConfig, x, positions, pools,
-                        block_table, start_pos, seq_len=None):
+                        block_table, start_pos, seq_len=None,
+                        state_rows=None):
     """-> (x, caches), caches in the pool layout: period slots stacked on
-    a leading n_periods axis, remainder layers by name."""
+    a leading n_periods axis, remainder layers by name; a recurrent
+    layer's is its chunk-exit state (B, ...)."""
     caches = []
-    for p, pool, kind in zip(layer_views(cfg, params),
-                             layer_views(cfg, pools), layer_kinds(cfg)):
+    for p, pool, (kind, moe) in zip(layer_views(cfg, params),
+                                    layer_views(cfg, pools),
+                                    layer_sigs(cfg)):
         x, c = block_prefill_paged(p, cfg, x, positions, pool, block_table,
-                                   start_pos, kind=kind, seq_len=seq_len)
+                                   start_pos, kind=kind, moe=moe,
+                                   seq_len=seq_len, state_rows=state_rows)
         caches.append(c)
     return x, _to_layout(cfg, caches)
 
 
 def stack_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,
-                    dtype, device):
-    """Zero block pools for the whole stack (pos lanes -1), in the cache
-    layout: period-stacked leaves lead with ``n_periods``.  Every layer's
-    pool has full ``block_size`` blocks, window layers too: as in the
-    reference, their window is kept by the mask, not by a ring."""
-    return _to_layout(cfg, [attn.paged_pool_init(cfg, num_blocks,
-                                                 block_size, dtype, device)
-                            for _ in range(cfg.num_layers)])
+                    dtype, device, state_batch: int = 1):
+    """Zero pools for the whole stack (pos lanes -1), in the cache
+    layout: period-stacked leaves lead with ``n_periods``.  Every
+    attention layer's pool has full ``block_size`` blocks, window layers
+    too: as in the reference, their window is kept by the mask, not by a
+    ring.  Recurrent layers get ``state_batch`` fixed-size state slots
+    instead of blocks (the engine passes max_batch + 1: one slot per
+    engine row and a trash slot for padded dispatch rows)."""
+    def one(kind):
+        if kind in RECURRENT_KINDS:
+            return _init_state(cfg, kind, state_batch, dtype, device)
+        return attn.paged_pool_init(cfg, num_blocks, block_size, dtype,
+                                    device)
+
+    return _to_layout(cfg, [one(kind) for kind in layer_kinds(cfg)])

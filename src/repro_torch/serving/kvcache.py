@@ -2,7 +2,8 @@
 
 The slot engine's cache is batched (leading batch axis = slots):
 ``SlotManager`` tracks which slots are live and ``write_slot`` splices a
-request's prefill cache into its slot.  Freed slots are not zeroed: the
+request's prefill cache (attention strips, or mamba and rwkv6 states)
+into its slot.  Freed slots are not zeroed: the
 next admission's splice overwrites the whole strip, ``pos`` -1 lanes
 included, so stale keys can never win the attention mask.
 
@@ -154,9 +155,14 @@ def _ids(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.long, device=device)
 
 
+# recurrent-state pool leaves (mamba: h, conv; rwkv6: s, x_tm, x_cm): one
+# slot per engine row on the leaf's batch axis, not token blocks
+_STATE_LEAVES = frozenset({"h", "conv", "s", "x_tm", "x_cm"})
+
+
 def write_chunk_tokens(pools: Any, caches: Any, src_rows: Any,
                        src_lanes: Any, dst_blocks: Any,
-                       dst_lanes: Any) -> Any:
+                       dst_lanes: Any, state_rows: Any = None) -> Any:
     """Batched ragged-chunk writeback: scatter every listed token of a
     chunk-batch prefill cache (``Model.prefill_paged``) into its
     (physical block, lane) pool home — one gather and one scatter per
@@ -169,6 +175,12 @@ def write_chunk_tokens(pools: Any, caches: Any, src_rows: Any,
     there race, harmlessly.  In place (the reference rebuilds the pools
     with ``.at[].set``).
 
+    Recurrent-state leaves hold per-request slots instead of token
+    blocks: the cache carries one chunk-exit state per dispatch row and
+    ``state_rows`` (B,) maps row i to its slot.  The engine routes padded
+    dispatch rows to the pool's trash slot (its last row), so duplicate
+    writes land only there, in no defined order, and are never read.
+
     "periods" leaves have batch at axis 1 behind the leading
     ``n_periods`` axis, "rem" leaves at axis 0; pool leaves put
     (num_blocks, block_size) at those same axes.
@@ -179,6 +191,11 @@ def write_chunk_tokens(pools: Any, caches: Any, src_rows: Any,
                 walk(pleaf, cnode[name], lead)
                 continue
             dev = pleaf.device
+            if name in _STATE_LEAVES:
+                assert state_rows is not None, "state pools need state_rows"
+                pleaf[lead + (_ids(state_rows, dev),)] = \
+                    cnode[name].to(pleaf.dtype)
+                continue
             sr, sl = _ids(src_rows, dev), _ids(src_lanes, dev)
             db, dl = _ids(dst_blocks, dev), _ids(dst_lanes, dev)
             vals = cnode[name][lead + (sr, sl)].to(pleaf.dtype)

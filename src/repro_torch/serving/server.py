@@ -9,7 +9,7 @@ Outcomes follow the paper's failure modes: 429 when the balancer or
 Flask is saturated, 503 when a partition is full, 504 on a timeout.
 
 The rest is the port of ``repro.serving.server``'s two engines for
-decoder-only attention stacks.  ``LLMEngine`` is the slot baseline: one
+decoder-only token stacks.  ``LLMEngine`` is the slot baseline: one
 whole-prompt prefill per admission (``Model.prefill``, the
 ``flash_attention`` kernel) or one decode step over every slot.
 ``PagedLLMEngine`` is the production path, with the reference's two
@@ -22,14 +22,17 @@ each emits the tokens of its reference counterpart.  Each engine step is
 eager PyTorch work on ``model.device``; greedy tokens come back to the
 host as integers only.
 
-The slot engine also serves recurrent rwkv6 stacks: their caches are
-the layers' states, spliced into a slot at admission like a strip.
-Sliding-window (``attn_local``) layers serve on both engines: a ring
-strip of ``sliding_window`` lanes in a slot, full blocks in the pool
-with the window kept by the mask, and the paged engine's window
-accounting frees blocks that slide out of the window where no layer is
-global.  Not ported yet, and refused at construction: recurrent stacks
-on the paged engine (their state slots).
+Recurrent layers (mamba, rwkv6) serve on both engines: in the slot
+engine their caches are the layers' states, spliced into a slot at
+admission like a strip; the paged engine keeps one state slot per
+engine row beside the block pool (plus a trash slot for padded dispatch
+rows), with the prefix cache forced off and speculative decoding
+refused, as in the reference.  MoE FFNs serve on both.  Sliding-window
+(``attn_local``) layers serve on both engines: a ring strip of
+``sliding_window`` lanes in a slot, full blocks in the pool with the
+window kept by the mask, and the paged engine's window accounting frees
+blocks that slide out of the window where no layer is global (a pure
+recurrent stack holds at most two blocks a request).
 """
 from __future__ import annotations
 
@@ -459,18 +462,23 @@ class _PrefillState:
 
 
 def ragged_dispatch(model, params, pools, tokens, block_table, starts,
-                    lens, *, block_size: int, all_logits: bool):
+                    lens, *, block_size: int, all_logits: bool,
+                    state_rows=None):
     """One ragged prefill dispatch, as the engine runs it: every row's
     chunk goes through ``Model.prefill_paged`` and its KV is scattered
     into ``pools`` in place.  tokens (R, C) int32 right-padded, row i's
     first token at absolute position ``starts[i]``, ``lens[i]`` valid
-    lanes, ``block_table`` (R, nb) int32 covering every written lane.
+    lanes, ``block_table`` (R, nb) int32 covering every written lane;
+    ``state_rows`` (R,) maps each row to its recurrent-state slot, where
+    its chunk-exit state is written (None: row i is slot i).
     -> logits: (R, C, V) when ``all_logits``, else (R, 1, V) from each
     row's last valid lane."""
     r, c = tokens.shape
+    if state_rows is None:
+        state_rows = torch.arange(r, dtype=torch.int32, device=tokens.device)
     logits, caches = model.prefill_paged(
         params, {"tokens": tokens}, pools, block_table, starts,
-        seq_len=lens, all_logits=all_logits)
+        seq_len=lens, all_logits=all_logits, state_rows=state_rows)
     # lane j of row i holds absolute position start+j, living in block
     # bt[i, (start+j)//bs]; invalid (padding) lanes route to the null
     # block, whose validity lanes are scrubbed right after
@@ -483,7 +491,7 @@ def ragged_dispatch(model, params, pools, tokens, block_table, starts,
     rows = torch.arange(r, device=tokens.device)[:, None].expand(r, c)
     write_chunk_tokens(pools, caches, rows.reshape(-1),
                        lane.expand(r, c).reshape(-1), dst.reshape(-1),
-                       (pos % bs).reshape(-1))
+                       (pos % bs).reshape(-1), state_rows=state_rows)
     scrub_null_block(pools)
     return logits
 
@@ -520,7 +528,14 @@ class PagedLLMEngine(_EngineObsMixin):
         as its cursor passes them, so it never holds more than
         ceil(W/block_size)+1; the prefix cache is then forced off (a
         freed block must never be published).  Inert on stacks with a
-        global layer, gemma3-4b's among them.
+        global layer, gemma3-4b's among them;
+      * recurrent layers (mamba, rwkv6) keep one state slot per engine
+        row beside the pool (``max_batch + 1`` slots, the last a trash
+        slot for padded dispatch rows; ``state_rows`` maps each dispatch
+        row to its slot).  A resumed request re-prefills from position
+        0, where the slot reads as zeros.  State cannot be rebuilt from
+        cached blocks or rolled back, so for such stacks the prefix cache
+        is forced off and speculative decoding refused.
 
     Every prefill chunk goes through ``Model.prefill_paged`` in one
     ragged dispatch: rows pad to a power-of-two row bucket, tokens to a
@@ -560,7 +575,6 @@ class PagedLLMEngine(_EngineObsMixin):
         if not model.supports_paged:
             raise ValueError(f"{model.cfg.name}: paged engine needs a "
                              "decoder-only token stack")
-        model.check_paged()
         if scheduler not in ("continuous", "serial"):
             raise ValueError(f"scheduler must be 'continuous' or 'serial', "
                              f"got {scheduler!r}")
@@ -587,7 +601,16 @@ class PagedLLMEngine(_EngineObsMixin):
         self.eos_id = eos_id
         self.scheduler = scheduler
         self.allocator = BlockAllocator(num_blocks, block_size)
-        self.pools = model.pool_init(num_blocks, block_size)
+        # hybrid stacks: recurrent layers get one fixed-size state slot
+        # per engine row, plus a trash slot (index max_batch) for padded
+        # dispatch rows, beside the block pool
+        self.has_state = model.paged_has_state
+        self.pools = model.pool_init(num_blocks, block_size,
+                                     state_batch=max_batch + 1)
+        if self.has_state and spec_decode != "off":
+            raise ValueError(
+                f"{model.cfg.name}: spec_decode needs roll-backable KV — "
+                "recurrent layer state cannot roll back on draft rejection")
         # the sliding-window residency bound: where every layer's reach
         # is bounded, blocks wholly behind the window are freed eagerly
         # (``_window_shrink``); ``window_accounting=False`` keeps the
@@ -597,8 +620,9 @@ class PagedLLMEngine(_EngineObsMixin):
         self.live_window = lw
         self.window_bound = None if lw is None else -(-lw // block_size) + 1
         self.window_blocks_freed = 0
-        if lw is not None:
-            # a window-freed block must never be published to the radix
+        if self.has_state or lw is not None:
+            # recurrent state cannot be rebuilt from cached blocks, and a
+            # window-freed block must never be published to the radix
             # tree: prefix reuse is off (the gauge reports prefix_cache=0)
             prefix_cache = False
         self.prefix_cache: Optional[PrefixCache] = \
@@ -753,7 +777,8 @@ class PagedLLMEngine(_EngineObsMixin):
             "decode_fusion": int(self._fused_decode),
             "admission_skips": self.admission_skips,
             "window_blocks_freed": self.window_blocks_freed,
-            "state_slots_used": 0,
+            "state_slots_used": (len(self.active) + len(self.prefilling))
+            if self.has_state else 0,
             "spec_decode": self.spec_decode,
             "spec_k": self.spec_k if self.drafter is not None else 0,
             "accepted_tokens_per_step":
@@ -1012,14 +1037,18 @@ class PagedLLMEngine(_EngineObsMixin):
             budget = 0
         return sel, max(budget, 0)
 
-    def _ragged_dispatch(self, rows: List[tuple], *, all_logits: bool):
+    def _ragged_dispatch(self, rows: List[tuple], state_rows=None, *,
+                         all_logits: bool):
         """ONE bucketed masked dispatch over a ragged batch of rows.
         Each row is ``(tokens, start, blocks)``: ``tokens`` (take,) land
         at absolute positions ``[start, start+take)`` and are scattered
         into ``blocks`` in the same dispatch (indices derived on the
-        device; padding lanes land in the scrubbed null block).  Returns
-        greedy tokens on the host: (rows, c_pad) per lane when
-        ``all_logits``, else (rows,) from each row's last valid lane."""
+        device; padding lanes land in the scrubbed null block).
+        ``state_rows`` (one engine row per dispatch row) maps rows to
+        their recurrent-state slots; padding rows go to the trash slot
+        (index ``max_batch``).  Returns greedy tokens on the host:
+        (rows, c_pad) per lane when ``all_logits``, else (rows,) from
+        each row's last valid lane."""
         r_pad = self._bucket_pow2(len(rows))
         # decode-only fused steps are all length-1 windows: dispatch at
         # c_pad=1 instead of padding every lane up to the first bucket
@@ -1037,12 +1066,16 @@ class PagedLLMEngine(_EngineObsMixin):
             starts[i] = start
             lens[i] = len(t)
             bt[i, :len(blocks)] = blocks
+        srows = np.full((r_pad,), self.max_batch, np.int32)   # trash slot
+        if state_rows is not None:
+            srows[:len(state_rows)] = state_rows
         self._prefill_sigs.add((r_pad, c_pad, nb_pad, all_logits))
         dev = self.device
         logits = ragged_dispatch(
             self.model, self.params, self.pools,
             *(torch.from_numpy(a).to(dev) for a in (toks, bt, starts, lens)),
-            block_size=self.block_size, all_logits=all_logits)
+            block_size=self.block_size, all_logits=all_logits,
+            state_rows=torch.from_numpy(srows).to(dev))
         greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         return greedy if all_logits else greedy[:, 0]
 
@@ -1074,7 +1107,8 @@ class PagedLLMEngine(_EngineObsMixin):
         dispatch (the unfused path: the serial scheduler or
         ``decode_fusion=False``)."""
         sel, _ = self._select_chunks()
-        last = self._ragged_dispatch(self._chunk_rows(sel), all_logits=False)
+        last = self._ragged_dispatch(self._chunk_rows(sel),
+                                     [r for r, _ in sel], all_logits=False)
         self._account_chunks(sel, lambda i, take: int(last[i]), now)
 
     def _spec_step(self, now: float) -> List[GenRequest]:
@@ -1099,7 +1133,8 @@ class PagedLLMEngine(_EngineObsMixin):
             (np.asarray(w, np.int32), int(self.pos[r]), self.row_blocks[r])
             for r, w in verify]
         self._decode_batch_last = len(verify)
-        greedy = self._ragged_dispatch(rows, all_logits=True)
+        srows = [r for r, _ in sel] + [r for r, _ in verify]
+        greedy = self._ragged_dispatch(rows, srows, all_logits=True)
         nchunk = len(sel)
         self._account_chunks(sel, lambda i, take: int(greedy[i, take - 1]),
                              now)

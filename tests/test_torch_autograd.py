@@ -1,7 +1,7 @@
 """The kernel wrappers refuse autograd; ``ops.conv2d`` and the plain path
 differentiate.
 
-The six CUDA wrappers fill their outputs through ctypes, so a result
+The seven CUDA wrappers fill their outputs through ctypes, so a result
 would carry no ``grad_fn`` and an input that requires grad would get no
 gradient, silently.  Each raw wrapper raises when grad mode is on and a
 tensor input requires grad (on any device: the check comes before the
@@ -30,6 +30,7 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rw_mod  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss_mod  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from test_torch_kernels import decode_case, prefill_case  # noqa: E402
 
@@ -61,6 +62,14 @@ def kernel_inputs(name, device):
     if name == "paged_prefill":
         args = [t(a) for a in prefill_case(rng, 2, 4, 4, 2, 16, 8)]
         return pp_mod.paged_prefill, pp_mod.KERNEL, args, (0, 1, 2)
+    if name == "ssm_scan":
+        b, s, di, n = 2, 5, 8, ss_mod.STATE_DIM
+        args = [t(np.full((b, s, di), 0.5, np.float32))]
+        args += [t(rng.normal(size=shape).astype(np.float32)) for shape in
+                 ((b, s, n), (b, s, n), (b, s, di))]
+        args += [t(-np.ones((di, n), np.float32)),
+                 t(rng.normal(size=(b, di, n)).astype(np.float32))]
+        return ss_mod.ssm_scan, ss_mod.KERNEL, args, (0, 1, 2, 3, 4, 5)
     shape = (1, 2, 5, 8)
     args = [t(rng.normal(size=shape).astype(np.float32)) for _ in range(3)]
     args += [t(np.full(shape, 0.9, np.float32)),
@@ -70,7 +79,7 @@ def kernel_inputs(name, device):
 
 
 KERNELS = ["conv2d", "conv2d_wgrad", "flash_attention", "paged_attention",
-           "paged_prefill", "rwkv6_scan"]
+           "paged_prefill", "rwkv6_scan", "ssm_scan"]
 
 
 @pytest.mark.parametrize("name", KERNELS)

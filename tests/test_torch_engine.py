@@ -117,7 +117,7 @@ def test_engine_token_identical_to_reference(models, reference_runs,
     assert ops.launch_counts() == {"conv2d": 0, "conv2d_wgrad": 0,
                                    "flash_attention": 0,
                                    "paged_attention": 0, "paged_prefill": 0,
-                                   "rwkv6_scan": 0}
+                                   "rwkv6_scan": 0, "ssm_scan": 0}
     assert runs[True] == ref_outs
     assert runs[False] == ref_outs
     assert len(ref_outs) == sum(len(b) for b in bursts)
@@ -244,8 +244,8 @@ def test_serve_cli_fusion_on_off_same_tokens():
 @pytest.mark.parametrize("argv", [
     ["--engine", "slot", "--replicas", "2"],
     ["--replicas", "2", "--trace-out", "T"],
-    ["--arch", "dbrx-132b"], ["--decode-kernel", "off"],
-    ["--arch", "jamba-1.5-large-398b"],
+    ["--arch", "whisper-tiny"], ["--decode-kernel", "off"],
+    ["--arch", "paligemma-3b"],
     ["--engine", "slot", "--affinity", "off", "--replicas", "2"],
     ["--engine", "slot", "--spec-decode", "ngram"],
 ])
@@ -384,4 +384,9 @@ def test_serve_cli_reduced_flag():
     assert ap.parse_args([]).reduced is True
     assert ap.parse_args(["--no-reduced"]).reduced is False
     assert ap.parse_args([]).device == "cuda"
-    assert ap.parse_args([]).engine == "paged"
+    # --engine resolves to paged where the stack pages, as in the
+    # reference CLI: every stack the port carries
+    args = ap.parse_args(["--device", "cpu", "--arch", "rwkv6-1.6b"])
+    assert args.engine is None
+    serve.build_model(args)
+    assert args.engine == "paged"

@@ -25,7 +25,14 @@ CPU-side checks (plain version against the reference) are in
 ``tests/test_torch_rwkv6.py``.  The WKV6 scan on the card, float32 only
 (the model calls it so): ``atol=rtol=1e-4`` against outputs that reach
 ~100 — the kernel sums each step's 64 terms in another order, and the
-state carries the rounding across up to 200 steps.
+state carries the rounding across up to 200 steps.  mamba's selective
+scan on the card, float32: ``atol=rtol=1e-4`` against outputs of a few
+units (each step's 16-term output sum in another order, ``expf`` against
+``torch.exp``, fused multiply-adds); its CPU-side checks are in
+``tests/test_torch_ssm.py``.  Both scans' masked lanes (``dt = 0``; decay
+1 and key 0) must carry the state through bit for bit.  The attention
+kernels also run at dbrx-132b's and grok-1-314b's heads (48 query / 8 KV
+heads of 128, a group of 6).
 """
 import ctypes
 import re
@@ -43,6 +50,7 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rw_mod  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss_mod  # noqa: E402
 
 ATOL = 1e-5
 
@@ -175,9 +183,9 @@ def test_cuda_sources_export_what_the_wrappers_bind():
     here to check it)."""
     assert build.sources() == ["conv2d", "conv2d_wgrad", "flash_attention",
                                "paged_attention", "paged_prefill",
-                               "rwkv6_scan"]
+                               "rwkv6_scan", "ssm_scan"]
     for kern in (cv_mod.KERNEL, cw_mod.KERNEL, fa_mod.KERNEL, pa_mod.KERNEL,
-                 pp_mod.KERNEL, rw_mod.KERNEL):
+                 pp_mod.KERNEL, rw_mod.KERNEL, ss_mod.KERNEL):
         text = (build.CSRC / f"{kern.library}.cu").read_text()
         for sym, argtypes in ((kern.symbol, kern.argtypes),
                               (kern.smem_symbol, kern.smem_argtypes)):
@@ -686,3 +694,166 @@ def test_paged_attention_kernel_at_head_dim_256(cuda, shape, null_rows,
                                **_tol("paged_attention", dt))
     for r in null_rows:
         assert torch.all(out[r] == 0)
+
+
+# ------------------------------------------------------------ the scans
+# mamba's selective scan, (B, S, di): jamba's width (d_inner 16,384) at a
+# prefill row and a chunk of 64, a full chunk of 256 over 8 rows, and
+# decode steps over 1 and 8 rows; reduced jamba's 512 channels; 200
+# channels (a CTA's last 128 half empty)
+SSM_CARD_SHAPES = [(1, 64, 16384), (8, 256, 16384), (1, 1, 16384),
+                   (8, 1, 16384), (2, 37, 512), (3, 9, 200)]
+
+
+def ssm_case(rng, b, s, di, n=16):
+    """Scan inputs as the model makes them: softplus step sizes around
+    0.3, decays -exp(N(0, 1)), N(0, 1) projections and inputs, a start
+    state."""
+    dt = np.log1p(np.exp(rng.normal(-1.0, 0.5, (b, s, di))))
+    return [dt.astype(np.float32),
+            rng.normal(size=(b, s, n)).astype(np.float32),
+            rng.normal(size=(b, s, n)).astype(np.float32),
+            rng.normal(size=(b, s, di)).astype(np.float32),
+            -np.exp(rng.normal(size=(di, n))).astype(np.float32),
+            rng.normal(size=(b, di, n)).astype(np.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSM_CARD_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_ssm_scan_kernel_matches_plain(cuda, shape, masked):
+    b, s, di = shape
+    rng = np.random.default_rng(sum(shape))
+    t = [torch.from_numpy(a).to(cuda) for a in ssm_case(rng, b, s, di)]
+    lens = torch.from_numpy(rng.integers(1, s + 1, b)).to(cuda)
+    if masked:
+        lanes = torch.arange(s, device=cuda)[None, :]
+        t[0] = torch.where((lanes < lens[:, None])[..., None], t[0], 0.0)
+    n0 = ss_mod.KERNEL.launches
+    y, h = ops.ssm_scan(*t)
+    torch.cuda.synchronize()
+    assert ss_mod.KERNEL.launches == n0 + 1
+    plain_y, plain_h = ref.ssm_scan_ref(*t)
+    torch.testing.assert_close(y, plain_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, plain_h, atol=1e-4, rtol=1e-4)
+    if masked:
+        # the state past a row's length is the state after its valid
+        # lanes, bit for bit
+        for i, n in enumerate(lens.tolist()):
+            _, hi = ops.ssm_scan(*(a[i:i + 1, :n].contiguous()
+                                   for a in t[:4]), t[4],
+                                 t[5][i:i + 1].contiguous())
+            assert torch.equal(h[i:i + 1], hi)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_refuses_what_it_does_not_take(cuda):
+    t = [torch.from_numpy(a).to(cuda) for a in
+         ssm_case(np.random.default_rng(0), 2, 3, 8)]
+    with pytest.raises(ValueError, match="state size"):
+        ss_mod.ssm_scan(*(torch.from_numpy(a).to(cuda) for a in
+                          ssm_case(np.random.default_rng(0), 2, 3, 8, n=8)))
+    with pytest.raises(ValueError, match="contiguous"):
+        ss_mod.ssm_scan(t[0].transpose(0, 1).contiguous().transpose(0, 1),
+                        *t[1:])
+    with pytest.raises(ValueError, match="float32"):
+        ss_mod.ssm_scan(t[0], t[1], t[2], t[3].bfloat16(), t[4], t[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 32, 37, 64), (4, 32, 1, 64)])
+def test_rwkv6_scan_kernel_carries_masked_lanes(cuda, shape):
+    """The masked route's padding (decay 1, key 0 past a row's length)
+    leaves the kernel's final state equal, bit for bit, to its state
+    after the valid lanes only."""
+    b, h, s, hd = shape
+    rng = np.random.default_rng(s)
+    r, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(cuda) for _ in range(3))
+    w = torch.from_numpy(np.exp(-np.exp(rng.normal(size=shape)))
+                         .astype(np.float32)).to(cuda)
+    u = torch.from_numpy(rng.normal(size=(h, hd)).astype(np.float32)
+                         ).to(cuda)
+    s0 = torch.from_numpy(rng.normal(size=(b, h, hd, hd)).astype(np.float32)
+                          * 0.1).to(cuda)
+    lens = [max(1, s - 5 * i) for i in range(b)]
+    pad = torch.tensor([[t >= n for t in range(s)] for n in lens],
+                       device=cuda)[:, None, :, None]
+    _, sf = ops.rwkv6_scan(r, torch.where(pad, 0.0, k), v,
+                           torch.where(pad, 1.0, w), u, s0)
+    for i, n in enumerate(lens):
+        _, want = ops.rwkv6_scan(*(a[i:i + 1, :, :n].contiguous()
+                                   for a in (r, k, v, w)), u,
+                                 s0[i:i + 1].contiguous())
+        assert torch.equal(sf[i:i + 1], want)
+
+
+# dbrx-132b's and grok-1-314b's attention heads (48 query / 8 KV heads of
+# 128: a group of 6): paged_prefill at the fused decode dispatch (8 rows,
+# one lane, 512 prefix lanes) and a chunk (4 rows, S=256), paged_attention
+# over tables of 16 blocks of 16, flash_attention at one causal row of
+# S=512
+MOE_HEADS = (48, 8, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_prefill_kernel_at_moe_heads(cuda, s, dtype):
+    h, kv, hd = MOE_HEADS
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(s)
+    q, k, v, kpos, qpos = (torch.from_numpy(a).to(cuda) for a in
+                           prefill_case(rng, 8 if s == 1 else 4, s, h, kv,
+                                        hd, 512))
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    n0 = pp_mod.KERNEL.launches
+    out = ops.paged_prefill(q, k, v, kpos, qpos)
+    torch.cuda.synchronize()
+    assert pp_mod.KERNEL.launches == n0 + 1
+    plain = ref.paged_prefill_ref(q, k, v, kpos, qpos)
+    lanes = ((kpos[:, None, :] >= 0) &
+             (kpos[:, None, :] <= qpos[:, :, None])).any(-1)
+    torch.testing.assert_close(out[lanes].float(), plain[lanes].float(),
+                               **_tol("paged_prefill", dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_at_moe_heads(cuda, dtype):
+    h, kv, hd = MOE_HEADS
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(48)
+    q, k, v, kp, bt, pos = (torch.from_numpy(a).to(cuda) for a in
+                            decode_case(rng, 8, h, kv, hd, 8 * 16 + 1, 16,
+                                        16, null_rows=(5,)))
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    n0 = pa_mod.KERNEL.launches
+    out = ops.paged_attention(q, k, v, kp, bt, pos)
+    torch.cuda.synchronize()
+    assert pa_mod.KERNEL.launches == n0 + 1
+    plain = ref.paged_attention_ref(q, k, v, kp, bt, pos)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("paged_attention", dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_at_moe_heads(cuda, dtype):
+    h, kv, hd = MOE_HEADS
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(512)
+
+    def operand(heads):
+        return torch.from_numpy(rng.normal(size=(1, 512, heads, hd))
+                                .astype(np.float32)).to(cuda, dt) \
+            .transpose(1, 2)
+
+    q, k, v = operand(h), operand(kv), operand(kv)
+    n0 = fa_mod.KERNEL.launches
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_mod.KERNEL.launches == n0 + 1
+    plain = ref.flash_attention_ref(q, k, v)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("flash_attention", dt))

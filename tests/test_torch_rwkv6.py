@@ -24,8 +24,12 @@ port (``repro_torch``), whose ``ops.rwkv6_scan`` takes its plain version
   order moves activations of magnitude ~1 by ~1e-6 per layer, while a
   wrong shift, mix or decay moves them by >1e-2.  The engine must emit
   the reference engine's tokens exactly.
-* the paged engine, the paged entry points and the serve CLI's default
-  (paged) route refuse recurrent stacks with "not ported" messages.
+* the masked time-mix (right-padded rows with per-row ``seq_len``, the
+  paged engine's ragged chunks) against the reference's masked scan;
+  the paged engine and the serve CLI's default (paged) route serve
+  rwkv6 with the slot engine's tokens, and refuse speculative decoding
+  as the reference does (tests/test_torch_hybrid.py holds the paged
+  path to the reference's).
 """
 import contextlib
 import dataclasses
@@ -47,6 +51,7 @@ from repro.models.api import Model as JaxModel  # noqa: E402
 from repro.serving import stats_schema as jschema  # noqa: E402
 from repro.serving.loadgen import mixed_length_workload  # noqa: E402
 from repro.serving.server import LLMEngine as JaxLLMEngine  # noqa: E402
+from repro.serving.server import PagedLLMEngine as JaxPagedEngine  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -234,10 +239,19 @@ def test_time_mix_matches_reference(pair):
         y0, _ = trwkv.rwkv_time_mix(zeroed, cfg, torch.from_numpy(x),
                                     jax.tree.map(torch.from_numpy, st))
         assert (y0 - ty).abs().max() > 1e-2, leaf
-    with pytest.raises(NotImplementedError, match="seq_len"):
-        trwkv.rwkv_time_mix(flat, cfg, torch.from_numpy(x),
-                            jax.tree.map(torch.from_numpy, st),
-                            seq_len=torch.tensor([7, 3]))
+    # the masked route: rows of 7 and 3 valid lanes (decay 1 and key 0
+    # past them in the port, the reference's frozen scan)
+    sl = np.array([7, 3], np.int32)
+    jy, jst = jrwkv.rwkv_time_mix(_layer(jparams, 1)["mix"], cfg,
+                                  jnp.asarray(x),
+                                  jax.tree.map(jnp.asarray, st),
+                                  seq_len=jnp.asarray(sl))
+    ty, tst = trwkv.rwkv_time_mix(flat, cfg, torch.from_numpy(x),
+                                  jax.tree.map(torch.from_numpy, st),
+                                  seq_len=torch.from_numpy(sl))
+    _check(tst, jst)
+    _check(ty[1, :3], jy[1, :3])
+    _check(ty[0], jy[0])
 
 
 def test_block_prefill_and_decode_match_reference(pair):
@@ -343,19 +357,22 @@ def test_slot_engine_token_identical_to_reference(pair):
 
 
 def test_paged_path_refuses_recurrent_stacks(pair):
-    _, _, tm, tparams = pair
+    """The paged path serves recurrent stacks through state slots, and
+    refuses what they cannot do, as the reference does: speculative
+    decoding (no roll-back of recurrent state); the prefix cache is
+    forced off."""
+    jm, jparams, tm, tparams = pair
     assert tm.supports_paged and tm.paged_has_state
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PagedLLMEngine(tm, tparams, num_blocks=8, block_size=4)
-    with pytest.raises(NotImplementedError, match="recurrent-state slots"):
-        tm.pool_init(8, 4)
-    toks = torch.ones(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tm.prefill_paged(tparams, {"tokens": toks}, None, None, 0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tm.decode_step_paged(tparams, None, None, toks[:, :1],
-                             torch.zeros(1, dtype=torch.int32),
-                             torch.ones(1, dtype=torch.bool))
+    for m, p, cls in ((tm, tparams, PagedLLMEngine),
+                      (jm, jparams, JaxPagedEngine)):
+        with pytest.raises(ValueError, match="cannot roll back"):
+            cls(m, p, num_blocks=8, block_size=4, spec_decode="ngram")
+    pools = tm.pool_init(8, 4, state_batch=3)
+    assert pools["periods"]["slot0"]["s"].shape[:2] == (2, 3)
+    eng = PagedLLMEngine(tm, tparams, num_blocks=8, block_size=4,
+                         prefix_cache=True)
+    assert eng.prefix_cache is None and eng.live_window == 1
+    assert eng.stats()["prefix_cache"] == 0
     qwen = Model(get_config("qwen3-0.6b").reduced(), device="cpu")
     assert qwen.supports_paged and not qwen.paged_has_state
 
@@ -370,8 +387,17 @@ def _serve(*argv):
 
 
 def test_serve_cli_rwkv6_slot_serves_paged_refuses():
+    """The slot engine and the default paged engine serve rwkv6 with the
+    same tokens; the paged route refuses speculative decoding."""
     lines = _serve("--engine", "slot", "--slots", "2")
     assert lines[0].startswith("5 requests, 20 tokens")
     assert "engine=slot" in lines[0]
-    with pytest.raises(SystemExit, match="recurrent-state slots.*not ported"):
-        _serve()
+    paged = _serve()
+    assert "engine=paged" in paged[0]
+
+    def reqs(ls):
+        return [ln for ln in ls if ln.strip().startswith("req ")]
+
+    assert len(reqs(paged)) == 3 and reqs(paged) == reqs(lines)
+    with pytest.raises(ValueError, match="cannot roll back"):
+        _serve("--spec-decode", "ngram")
