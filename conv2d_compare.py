@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time a conv kernel of several checkouts on one card, in turns.
+"""Time a conv kernel or the selective scan of several checkouts on one
+card, in turns.
 
-    python3 conv2d_compare.py [--kernel conv2d|conv2d_wgrad] TREE [TREE ...]
+    python3 conv2d_compare.py [--kernel conv2d|conv2d_wgrad|ssm_scan] TREE [TREE ...]
 
 Each TREE is the root of a checkout holding ``src/repro_torch`` (for
 another commit: ``git archive <commit> | tar -x -C build/<dir>``).  The
@@ -15,7 +16,11 @@ float32) with ``chip_smoke.py``'s two methods: events around one launch
 off) and the floor (one launch on one element), both ways.  ``conv2d``
 (the default): the forward conv at B = 1, 32 and 2000, beside
 ``F.conv2d``.  ``conv2d_wgrad``: the filter gradient at B = 64, 320 and
-2000, beside ``torch.nn.grad.conv2d_weight``.  Prints a line per run,
+2000, beside ``torch.nn.grad.conv2d_weight``.  ``ssm_scan``: mamba's
+selective scan at ``chip_smoke.py``'s ``SSM_SHAPES`` and one row of
+S = 2,048 (jamba's d_inner 16,384), float32, and with bf16 x and y where
+the tree's kernel takes them (no library call computes it: the floor
+stands beside it instead).  Prints a line per run,
 the card's name and power limit, and a JSON object of every reading
 last.  Needs one NVIDIA GPU.
 """
@@ -27,7 +32,37 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-BATCHES = {"conv2d": (1, 32, 2000), "conv2d_wgrad": (64, 320, 2000)}
+BATCHES = {"conv2d": (1, 32, 2000), "conv2d_wgrad": (64, 320, 2000),
+           "ssm_scan": ()}
+
+
+def ssm_child(torch, cs, dev) -> dict:
+    """The tree's ``ssm_scan`` held against its plain version, then timed
+    at ``cs.SSM_TIMED`` in float32 and bf16 x (skipped where the tree's
+    wrapper refuses bf16)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss_mod
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    res = {}
+    for b, s in cs.SSM_TIMED:
+        args = list(cs.ssm_case(torch, gen, dev, b, s))
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            args[3] = args[3].to(dt)
+            try:
+                y, h = ss_mod.ssm_scan(*args)
+            except ValueError:
+                continue
+            py, ph = ref.ssm_scan_ref(*args)
+            torch.testing.assert_close(y.float(), py.float(),
+                                       **cs.KERNEL_TOL["ssm_scan", name])
+            torch.testing.assert_close(h, ph,
+                                       **cs.KERNEL_TOL["ssm_scan", "float32"])
+            fn = (lambda args=tuple(args): ss_mod.ssm_scan(*args))
+            res[f"ssm_scan_{b}x{s}_{name}"] = (cs.time_ms(torch, fn),
+                                               cs.graph_ms(torch, fn))
+    return res
 
 
 def child(tree: Path, kernel: str) -> dict:
@@ -49,6 +84,8 @@ def child(tree: Path, kernel: str) -> dict:
     one = torch.zeros(1, device=dev)
     res = {"floor": (cs.time_ms(torch, lambda: one.add_(1)),
                      cs.graph_ms(torch, lambda: one.add_(1)))}
+    if kernel == "ssm_scan":
+        return {**res, **ssm_child(torch, cs, dev)}
     for b in BATCHES[kernel]:
         x = torch.rand(b, 28, 28, 1, generator=gen, device=dev)
         xn = x.permute(0, 3, 1, 2)

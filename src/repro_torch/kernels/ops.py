@@ -66,9 +66,9 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
 
 
 def ssm_scan(dt, bm, cm, x, a, h0):
-    """Mamba's selective scan: dt / x (B,S,di), bm / cm (B,S,N), a (di,N)
-    float32 decays (negative), h0 (B,di,N) -> (y (B,S,di), h_final
-    (B,di,N)) float32."""
+    """Mamba's selective scan: dt (B,S,di), bm / cm (B,S,N), a (di,N)
+    decays (negative), h0 (B,di,N), float32; x (B,S,di) in the model
+    dtype -> (y (B,S,di) in x's dtype, h_final (B,di,N) float32)."""
     fn = _ss.ssm_scan if _on_cuda(dt) else _ref.ssm_scan_ref
     return fn(dt, bm, cm, x, a, h0)
 

@@ -167,8 +167,9 @@ def ssm_scan_ref(dt, bm, cm, x, a, h0):
     """Mamba's selective scan, one time step at a time in float32
     (float64 for float64 inputs).  dt (B,S,di) step sizes, bm / cm
     (B,S,N) input and output projections, x (B,S,di) the scanned input
-    (cast to float32), a (di,N) the negative state decays, h0 (B,di,N)
-    the start state.  -> (y (B,S,di), h_final (B,di,N)), float32 (or
+    in the model dtype (cast to float32 in the step, as the reference
+    does), a (di,N) the negative state decays, h0 (B,di,N) the start
+    state.  -> (y (B,S,di) in x's dtype, h_final (B,di,N) float32, or
     float64).
 
         h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) B_t
@@ -176,6 +177,7 @@ def ssm_scan_ref(dt, bm, cm, x, a, h0):
     """
     s = dt.shape[1]
     ft = torch.promote_types(dt.dtype, torch.float32)
+    out_dtype = x.dtype
     dt, bm, cm, x, a = (t.to(ft) for t in (dt, bm, cm, x, a))
     h = h0.to(ft)
     ys = []
@@ -183,7 +185,7 @@ def ssm_scan_ref(dt, bm, cm, x, a, h0):
         decay = torch.exp(dt[:, t, :, None] * a[None])
         h = decay * h + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, cm[:, t]))
-    return torch.stack(ys, dim=1), h
+    return torch.stack(ys, dim=1).to(out_dtype), h
 
 
 def conv2d_ref(x, w):

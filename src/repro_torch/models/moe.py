@@ -65,18 +65,25 @@ def _experts(p, kind: str, xe):
     return torch.einsum("becf,efd->becd", h, p["down"])
 
 
+def route(p, cfg: ModelConfig, x):
+    """The router, in float32: x (B,S,D) -> (probs (B,S,E), gates
+    (B,S,K) renormalised over the top k, expert ids (B,S,K))."""
+    logits = x.float() @ p["router"].float()                  # (B,S,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, cfg.num_experts_per_tok,
+                                       dim=-1)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_vals, expert_idx
+
+
 def moe_apply(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,D) -> (y (B,S,D), Switch load-balance loss, a float32
     scalar)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     cap = capacity_for(cfg, s)
-
-    logits = x.float() @ p["router"].float()                  # (B,S,E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)      # (B,S,K)
-    gate_vals = gate_vals / torch.clamp(
-        gate_vals.sum(-1, keepdim=True), min=1e-9)
+    probs, gate_vals, expert_idx = route(p, cfg, x)
 
     # Switch aux loss: E * sum_e(fraction routed top-1 to e * mean prob e)
     frac = F.one_hot(expert_idx[..., 0], e).float().mean(dim=(0, 1))

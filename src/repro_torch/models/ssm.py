@@ -98,9 +98,13 @@ def ssm_forward(p, cfg: ModelConfig, x, state, seq_len=None):
         idx = sl[:, None] + torch.arange(w - 1, device=x.device)[None, :]
         new_conv = torch.gather(xp, 1, idx[..., None].expand(-1, -1, di))
         dt = torch.where((lanes[None, :] < sl[:, None])[..., None], dt, 0.0)
+    # xc in the model dtype: the scan reads it so and writes y in it.  bm
+    # and cm are copied out of the projection: the kernel takes 16-byte
+    # aligned operands, and at one row of one step a column slice counts
+    # as contiguous but starts mid-row
     y, h_final = kernel_ops.ssm_scan(
-        dt.contiguous(), bm.contiguous(), cm.contiguous(),
-        xc.float().contiguous(), a.contiguous(),
-        state["h"].float().contiguous())
-    y = y.to(x.dtype) * F.silu(z)
+        dt.contiguous(), bm.clone(memory_format=torch.contiguous_format),
+        cm.clone(memory_format=torch.contiguous_format), xc.contiguous(),
+        a.contiguous(), state["h"].float().contiguous())
+    y = y * F.silu(z)
     return y @ p["out_proj"], {"h": h_final, "conv": new_conv.contiguous()}

@@ -27,10 +27,15 @@ CPU-side checks (plain version against the reference) are in
 ~100 — the kernel sums each step's 64 terms in another order, and the
 state carries the rounding across up to 200 steps.  mamba's selective
 scan on the card, float32: ``atol=rtol=1e-4`` against outputs of a few
-units (each step's 16-term output sum in another order, ``expf`` against
-``torch.exp``, fused multiply-adds); its CPU-side checks are in
-``tests/test_torch_ssm.py``.  Both scans' masked lanes (``dt = 0``; decay
-1 and key 0) must carry the state through bit for bit.  The attention
+units over up to 2,048 steps (each step's 16-term output sum in another
+order, ``ex2.approx`` of the pre-scaled product against ``torch.exp``,
+fused multiply-adds); with bf16 x and y, ``rtol=2**-7`` (both sides
+round y once: one bf16 ulp) and the float32 ``atol``; its CPU-side
+checks are in ``tests/test_torch_ssm.py`` and
+``tests/test_torch_ssm_dtypes.py``.  Both
+scans' masked lanes (``dt = 0``; decay 1 and key 0) must carry the state
+through bit for bit, and the selective scan cut into calls with its
+state carried must give the bits of one call.  The attention
 kernels also run at dbrx-132b's and grok-1-314b's heads (48 query / 8 KV
 heads of 128, a group of 6).
 """
@@ -698,11 +703,18 @@ def test_paged_attention_kernel_at_head_dim_256(cuda, shape, null_rows,
 
 # ------------------------------------------------------------ the scans
 # mamba's selective scan, (B, S, di): jamba's width (d_inner 16,384) at a
-# prefill row and a chunk of 64, a full chunk of 256 over 8 rows, and
-# decode steps over 1 and 8 rows; reduced jamba's 512 channels; 200
-# channels (a CTA's last 128 half empty)
+# prefill row and a chunk of 64, a full chunk of 256 over 8 rows, decode
+# steps over 1 and 8 rows, and a long document's whole prompt of 2,048 on
+# one row; reduced jamba's 512 channels; 200 channels (a CTA's last 32
+# channels a quarter full)
 SSM_CARD_SHAPES = [(1, 64, 16384), (8, 256, 16384), (1, 1, 16384),
-                   (8, 1, 16384), (2, 37, 512), (3, 9, 200)]
+                   (8, 1, 16384), (1, 2048, 16384), (2, 37, 512),
+                   (3, 9, 200)]
+# bf16 y against the plain version's bf16 y: both round the float32 sum
+# once, so an element may land one bf16 ulp apart (2**-7 of its size);
+# atol the float32 case's, which the sum before rounding may differ by
+SSM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=1e-4, rtol=2 ** -7)}
 
 
 def ssm_case(rng, b, s, di, n=16):
@@ -721,10 +733,13 @@ def ssm_case(rng, b, s, di, n=16):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SSM_CARD_SHAPES)
 @pytest.mark.parametrize("masked", [False, True])
-def test_ssm_scan_kernel_matches_plain(cuda, shape, masked):
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_matches_plain(cuda, shape, masked, x_dtype):
     b, s, di = shape
     rng = np.random.default_rng(sum(shape))
     t = [torch.from_numpy(a).to(cuda) for a in ssm_case(rng, b, s, di)]
+    xdt = getattr(torch, x_dtype)
+    t[3] = t[3].to(xdt)
     lens = torch.from_numpy(rng.integers(1, s + 1, b)).to(cuda)
     if masked:
         lanes = torch.arange(s, device=cuda)[None, :]
@@ -733,9 +748,10 @@ def test_ssm_scan_kernel_matches_plain(cuda, shape, masked):
     y, h = ops.ssm_scan(*t)
     torch.cuda.synchronize()
     assert ss_mod.KERNEL.launches == n0 + 1
+    assert y.dtype == xdt and h.dtype == torch.float32
     plain_y, plain_h = ref.ssm_scan_ref(*t)
-    torch.testing.assert_close(y, plain_y, atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(h, plain_h, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(y.float(), plain_y.float(), **SSM_TOL[xdt])
+    torch.testing.assert_close(h, plain_h, **SSM_TOL[torch.float32])
     if masked:
         # the state past a row's length is the state after its valid
         # lanes, bit for bit
@@ -744,6 +760,41 @@ def test_ssm_scan_kernel_matches_plain(cuda, shape, masked):
                                    for a in t[:4]), t[4],
                                  t[5][i:i + 1].contiguous())
             assert torch.equal(h[i:i + 1], hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_chunk_invariant(cuda, x_dtype):
+    """Each state's update is one fixed expression walked in order, so
+    cutting a sequence into calls with the state carried gives the same
+    bits: one call over S = 256 against calls over 100 and 156 steps,
+    and one call over S = 8 against 8 decode steps (S = 1); and the same
+    rows in a call of 8 (16-step ring slots) and of 2 (32-step ones)."""
+    rng = np.random.default_rng(24)
+    t8 = [torch.from_numpy(a).to(cuda) for a in ssm_case(rng, 8, 256, 16384)]
+    t8[3] = t8[3].to(getattr(torch, x_dtype))
+    t = [a[:2].contiguous() for a in t8[:4]] + [t8[4], t8[5][:2].contiguous()]
+    sms = split.sm_count(torch.device(cuda))
+    assert [ss_mod.slot_steps(b, 16384, t[3].element_size(), sms)
+            for b in (8, 2)] == [16, 32]
+    y, h = ops.ssm_scan(*t)
+    y_all, h_all = ops.ssm_scan(*t8)
+    assert torch.equal(y_all[:2], y) and torch.equal(h_all[:2], h)
+
+    def part(lo, hi, h0):
+        return ops.ssm_scan(*(a[:, lo:hi].contiguous() for a in t[:4]),
+                            t[4], h0)
+
+    y1, h1 = part(0, 100, t[5])
+    y2, h2 = part(100, 256, h1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
+    y8, h8 = part(0, 8, t[5])
+    hs, ys = t[5], []
+    for i in range(8):
+        yi, hs = part(i, i + 1, hs)
+        ys.append(yi)
+    assert torch.equal(torch.cat(ys, 1), y8) and torch.equal(hs, h8)
+    assert torch.equal(y8, y[:, :8])
 
 
 @pytest.mark.cuda
@@ -756,8 +807,20 @@ def test_ssm_scan_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ss_mod.ssm_scan(t[0].transpose(0, 1).contiguous().transpose(0, 1),
                         *t[1:])
+    # x may be float32 or bfloat16 (y follows it); nothing else, and the
+    # other operands are float32 only
     with pytest.raises(ValueError, match="float32"):
-        ss_mod.ssm_scan(t[0], t[1], t[2], t[3].bfloat16(), t[4], t[5])
+        ss_mod.ssm_scan(t[0], t[1], t[2], t[3].half(), t[4], t[5])
+    with pytest.raises(ValueError, match="float32"):
+        ss_mod.ssm_scan(t[0], t[1].bfloat16(), t[2], t[3], t[4], t[5])
+    # 16-byte aligned operands and d_inner a multiple of 8 only
+    bm = torch.empty(t[1].numel() + 1, device=cuda)[1:].view(t[1].shape)
+    bm.copy_(t[1])
+    with pytest.raises(ValueError, match="aligned"):
+        ss_mod.ssm_scan(t[0], bm, *t[2:])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ss_mod.ssm_scan(*(torch.from_numpy(a).to(cuda) for a in
+                          ssm_case(np.random.default_rng(0), 2, 3, 12)))
 
 
 @pytest.mark.cuda

@@ -18,8 +18,17 @@ On the CPU, the same numpy inputs go through ``repro.models.moe`` and
   places: a few bf16 ulps of values ~1).
 * the configs: dbrx-132b, grok-1-314b and jamba-1.5-large-398b are the
   reference's, full and reduced.
+* ``route``, the router ``moe_apply`` takes its experts and gates from,
+  and ``chip_smoke.py``'s ``PinnedRouting``, which records the plain
+  arm's routes and hands them to the kernel arm (the card's model-parity
+  gate for stacks whose mamba layers feed near-tie routers): on the
+  CPU, where both arms run the plain versions, the two arms agree
+  exactly, and every recorded route is taken back.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -167,3 +176,68 @@ def test_bridge_carries_the_moe_trees(arch):
                jax.tree_util.tree_leaves_with_path(bridged)
                if "router" in jax.tree_util.keystr(path)]
     assert routers and all(r.dtype == torch.float32 for r in routers)
+
+
+def test_moe_apply_takes_its_routes_from_route():
+    cfg = _cfg("swiglu", True)
+    tp = params_from_jax(_params(cfg), "cpu")
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 16, cfg.d_model)).astype(np.float32))
+    y, _ = tmoe.moe_apply(tp, cfg, x)
+    probs, gates, idx = tmoe.route(tp, cfg, x)
+    assert idx.shape == gates.shape == (2, 16, cfg.num_experts_per_tok)
+    with mock.patch.object(tmoe, "route",
+                           lambda p, c, v: (probs, gates, idx)):
+        assert torch.equal(tmoe.moe_apply(tp, cfg, x)[0], y)
+    # another token's experts move the output by whole expert outputs
+    with mock.patch.object(tmoe, "route",
+                           lambda p, c, v: (probs, gates, idx.roll(1, 1))):
+        assert (tmoe.moe_apply(tp, cfg, x)[0] - y).abs().max() > 1e-2
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("path", ["paged", "slot"])
+def test_pinned_routing_arms_agree_and_take_every_route(path):
+    """Reduced jamba (a mamba layer, then attention + MoE): the plain arm
+    routes (one MoE layer: paged, one prefill dispatch and one decode
+    step; slot, two prefills and one decode step), the kernel arm takes
+    each route back."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.kvcache import write_slot
+    from repro_torch.serving.server import ragged_dispatch
+
+    cs = _chip_smoke()
+    model = Model(get_config("jamba-1.5-large-398b").reduced(),
+                  device="cpu")
+    params = cs.perturb_mamba(torch, model.init(seed=0), seed=1)
+    routed = []
+    real = tmoe.route
+
+    def counted(p, cfg, x):
+        routed.append(x.shape[:2])
+        return real(p, cfg, x)
+
+    with mock.patch.object(tmoe, "route", counted):
+        pin = cs.PinnedRouting(ops, ref)
+        if path == "paged":
+            rel = cs.model_parity(
+                torch, "cpu", model, params, ops, ref, ragged_dispatch,
+                arms=(("plain", pin.plain), ("kernel", pin.kernel)))
+        else:
+            rel = cs.slot_model_parity(
+                torch, "cpu", model, params, ops, ref, write_slot,
+                arms=(pin.plain, pin.kernel))
+    assert rel == {"prefill": 0.0, "decode": 0.0}
+    assert not pin.seen
+    # the plain arm's routes (the replay routes nothing itself), after
+    # the paged path's prefix dispatch, which runs before either arm
+    want = {"paged": [(4, 200), (4, 96), (4, 1)],
+            "slot": [(1, 150), (1, 37), (3, 1)]}[path]
+    assert [tuple(r) for r in routed] == want
