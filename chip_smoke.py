@@ -25,7 +25,14 @@ then runs its phases, each raising on failure:
    2,048; plain and with ``dt`` 0 past per-row lengths) with x and y in
    float32 and in bf16, beside the scan in float64, a masked row's state
    bit-equal to its unpadded run's, and a chunk cut into two calls with
-   the state carried bit-equal to one call;
+   the state carried bit-equal to one call; the int8 KV cache's variants
+   ``paged_attention_int8`` and ``paged_prefill_int8`` at the decode,
+   chunk (int8 prefixes of 512 and 496 lanes), fused-decode, slot-decode
+   (strips of 256 and 200 lanes, no chunk keys) and verify shapes in
+   bfloat16 and float32, at the dense configs' heads and at gemma3-4b's
+   head_dim 256 (windows 0 and 1,024), each within ``KERNEL_TOL`` of its
+   int8 plain version and bit-equal to the float kernel on the
+   dequantized keys;
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
    random weights): one ragged prefill dispatch and one decode step of
    the paged path, and two whole-prompt prefills and one decode step of
@@ -69,6 +76,20 @@ then runs its phases, each raising on failure:
    at 2 layers in float32 every replica count, affinity on and off, and
    the slot engine emit the same tokens; the serve CLI's ``--replicas
    2 --metrics``;
+4g. the int8 KV cache (run after 4c, on phase 4's qwen3-0.6b weights):
+   ``kv_cache_quant`` through ``launch.serve.build_engine``; model parity
+   int8 kernels vs int8 plain versions (paged: a ragged prefill after a
+   prefix and a decode step; slot: a prompt and 2 decode steps); paged
+   fusion on and off (the tight pool preempts, prefix cache on), n-gram
+   k=4 and the slot engine on the smoke prompts with exact
+   ``paged_prefill_int8`` / ``paged_attention_int8`` launches a dispatch
+   and no float ``paged_prefill`` / ``paged_attention``; tokens/s, steps,
+   preemptions; the pool's K/V bytes a token beside the bf16 pool's; as a
+   reading, the tokens each mode shares with the bf16 cache's run and the
+   top-2 margin at the first flip; at 2 layers in float32 each mode's
+   tokens through the kernels equal its plain versions'; on the CPU
+   tests' reduced config, settings and workload every mode token-
+   identical, as the reference there;
 4d. dense configs: with qwen3 freed, phi4-mini-3.8b at its published
    width (32 layers, 24/8 heads) and qwen1.5-110b at 4 of its 80
    full-width layers (64/8 heads, seeded non-zero q/k/v biases), bf16,
@@ -161,7 +182,11 @@ then runs its phases, each raising on failure:
    bound (bytes counted by dtype), its SFU floor (16 exponentials a
    (row, step, channel) at 16 a clock per SM and the card's top SM
    clock) and its plain version (no library call computes the selective
-   scan), and its ring's slot size; the floor of both methods (one
+   scan), and its ring's slot size; the int8 variants at phase 2's bf16
+   shapes beside their bound (q, the int8 K/V and scales, kpos and the
+   output each moved once), the bf16 kernel on the dequantized keys,
+   their plain versions and SDPA over the dequantized keys (a yardstick:
+   no PyTorch call reads int8 K/V); the floor of both methods (one
    launch on one element).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
@@ -659,6 +684,149 @@ def dense_head_parity(torch, device, ops, ref):
     return errs
 
 
+# the int8 KV cache's kernels (phase 2): the prefix lengths of the
+# ragged prefill's int8 segment beside phase 2's 512, one not a multiple
+# of 64 (31 blocks of 16), and slot strips of 256 and 200 lanes
+INT8_PREFIXES = (512, 496)
+INT8_SLOT_LANES = (256, 200)
+
+
+def int8_decode_args(args):
+    """paged_attention operands (q, k, v pools, kpos, table, pos) -> the
+    int8 entry's: the pools quantized as the model writes them."""
+    from repro_torch.models.attention import _quantize_kv
+
+    q, k, v, kp, bt, pos = args
+    (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
+    return q, k8, v8, ks, vs, kp, bt, pos
+
+
+def int8_prefill_args(args, lp):
+    """paged_prefill operands (q, k, v, kpos, qpos) -> the int8 entry's:
+    the first ``lp`` key lanes an int8 prefix (quantized as the model
+    writes the pool), the rest the chunk in the model dtype."""
+    from repro_torch.models.attention import _quantize_kv
+
+    q, k, v, kpos, qpos = args
+    (k8, ks), (v8, vs) = _quantize_kv(k[:, :lp]), _quantize_kv(v[:, :lp])
+    return (q, k8, v8, ks, vs, kpos[:, :lp].contiguous(),
+            k[:, lp:].contiguous(), v[:, lp:].contiguous(),
+            kpos[:, lp:].contiguous(), qpos)
+
+
+def dequantized_args(torch, ref, args):
+    """An int8 entry's operands -> the float entry's over the same keys,
+    dequantized to q's dtype (and, for the prefill, put before the
+    chunk), what the int8 launch must equal bit for bit."""
+    if len(args) == 8:
+        q, k8, v8, ks, vs, kp, bt, pos = args
+        return (q, ref.dequantize_kv(k8, ks, q.dtype),
+                ref.dequantize_kv(v8, vs, q.dtype), kp, bt, pos)
+    q, k8, v8, ks, vs, kpp, k, v, kpc, qpos = args
+    return (q, torch.cat([ref.dequantize_kv(k8, ks, q.dtype), k], 1),
+            torch.cat([ref.dequantize_kv(v8, vs, q.dtype), v], 1),
+            torch.cat([kpp, kpc], 1), qpos)
+
+
+def int8_kernel_parity(torch, device, ops, ref):
+    """Phase 2, the int8 KV cache's variants: ``paged_attention_int8`` at
+    ``PAGED_DECODE_SHAPES`` and ``paged_prefill_int8`` at the chunk (int8
+    prefixes of ``INT8_PREFIXES`` lanes), fused decode, slot decode
+    (``INT8_SLOT_LANES``, no chunk keys) and verify shapes, bfloat16 and
+    float32, windows 0 and 64; then in bfloat16 at the dense configs'
+    heads (``DENSE_HEADS``) and at gemma3-4b's head_dim 256 in both dtypes,
+    windows 0 and 1,024.  Each launch within ``KERNEL_TOL`` of its int8
+    plain version (valid lanes), and equal, bit for bit, to the float
+    kernel's launch on the dequantized keys.  -> {kernel: max abs error
+    over its bfloat16 cases}."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    errs = {"paged_attention_int8": 0.0, "paged_prefill_int8": 0.0}
+
+    def check(kernel, dtype_name, what, args, window, nulls=()):
+        base = kernel[:-len("_int8")]
+        out = getattr(ops, kernel)(*args, window=window)
+        plain = getattr(ref, f"{kernel}_ref")(*args, window=window)
+        dense = getattr(ops, base)(*dequantized_args(torch, ref, args),
+                                   window=window)
+        torch.cuda.synchronize()
+        if base == "paged_prefill":
+            kpos = torch.cat([args[5], args[8]], 1)
+            lanes = prefill_visible(torch, kpos, args[9], window).any(-1)
+            assert lanes.any()
+            o, pl_ = out[lanes], plain[lanes]
+        else:
+            o, pl_ = out, plain
+        err = (o.float() - pl_.float()).abs().max().item()
+        torch.testing.assert_close(o.float(), pl_.float(),
+                                   **KERNEL_TOL[base, dtype_name])
+        assert torch.equal(out, dense), \
+            f"{kernel} {what}: not bit-equal to {base} on dequantized keys"
+        assert all(torch.all(out[r] == 0) for r in nulls), \
+            "all-null rows must be zeros"
+        log(f"parity {kernel} {dtype_name} {what} window={window}: "
+            f"max_abs_err={err:.3e}, bit-equal to {base} on the "
+            "dequantized keys")
+        if dtype_name == "bfloat16":
+            errs[kernel] = max(errs[kernel], err)
+
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for window in (0, 64):
+            for b, nb, nulls in PAGED_DECODE_SHAPES:
+                args = decode_case(torch, gen, device, dt, b=b, nb=nb,
+                                   null_rows=nulls)
+                check("paged_attention_int8", dtype_name,
+                      f"{b} rows x {nb} blocks", int8_decode_args(args),
+                      window, nulls)
+            for lp in INT8_PREFIXES:
+                args = prefill_case(torch, gen, device, dt, prefix=lp)
+                check("paged_prefill_int8", dtype_name,
+                      f"4 rows S=256 int8 prefix {lp}",
+                      int8_prefill_args(args, lp), window)
+            args = prefill_case(torch, gen, device, dt, b=8, s=1)
+            check("paged_prefill_int8", dtype_name,
+                  "fused decode 8 rows S=1 int8 prefix 512",
+                  int8_prefill_args(args, 512), window)
+            for lanes in INT8_SLOT_LANES:
+                args = slot_decode_case(torch, gen, device, dt, lanes=lanes)
+                check("paged_prefill_int8", dtype_name,
+                      f"slot decode 4 slots of {lanes} int8 lanes",
+                      int8_prefill_args(args, lanes), window)
+            args = verify_case(torch, gen, device, dt)
+            check("paged_prefill_int8", dtype_name,
+                  "spec verify 16 rows S=16 int8 prefix 256",
+                  int8_prefill_args(args, 256), window)
+    dt = torch.bfloat16
+    for arch, (h, kv) in DENSE_HEADS.items():
+        heads = f"{arch} heads ({h}/{kv})"
+        for b, s in ((8, 1), (4, 256)):
+            args = prefill_case(torch, gen, device, dt, b=b, s=s, h=h, kv=kv)
+            check("paged_prefill_int8", "bfloat16",
+                  f"{heads} {b} rows S={s} int8 prefix 512",
+                  int8_prefill_args(args, 512), 0)
+        args = decode_case(torch, gen, device, dt, b=8, h=h, kv=kv, nb=16,
+                           null_rows=(2,))
+        check("paged_attention_int8", "bfloat16", f"{heads} 8 rows x 16 "
+              "blocks", int8_decode_args(args), 0, (2,))
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for window in (0, GEMMA3_WINDOW):
+            for what, kw in GEMMA3_PP_SHAPES:
+                args = prefill_case(torch, gen, device, dt, **kw,
+                                    **GEMMA3_HEADS)
+                lp = kw.get("prefix", 512)
+                check("paged_prefill_int8", dtype_name,
+                      f"head_dim 256 {what} int8 prefix {lp}",
+                      int8_prefill_args(args, lp), window)
+            for nb, nulls in GEMMA3_PA_SHAPES:
+                args = decode_case(torch, gen, device, dt, nb=nb,
+                                   null_rows=nulls, **GEMMA3_HEADS)
+                check("paged_attention_int8", dtype_name,
+                      f"head_dim 256 8 rows x {nb} blocks",
+                      int8_decode_args(args), window, nulls)
+    return errs
+
+
 def ssm_parity(torch, device, ops, ref) -> float:
     """Phase 2, mamba's selective scan at ``SSM_TIMED`` (``SSM_SHAPES``
     and one row of 2,048), x and y in float32 and in bf16, plain and
@@ -731,6 +899,9 @@ def plain_ops(ops, ref):
     run (patching the ops module the models call through)."""
     return mock.patch.multiple(ops, paged_attention=ref.paged_attention_ref,
                                paged_prefill=ref.paged_prefill_ref,
+                               paged_attention_int8=(
+                                   ref.paged_attention_int8_ref),
+                               paged_prefill_int8=ref.paged_prefill_int8_ref,
                                flash_attention=ref.flash_attention_ref,
                                rwkv6_scan=ref.rwkv6_scan_ref,
                                ssm_scan=ref.ssm_scan_ref,
@@ -1780,6 +1951,237 @@ def cluster_phase(torch, ops, serve, model, params, small_model,
     assert lines[at].startswith("8 requests (0 rejected 429), 128 tokens")
     assert lines[at + 1].startswith("[cluster] replicas=2 affinity=on")
     assert "request_ttft_seconds_count 8" in lines, lines
+    return launches
+
+
+# ---------------------------------------------------------------- int8
+
+
+# phase 4g's engine modes under the int8 KV cache: serve-CLI flags over
+# ``SERVE_ARGV`` (32 blocks of 16: the tight pool preempts; prefix cache
+# on), and the slot engine (``SLOT_ARGV``)
+INT8_MODES = {"fusion on": dict(decode_fusion="on"),
+              "fusion off": dict(decode_fusion="off"),
+              "ngram k=4": dict(spec_decode="ngram", spec_k=4),
+              "slot": None}
+# the CPU tests' engine settings and workload (tests/test_torch_kv_quant.py:
+# TIGHT, MODES, _workload), under which every mode of the reference emits
+# the same tokens with the int8 cache
+INT8_TIGHT = dict(num_blocks=10, block_size=4, max_batch=8, max_len=40,
+                  prefix_cache=True)
+INT8_CPU_MODES = {"fused": {}, "fusion_off": dict(decode_fusion=False),
+                  "serial": dict(scheduler="serial"),
+                  "ngram": dict(spec_decode="ngram", spec_k=4),
+                  "roomy": dict(num_blocks=64, prefix_cache=False)}
+
+
+def kv_bytes_per_token(model) -> int:
+    """K/V bytes a token in ``model``'s pools, every layer (int8 values
+    and their float32 scales, or the model dtype; the pos lanes not)."""
+    pools = model.pool_init(2, 1)
+    total = 0
+
+    def walk(node):
+        nonlocal total
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif name != "pos":
+                total += leaf.numel() * leaf.element_size()
+
+    walk(pools)
+    return total // 2
+
+
+def drive_steps(engine, bursts, news, steps_between=3):
+    """How the CPU tests run an engine (``_drive`` in
+    tests/test_torch_kv_quant.py): each burst submitted, a few steps
+    between bursts, then drained."""
+    outs = {}
+
+    def step():
+        for r in engine.step():
+            outs[r.rid] = list(r.out_tokens)
+
+    for burst, burst_news in zip(bursts, news):
+        for p, n in zip(burst, burst_news):
+            engine.submit(p, max_new=n)
+        for _ in range(steps_between):
+            step()
+    while not engine.idle:
+        step()
+    return outs
+
+
+def int8_phase(torch, device, ops, ref, serve, Model, ragged_dispatch,
+               write_slot, validate, sync, smi, model, params, small_model,
+               small_params, prompts) -> dict:
+    """Phase 4g: the int8 KV cache (``kv_cache_quant``) on qwen3-0.6b at
+    its published width (28 layers, bf16, the seeded weights of phase 4),
+    through ``launch.serve.build_engine``: model parity int8 kernels vs
+    int8 plain versions (paged: a ragged prefill after a prefix and a
+    decode step; slot: a prompt and 2 decode steps); the engines of
+    ``INT8_MODES`` on the smoke prompts with exact launches per dispatch
+    (``paged_prefill_int8`` a fused, prefill or verify dispatch,
+    ``paged_attention_int8`` a fusion-off decode step, a layer each; no
+    float ``paged_prefill`` or ``paged_attention``), tokens/s, steps and
+    preemptions; the pool's K/V bytes a token beside the bf16 pool's; as
+    a reading, the tokens each mode shares with the bf16 cache's run of
+    that mode and the top-2 margin at the first flip; then at 2 layers in
+    float32 each mode's tokens through the kernels equal its tokens
+    through the plain versions, and on the CPU tests' reduced config,
+    settings and workload every mode emits the same tokens, as the
+    reference does there.  -> launch counts summed over its runs."""
+    cfg = dataclasses.replace(model.cfg, kv_cache_quant=True)
+    layers = cfg.num_layers
+    qmodel = Model(cfg, device=device)
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+
+    ops.reset_launch_counts()
+    for path, rel in (
+            ("paged", model_parity(torch, device, qmodel, params, ops, ref,
+                                   ragged_dispatch)),
+            ("slot", slot_model_parity(torch, device, qmodel, params, ops,
+                                       ref, write_slot, decode_steps=2))):
+        log(f"model qwen3-0.6b bf16 {layers} layers int8 KV cache {path} path, "
+            f"int8 kernels vs int8 plain versions: prefill rel_err="
+            f"{rel['prefill']:.3e} decode rel_err={rel['decode']:.3e}")
+        assert max(rel.values()) <= MODEL_TOL["bfloat16"], (path, rel)
+    counts = ops.launch_counts()
+    assert counts["paged_prefill"] == counts["paged_attention"] == 0, counts
+    assert counts["paged_prefill_int8"] > 0, counts
+
+    q_bytes, d_bytes = kv_bytes_per_token(qmodel), kv_bytes_per_token(model)
+    log(f"int8 KV cache qwen3-0.6b {layers} layers: {q_bytes:,} K/V bytes a "
+        f"token (int8 values and float32 scales) against {d_bytes:,} in "
+        f"bf16 ({q_bytes / d_bytes:.3f}x)")
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    assert q_bytes == layers * kv * (2 * hd + 2 * 4), q_bytes
+    assert d_bytes == layers * kv * 2 * hd * 2, d_bytes
+
+    def engine_args(flags):
+        if flags is None:
+            args = serve.make_parser().parse_args(SLOT_ARGV)
+            serve.check_args(args)
+            return args
+        return mode_args(serve, **flags)
+
+    def drive(m, args):
+        """One timed run of ``m`` on the smoke prompts (a warm-up first,
+        for the int8 model) -> (outs, secs, counts, stats, run,
+        dispatches)."""
+        if m is qmodel:
+            run_engine(serve.build_engine(args, m, params), prompts[:2], 2,
+                       sync)
+        engine = serve.build_engine(args, m, params)
+        run = {}
+        with counting_dispatches(m) as d:
+            ops.reset_launch_counts()
+            outs, secs = run_engine(engine, prompts, args.max_new, sync, run)
+            counts = ops.launch_counts()
+        return outs, secs, counts, validate(engine.stats()), run, dict(d)
+
+    for mode, flags in INT8_MODES.items():
+        args = engine_args(flags)
+        outs, secs, counts, stats, run, d = drive(qmodel, args)
+        for k, n in counts.items():
+            launches[k] += n
+        ntok = sum(len(t) for t in outs.values())
+        log(f"engine qwen3-0.6b bf16 {layers} layers int8 KV cache {mode}: "
+            f"{len(outs)} requests, {ntok} tokens in {secs:.3f}s "
+            f"({ntok / secs:.1f} tok/s; {smi}), {run['steps']} steps, "
+            f"preemptions={stats.get('preemptions', 0)} "
+            f"decode_kernel={stats.get('decode_kernel', 0)} "
+            f"dispatches={d} launches={counts}")
+        assert len(outs) == len(prompts)
+        assert all(len(t) == args.max_new for t in outs.values())
+        assert counts["paged_prefill"] == counts["paged_attention"] == 0, \
+            counts
+        if flags is None:
+            adm = stats["admissions"]
+            want = {"flash_attention": layers * adm,
+                    "paged_prefill_int8": layers * (run["steps"] - adm),
+                    "paged_attention_int8": 0}
+        else:
+            want = {"flash_attention": 0,
+                    "paged_prefill_int8": layers * d["prefill_paged"],
+                    "paged_attention_int8": layers * d["decode_step_paged"]}
+            if mode != "fusion off":
+                assert d["decode_step_paged"] == 0, d
+            else:
+                assert d["decode_step_paged"] > 0, d
+                # the gauge reads the int8 launches: 1 where the
+                # reference's reads 0 (its kernel reads no int8 pool)
+                assert stats["decode_kernel"] == 1, stats
+            if mode != "ngram k=4":
+                assert stats["preemptions"] >= 1, \
+                    "the pool must be tight enough to preempt"
+        got = {k: counts[k] for k in want}
+        assert got == want, (mode, got, want)
+
+        # a reading: the bf16 cache's run of the same mode
+        bf_outs, bf_secs = drive(model, args)[:2]
+        shared = sum(first_flip(outs[r], bf_outs[r]) for r in outs)
+        flips = [r for r in sorted(outs) if outs[r] != bf_outs[r]]
+        line = (f"  {mode}: the bf16 cache's run just after it "
+                f"{sum(map(len, bf_outs.values())) / bf_secs:.1f} tok/s; "
+                f"{shared} of {ntok} tokens shared with it before each "
+                "request's first flip")
+        if flips:
+            r = flips[0]
+            i = first_flip(outs[r], bf_outs[r])
+            margin, top1, top2 = logit_margin(torch, model, params,
+                                              prompts[r], outs[r][:i])
+            line += (f"; first flip req {r} token {i}: int8 {outs[r][i]}, "
+                     f"bf16 {bf_outs[r][i]}, top-2 margin {margin:.4f} "
+                     f"({top1} vs {top2})")
+        log(line)
+
+    # 2 layers, float32: kernels against plain versions, mode by mode
+    small_q = Model(dataclasses.replace(small_model.cfg, kv_cache_quant=True),
+                    device=device)
+    tokens = {}
+    for mode, flags in INT8_MODES.items():
+        args = engine_args(flags)
+        for arm, ctx in (("kernels", contextlib.nullcontext()),
+                         ("plain", plain_ops(ops, ref))):
+            with ctx:
+                engine = serve.build_engine(args, small_q, small_params)
+                tokens[mode, arm], _ = run_engine(engine, prompts,
+                                                  args.max_new, sync)
+        assert tokens[mode, "kernels"] == tokens[mode, "plain"], mode
+    same = {(a, b): tokens[a, "kernels"] == tokens[b, "kernels"]
+            for a in INT8_MODES for b in INT8_MODES if a < b}
+    assert same == {(a, b): tokens[a, "plain"] == tokens[b, "plain"]
+                    for a, b in same}
+    log("engine qwen3-0.6b float32 2 layers int8 KV cache: each mode's "
+        f"tokens through the kernels equal its plain versions'; modes "
+        f"agreeing: {sorted(k for k, v in same.items() if v)}")
+
+    # the CPU tests' reduced config, settings and workload: every mode
+    # emits the same tokens through the kernels (as the reference does)
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.loadgen import shared_prefix_workload
+    from repro_torch.serving.server import LLMEngine, PagedLLMEngine
+
+    red = Model(dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                                    kv_cache_quant=True), device=device)
+    red_params = red.init(seed=0)
+    wl = shared_prefix_workload(num_requests=6, prefix_len=10, suffix_len=7,
+                                vocab_size=red.cfg.vocab_size,
+                                num_prefixes=2, seed=4)
+    bursts, news = [wl.prompts[:3], wl.prompts[3:]], [[8] * 3, [8] * 3]
+    outs = {mode: drive_steps(PagedLLMEngine(red, red_params,
+                                             **{**INT8_TIGHT, **kw}),
+                              bursts, news)
+            for mode, kw in INT8_CPU_MODES.items()}
+    outs["slot"] = drive_steps(LLMEngine(red, red_params, num_slots=8,
+                                         cache_max=64), bursts, news)
+    assert all(o == outs["fused"] for o in outs.values()), \
+        {m: o == outs["fused"] for m, o in outs.items()}
+    log(f"engine qwen3-0.6b reduced float32 int8 KV cache, the CPU tests' "
+        f"settings: {sorted(outs)} token-identical")
+    del qmodel, small_q, red, red_params
     return launches
 
 
@@ -3061,6 +3463,109 @@ def plan_sweep(torch, mod, fn, names, forced):
     return sweep
 
 
+def int8_kernel_times(torch, device, ops, ref):
+    """Phase 7, the int8 KV cache's variants in bfloat16 at phase 2's
+    shapes: ``paged_attention_int8`` at the decode shape (8 rows x 32
+    blocks of 16) and at the dense configs' and gemma3-4b's heads (tables
+    of 16 blocks); ``paged_prefill_int8`` at a chunk (4 rows, S=256, an
+    int8 prefix of 512), fused decode (8 rows, S=1), slot decode (4 slots
+    of 256 int8 lanes) and spec verify, and fused decode at the dense and
+    gemma3-4b heads.  Each by events and by graph replay, beside the bf16
+    kernel on the same keys dequantized (the float entry), its int8 plain
+    version, and SDPA over the dequantized bf16 keys as a yardstick (no
+    PyTorch call reads int8 K/V, so no library time).  Bytes: q read and
+    the output written, the int8 K/V and their scales of the visible
+    prefix keys (the decode: of the live blocks, with their kpos lanes,
+    the table and pos), the chunk's visible bf16 K/V, kpos and qpos; the
+    operations as the float rows'.  -> {key: record}."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    spec_gen = torch.Generator(device=device).manual_seed(6)
+    dt = torch.bfloat16
+    elt = 2
+    out = {}
+
+    def record(key, what, int8_args, bytes_, flops, sdpa_call):
+        base = "paged_attention" if len(int8_args) == 8 else "paged_prefill"
+        kernel = getattr(ops, f"{base}_int8")
+        plain = getattr(ref, f"{base}_int8_ref")
+        dense = dequantized_args(torch, ref, int8_args)
+        fn = lambda a=int8_args: kernel(*a)                    # noqa: E731
+        bf = lambda a=dense: getattr(ops, base)(*a)            # noqa: E731
+        out[key] = dict(
+            kernel=f"{base}_int8", what=what,
+            ms=time_ms(torch, fn), graph_ms=graph_ms(torch, fn),
+            bf16_ms=time_ms(torch, bf), bf16_graph_ms=graph_ms(torch, bf),
+            plain_ms=time_ms(torch, lambda a=int8_args: plain(*a)),
+            sdpa_ms=time_ms(torch, sdpa_call),
+            sdpa_graph_ms=graph_ms(torch, sdpa_call),
+            library_ms=None, bytes=bytes_, flops=flops)
+
+    def decode(key, what, args):
+        q, k, v, kp, bt, pos = args
+        b, h, hd = q.shape
+        bs, kv = k.shape[1], k.shape[2]
+        vis = decode_visible(torch, kp, bt, pos, 0)
+        live = int(vis.reshape(b, -1, bs).any(-1).sum())
+        i8 = int8_decode_args(args)
+        deq = dequantized_args(torch, ref, i8)
+        gk = deq[1][bt.long()].reshape(b, -1, kv, hd).transpose(1, 2)
+        gv = deq[2][bt.long()].reshape(b, -1, kv, hd).transpose(1, 2)
+        record(key, what, i8,
+               2 * q.numel() * elt + bt.numel() * 4 + pos.numel() * 4
+               + live * (2 * bs * kv * hd + 2 * bs * kv * 4 + bs * 4),
+               4 * hd * h * int(vis.sum()),
+               lambda q=q, gk=gk, gv=gv, mask=vis[:, None, None, :]:
+               sdpa(torch, q[:, :, None], gk, gv, mask))
+
+    def prefill(key, what, args, lp):
+        q, k, v, kpos, qpos = args
+        b, s, h, hd = q.shape
+        kv = k.shape[2]
+        vis = prefill_visible(torch, kpos, qpos, 0)
+        seen = vis.any(1)                                    # (B, L)
+        i8 = int8_prefill_args(args, lp)
+        deq = dequantized_args(torch, ref, i8)
+        record(key, what, i8,
+               2 * q.numel() * elt + kpos.numel() * 4 + qpos.numel() * 4
+               + int(seen[:, :lp].sum()) * 2 * kv * (hd + 4)
+               + int(seen[:, lp:].sum()) * 2 * kv * hd * elt,
+               4 * hd * h * int(vis.sum()),
+               lambda d=deq, mask=vis[:, None]:
+               sdpa(torch, *(t.transpose(1, 2) for t in d[:3]), mask))
+
+    decode("paged_attention_int8", "paged decode (8 rows, 32 blocks of "
+           "16, 16/8 heads)", decode_case(torch, gen, device, dt))
+    prefill("paged_prefill_int8", "a chunk (4 rows, S=256, an int8 "
+            "prefix of 512)", prefill_case(torch, gen, device, dt), 512)
+    prefill("paged_prefill_int8_s1", "fused decode (8 rows, S=1, an int8 "
+            "prefix of 512)", prefill_case(torch, gen, device, dt, b=8,
+                                           s=1), 512)
+    prefill("paged_prefill_int8_slot", "slot decode (4 slots of 256 int8 "
+            "lanes, no chunk keys)",
+            slot_decode_case(torch, gen, device, dt), 256)
+    prefill("paged_prefill_int8_verify", "spec verify (16 rows, S=16, an "
+            "int8 prefix of 256)", verify_case(torch, spec_gen, device, dt),
+            256)
+    heads = {arch: dict(h=h, kv=kv) for arch, (h, kv) in DENSE_HEADS.items()}
+    heads["gemma3-4b"] = GEMMA3_HEADS
+    for arch, kw in heads.items():
+        n = f"{kw['h']}/{kw['kv']}" + (f" of {kw['hd']}" if "hd" in kw
+                                       else "")
+        decode(f"paged_attention_int8_{arch}", f"paged decode (8 rows, 16 "
+               f"blocks of 16) at {arch}'s heads ({n})",
+               decode_case(torch, gen, device, dt, nb=16, null_rows=(2,),
+                           **kw))
+        prefill(f"paged_prefill_int8_s1_{arch}", f"fused decode (8 rows, "
+                f"S=1, an int8 prefix of 512) at {arch}'s heads ({n})",
+                prefill_case(torch, gen, device, dt, b=8, s=1, **kw), 512)
+    for rec in out.values():
+        t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = rec["flops"] / PEAK_FLOPS["bfloat16"] * 1e3
+        rec["bound_ms"] = max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
 def kernel_times(torch, device, ops, ref):
     """Phase 7, at the parity phase's main-path shapes, the attention
     kernels in bfloat16 with window 0, ``rwkv6_scan``, ``ssm_scan`` and
@@ -3523,6 +4028,39 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def int8_ptxas(build):
+    """``ptxas -v`` of the int8 KV cache's instantiations (the pools'
+    element type ``signed char``, ``paged_prefill``'s kQuant ones) ->
+    [(function, its "Used ..." line, its spill line)], names demangled by
+    ``cu++filt`` where the toolkit has it."""
+    import re
+    import shutil
+
+    entries = []
+    for lib in ("paged_attention", "paged_prefill"):
+        text = (build.BUILD_DIR / f"{lib}.log").read_text().splitlines()
+        fn = spill = None
+        for line in text:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn, spill = m.group(1), None
+            elif fn and "spill" in line:
+                spill = line.strip()
+            elif fn and "Used" in line and "registers" in line:
+                entries.append((fn, line.split(":", 1)[-1].strip(), spill))
+                fn = None
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if Path(filt).exists() and entries:
+        res = subprocess.run([filt], input="\n".join(e[0] for e in entries),
+                             capture_output=True, text=True, timeout=60)
+        names = res.stdout.splitlines()
+        if len(names) == len(entries):
+            entries = [(n, u, s) for n, (_, u, s) in zip(names, entries)]
+    return [e for e in entries
+            if "signed char" in e[0] or "(bool)1>" in e[0]
+            or ", true>" in e[0]]
+
+
 def main() -> int:
     import torch
 
@@ -3551,6 +4089,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
+    t_start = time.perf_counter()
+
+    def phase_done(name):
+        log(f"phase {name} done at {time.perf_counter() - t_start:.1f}s")
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -3563,12 +4105,30 @@ def main() -> int:
         for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    for fn, used, spill in int8_ptxas(build):
+        log(f"  ptxas int8 instantiation {fn}: {used}; {spill}")
+    from repro_torch.kernels import paged_attention as pa_mod
+    from repro_torch.kernels import paged_prefill as pp_mod
+
+    for h, kv, hd in ((16, 8, 128), (64, 8, 128), (8, 4, 256)):
+        tq = min(pp_mod.ROWS_PER_CTA // (h // kv), 256)
+        log(f"  dynamic shared memory at {h}/{kv} heads of {hd}, bf16 "
+            f"(float entry / int8 entry): paged_attention "
+            f"{pa_mod.KERNEL.smem_bytes(1, h, kv, hd, 16)} / "
+            f"{pa_mod.KERNEL_INT8.smem_bytes(1, h, kv, hd, 16)} bytes, "
+            f"paged_prefill {pp_mod.KERNEL.smem_bytes(1, h, kv, hd, tq)} / "
+            f"{pp_mod.KERNEL_INT8.smem_bytes(1, h, kv, hd, tq)}")
+
+    phase_done("1")
 
     # 2. kernel parity, then at the dense configs' heads
     errs = kernel_parity(torch, device, ops, ref)
     for k, err in dense_head_parity(torch, device, ops, ref).items():
         errs[k] = max(errs[k], err)
+    errs.update(int8_kernel_parity(torch, device, ops, ref))
     errs["ssm_scan"] = ssm_parity(torch, device, ops, ref)
+
+    phase_done("2")
 
     # 3. model at full width, paged and slot paths
     full = get_config("qwen3-0.6b")
@@ -3587,6 +4147,8 @@ def main() -> int:
                 f"decode rel_err={rel['decode']:.3e}")
             assert max(rel.values()) <= tol, (path, rel)
         del model, params
+
+    phase_done("3")
 
     # 4. engine through the serve path
     args = serve.make_parser().parse_args(SERVE_ARGV)
@@ -3692,17 +4254,33 @@ def main() -> int:
     assert tokens["slot"] == tokens["on"], "slot and paged tokens differ"
     log("engine float32 paged fusion on/off and slot: token-identical")
 
+    phase_done("4")
+
     # 4b. the serial scheduler, speculative decoding, observability
     for k, n in engine_features_phase(torch, ops, ref, serve, model, params,
                                       small_model, small_params, prompts,
                                       sync, validate, smi).items():
         launches[k] += n
 
+    phase_done("4b")
+
     # 4c. the cluster tier: replicas of the one qwen3-0.6b weight copy
     for k, n in cluster_phase(torch, ops, serve, model, params, small_model,
                               small_params, prompts, sync, validate,
                               smi).items():
         launches[k] += n
+
+    phase_done("4c")
+
+    # 4g. the int8 KV cache on the same qwen3-0.6b weights (run here, while
+    # they are loaded)
+    for k, n in int8_phase(torch, device, ops, ref, serve, Model,
+                           ragged_dispatch, write_slot, validate, sync, smi,
+                           model, params, small_model, small_params,
+                           prompts).items():
+        launches[k] += n
+
+    phase_done("4g")
 
     # 4d. phi4-mini-3.8b and qwen1.5-110b, the qwen3 models freed first
     del model, params, small_model, small_params, engine
@@ -3712,6 +4290,8 @@ def main() -> int:
                             smi).items():
         launches[k] += n
 
+    phase_done("4d")
+
     # 4e. gemma3-4b at its published width: windowed layers, head_dim 256
     g_launches, g_errs = gemma3_phase(torch, device, ops, ref, serve,
                                       ragged_dispatch, validate, sync, smi)
@@ -3720,18 +4300,26 @@ def main() -> int:
     for k, err in g_errs.items():
         errs[k] = max(errs[k], err)
 
+    phase_done("4e")
+
     # 4f. dbrx-132b, grok-1-314b and jamba-1.5-large-398b: MoE and mamba
     for k, n in moe_phase(torch, device, ops, ref, serve, Model,
                           ragged_dispatch, write_slot, validate, sync,
                           smi).items():
         launches[k] += n
 
+    phase_done("4f")
+
     # 5. rwkv6-1.6b through the slot and paged engines
     launches["rwkv6_scan"] += rwkv6_phase(torch, device, ops, ref, serve,
                                           Model, write_slot, validate, sync)
 
+    phase_done("5")
+
     # 6. the paper's digit pipeline
     errs["conv2d"], launches["conv2d"] = digit_phase(torch, device, ops, ref)
+
+    phase_done("6")
 
     # 6b. the digit pipeline trained on the card
     errs["conv2d_wgrad"], train_counts = training_phase(torch, device, ops,
@@ -3741,8 +4329,12 @@ def main() -> int:
     launches["conv2d"] += train_counts["conv2d"]
     launches["conv2d_wgrad"] = train_counts["conv2d_wgrad"]
 
+    phase_done("6b")
+
     # 7. times
     times = kernel_times(torch, device, ops, ref)
+    int8_times = int8_kernel_times(torch, device, ops, ref)
+    phase_done("7")
     one = torch.zeros(1, device=device)
     log(f"time floor: one launch on one element (add_), same timing: "
         f"{time_ms(torch, lambda: one.add_(1)):.4f} ms; graph-replayed: "
@@ -3824,6 +4416,30 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "graph_ms": t["graph_ms"]})
+    for key, t in int8_times.items():
+        log(f"time {t['kernel']} bf16 at {t['what']}: {t['ms']:.4f} ms "
+            f"(graph-replayed {t['graph_ms']:.4f}), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes), "
+            f"the bf16 kernel on the dequantized keys {t['bf16_ms']:.4f} ms "
+            f"(graph-replayed {t['bf16_graph_ms']:.4f}; int8 / bf16 graph "
+            f"{t['graph_ms'] / t['bf16_graph_ms']:.2f}), plain "
+            f"{t['plain_ms']:.4f} ms, no library call reads int8 K/V (SDPA "
+            f"over the dequantized bf16 keys {t['sdpa_ms']:.4f} ms, "
+            f"graph-replayed {t['sdpa_graph_ms']:.4f})")
+    for name, key, replaces in (
+            ("paged_attention_int8", "paged_attention_int8",
+             "src/repro/kernels/paged_attention.py:96"),
+            ("paged_prefill_int8", "paged_prefill_int8",
+             "src/repro/kernels/ops.py:87")):
+        t = int8_times[key]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name[:-len('_int8')]}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
             "graph_ms": t["graph_ms"]})
     t = times["paged_attention"]
     sweep = ", ".join(f"{nb} blocks / {c}: {ms:.4f}"

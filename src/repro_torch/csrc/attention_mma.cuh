@@ -44,6 +44,18 @@
 // its output; otherwise each piece writes its rows' float32 (m, l, acc)
 // to scratch and combine_pieces merges them by log-sum-exp.  Rows that
 // see no key come out 0.
+//
+// int8 prefix (kQuant, the int8 KV cache's ragged prefill): keys [0, Lp)
+// are int8 rows with a float32 scale each, keys [Lp, Sk) the chunk's own
+// bf16 rows, and the tile loader picks a key's source by its index (a
+// tile may straddle Lp, a multiple of the block size and not of 64).  A
+// tile's int8 rows are copied 16 elements a cp.async into a staging
+// buffer of their own, beside their scales; once they are in, the CTA
+// converts them to bf16 in the K or V tile (int8 times its scale in
+// float32, rounded to bf16: the reference's dequantization) and the tile
+// goes through the same ldmatrix / mma.sync path as a bf16 one, two more
+// barriers a tile.  So a launch equals, bit for bit, the bf16 launch over
+// the concatenated dequantized keys.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,8 +86,17 @@ struct Params {
   const bf16* v;
   bf16* out;
   Strides qs, ks, vs, os;
-  const int* kpos;   // (B, Sk) key positions, paged only
+  const int* kpos;   // (B, Sk) key positions, paged only (kQuant: the
+                     // chunk's, (B, Sk - Lp))
   const int* qpos;   // (B, Sq) query positions, paged only
+  // kQuant only: the int8 prefix, keys [0, Lp): k8 / v8 (B, Lp, KV, hd),
+  // their float32 scales (B, Lp, KV), positions kpos8 (B, Lp)
+  const int8_t* k8;
+  const int8_t* v8;
+  const float* k8_scale;
+  const float* v8_scale;
+  const int* kpos8;
+  int Lp;
   int B, KV, g, Sq, Sk, TQ, window, causal;
   int n_qtiles;      // ceil(Sq / TQ)
   int C;             // key tiles per piece
@@ -214,11 +235,13 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes,
 // head dims past 128 keep Q in shared memory (see the header)
 __host__ __device__ constexpr bool q_in_smem(int hd) { return hd > 128; }
 
-__host__ __device__ constexpr size_t smem_bytes(int hd) {
+__host__ __device__ constexpr size_t smem_bytes(int hd, bool quant = false) {
   // a K and a V tile (and at q_in_smem a Q tile of kRows = kTK rows),
-  // then K's key positions and the rows' lanes and heads
+  // then K's key positions and the rows' lanes and heads; kQuant: the
+  // int8 staging of a K and a V tile and their scales
   return (size_t)(q_in_smem(hd) ? 3 : 2) * kTK * (hd + kPad) * sizeof(bf16) +
-         (kTK + 2 * kRows) * sizeof(int);
+         (kTK + 2 * kRows) * sizeof(int) +
+         (quant ? (size_t)2 * kTK * (hd + sizeof(float)) : 0);
 }
 
 // ------------------------------------------------------------ the tile
@@ -245,8 +268,10 @@ __device__ __forceinline__ float row_reduce(const float (&s)[NB][4], int i) {
 // batch row), piece slowest.  kPaged: key and query positions come from
 // p.kpos / p.qpos and tiles no query of the CTA can see are skipped;
 // otherwise they are the key and query indices.
-template <int HD, bool kPaged, bool kCausal, bool kSplitP, bool kWarpKeys>
+template <int HD, bool kPaged, bool kCausal, bool kSplitP, bool kWarpKeys,
+          bool kQuant = false>
 __device__ __forceinline__ void attend_piece(const Params& p) {
+  static_assert(!kQuant || kPaged, "an int8 prefix is the paged kernel's");
   static_assert(HD % 16 == 0 && HD <= 256, "head_dim: a multiple of 16");
   static_assert(kRows == kTK, "a Q tile is laid out as a K tile");
   constexpr bool kQSmem = q_in_smem(HD);
@@ -264,6 +289,11 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
                                                      kPitch);
   int* const sRowS = sPos + kTK;     // row r -> its query lane, or -1
   int* const sRowH = sRowS + kRows;  // row r -> its query head
+  // kQuant: int8 staging of a K and a V tile, then their scales
+  int8_t* const sK8 = reinterpret_cast<int8_t*>(sRowH + kRows);
+  int8_t* const sV8 = sK8 + kTK * HD;
+  float* const sKs = reinterpret_cast<float*>(sV8 + kTK * HD);
+  float* const sVs = sKs + kTK;
 
   const int bkv = p.B * p.KV;
   const int x = blockIdx.x / bkv;
@@ -285,6 +315,12 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
 
   auto query_pos = [&](int s) -> int {
     return kPaged ? __ldg(p.qpos + (size_t)b * p.Sq + s) : s;
+  };
+  // where key `key`'s position lives: the int8 prefix's or the chunk's
+  const int lp = kQuant ? p.Lp : 0;
+  auto key_pos_ptr = [&](int key) -> const int* {
+    if (kQuant && key < lp) return p.kpos8 + (size_t)b * lp + key;
+    return p.kpos + (size_t)b * (p.Sk - lp) + (key - lp);
   };
   // row r = (query lane s0 + r / g, head kvh * g + r % g); real rows: r < R
   // and the lane < s_end.  One division per row, into a table.
@@ -344,7 +380,6 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
         // lane l takes keys l, l + 32, ...; key t*64 + 32i + l is in tile
         // t + i/2
         mask_base = t;
-        const int* kp = p.kpos + (size_t)b * p.Sk;
         const int k0 = t * kTK;
         const int k_begin = max(key_lo, k0);
         const int k_end = min(key_hi, min(tb, t + 32) * kTK);
@@ -353,7 +388,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
         for (int i = 0; i < 2 * 32; ++i) {
           const int key = k0 + 32 * i + lane;
           if (key >= k_begin && key < k_end) {
-            const int pos = __ldg(kp + key);
+            const int pos = __ldg(key_pos_ptr(key));
             if (pos >= 0 && pos <= chi &&
                 (p.window == 0 || clo - pos < p.window))
               bits |= 1u << (i / 2);
@@ -373,26 +408,82 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   const int kr0 = tid / kChunks, kch = tid % kChunks;
   const bf16* const kbase = p.k + b * p.ks.b + kvh * p.ks.h + kch * 8;
   const bf16* const vbase = p.v + b * p.vs.b + kvh * p.vs.h + kch * 8;
-  // the thread's rows of tile t, from base (rows `stride` apart) to dst
+  // the thread's rows of tile t, from base (rows `stride` apart) to dst;
+  // kQuant: the chunk's rows only (row key - Lp of base), the prefix's
+  // int8 rows go through load_rows8
   auto load_rows = [&](bf16* dst, const bf16* base, long long stride,
                        int t) {
     const int k0 = t * kTK;
 #pragma unroll
     for (int i = 0; i < kTK / kStep; ++i) {
       const int r = kr0 + i * kStep, key = k0 + r;
+      if (kQuant && key < lp) continue;
       const bool ok = key >= key_lo && key < key_hi;
-      cp_async16(dst + r * kPitch + kch * 8, ok ? base + key * stride : base,
+      cp_async16(dst + r * kPitch + kch * 8,
+                 ok ? base + (key - lp) * stride : base, ok);
+    }
+  };
+  // kQuant: tile t's int8 prefix rows, 16 elements a copy, into the
+  // staging dst8, and their scales into dscale
+  constexpr int kChunks8 = HD / 16;
+  auto load_rows8 = [&](int8_t* dst8, float* dscale, const int8_t* src8,
+                        const float* scale, int t) {
+    const int k0 = t * kTK;
+    const int8_t* const base8 = src8 + ((size_t)b * lp * p.KV + kvh) * HD;
+    for (int c = tid; c < kTK * kChunks8; c += kThreads) {
+      const int r = c / kChunks8, key = k0 + r;
+      if (key >= lp) continue;
+      const bool ok = key >= key_lo && key < key_hi;
+      cp_async16(dst8 + r * HD + (c % kChunks8) * 16,
+                 ok ? base8 + (size_t)key * p.KV * HD + (c % kChunks8) * 16
+                    : base8,
                  ok);
+    }
+    if (tid < kTK && k0 + tid < lp) {
+      const int key = k0 + tid;
+      const bool ok = key >= key_lo && key < key_hi;
+      const float* const sb = scale + (size_t)b * lp * p.KV + kvh;
+      cp_async4(dscale + tid, ok ? sb + (size_t)key * p.KV : sb, ok);
+    }
+  };
+  // kQuant, once tile t's staged rows are in: dst's prefix rows = int8 x
+  // scale in float32, rounded to bf16 (16 elements a thread a pass)
+  auto convert8 = [&](bf16* dst, const int8_t* src8, const float* scale,
+                      int t) {
+    const int k0 = t * kTK;
+    for (int c = tid; c < kTK * kChunks8; c += kThreads) {
+      const int r = c / kChunks8, ch = c % kChunks8;
+      if (k0 + r >= lp) continue;
+      const float sc = scale[r];
+      const uint4 raw = *reinterpret_cast<const uint4*>(src8 + r * HD +
+                                                        ch * 16);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      uint32_t o[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t x = w[i / 2] >> (16 * (i % 2));
+        const int8_t lo = static_cast<int8_t>(static_cast<uint8_t>(x));
+        const int8_t hi = static_cast<int8_t>(static_cast<uint8_t>(x >> 8));
+        o[i] = pack_bf16(static_cast<float>(lo) * sc,
+                         static_cast<float>(hi) * sc);
+      }
+      uint4* const out = reinterpret_cast<uint4*>(dst + r * kPitch + ch * 16);
+      out[0] = make_uint4(o[0], o[1], o[2], o[3]);
+      out[1] = make_uint4(o[4], o[5], o[6], o[7]);
     }
   };
   auto load_k = [&](int t) {
     load_rows(sK, kbase, p.ks.s, t);
+    if constexpr (kQuant) load_rows8(sK8, sKs, p.k8, p.k8_scale, t);
     if (kPaged && tid < kTK) {
       const int key = t * kTK + tid;
       const bool ok = key >= key_lo && key < key_hi;
-      cp_async4(sPos + tid, ok ? p.kpos + (size_t)b * p.Sk + key : p.kpos,
-                ok);
+      cp_async4(sPos + tid, ok ? key_pos_ptr(key) : p.qpos, ok);
     }
+  };
+  auto load_v = [&](int t) {
+    load_rows(sV, vbase, p.vs.s, t);
+    if constexpr (kQuant) load_rows8(sV8, sVs, p.v8, p.v8_scale, t);
   };
 
   // the first K tile (it joins Q's copy group)
@@ -401,6 +492,9 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
+  // (the barrier after Q's fragments below publishes the converted tile)
+  if constexpr (kQuant)
+    if (t < tb) convert8(sK, sK8, sKs, t);
 
   // Q's A fragment of dims [16 kk, 16 kk + 16) for the warp's rows
   auto q_frag = [&](uint32_t (&r)[4], int kk) {
@@ -425,7 +519,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   // K(t) is in shared memory at the top of each pass; V(t) loads while
   // S = Q K(t) and the softmax run, K(next) while P V(t) runs
   while (t < tb) {
-    load_rows(sV, vbase, p.vs.s, t);
+    load_v(t);
     cp_async_commit();
     const int k0 = t * kTK;
 
@@ -534,6 +628,10 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
     __syncthreads();  // V(t) is in; every warp is done with K(t)
     if (tn < tb) load_k(tn);
     cp_async_commit();
+    if constexpr (kQuant) {
+      convert8(sV, sV8, sVs, t);
+      __syncthreads();  // V(t) is whole in bf16
+    }
 
     // acc += P V: P's C fragments of keys 16kk.. are the A fragment
 #pragma unroll
@@ -566,6 +664,10 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
     }
     cp_async_wait<0>();
     __syncthreads();  // K(tn) is in; every warp is done with V(t)
+    if constexpr (kQuant) {
+      if (tn < tb) convert8(sK, sK8, sKs, tn);
+      __syncthreads();  // K(tn) is whole in bf16
+    }
     t = tn;
   }
 

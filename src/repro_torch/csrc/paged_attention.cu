@@ -56,7 +56,23 @@
 // head_dim 16, 32, 64, 128 or 256, groups up to 8 query heads per KV head
 // (compiled for 1, 2, 4 and 8 rows), any block size; the wrapper refuses
 // the rest before launching.
+//
+// The int8 KV cache (paged_attention_int8_launch; plain version
+// ref.paged_attention_int8_ref): the pools hold int8 values with a float32
+// scale per (block, lane, KV head). The same kernel with the storage type
+// S = int8_t: a warp's ring holds a chunk's int8 K and V rows, copied 16
+// int8 elements a cp.async (so head_dim 16 is one copy a key), and the
+// chunk's 16 K and 16 V scales beside them (a 4-byte copy a lane). Where
+// the float kernel unpacks a key or value slice from the ring, load_deq
+// unpacks int8, multiplies by the key's scale in float32 and rounds to
+// the model type T, as the reference's _dequantize_kv; from there the
+// value is used exactly as the float kernel uses a pool element, so an
+// int8 launch equals, bit for bit, the float launch over the dequantized
+// pools. It reads half the bytes of a bf16 pool (plus 8 bytes of scales a
+// key and KV head), and a decode step is bound by those bytes.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "attention_mma.cuh"
 
@@ -76,6 +92,8 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
+  const float* ks;   // int8 pools: the scales (NB, bs, KV); else unused
+  const float* vs;
   const int* kpos;
   const int* bt;
   const int* pos;
@@ -129,6 +147,22 @@ __device__ __forceinline__ void reduce_scatter(float* v, int lane) {
   }
 }
 
+// E int8 elements (a multiple of 4) of one key, each times the key's scale
+// in float32 and rounded to T: the reference's dequantization
+template <typename T, int E>
+__device__ __forceinline__ void load_deq(const int8_t* src, float scale,
+                                         float (&f)[E]) {
+#pragma unroll
+  for (int u = 0; u < E / 4; ++u) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(src + 4 * u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int8_t x = static_cast<int8_t>(static_cast<uint8_t>(w >> (8 * e)));
+      f[4 * u + e] = to_float(from_float<T>(static_cast<float>(x) * scale));
+    }
+  }
+}
+
 // Elements of 16 bytes of T, unpacked to floats: E / Vec<T>::N loads
 template <typename T, int E>
 __device__ __forceinline__ void load_f(const T* src, float (&f)[E]) {
@@ -142,8 +176,11 @@ __device__ __forceinline__ void load_f(const T* src, float (&f)[E]) {
   }
 }
 
-template <typename T, int HD>
+// T: the model type (q, out, the arithmetic's slices); S: the pools'
+// element type, T or int8_t
+template <typename T, typename S, int HD>
 struct Layout {
+  static constexpr bool kQuant = sizeof(S) == 1;
   static constexpr int kVec = Vec<T>::N;   // elements of one 16-byte load
   // elements of one key a lane holds: one load, or as many as keep a key
   // within 32 lanes (float32 at head_dim 256: two)
@@ -154,9 +191,12 @@ struct Layout {
   static_assert(kLanesPerKey >= 1 && kLanesPerKey <= 32 &&
                     kElems % kVec == 0 && kLanesPerKey * kElems == HD,
                 "head_dim");
-  // a warp's ring of K and V chunks: two stages, or one where two would
-  // not fit four warps' rings in shared memory (float32 at head_dim 256)
-  static constexpr size_t kStageBytes = (size_t)2 * kChunk * HD * sizeof(T);
+  // a warp's ring of K and V chunks (int8 ones followed by their 16 K and
+  // 16 V scales): two stages, or one where two would not fit four warps'
+  // rings in shared memory (float32 at head_dim 256)
+  static constexpr size_t kTensorBytes = (size_t)kChunk * HD * sizeof(S);
+  static constexpr size_t kStageBytes =
+      2 * kTensorBytes + (kQuant ? (size_t)2 * kChunk * 4 : 0);
   static constexpr int kStages = kStageBytes > 16384 ? 1 : 2;
   static constexpr size_t kWarpBytes = kStages * kStageBytes;
 };
@@ -165,18 +205,20 @@ __host__ __device__ constexpr int chunks_per_block(int bs) {
   return (bs + kChunk - 1) / kChunk;
 }
 
-template <typename T, int HD, int G>
+template <typename T, typename S, int HD, int G>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return kWarps * Layout<T, HD>::kWarpBytes      // the rings
+  return kWarps * Layout<T, S, HD>::kWarpBytes   // the rings
          + (size_t)kWarps * kChunk * G * 4       // scores, probabilities
          + (size_t)kWindowItems * 4 * 3          // blocks, masks, lists
          + (size_t)(G * HD + 2 * G) * 4;         // the CTA's merged state
 }
 
-template <typename T, int HD, int G>
+template <typename T, typename S, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const Args a) {
-  using L = Layout<T, HD>;
+  using L = Layout<T, S, HD>;
+  // the ring takes the warp's merged state at the end
+  static_assert(L::kWarpBytes >= (size_t)(G * HD + 2 * G) * 4, "ring");
   constexpr int kVec = L::kVec, kE = L::kElems, kLPK = L::kLanesPerKey;
   constexpr int kKPR = L::kKeysPerRound, kRounds = L::kRounds;
   // partial scores a lane sums per chunk, whole ones it keeps after the
@@ -190,7 +232,7 @@ __global__ void __launch_bounds__(kThreads)
   const int bk = blockIdx.x / a.n_pieces;           // b * KV + kvh
   const int b = bk / a.KV, kvh = bk % a.KV, g = a.g;
 
-  T* ring = reinterpret_cast<T*>(smem + warp * L::kWarpBytes);
+  unsigned char* ring = smem + warp * L::kWarpBytes;
   float* ps = reinterpret_cast<float*>(smem + kWarps * L::kWarpBytes) +
               warp * kChunk * G;
   int* sblk = reinterpret_cast<int*>(smem + kWarps * L::kWarpBytes +
@@ -201,8 +243,8 @@ __global__ void __launch_bounds__(kThreads)
   // acc [G][HD], m [G], l [G] of the whole CTA, for a cluster's merge
   float* cst = reinterpret_cast<float*>(smask + 2 * kWindowItems);
 
-  const T* __restrict__ kp_ = static_cast<const T*>(a.k);
-  const T* __restrict__ vp_ = static_cast<const T*>(a.v);
+  const S* __restrict__ kp_ = static_cast<const S*>(a.k);
+  const S* __restrict__ vp_ = static_cast<const S*>(a.v);
   const int qp = a.pos[b];
 
   // the lane's slice of every query row, scaled into base 2
@@ -285,18 +327,41 @@ __global__ void __launch_bounds__(kThreads)
         const uint32_t msk = smask[it];
         const size_t row0 =
             (size_t)sblk[it / nch] * a.bs + (it % nch) * kChunk;
-        T* dk = ring + st * (2 * kChunk * HD);
-        T* dv = dk + kChunk * HD;
+        S* dk = reinterpret_cast<S*>(ring + st * L::kStageBytes);
+        S* dv = dk + kChunk * HD;
+        if constexpr (L::kQuant) {
+          // 16 int8 elements a copy, HD / 16 a key; then the chunk's
+          // scales, K's by lanes 0-15 and V's by lanes 16-31
+          constexpr int kPer = HD / 16;
 #pragma unroll
-        for (int i = 0; i < kRounds; ++i) {     // kChunk * kLPK = 32 kRounds
-          const int e = i * 32 + lane, c = e / kLPK;
+          for (int e = lane; e < kChunk * kPer; e += 32) {
+            const int c = e / kPer;
+            const bool ok = (msk >> c) & 1u;
+            const size_t src =
+                ((row0 + (ok ? c : 0)) * a.KV + kvh) * HD + (e % kPer) * 16;
+            mma::cp_async16(dk + e * 16, kp_ + src, ok);
+            mma::cp_async16(dv + e * 16, vp_ + src, ok);
+          }
+          const int c = lane % kChunk;
           const bool ok = (msk >> c) & 1u;
-          const size_t src =
-              ((row0 + (ok ? c : 0)) * a.KV + kvh) * HD + (e % kLPK) * kE;
+          float* dst = reinterpret_cast<float*>(dv + kChunk * HD) +
+                       (lane < kChunk ? 0 : kChunk) + c;
+          mma::cp_async4(dst,
+                         (lane < kChunk ? a.ks : a.vs) +
+                             (row0 + (ok ? c : 0)) * a.KV + kvh,
+                         ok);
+        } else {
 #pragma unroll
-          for (int u = 0; u < kE; u += kVec) {
-            mma::cp_async16(dk + e * kE + u, kp_ + src + u, ok);
-            mma::cp_async16(dv + e * kE + u, vp_ + src + u, ok);
+          for (int i = 0; i < kRounds; ++i) {   // kChunk * kLPK = 32 kRounds
+            const int e = i * 32 + lane, c = e / kLPK;
+            const bool ok = (msk >> c) & 1u;
+            const size_t src =
+                ((row0 + (ok ? c : 0)) * a.KV + kvh) * HD + (e % kLPK) * kE;
+#pragma unroll
+            for (int u = 0; u < kE; u += kVec) {
+              mma::cp_async16(dk + e * kE + u, kp_ + src + u, ok);
+              mma::cp_async16(dv + e * kE + u, vp_ + src + u, ok);
+            }
           }
         }
       }
@@ -309,8 +374,21 @@ __global__ void __launch_bounds__(kThreads)
       const int st = idx % L::kStages;
       mma::cp_async_wait<L::kStages - 1>();
       __syncwarp();
-      const T* sk = ring + st * (2 * kChunk * HD);
-      const T* sv = sk + kChunk * HD;
+      const S* sk = reinterpret_cast<const S*>(ring + st * L::kStageBytes);
+      const S* sv = sk + kChunk * HD;
+      // int8: the chunk's K and V scales follow its V rows
+      const float* sks = reinterpret_cast<const float*>(sv + kChunk * HD);
+      const float* svs = sks + kChunk;
+      // slice of key ck's row from a ring stage, as floats
+      auto slice = [&](const S* rows, const float* scales, int ck,
+                       float (&f)[kE]) {
+        if constexpr (L::kQuant)
+          load_deq<T, kE>(reinterpret_cast<const int8_t*>(rows) + ck * HD +
+                              x0,
+                          scales[ck], f);
+        else
+          load_f<T, kE>(reinterpret_cast<const T*>(rows) + ck * HD + x0, f);
+      };
       const uint32_t msk = smask[mine[idx]];
       // scores of the chunk's keys: kKPR keys a round, kLPK lanes each;
       // the lane's partial dot products, then one reduce-scatter over the
@@ -319,7 +397,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kRounds; ++i) {
         float kf[kE];
-        load_f<T, kE>(sk + (i * kKPR + lane / kLPK) * HD + x0, kf);
+        slice(sk, sks, i * kKPR + lane / kLPK, kf);
 #pragma unroll
         for (int r = 0; r < G; ++r) {
           float t = 0.f;
@@ -371,7 +449,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kRounds; ++i) {
         const int ck = i * kKPR + lane / kLPK;
         float vf[kE];
-        load_f<T, kE>(sv + ck * HD + x0, vf);
+        slice(sv, svs, ck, vf);
 #pragma unroll
         for (int r = 0; r < G; ++r) {
           const float pr = ps[ck * G + r];
@@ -466,15 +544,15 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();
 }
 
-template <typename T, int HD, int G>
+template <typename T, typename S, int HD, int G>
 static int launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, HD, G>();
+  constexpr size_t smem = smem_bytes<T, S, HD, G>();
   static unsigned long long allowed = 0;   // a bit per device
   cudaError_t err =
-      mma::allow_smem(paged_attention_kernel<T, HD, G>, smem, allowed);
+      mma::allow_smem(paged_attention_kernel<T, S, HD, G>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   if (a.n_pieces == 1) {
-    paged_attention_kernel<T, HD, G>
+    paged_attention_kernel<T, S, HD, G>
         <<<B * a.KV, kThreads, smem, stream>>>(a);
     return (int)cudaGetLastError();
   }
@@ -491,38 +569,38 @@ static int launch(const Args& a, int B, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, paged_attention_kernel<T, HD, G>, a);
+  err = cudaLaunchKernelEx(&cfg, paged_attention_kernel<T, S, HD, G>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, typename S, int HD>
 static int launch_g(const Args& a, int B, cudaStream_t stream) {
-  if (a.g <= 1) return launch<T, HD, 1>(a, B, stream);
-  if (a.g <= 2) return launch<T, HD, 2>(a, B, stream);
-  if (a.g <= 4) return launch<T, HD, 4>(a, B, stream);
-  if (a.g <= kMaxGroup) return launch<T, HD, 8>(a, B, stream);
+  if (a.g <= 1) return launch<T, S, HD, 1>(a, B, stream);
+  if (a.g <= 2) return launch<T, S, HD, 2>(a, B, stream);
+  if (a.g <= 4) return launch<T, S, HD, 4>(a, B, stream);
+  if (a.g <= kMaxGroup) return launch<T, S, HD, 8>(a, B, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, typename S>
 static int launch_hd(int hd, const Args& a, int B, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_g<T, 16>(a, B, stream);
-    case 32: return launch_g<T, 32>(a, B, stream);
-    case 64: return launch_g<T, 64>(a, B, stream);
-    case 128: return launch_g<T, 128>(a, B, stream);
-    case 256: return launch_g<T, 256>(a, B, stream);
+    case 16: return launch_g<T, S, 16>(a, B, stream);
+    case 32: return launch_g<T, S, 32>(a, B, stream);
+    case 64: return launch_g<T, S, 64>(a, B, stream);
+    case 128: return launch_g<T, S, 128>(a, B, stream);
+    case 256: return launch_g<T, S, 256>(a, B, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, typename S>
 static size_t smem_hd(int hd, int g) {
   const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
   switch (hd * 16 + G) {
 #define REPRO_PA_CASE(HD, GG) \
-  case HD * 16 + GG: return smem_bytes<T, HD, GG>();
+  case HD * 16 + GG: return smem_bytes<T, S, HD, GG>();
     REPRO_PA_CASE(16, 1) REPRO_PA_CASE(16, 2) REPRO_PA_CASE(16, 4)
     REPRO_PA_CASE(16, 8) REPRO_PA_CASE(32, 1) REPRO_PA_CASE(32, 2)
     REPRO_PA_CASE(32, 4) REPRO_PA_CASE(32, 8) REPRO_PA_CASE(64, 1)
@@ -532,6 +610,55 @@ static size_t smem_hd(int hd, int g) {
     REPRO_PA_CASE(256, 4) REPRO_PA_CASE(256, 8)
 #undef REPRO_PA_CASE
   }
+  return 0;
+}
+
+// the pools' element type of an entry: the model type, or int8
+template <typename T, bool kQuant>
+using Pool = std::conditional_t<kQuant, int8_t, T>;
+
+template <bool kQuant>
+static int launch_entry(int dtype, const Args& a, int hd, int B,
+                        cudaStream_t s) {
+  if (dtype == 0) return launch_hd<float, Pool<float, kQuant>>(hd, a, B, s);
+  if (dtype == 1)
+    return launch_hd<__nv_bfloat16, Pool<__nv_bfloat16, kQuant>>(hd, a, B,
+                                                                  s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool kQuant>
+static size_t smem_entry(int dtype, int H, int KV, int hd) {
+  if (KV < 1 || H % KV != 0 || H / KV > kMaxGroup) return 0;
+  if (dtype == 0) return smem_hd<float, Pool<float, kQuant>>(hd, H / KV);
+  return smem_hd<__nv_bfloat16, Pool<__nv_bfloat16, kQuant>>(hd, H / KV);
+}
+
+static int make_args(Args& a, const void* q, const void* k_pool,
+                     const void* v_pool, const void* kpos_pool,
+                     const void* block_table, const void* pos, void* out,
+                     int B, int H, int KV, int bs, int nb, int window,
+                     float scale, int blocks_per_piece, int n_pieces) {
+  if (B < 1 || KV < 1 || H % KV != 0 || bs < 1 || nb < 1 || n_pieces < 1 ||
+      n_pieces > kMaxPieces || blocks_per_piece < 1 ||
+      (long long)blocks_per_piece * n_pieces < nb)
+    return (int)cudaErrorInvalidValue;
+  a.q = q;
+  a.k = k_pool;
+  a.v = v_pool;
+  a.kpos = static_cast<const int*>(kpos_pool);
+  a.bt = static_cast<const int*>(block_table);
+  a.pos = static_cast<const int*>(pos);
+  a.out = out;
+  a.H = H;
+  a.KV = KV;
+  a.g = H / KV;
+  a.bs = bs;
+  a.nb = nb;
+  a.window = window;
+  a.blocks_per_piece = blocks_per_piece;
+  a.n_pieces = n_pieces;
+  a.scale_log2 = scale * mma::kLog2e;
   return 0;
 }
 
@@ -552,31 +679,33 @@ extern "C" int paged_attention_launch(int dtype, const void* q,
                                       int blocks_per_piece, int n_pieces,
                                       void* stream) {
   using namespace repro_torch;
-  if (B < 1 || KV < 1 || H % KV != 0 || bs < 1 || nb < 1 || n_pieces < 1 ||
-      n_pieces > paged::kMaxPieces || blocks_per_piece < 1 ||
-      (long long)blocks_per_piece * n_pieces < nb)
-    return (int)cudaErrorInvalidValue;
   paged::Args a{};
-  a.q = q;
-  a.k = k_pool;
-  a.v = v_pool;
-  a.kpos = static_cast<const int*>(kpos_pool);
-  a.bt = static_cast<const int*>(block_table);
-  a.pos = static_cast<const int*>(pos);
-  a.out = out;
-  a.H = H;
-  a.KV = KV;
-  a.g = H / KV;
-  a.bs = bs;
-  a.nb = nb;
-  a.window = window;
-  a.blocks_per_piece = blocks_per_piece;
-  a.n_pieces = n_pieces;
-  a.scale_log2 = scale * mma::kLog2e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return paged::launch_hd<float>(hd, a, B, s);
-  if (dtype == 1) return paged::launch_hd<__nv_bfloat16>(hd, a, B, s);
-  return (int)cudaErrorInvalidValue;
+  const int err = paged::make_args(a, q, k_pool, v_pool, kpos_pool,
+                                   block_table, pos, out, B, H, KV, bs, nb,
+                                   window, scale, blocks_per_piece, n_pieces);
+  if (err) return err;
+  return paged::launch_entry<false>(dtype, a, hd, B,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// The int8 pools' entry: k_pool / v_pool int8 (NB, bs, KV, hd), k_scale /
+// v_scale float32 (NB, bs, KV); q and out in the model dtype.
+extern "C" int paged_attention_int8_launch(
+    int dtype, const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* kpos_pool,
+    const void* block_table, const void* pos, void* out, int B, int H,
+    int KV, int hd, int bs, int nb, int window, float scale,
+    int blocks_per_piece, int n_pieces, void* stream) {
+  using namespace repro_torch;
+  paged::Args a{};
+  const int err = paged::make_args(a, q, k_pool, v_pool, kpos_pool,
+                                   block_table, pos, out, B, H, KV, bs, nb,
+                                   window, scale, blocks_per_piece, n_pieces);
+  if (err) return err;
+  a.ks = static_cast<const float*>(k_scale);
+  a.vs = static_cast<const float*>(v_scale);
+  return paged::launch_entry<true>(dtype, a, hd, B,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory a launch needs (0: a head_dim or group it does not take),
@@ -584,8 +713,11 @@ extern "C" int paged_attention_launch(int dtype, const void* q,
 extern "C" size_t paged_attention_smem_bytes(int dtype, int H, int KV, int hd,
                                              int bs) {
   (void)bs;   // a chunk holds kChunk keys whatever the block size
-  if (KV < 1 || H % KV != 0 || H / KV > repro_torch::paged::kMaxGroup)
-    return 0;
-  if (dtype == 0) return repro_torch::paged::smem_hd<float>(hd, H / KV);
-  return repro_torch::paged::smem_hd<__nv_bfloat16>(hd, H / KV);
+  return repro_torch::paged::smem_entry<false>(dtype, H, KV, hd);
+}
+
+extern "C" size_t paged_attention_int8_smem_bytes(int dtype, int H, int KV,
+                                                  int hd, int bs) {
+  (void)bs;
+  return repro_torch::paged::smem_entry<true>(dtype, H, KV, hd);
 }

@@ -43,6 +43,21 @@
 // Query lanes with no visible key write zeros, where the reference
 // writes the uniform average of all keys; the engine discards those
 // lanes (padding lanes and padding rows).
+//
+// The int8 KV cache (paged_prefill_int8_launch; plain version
+// ref.paged_prefill_int8_ref): the keys come in two segments, the
+// gathered int8 prefix k8 / v8 (B, Lp, KV, hd) with float32 scales (B, Lp,
+// KV) and positions (B, Lp), then the chunk's own K/V (B, Lc, KV, hd) in
+// the model dtype with positions (B, Lc) (Lc = 0: a slot decode, whose
+// whole strip is the prefix). Key j < Lp is prefix row j, key j >= Lp
+// chunk row j - Lp, as in concat(dequant(prefix), chunk), which is never
+// built. A prefix key or value is dequantized as it is loaded: int8 times
+// its scale in float32, rounded to the model dtype (the reference's
+// _dequantize_kv), then used as a float key is. So an int8 launch equals,
+// bit for bit, the float launch over the concatenated dequantized keys
+// (same shape, plan and dtype). bfloat16: attention_mma.cuh's kQuant
+// tile (int8 rows staged in shared memory and converted there); float32:
+// the tile below converts as it loads.
 #include "attention_mma.cuh"
 #include "attention_tile.cuh"
 
@@ -51,7 +66,19 @@ namespace repro_torch {
 constexpr int kTK = 32;       // keys per tile
 constexpr int kThreads = 256;
 
-template <typename T>
+// The int8 prefix segment of an int8 launch: keys [0, Lp)
+struct Int8Prefix {
+  const int8_t* k;
+  const int8_t* v;
+  const float* k_scale;
+  const float* v_scale;
+  const int* kpos;
+  int Lp;
+};
+
+// kQuant: keys [0, pre.Lp) from the int8 prefix, then the L keys of k / v
+// / kpos; otherwise the L keys alone
+template <typename T, bool kQuant>
 __global__ void paged_prefill_kernel(const T* __restrict__ q,
                                      const T* __restrict__ k,
                                      const T* __restrict__ v,
@@ -59,7 +86,8 @@ __global__ void paged_prefill_kernel(const T* __restrict__ q,
                                      const int* __restrict__ qpos,
                                      T* __restrict__ out, int S, int L, int H,
                                      int KV, int hd, int TQ, int window,
-                                     float scale) {
+                                     float scale, const Int8Prefix pre) {
+  const int Lp = kQuant ? pre.Lp : 0, Lc = L;
   extern __shared__ float smem[];
   const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int g = H / KV;
@@ -92,11 +120,14 @@ __global__ void paged_prefill_kernel(const T* __restrict__ q,
   __syncthreads();
   const int lo = q_lo, hi = q_hi;
 
-  for (int k0 = 0; k0 < L; k0 += TK) {
-    const int nk = min(TK, L - k0);
+  for (int k0 = 0; k0 < Lp + Lc; k0 += TK) {
+    const int nk = min(TK, Lp + Lc - k0);
     int any = 0;
     for (int c = threadIdx.x; c < TK; c += blockDim.x) {
-      const int kp = c < nk ? kpos[(size_t)b * L + k0 + c] : -1;
+      const int j = k0 + c;
+      const int kp = c >= nk       ? -1
+                     : j < Lp      ? pre.kpos[(size_t)b * Lp + j]
+                                   : kpos[(size_t)b * Lc + j - Lp];
       t.kpos[c] = kp;
       // visible to some query of the tile: a superset test, exact enough
       // to skip padding and future keys
@@ -104,10 +135,21 @@ __global__ void paged_prefill_kernel(const T* __restrict__ q,
     }
     if (!__syncthreads_or(any)) continue;
     for (int i = threadIdx.x; i < nk * hd; i += blockDim.x) {
-      const int c = i / hd, d = i % hd;
-      const size_t src = (((size_t)b * L + k0 + c) * KV + kvh) * hd + d;
-      t.k[(size_t)c * (hd + 1) + d] = to_float(k[src]);
-      t.v[i] = to_float(v[src]);
+      const int c = i / hd, d = i % hd, j = k0 + c;
+      float kf, vf;
+      if (kQuant && j < Lp) {
+        const size_t row = ((size_t)b * Lp + j) * KV + kvh;
+        kf = to_float(from_float<T>(static_cast<float>(pre.k[row * hd + d]) *
+                                    pre.k_scale[row]));
+        vf = to_float(from_float<T>(static_cast<float>(pre.v[row * hd + d]) *
+                                    pre.v_scale[row]));
+      } else {
+        const size_t src = (((size_t)b * Lc + j - Lp) * KV + kvh) * hd + d;
+        kf = to_float(k[src]);
+        vf = to_float(v[src]);
+      }
+      t.k[(size_t)c * (hd + 1) + d] = kf;
+      t.v[i] = vf;
     }
     __syncthreads();
     attend_tile(t, R, TK, nk, hd, scale, window);
@@ -122,31 +164,31 @@ __global__ void paged_prefill_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, bool kQuant>
 static int launch(const void* q, const void* k, const void* v,
                   const void* kpos, const void* qpos, void* out, int B, int S,
                   int L, int H, int KV, int hd, int TQ, int window,
-                  float scale, cudaStream_t stream) {
+                  float scale, const Int8Prefix& pre, cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(TQ * (H / KV), kTK, hd);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      paged_prefill_kernel<T, kQuant>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + TQ - 1) / TQ, KV, B);
-  paged_prefill_kernel<T><<<grid, kThreads, smem, stream>>>(
+  paged_prefill_kernel<T, kQuant><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(kpos),
       static_cast<const int*>(qpos), static_cast<T*>(out), S, L, H, KV, hd,
-      TQ, window, scale);
+      TQ, window, scale, pre);
   return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ bfloat16
 
-template <int HD, bool kWarpKeys>
+template <int HD, bool kWarpKeys, bool kQuant>
 __global__ void __launch_bounds__(mma::kThreads)
     paged_prefill_mma_kernel(const mma::Params p) {
-  mma::attend_piece<HD, true, true, false, kWarpKeys>(p);
+  mma::attend_piece<HD, true, true, false, kWarpKeys, kQuant>(p);
 }
 
 template <int HD>
@@ -155,14 +197,14 @@ __global__ void __launch_bounds__(mma::kCombineThreads)
   mma::combine_pieces<HD, true>(p);
 }
 
-template <int HD, bool kWarpKeys>
+template <int HD, bool kWarpKeys, bool kQuant>
 static int launch_mma(const mma::Params& p, cudaStream_t stream) {
-  const size_t smem = mma::smem_bytes(HD);
+  const size_t smem = mma::smem_bytes(HD, kQuant);
   static unsigned long long allowed = 0;   // a bit per device
-  cudaError_t err = mma::allow_smem(paged_prefill_mma_kernel<HD, kWarpKeys>,
-                                    smem, allowed);
+  cudaError_t err = mma::allow_smem(
+      paged_prefill_mma_kernel<HD, kWarpKeys, kQuant>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  paged_prefill_mma_kernel<HD, kWarpKeys>
+  paged_prefill_mma_kernel<HD, kWarpKeys, kQuant>
       <<<p.n_pieces * p.B * p.KV, mma::kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   int lo, hi;
@@ -176,16 +218,66 @@ static int launch_mma(const mma::Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kWarpKeys>
+template <bool kWarpKeys, bool kQuant>
 static int launch_mma_hd(int hd, const mma::Params& p, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_mma<16, kWarpKeys>(p, stream);
-    case 32: return launch_mma<32, kWarpKeys>(p, stream);
-    case 64: return launch_mma<64, kWarpKeys>(p, stream);
-    case 128: return launch_mma<128, kWarpKeys>(p, stream);
-    case 256: return launch_mma<256, kWarpKeys>(p, stream);
+    case 16: return launch_mma<16, kWarpKeys, kQuant>(p, stream);
+    case 32: return launch_mma<32, kWarpKeys, kQuant>(p, stream);
+    case 64: return launch_mma<64, kWarpKeys, kQuant>(p, stream);
+    case 128: return launch_mma<128, kWarpKeys, kQuant>(p, stream);
+    case 256: return launch_mma<256, kWarpKeys, kQuant>(p, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Either entry: keys [0, pre.Lp) of the int8 prefix (kQuant), then the
+// Lc keys of k / v / kpos
+template <bool kQuant>
+static int launch_entry(int dtype, const void* q, const void* k,
+                        const void* v, const void* kpos, const void* qpos,
+                        void* out, int B, int S, int Lc, int H, int KV,
+                        int hd, int TQ, int window, float scale,
+                        int tiles_per_piece, int n_pieces, void* part_acc,
+                        void* part_ml, const Int8Prefix& pre,
+                        cudaStream_t s) {
+  if (dtype == 0)
+    return launch<float, kQuant>(q, k, v, kpos, qpos, out, B, S, Lc, H, KV,
+                                 hd, TQ, window, scale, pre, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  mma::Params p{};
+  p.q = static_cast<const mma::bf16*>(q);
+  p.k = static_cast<const mma::bf16*>(k);
+  p.v = static_cast<const mma::bf16*>(v);
+  p.out = static_cast<mma::bf16*>(out);
+  // (B, S, H, hd) and (B, Lc, KV, hd), dense
+  p.qs = {(long long)S * H * hd, hd, (long long)H * hd};
+  p.os = p.qs;
+  p.ks = {(long long)Lc * KV * hd, hd, (long long)KV * hd};
+  p.vs = p.ks;
+  p.kpos = static_cast<const int*>(kpos);
+  p.qpos = static_cast<const int*>(qpos);
+  p.k8 = pre.k;
+  p.v8 = pre.v;
+  p.k8_scale = pre.k_scale;
+  p.v8_scale = pre.v_scale;
+  p.kpos8 = pre.kpos;
+  p.Lp = kQuant ? pre.Lp : 0;
+  p.B = B;
+  p.KV = KV;
+  p.g = H / KV;
+  p.Sq = S;
+  p.Sk = p.Lp + Lc;
+  p.TQ = TQ;
+  p.window = window;
+  p.causal = 1;
+  p.n_qtiles = (S + TQ - 1) / TQ;
+  p.C = tiles_per_piece;
+  p.n_pieces = n_pieces;
+  p.scale_log2 = scale * mma::kLog2e;
+  p.part_acc = static_cast<float*>(part_acc);
+  p.part_ml = static_cast<float2*>(part_ml);
+  return TQ * p.g <= 16 ? launch_mma_hd<true, kQuant>(hd, p, s)
+                        : launch_mma_hd<false, kQuant>(hd, p, s);
 }
 
 }  // namespace repro_torch
@@ -205,43 +297,44 @@ extern "C" int paged_prefill_launch(int dtype, const void* q, const void* k,
                                     void* part_acc, void* part_ml,
                                     void* stream) {
   using namespace repro_torch;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, kpos, qpos, out, B, S, L, H, KV, hd, TQ,
-                         window, scale, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  mma::Params p{};
-  p.q = static_cast<const mma::bf16*>(q);
-  p.k = static_cast<const mma::bf16*>(k);
-  p.v = static_cast<const mma::bf16*>(v);
-  p.out = static_cast<mma::bf16*>(out);
-  // (B, S, H, hd) and (B, L, KV, hd), dense
-  p.qs = {(long long)S * H * hd, hd, (long long)H * hd};
-  p.os = p.qs;
-  p.ks = {(long long)L * KV * hd, hd, (long long)KV * hd};
-  p.vs = p.ks;
-  p.kpos = static_cast<const int*>(kpos);
-  p.qpos = static_cast<const int*>(qpos);
-  p.B = B;
-  p.KV = KV;
-  p.g = H / KV;
-  p.Sq = S;
-  p.Sk = L;
-  p.TQ = TQ;
-  p.window = window;
-  p.causal = 1;
-  p.n_qtiles = (S + TQ - 1) / TQ;
-  p.C = tiles_per_piece;
-  p.n_pieces = n_pieces;
-  p.scale_log2 = scale * mma::kLog2e;
-  p.part_acc = static_cast<float*>(part_acc);
-  p.part_ml = static_cast<float2*>(part_ml);
-  return TQ * p.g <= 16 ? launch_mma_hd<true>(hd, p, s)
-                        : launch_mma_hd<false>(hd, p, s);
+  return launch_entry<false>(dtype, q, k, v, kpos, qpos, out, B, S, L, H, KV,
+                             hd, TQ, window, scale, tiles_per_piece,
+                             n_pieces, part_acc, part_ml, Int8Prefix{},
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The int8 KV cache's entry: the prefix k8 / v8 int8 (B, Lp, KV, hd), its
+// scales float32 (B, Lp, KV) and positions (B, Lp), then the chunk's k / v
+// (B, Lc, KV, hd) in the dtype of q and its positions (B, Lc); the rest as
+// paged_prefill_launch, the split planned over Lp + Lc keys.
+extern "C" int paged_prefill_int8_launch(
+    int dtype, const void* q, const void* k8, const void* v8,
+    const void* k_scale, const void* v_scale, const void* kpos8,
+    const void* k, const void* v, const void* kpos, const void* qpos,
+    void* out, int B, int S, int Lp, int Lc, int H, int KV, int hd, int TQ,
+    int window, float scale, int tiles_per_piece, int n_pieces,
+    void* part_acc, void* part_ml, void* stream) {
+  using namespace repro_torch;
+  if (Lp < 0 || Lc < 0) return (int)cudaErrorInvalidValue;
+  const Int8Prefix pre{static_cast<const int8_t*>(k8),
+                       static_cast<const int8_t*>(v8),
+                       static_cast<const float*>(k_scale),
+                       static_cast<const float*>(v_scale),
+                       static_cast<const int*>(kpos8), Lp};
+  return launch_entry<true>(dtype, q, k, v, kpos, qpos, out, B, S, Lc, H, KV,
+                            hd, TQ, window, scale, tiles_per_piece, n_pieces,
+                            part_acc, part_ml, pre,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" size_t paged_prefill_smem_bytes(int dtype, int H, int KV, int hd,
                                            int TQ) {
   if (dtype == 1) return repro_torch::mma::smem_bytes(hd);
+  return repro_torch::tile_smem_bytes(TQ * (H / KV), repro_torch::kTK, hd);
+}
+
+extern "C" size_t paged_prefill_int8_smem_bytes(int dtype, int H, int KV,
+                                                int hd, int TQ) {
+  if (dtype == 1) return repro_torch::mma::smem_bytes(hd, true);
   return repro_torch::tile_smem_bytes(TQ * (H / KV), repro_torch::kTK, hd);
 }

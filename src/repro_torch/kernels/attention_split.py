@@ -173,3 +173,16 @@ def check_mma_operands(check, hd: int, **tensors) -> None:
                   if t.shape[i] > 1),
               f"{name}'s strides {tuple(t.stride())} must be multiples of "
               "8 elements")
+
+
+def check_int8_operands(check, **tensors) -> None:
+    """What the bf16 tile's int8 key segment takes, else ``check``
+    raises: 16-byte aligned base pointers and rows (cp.async copies 16
+    int8 elements)."""
+    for name, t in tensors.items():
+        check(t.data_ptr() % 16 == 0,
+              f"{name} must start on a 16-byte boundary")
+        check(all(t.stride(i) % 16 == 0 for i in range(t.dim() - 1)
+                  if t.shape[i] > 1),
+              f"{name}'s strides {tuple(t.stride())} must be multiples of "
+              "16 elements")

@@ -41,20 +41,51 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return fn(q, k, v, causal=causal, window=window)
 
 
+def _refuse_int8(entry, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.dtype == torch.int8:
+            raise ValueError(f"{entry}: {name} is int8; an int8 cache is "
+                             f"read by {entry}_int8")
+
+
 def paged_attention(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
                     window: int = 0):
     """One-token paged decode: q (B,H,hd) against k/v pools
     (NB,bs,KV,hd) through block_table (B,nb) -> (B,H,hd)."""
+    _refuse_int8("paged_attention", k_pool=k_pool, v_pool=v_pool)
     fn = _pa.paged_attention if _on_cuda(q) else _ref.paged_attention_ref
     return fn(q, k_pool, v_pool, kpos_pool, block_table, pos, window=window)
+
+
+def paged_attention_int8(q, k_pool, v_pool, k_scale, v_scale, kpos_pool,
+                         block_table, pos, *, window: int = 0):
+    """``paged_attention`` over int8 pools (NB,bs,KV,hd) with float32
+    scales (NB,bs,KV), dequantized to q's dtype as they are read."""
+    fn = (_pa.paged_attention_int8 if _on_cuda(q)
+          else _ref.paged_attention_int8_ref)
+    return fn(q, k_pool, v_pool, k_scale, v_scale, kpos_pool, block_table,
+              pos, window=window)
 
 
 def paged_prefill(q, k, v, kpos, qpos, *, window: int = 0):
     """Ragged-batch chunked-prefill attention: q (B,S,H,hd) against
     assembled keys k/v (B,L,KV,hd) with absolute key/query positions
     kpos (B,L) / qpos (B,S) -> (B,S,H,hd)."""
+    _refuse_int8("paged_prefill", k=k, v=v)
     fn = _pp.paged_prefill if _on_cuda(q) else _ref.paged_prefill_ref
     return fn(q, k, v, kpos, qpos, window=window)
+
+
+def paged_prefill_int8(q, k_prefix, v_prefix, k_scale, v_scale, kpos_prefix,
+                       k, v, kpos, qpos, *, window: int = 0):
+    """``paged_prefill`` over an int8 prefix (B,Lp,KV,hd) with float32
+    scales (B,Lp,KV) and positions (B,Lp), then the chunk's K/V
+    (B,Lc,KV,hd) in q's dtype with positions (B,Lc), Lc = 0 allowed:
+    the prefix is dequantized to q's dtype as it is read."""
+    fn = (_pp.paged_prefill_int8 if _on_cuda(q)
+          else _ref.paged_prefill_int8_ref)
+    return fn(q, k_prefix, v_prefix, k_scale, v_scale, kpos_prefix, k, v,
+              kpos, qpos, window=window)
 
 
 def rwkv6_scan(r, k, v, w, u, s0=None):
@@ -115,17 +146,21 @@ def conv2d_wgrad(x, dy, kh: int, kw: int):
     return fn(x, dy, kh, kw)
 
 
+_KERNELS = {"conv2d": _cv.KERNEL, "conv2d_wgrad": _cw.KERNEL,
+            "flash_attention": _fa.KERNEL, "paged_attention": _pa.KERNEL,
+            "paged_attention_int8": _pa.KERNEL_INT8,
+            "paged_prefill": _pp.KERNEL,
+            "paged_prefill_int8": _pp.KERNEL_INT8,
+            "rwkv6_scan": _rw.KERNEL, "ssm_scan": _ss.KERNEL}
+
+
 def launch_counts() -> dict:
-    """Launches of each kernel since its count was last set to 0."""
-    return {"conv2d": _cv.KERNEL.launches,
-            "conv2d_wgrad": _cw.KERNEL.launches,
-            "flash_attention": _fa.KERNEL.launches,
-            "paged_attention": _pa.KERNEL.launches,
-            "paged_prefill": _pp.KERNEL.launches,
-            "rwkv6_scan": _rw.KERNEL.launches,
-            "ssm_scan": _ss.KERNEL.launches}
+    """Launches of each kernel since its count was last set to 0; the
+    int8-cache variants of the two paged attention kernels count under
+    their own names."""
+    return {name: kern.launches for name, kern in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in (_cv, _cw, _fa, _pa, _pp, _rw, _ss):
-        mod.KERNEL.launches = 0
+    for kern in _KERNELS.values():
+        kern.launches = 0

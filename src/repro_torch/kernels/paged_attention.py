@@ -25,6 +25,14 @@ distributed shared memory (the combine pass; plain version
 float32 and 256 a lane holds two 16-byte slices of a key and the ring
 has one stage), up to 8 query heads per KV head, 16-byte aligned
 operands, or it raises.
+
+``paged_attention_int8`` reads an int8 pool (the int8 KV cache) with a
+float32 scale per (block, lane, KV head): the same kernel with int8
+rings, 16-byte copies of 16 int8 elements and each chunk's 16 scales
+beside them; a key or value is dequantized where it is read from the
+ring (int8 times its scale in float32, rounded to the model dtype, as the
+reference's ``_dequantize_kv``) and then used as the float kernel uses
+it.  It halves the bytes a decode step streams.
 """
 from __future__ import annotations
 
@@ -61,6 +69,12 @@ KERNEL = CudaKernel(
     [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, _I, _I, _P],
     "paged_attention_smem_bytes", [_I, _I, _I, _I, _I])
+# the int8-pool entry of the same library: two scale pointers more
+KERNEL_INT8 = CudaKernel(
+    "paged_attention", "paged_attention_int8_launch",
+    [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+     ctypes.c_float, _I, _I, _P],
+    "paged_attention_int8_smem_bytes", [_I, _I, _I, _I, _I])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,24 +120,23 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"paged_attention kernel: {msg}")
 
 
-def paged_attention(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
-                    window: int = 0):
-    """q (B,H,hd), k/v pools (NB,bs,KV,hd), kpos_pool (NB,bs) int32,
-    block_table (B,nb) int32 (0-padded), pos (B,) int32 -> (B,H,hd), on
-    the card.  All-invalid rows return zeros."""
+def _operands(q, k_pool, v_pool, kpos_pool, block_table, pos, pool_dtype,
+              **scales):
+    """Check what the kernel takes, else raise; -> (B, H, KV, hd, bs,
+    nb)."""
     refuse_autograd("paged_attention", q=q, k_pool=k_pool, v_pool=v_pool)
     _check(q.is_cuda, "q must be a CUDA tensor (CPU tensors take "
            "ops.paged_attention's plain version)")
     dev = q.device
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("kpos_pool", kpos_pool), ("block_table", block_table),
-                    ("pos", pos)):
+                    ("pos", pos), *scales.items()):
         _check(t.device == dev, f"{name} is on {t.device}, q on {dev}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
     _check(q.is_contiguous(), "q must be contiguous")
     _check(q.dtype in DTYPE_CODE, f"dtype {q.dtype} (float32 or bfloat16)")
-    _check(k_pool.dtype == q.dtype and v_pool.dtype == q.dtype,
-           "q, k_pool and v_pool must share one dtype")
+    _check(k_pool.dtype == pool_dtype and v_pool.dtype == pool_dtype,
+           f"k_pool and v_pool must be {pool_dtype} (q is {q.dtype})")
     for name, t in (("kpos_pool", kpos_pool), ("block_table", block_table),
                     ("pos", pos)):
         _check(t.dtype == torch.int32, f"{name} must be int32")
@@ -131,6 +144,9 @@ def paged_attention(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
     b, h, hd = q.shape
     nbk, bs, kv, hd_k = k_pool.shape
     _check(v_pool.shape == k_pool.shape, "k_pool and v_pool shapes differ")
+    for name, t in scales.items():
+        _check(t.dtype == torch.float32, f"{name} must be float32")
+        _check(tuple(t.shape) == (nbk, bs, kv), f"{name} must be (NB,bs,KV)")
     _check(hd_k == hd, f"head_dim {hd_k} of the pool != {hd} of q")
     _check(hd in HEAD_DIMS, f"head_dim {hd} (the kernel compiles "
            f"{', '.join(map(str, HEAD_DIMS))})")
@@ -144,19 +160,51 @@ def paged_attention(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         _check(t.data_ptr() % 16 == 0,
                f"{name} must start on a 16-byte boundary")
+    return b, h, kv, hd, bs, block_table.shape[1]
+
+
+def _launch(kernel, q, pools, kpos_pool, block_table, pos, window, shape):
+    """Plan and launch ``kernel`` (the float or the int8 entry) with the
+    pool pointers ``pools``; -> out (B,H,hd)."""
+    b, h, kv, hd, bs, nb = shape
     out = torch.empty_like(q)
-    nb = block_table.shape[1]
     if b == 0 or nb == 0:               # no row, or no key to read
         return out.zero_()
-    smem = KERNEL.smem_bytes(DTYPE_CODE[q.dtype], h, kv, hd, bs)
+    dev = q.device
+    smem = kernel.smem_bytes(DTYPE_CODE[q.dtype], h, kv, hd, bs)
     _check(0 < smem <= MAX_SMEM, f"needs {smem} bytes of shared memory")
     pl = plan(b, kv, nb, split.sm_count(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        KERNEL.launch(DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-                      v_pool.data_ptr(), kpos_pool.data_ptr(),
+        kernel.launch(DTYPE_CODE[q.dtype], q.data_ptr(),
+                      *(t.data_ptr() for t in pools), kpos_pool.data_ptr(),
                       block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
                       b, h, kv, hd, bs, nb, int(window),
                       1.0 / math.sqrt(hd), pl.blocks_per_piece, pl.n_pieces,
                       stream)
     return out
+
+
+def paged_attention(q, k_pool, v_pool, kpos_pool, block_table, pos, *,
+                    window: int = 0):
+    """q (B,H,hd), k/v pools (NB,bs,KV,hd), kpos_pool (NB,bs) int32,
+    block_table (B,nb) int32 (0-padded), pos (B,) int32 -> (B,H,hd), on
+    the card.  All-invalid rows return zeros."""
+    shape = _operands(q, k_pool, v_pool, kpos_pool, block_table, pos,
+                      q.dtype)
+    return _launch(KERNEL, q, (k_pool, v_pool), kpos_pool, block_table, pos,
+                   window, shape)
+
+
+def paged_attention_int8(q, k_pool, v_pool, k_scale, v_scale, kpos_pool,
+                         block_table, pos, *, window: int = 0):
+    """``paged_attention`` over int8 pools (NB,bs,KV,hd) with float32
+    scales k_scale / v_scale (NB,bs,KV), on the card: each key and value
+    is dequantized as it is read, ``(q * scale)`` in float32 rounded to
+    q's dtype (``ref.paged_attention_int8_ref``), then used as the float
+    kernel uses a pool element, so the result equals, bit for bit, the
+    float kernel's over the dequantized pools."""
+    shape = _operands(q, k_pool, v_pool, kpos_pool, block_table, pos,
+                      torch.int8, k_scale=k_scale, v_scale=v_scale)
+    return _launch(KERNEL_INT8, q, (k_pool, v_pool, k_scale, v_scale),
+                   kpos_pool, block_table, pos, window, shape)

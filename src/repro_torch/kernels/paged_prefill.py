@@ -25,6 +25,18 @@ at head_dim 256 a tile of 64 query vectors takes 206,080 bytes of
 shared memory, within the 232,448 a CTA may use).  Query lanes with no visible key come out
 0, where the plain version averages every key; the engine discards such
 lanes (padding), so comparisons hold valid lanes only.
+
+``paged_prefill_int8`` serves the int8 KV cache: its keys come in two
+segments, the gathered int8 prefix with its float32 scales and the
+chunk's own K/V in the model dtype (the reference attends the chunk's
+fresh keys), so neither a dequantized copy of the prefix nor the
+concatenation is made.  The tile loader picks a key's segment by its
+index (a 64-key tile may straddle the boundary: the prefix is a
+multiple of the block size, not of 64 keys).  The bf16 tile stages a
+tile's int8 rows and scales in shared memory with 16-byte copies and
+converts them to bf16 there, before the ldmatrix / mma.sync path; the
+float32 tile converts as it loads.  Bound: bytes, at half the prefix's
+bytes of the float launch.
 """
 from __future__ import annotations
 
@@ -46,6 +58,13 @@ KERNEL = CudaKernel(
     [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, _I, _I, _P, _P, _P],
     "paged_prefill_smem_bytes", [_I, _I, _I, _I, _I])
+# the int8-prefix entry of the same library: the prefix's int8 k, v,
+# float32 scales and kpos before the chunk's k, v, kpos; Lp before Lc
+KERNEL_INT8 = CudaKernel(
+    "paged_prefill", "paged_prefill_int8_launch",
+    [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+     _I, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P],
+    "paged_prefill_int8_smem_bytes", [_I, _I, _I, _I, _I])
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -59,46 +78,113 @@ def paged_prefill(q, k, v, kpos, qpos, *, window: int = 0):
     refuse_autograd("paged_prefill", q=q, k=k, v=v)
     _check(q.is_cuda, "q must be a CUDA tensor (CPU tensors take "
            "ops.paged_prefill's plain version)")
+    _check(k.dtype == q.dtype and v.dtype == q.dtype,
+           "q, k and v must share one dtype")
+    b, s, h, kv, hd = _operands(q, qpos, (k, v, kpos))
+    l = k.shape[1]
+    return _launch(KERNEL, q, qpos, (k, v, kpos), (), b, s, 0, l, h, kv, hd,
+                   window)
+
+
+def paged_prefill_int8(q, k_prefix, v_prefix, k_scale, v_scale, kpos_prefix,
+                       k, v, kpos, qpos, *, window: int = 0):
+    """Two key segments, on the card: the gathered int8 prefix k/v_prefix
+    (B,Lp,KV,hd) with float32 scales (B,Lp,KV) and kpos_prefix (B,Lp),
+    then the chunk's k/v (B,Lc,KV,hd) in q's dtype with kpos (B,Lc) (Lc
+    may be 0: a slot decode reads its whole int8 strip as the prefix).
+    Keys are lanes [0, Lp) of the prefix, then the chunk's, as the plain
+    version's ``concat(dequant(prefix), chunk)``; a prefix key or value
+    is dequantized as it is loaded (int8 times its scale in float32,
+    rounded to q's dtype) and used as the float kernel uses a key, so the
+    result equals, bit for bit, ``paged_prefill`` over the concatenated
+    dequantized keys (same shape, plan and dtype)."""
+    refuse_autograd("paged_prefill", q=q, k=k, v=v)
+    _check(q.is_cuda, "q must be a CUDA tensor (CPU tensors take "
+           "ops.paged_prefill_int8's plain version)")
+    _check(k.dtype == q.dtype and v.dtype == q.dtype,
+           "q and the chunk's k and v must share one dtype")
+    _check(k_prefix.dtype == torch.int8 and v_prefix.dtype == torch.int8,
+           "the prefix k and v must be int8")
+    _check(k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32,
+           "the prefix scales must be float32")
+    b, s, h, kv, hd = _operands(q, qpos, (k, v, kpos),
+                                (k_prefix, v_prefix, kpos_prefix))
+    lp, lc = k_prefix.shape[1], k.shape[1]
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check(t.device == q.device and t.is_contiguous(),
+               f"{name} must be contiguous on {q.device}")
+        _check(tuple(t.shape) == (b, lp, kv), f"{name} must be (B,Lp,KV)")
+    return _launch(KERNEL_INT8, q, qpos, (k, v, kpos),
+                   (k_prefix, v_prefix, k_scale, v_scale, kpos_prefix),
+                   b, s, lp, lc, h, kv, hd, window)
+
+
+def _operands(q, qpos, *segments):
+    """Check q, qpos and each key segment (k, v, kpos), else raise;
+    -> (B, S, H, KV, hd)."""
     dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v), ("kpos", kpos),
-                    ("qpos", qpos)):
+    named = [("q", q), ("qpos", qpos)] + [
+        (f"{n}{'' if i == 0 else '_prefix'}", t)
+        for i, seg in enumerate(segments)
+        for n, t in zip(("k", "v", "kpos"), seg)]
+    for name, t in named:
         _check(t.device == dev, f"{name} is on {t.device}, q on {dev}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
     _check(q.dtype in DTYPE_CODE, f"dtype {q.dtype} (float32 or bfloat16)")
-    _check(k.dtype == q.dtype and v.dtype == q.dtype,
-           "q, k and v must share one dtype")
-    _check(kpos.dtype == torch.int32 and qpos.dtype == torch.int32,
-           "kpos and qpos must be int32")
-    _check(q.dim() == 4 and k.dim() == 4, "q (B,S,H,hd), k/v (B,L,KV,hd)")
+    _check(q.dim() == 4, "q (B,S,H,hd)")
     b, s, h, hd = q.shape
-    _, l, kv, hd_k = k.shape
-    _check(v.shape == k.shape and k.shape[0] == b, "k/v must be (B,L,KV,hd)")
-    _check(hd_k == hd, f"head_dim {hd_k} of k != {hd} of q")
+    _check(qpos.dtype == torch.int32 and tuple(qpos.shape) == (b, s),
+           "qpos must be (B,S) int32")
+    kv = segments[0][0].shape[2] if segments[0][0].dim() == 4 else 0
+    for k, v, kpos in segments:
+        _check(k.dim() == 4 and v.shape == k.shape and k.shape[0] == b
+               and k.shape[2] == kv, "k/v must be (B,L,KV,hd)")
+        _check(k.shape[3] == hd, f"head_dim {k.shape[3]} of k != {hd} of q")
+        _check(kpos.dtype == torch.int32
+               and tuple(kpos.shape) == (b, k.shape[1]),
+               "kpos must be (B,L) int32")
     _check(kv >= 1 and h % kv == 0, f"H={h} is not a multiple of KV={kv}")
     _check(h // kv <= ROWS_PER_CTA, f"group of {h // kv} heads per KV head")
-    _check(tuple(kpos.shape) == (b, l), "kpos must be (B,L)")
-    _check(tuple(qpos.shape) == (b, s), "qpos must be (B,S)")
     _check(s >= 1, "needs at least one query lane")
+    return b, s, h, kv, hd
+
+
+def _launch(kernel, q, qpos, chunk, prefix, b, s, lp, lc, h, kv, hd,
+            window):
+    """Plan and launch ``kernel`` over the chunk segment (k, v, kpos) and,
+    for the int8 entry, the prefix (k, v, k_scale, v_scale, kpos)."""
+    dev = q.device
     # query lanes per CTA: up to ROWS_PER_CTA query vectors, never more
     # lanes than the chunk has (fused decode rows are S = 1)
     tq = min(ROWS_PER_CTA // (h // kv), s)
     out = torch.empty_like(q)
     tiles_per_piece = n_pieces = 0      # float32: never split
     scratch = ()
+    quant = bool(prefix)
     if q.dtype == torch.bfloat16:
-        split.check_mma_operands(_check, hd, q=q, k=k, v=v, out=out)
-        pl = plan(b, s, l, h, kv, split.sm_count(dev))
+        ops16 = dict(q=q, out=out)
+        if lc:
+            ops16.update(k=chunk[0], v=chunk[1])
+        split.check_mma_operands(_check, hd, **ops16)
+        if quant and lp:
+            split.check_int8_operands(_check, k_prefix=prefix[0],
+                                      v_prefix=prefix[1])
+        pl = plan(b, s, lp + lc, h, kv, split.sm_count(dev))
         tiles_per_piece, n_pieces = pl.tiles_per_piece, pl.n_pieces
         scratch = split.scratch(pl, b * kv, tq * (h // kv), hd, dev)
-    smem = KERNEL.smem_bytes(DTYPE_CODE[q.dtype], h, kv, hd, tq)
+    smem = kernel.smem_bytes(DTYPE_CODE[q.dtype], h, kv, hd, tq)
     _check(smem <= MAX_SMEM, f"needs {smem} bytes of shared memory")
+    # an empty segment is never read: hand the kernel q's address for it
+    ptrs = [t.data_ptr() if t.numel() else q.data_ptr()
+            for t in (*prefix, *chunk)]
+    sizes = (lp, lc) if quant else (lc,)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        KERNEL.launch(DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), kpos.data_ptr(), qpos.data_ptr(),
-                      out.data_ptr(), b, s, l, h, kv, hd, tq, int(window),
-                      1.0 / math.sqrt(hd), tiles_per_piece, n_pieces,
-                      *split.pointers(scratch), stream)
+        kernel.launch(DTYPE_CODE[q.dtype], q.data_ptr(), *ptrs,
+                      qpos.data_ptr(), out.data_ptr(), b, s, *sizes, h, kv,
+                      hd, tq, int(window), 1.0 / math.sqrt(hd),
+                      tiles_per_piece, n_pieces, *split.pointers(scratch),
+                      stream)
     return out
 
 

@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the attention kernels (and of the split-key
-combine pass of their bf16 tile), the WKV6 scan, mamba's selective
-scan, the convolution and its filter gradient.
+"""Plain PyTorch versions of the attention kernels (their int8-cache
+variants too, and the split-key combine pass of their bf16 tile), the
+WKV6 scan, mamba's selective scan, the convolution and its filter
+gradient.
 
 The kernels' plain versions define their semantics, copied from
 ``repro.kernels.ref`` (the selective scan from the ``lax.scan`` step of
@@ -108,6 +109,41 @@ def paged_prefill_ref(q, k, v, kpos, qpos, *, window: int = 0):
     z = torch.sum(e, -1, keepdim=True)
     probs = (e / torch.clamp(z, min=1e-30)).to(v.dtype)
     return torch.einsum("bhqs,bshd->bqhd", probs, v)
+
+
+def dequantize_kv(q, scale, dtype):
+    """int8 K or V (..., hd) and its float32 absmax scale (...) -> dtype,
+    as the reference's ``_dequantize_kv``: the product in float32,
+    rounded to ``dtype`` once, before any product with it."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def paged_attention_int8_ref(q, k_pool, v_pool, k_scale, v_scale,
+                             kpos_pool, block_table, pos, *,
+                             window: int = 0):
+    """``paged_attention_ref`` over int8 pools (NB,bs,KV,hd) with float32
+    scales (NB,bs,KV), dequantized to q's dtype first, as the reference
+    reads a quantized pool."""
+    return paged_attention_ref(q, dequantize_kv(k_pool, k_scale, q.dtype),
+                               dequantize_kv(v_pool, v_scale, q.dtype),
+                               kpos_pool, block_table, pos, window=window)
+
+
+def paged_prefill_int8_ref(q, k_prefix, v_prefix, k_scale, v_scale,
+                           kpos_prefix, k, v, kpos, qpos, *,
+                           window: int = 0):
+    """``paged_prefill_ref`` over two key segments: the gathered int8
+    prefix (B,Lp,KV,hd) with float32 scales (B,Lp,KV) and positions
+    kpos_prefix (B,Lp), then the chunk's own K/V (B,Lc,KV,hd) in q's
+    dtype with positions kpos (B,Lc) (Lc = 0 for a slot decode, whose
+    whole strip is the int8 prefix).  The prefix is dequantized to q's
+    dtype and put before the chunk, as the reference's
+    ``concat(dequant(prefix), chunk)``."""
+    k_all = torch.cat([dequantize_kv(k_prefix, k_scale, q.dtype), k], 1)
+    v_all = torch.cat([dequantize_kv(v_prefix, v_scale, q.dtype), v], 1)
+    return paged_prefill_ref(q, k_all, v_all,
+                             torch.cat([kpos_prefix, kpos], 1), qpos,
+                             window=window)
 
 
 def attention_partial_ref(q, k, v, visible, scale):

@@ -28,6 +28,14 @@ pool, recurrent layers (``"mamba"``, ``"rwkv6"``) carry per-request
 state slots beside it (``pool_init(..., state_batch)``,
 ``prefill_paged(..., state_rows=)``), and any layer may take an MoE
 FFN.
+
+``cfg.kv_cache_quant`` makes every slot cache and block pool int8: ``k``
+and ``v`` int8 with a float32 absmax scale per (lane, KV head) in
+``k_s`` and ``v_s``, written quantized and read through the int8
+attention kernels (``ops.paged_attention_int8``,
+``ops.paged_prefill_int8``), which dequantize as they load.  Whole
+prompts and chunks attend their own fresh K/V at full precision, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -47,9 +55,6 @@ class Model:
         if cfg.is_encoder_decoder or cfg.frontend != "none":
             raise ValueError(f"{cfg.name}: repro_torch ports decoder-only "
                              "token stacks only so far")
-        if cfg.kv_cache_quant:
-            raise ValueError(f"{cfg.name}: the int8 KV cache is not ported "
-                             "yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but "
@@ -86,7 +91,8 @@ class Model:
     # ------------------------------------------------------------ slot
     def cache_init(self, batch: int, cache_max: int):
         """Zero slot caches for ``batch`` slots of ``cache_max`` lanes,
-        every pos lane -1; recurrent states start at zero, as the
+        every pos lane -1 (int8 K/V with float32 scales under
+        ``kv_cache_quant``); recurrent states start at zero, as the
         reference's ``LLMEngine`` zero-fills its caches (the counterpart
         of ``cache_abstract``)."""
         return tf.stack_cache_init(self.cfg, batch, cache_max,
@@ -158,8 +164,9 @@ class Model:
 
     def pool_init(self, num_blocks: int, block_size: int,
                   state_batch: int = 1):
-        """Zero pools for every layer (pos lanes -1).  Block 0 is the
-        reserved null block — allocators must never hand it out.
+        """Zero pools for every layer (pos lanes -1; int8 K/V with float32
+        scales under ``kv_cache_quant``).  Block 0 is the reserved null
+        block — allocators must never hand it out.
         ``state_batch`` sizes the recurrent layers' state-slot axis
         (engine rows plus one trash row); pure attention stacks ignore
         it."""

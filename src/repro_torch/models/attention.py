@@ -11,6 +11,14 @@ The port of ``repro.models.attention`` for inference.  Two cache shapes:
   block: its ``pos`` lanes stay -1 and block tables pad with 0, so reads
   through padding never pass the mask.
 
+With ``cfg.kv_cache_quant`` both hold ``k``/``v`` as int8 with a float32
+absmax scale per (lane, KV head) in ``k_s``/``v_s`` (``(B, C, KV)``,
+``(NB, bs, KV)``), as the reference's.  Writes quantize in plain
+PyTorch (``_quantize_kv``); every read of an int8 strip or pool goes
+through the int8 entries of ``kernels/ops.py``, whose CUDA kernels
+dequantize as they load (the reference dequantizes the gathered table
+with jnp first), so no model-dtype copy of the cache is made.
+
 ``pos`` holds the absolute position of each lane (-1 = invalid).  Where
 the reference rebuilds a cache or pool with ``.at[].set`` or
 ``dynamic_update_slice``, the port writes the tensors in place; each
@@ -22,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import dequantize_kv as _dequantize_kv  # noqa: F401
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.module import ParamSpec
 
@@ -134,16 +143,44 @@ def cache_len_for(cfg: ModelConfig, kind: str, max_len: int) -> int:
     return max_len
 
 
+def _quantize_kv(t):
+    """(..., hd) -> (int8 values, float32 absmax scale (...)), as the
+    reference: round half to even of ``t / scale``, a true division."""
+    t32 = t.float()
+    a = t32.abs().amax(-1, keepdim=True)
+    scale = torch.clamp(a, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(t32 / scale), -127, 127)
+    return q.to(torch.int8), scale[..., 0]
+
+
+def _kv_leaves(cfg: ModelConfig, lead, kv: int, hd: int, dtype, device):
+    """Zero ``k``/``v`` leaves of shape ``lead + (KV, hd)``: the model
+    dtype, or int8 with float32 scales ``k_s``/``v_s`` of ``lead + (KV,)``
+    under ``kv_cache_quant``."""
+    if not cfg.kv_cache_quant:
+        return {n: torch.zeros(lead + (kv, hd), dtype=dtype, device=device)
+                for n in ("k", "v")}
+    out = {n: torch.zeros(lead + (kv, hd), dtype=torch.int8, device=device)
+           for n in ("k", "v")}
+    out.update({n: torch.zeros(lead + (kv,), dtype=torch.float32,
+                               device=device) for n in ("k_s", "v_s")})
+    return out
+
+
+def _quantized_entries(k, v):
+    kq, ks = _quantize_kv(k)
+    vq, vs = _quantize_kv(v)
+    return {"k": kq, "v": vq, "k_s": ks, "v_s": vs}
+
+
 def init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
                device):
     """Zero slot cache for one attention layer, every pos lane -1."""
     c = cache_len_for(cfg, kind, max_len)
     hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
-    return {
-        "pos": torch.full((batch, c), -1, dtype=torch.int32, device=device),
-        "k": torch.zeros((batch, c, kv, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, c, kv, hd), dtype=dtype, device=device),
-    }
+    return {"pos": torch.full((batch, c), -1, dtype=torch.int32,
+                              device=device),
+            **_kv_leaves(cfg, (batch, c), kv, hd, dtype, device)}
 
 
 def attn_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
@@ -155,13 +192,17 @@ def attn_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
     for the cache); the port projects once and feeds both.  Lanes past
     the prompt carry pos -1; a prompt of at least ``clen`` tokens keeps
     its last ``clen`` positions, ring-aligned so lane j holds the
-    position p with p % clen == j."""
+    position p with p % clen == j.  Under ``kv_cache_quant`` the cache
+    holds the prompt quantized (the scales roll with it), while ``y``
+    attends the fresh full-precision K/V, as the reference's."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions, cfg.pos_kind == "rope",
                            kind)
     y = _flash_attend(p, cfg, q, k, v, kind=kind)
     clen = cache_len_for(cfg, kind, cache_max)
     entries = {"k": k, "v": v, "pos": _bcast_pos(positions, b, s)}
+    if cfg.kv_cache_quant:
+        entries.update(_quantized_entries(k, v))
     if s >= clen:
         # element i holds position take + i, which belongs at lane
         # (take + i) % clen
@@ -184,19 +225,36 @@ def attn_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str):
     The read is ``ops.paged_prefill`` with one query lane: the same mask
     (``kpos >= 0 and kpos <= pos``, plus the window band), float32
     scores and probabilities cast to the value dtype as the reference's
-    slot read, and the CUDA kernel on the card."""
+    slot read, and the CUDA kernel on the card.  An int8 strip (the new
+    token quantized into it first, as the reference) is read by
+    ``ops.paged_prefill_int8`` as a prefix of the whole strip and no
+    chunk keys."""
     q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None],
                                    cfg.pos_kind == "rope", kind)
     rows = torch.arange(x.shape[0], device=x.device)
     lane = (pos % cache["k"].shape[1]).long()
-    cache["k"][rows, lane] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, lane] = v_new[:, 0].to(cache["v"].dtype)
+    if cfg.kv_cache_quant:
+        new = _quantized_entries(k_new[:, 0], v_new[:, 0])
+    else:
+        new = {"k": k_new[:, 0].to(cache["k"].dtype),
+               "v": v_new[:, 0].to(cache["v"].dtype)}
+    for name, val in new.items():
+        cache[name][rows, lane] = val
     pos = pos.to(torch.int32)
     cache["pos"][rows, lane] = pos
     window = cfg.sliding_window if kind == "attn_local" else 0
-    out = kernel_ops.paged_prefill(q.contiguous(), cache["k"], cache["v"],
-                                   cache["pos"], pos[:, None].contiguous(),
-                                   window=window)
+    qpos = pos[:, None].contiguous()
+    if cfg.kv_cache_quant:
+        b, _, kv, hd = cache["k"].shape
+        none = q.new_empty((b, 0, kv, hd))
+        out = kernel_ops.paged_prefill_int8(
+            q.contiguous(), cache["k"], cache["v"], cache["k_s"],
+            cache["v_s"], cache["pos"], none, none,
+            qpos.new_empty((b, 0)), qpos, window=window)
+    else:
+        out = kernel_ops.paged_prefill(q.contiguous(), cache["k"],
+                                       cache["v"], cache["pos"], qpos,
+                                       window=window)
     return _out_proj(out, p["wo"]), cache
 
 
@@ -207,13 +265,10 @@ def paged_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,
                     dtype, device):
     """Zero pool for one attention layer (pos lanes -1)."""
     hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
-    shape = (num_blocks, block_size, kv, hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((num_blocks, block_size), -1, dtype=torch.int32,
-                          device=device),
-    }
+    return {**_kv_leaves(cfg, (num_blocks, block_size), kv, hd, dtype,
+                         device),
+            "pos": torch.full((num_blocks, block_size), -1,
+                              dtype=torch.int32, device=device)}
 
 
 def attn_decode_paged(p, cfg: ModelConfig, x, pool, block_table, pos, active,
@@ -229,7 +284,8 @@ def attn_decode_paged(p, cfg: ModelConfig, x, pool, block_table, pos, active,
 
     The read goes through ``ops.paged_attention``: the CUDA kernel on the
     card, its plain version on the CPU.  Inactive rows read zeros, which
-    the engine discards.
+    the engine discards.  An int8 pool takes the token quantized and is
+    read by ``ops.paged_attention_int8``, which dequantizes as it loads.
     """
     rope = cfg.pos_kind == "rope"
     q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None], rope, kind)
@@ -243,14 +299,25 @@ def attn_decode_paged(p, cfg: ModelConfig, x, pool, block_table, pos, active,
     posl = pos.long()
     phys = torch.gather(block_table.long(), 1, (posl // bs)[:, None])[:, 0]
     off = posl % bs
-    pool["k"][phys, off] = k_new[:, 0].to(pool["k"].dtype)
-    pool["v"][phys, off] = v_new[:, 0].to(pool["v"].dtype)
+    if cfg.kv_cache_quant:
+        new = _quantized_entries(k_new[:, 0], v_new[:, 0])
+    else:
+        new = {"k": k_new[:, 0].to(pool["k"].dtype),
+               "v": v_new[:, 0].to(pool["v"].dtype)}
+    for name, val in new.items():
+        pool[name][phys, off] = val
     pool["pos"][phys, off] = torch.where(active, pos.int(), -1)
 
     window = cfg.sliding_window if kind == "attn_local" else 0
-    out = kernel_ops.paged_attention(
-        q[:, 0].contiguous(), pool["k"], pool["v"], pool["pos"],
-        block_table, pos.int().contiguous(), window=window)
+    args = (block_table, pos.int().contiguous())
+    if cfg.kv_cache_quant:
+        out = kernel_ops.paged_attention_int8(
+            q[:, 0].contiguous(), pool["k"], pool["v"], pool["k_s"],
+            pool["v_s"], pool["pos"], *args, window=window)
+    else:
+        out = kernel_ops.paged_attention(
+            q[:, 0].contiguous(), pool["k"], pool["v"], pool["pos"], *args,
+            window=window)
     return _out_proj(out, p["wo"])[:, None]
 
 
@@ -278,6 +345,12 @@ def attn_prefill_paged(p, cfg: ModelConfig, x, positions, pool, block_table,
     Returns (y (B,S,D), chunk cache ``{"k", "v": (B,S,KV,hd), "pos":
     (B,S)}``) for the engine to scatter into the pool.  The pool itself
     is not written.
+
+    An int8 pool: the gathered prefix stays int8 (bytes and scales) and
+    ``ops.paged_prefill_int8`` reads it beside the chunk's fresh
+    full-precision K/V, dequantizing as it loads, so the reference's
+    ``concat(dequant(prefix), chunk)`` is never built; the chunk cache
+    comes back quantized (``k``, ``v`` int8, ``k_s``, ``v_s``).
     """
     rope = cfg.pos_kind == "rope"
     hd = cfg.resolved_head_dim
@@ -289,8 +362,6 @@ def attn_prefill_paged(p, cfg: ModelConfig, x, positions, pool, block_table,
     bs = pool["pos"].shape[-1]
     nb = block_table.shape[1]
     bt = block_table.long()
-    pk = pool["k"][bt].to(k.dtype).reshape(b, nb * bs, kv, hd)
-    pv = pool["v"][bt].to(v.dtype).reshape(b, nb * bs, kv, hd)
     ppos = pool["pos"][bt].reshape(b, nb * bs)
     # per-row cursor guard: lanes at/past the row's start are invalid
     # (diverged COW tails AND own-block lanes a later chunk will write)
@@ -305,6 +376,19 @@ def attn_prefill_paged(p, cfg: ModelConfig, x, positions, pool, block_table,
         kpos_suffix = torch.where(lane_valid, qpos, -1)   # pad keys never win
     else:
         kpos_suffix = qpos
+    kpos_suffix = kpos_suffix.to(torch.int32)
+    if cfg.kv_cache_quant:
+        pk, pv = (pool[n][bt].reshape(b, nb * bs, kv, hd) for n in "kv")
+        ps_k, ps_v = (pool[n][bt].reshape(b, nb * bs, kv)
+                      for n in ("k_s", "v_s"))
+        out = kernel_ops.paged_prefill_int8(
+            q.contiguous(), pk, pv, ps_k, ps_v, ppos,
+            k.contiguous(), v.contiguous(), kpos_suffix, qpos,
+            window=window)
+        return _out_proj(out, p["wo"]), {
+            **_quantized_entries(k, v), "pos": kpos_suffix}
+    pk = pool["k"][bt].to(k.dtype).reshape(b, nb * bs, kv, hd)
+    pv = pool["v"][bt].to(v.dtype).reshape(b, nb * bs, kv, hd)
     k_all = torch.cat([pk, k], dim=1)
     v_all = torch.cat([pv, v], dim=1)
     kpos_all = torch.cat([ppos, kpos_suffix], dim=1).to(torch.int32)
@@ -313,4 +397,4 @@ def attn_prefill_paged(p, cfg: ModelConfig, x, positions, pool, block_table,
                                    qpos, window=window)
     y = _out_proj(out, p["wo"])
 
-    return y, {"k": k, "v": v, "pos": kpos_suffix.to(torch.int32)}
+    return y, {"k": k, "v": v, "pos": kpos_suffix}

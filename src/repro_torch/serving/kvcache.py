@@ -148,7 +148,7 @@ class BlockAllocator:
 # trailing (non-block) axes per pool-leaf name: leaves are shaped
 # (..., num_blocks, block_size, *tail), so the block axis is located
 # from the right.
-_POOL_LEAF_TAIL = {"pos": 0, "k": 2, "v": 2}
+_POOL_LEAF_TAIL = {"pos": 0, "k_s": 1, "v_s": 1, "k": 2, "v": 2}
 
 
 def _ids(x, device) -> torch.Tensor:
@@ -184,6 +184,10 @@ def write_chunk_tokens(pools: Any, caches: Any, src_rows: Any,
     "periods" leaves have batch at axis 1 behind the leading
     ``n_periods`` axis, "rem" leaves at axis 0; pool leaves put
     (num_blocks, block_size) at those same axes.
+
+    An int8 pool leaf takes int8 values only: a floating-point chunk
+    cache (one not quantized by ``Model.prefill_paged``) raises rather
+    than being truncated by the cast.
     """
     def walk(pnode, cnode, lead):
         for name, pleaf in pnode.items():
@@ -196,6 +200,11 @@ def write_chunk_tokens(pools: Any, caches: Any, src_rows: Any,
                 pleaf[lead + (_ids(state_rows, dev),)] = \
                     cnode[name].to(pleaf.dtype)
                 continue
+            if pleaf.dtype == torch.int8 and cnode[name].dtype != torch.int8:
+                raise TypeError(
+                    f"write_chunk_tokens: pool leaf {name!r} is int8 but "
+                    f"the chunk cache's is {cnode[name].dtype}; an int8 "
+                    "pool takes the quantized chunk cache")
             sr, sl = _ids(src_rows, dev), _ids(src_lanes, dev)
             db, dl = _ids(dst_blocks, dev), _ids(dst_lanes, dev)
             vals = cnode[name][lead + (sr, sl)].to(pleaf.dtype)
@@ -220,7 +229,8 @@ def copy_blocks(pools: Any, src_ids: List[int], dst_ids: List[int]) -> Any:
     place — the copy-on-write mechanism: before a request writes into a
     block it shares with the prefix cache, the engine copies the donor
     block into a private one.  Diverged tail lanes copied along are
-    masked by reads (``pos >= start``) until overwritten."""
+    masked by reads (``pos >= start``) until overwritten.  An int8
+    pool's scale leaves (``k_s``, ``v_s``) travel with their blocks."""
     def copy(name, leaf):
         ax = leaf.dim() - 2 - _POOL_LEAF_TAIL[name]
         pre = (slice(None),) * ax

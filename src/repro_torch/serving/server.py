@@ -496,6 +496,12 @@ def ragged_dispatch(model, params, pools, tokens, block_table, starts,
     return logits
 
 
+def _decode_launches() -> int:
+    """Launches of the paged decode kernel, either pool type."""
+    counts = kernel_ops.launch_counts()
+    return counts["paged_attention"] + counts["paged_attention_int8"]
+
+
 class PagedLLMEngine(_EngineObsMixin):
     """Continuous batching over a block-paged KV pool with an
     admission-aware scheduler.
@@ -660,8 +666,10 @@ class PagedLLMEngine(_EngineObsMixin):
         # scheduler keeps the separate decode dispatch
         self._fused_decode = scheduler == "continuous" and \
             (self.drafter is not None or bool(decode_fusion))
-        # paged_attention launches made by this engine's decode dispatch:
-        # the decode_kernel gauge reports what ran, not what was asked for
+        # paged_attention launches (int8 pools: paged_attention_int8)
+        # made by this engine's decode dispatch: the decode_kernel gauge
+        # reports what ran, not what was asked for (the reference's reads
+        # 0 for an int8 pool, which its kernel does not read)
         self.decode_kernel_launches = 0
         self.buckets = self._resolve_buckets(prefill_buckets)
         # bucket-align the chunk so chunked dispatches land on the same
@@ -1346,7 +1354,7 @@ class PagedLLMEngine(_EngineObsMixin):
         self._decode_sigs.add((self.max_batch, self.nb_max))
         self._decode_batch_last = len(self.active)
         dev = self.device
-        before = kernel_ops.launch_counts()["paged_attention"]
+        before = _decode_launches()
         logits, self.pools = self.model.decode_step_paged(
             self.params, self.pools,
             torch.from_numpy(self.block_table).to(dev),
@@ -1354,8 +1362,7 @@ class PagedLLMEngine(_EngineObsMixin):
             torch.from_numpy(pos).to(dev),
             torch.from_numpy(active_mask).to(dev))
         greedy = torch.argmax(logits[:, 0], dim=-1)
-        self.decode_kernel_launches += \
-            kernel_ops.launch_counts()["paged_attention"] - before
+        self.decode_kernel_launches += _decode_launches() - before
         arr = greedy.to(torch.int32).cpu().numpy()
         for row in list(self.active):
             self._emit(row, int(arr[row]), now)

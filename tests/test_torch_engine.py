@@ -116,7 +116,10 @@ def test_engine_token_identical_to_reference(models, reference_runs,
         assert eng.allocator.num_live == s["cached_blocks"]
     assert ops.launch_counts() == {"conv2d": 0, "conv2d_wgrad": 0,
                                    "flash_attention": 0,
-                                   "paged_attention": 0, "paged_prefill": 0,
+                                   "paged_attention": 0,
+                                   "paged_attention_int8": 0,
+                                   "paged_prefill": 0,
+                                   "paged_prefill_int8": 0,
                                    "rwkv6_scan": 0, "ssm_scan": 0}
     assert runs[True] == ref_outs
     assert runs[False] == ref_outs

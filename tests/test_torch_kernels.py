@@ -190,7 +190,8 @@ def test_cuda_sources_export_what_the_wrappers_bind():
                                "paged_attention", "paged_prefill",
                                "rwkv6_scan", "ssm_scan"]
     for kern in (cv_mod.KERNEL, cw_mod.KERNEL, fa_mod.KERNEL, pa_mod.KERNEL,
-                 pp_mod.KERNEL, rw_mod.KERNEL, ss_mod.KERNEL):
+                 pa_mod.KERNEL_INT8, pp_mod.KERNEL, pp_mod.KERNEL_INT8,
+                 rw_mod.KERNEL, ss_mod.KERNEL):
         text = (build.CSRC / f"{kern.library}.cu").read_text()
         for sym, argtypes in ((kern.symbol, kern.argtypes),
                               (kern.smem_symbol, kern.smem_argtypes)):
@@ -920,3 +921,134 @@ def test_flash_attention_kernel_at_moe_heads(cuda, dtype):
     plain = ref.flash_attention_ref(q, k, v)
     torch.testing.assert_close(out.float(), plain.float(),
                                **_tol("flash_attention", dt))
+
+
+# ------------------------------------------------------------ int8 cache
+# The int8 KV cache's variants: the pools (decode) or the gathered prefix
+# (ragged prefill, slot decode) int8 with a float32 scale per (lane, KV
+# head), quantized as the model quantizes them.  Each launch is held to
+# its int8 plain version at the float kernel's tolerance, and must equal,
+# bit for bit, the float kernel's launch over the dequantized keys (the
+# prefill over the dequantized prefix and the chunk, concatenated): the
+# kernels dequantize to the model dtype before any product.
+
+
+def _quantized(t):
+    from repro_torch.models.attention import _quantize_kv
+    return _quantize_kv(t)
+
+
+PA_INT8_CARD_CASES = PA_CARD_CASES + [(s, n, None)
+                                      for s, n in GEMMA3_PA_CARD_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,null_rows,splits", PA_INT8_CARD_CASES)
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_int8_kernel(cuda, shape, null_rows, splits, window,
+                                     dtype):
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(shape) + window + 1)
+    q, k, v, kp, bt, pos = (torch.from_numpy(a).to(cuda) for a in
+                            decode_case(rng, *shape, null_rows=null_rows))
+    q = q.to(dt)
+    (k8, ks), (v8, vs) = _quantized(k.to(dt)), _quantized(v.to(dt))
+    n0, f0 = pa_mod.KERNEL_INT8.launches, pa_mod.KERNEL.launches
+    out = ops.paged_attention_int8(q, k8, v8, ks, vs, kp, bt, pos,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert pa_mod.KERNEL_INT8.launches == n0 + 1
+    assert pa_mod.KERNEL.launches == f0
+    plain = ref.paged_attention_int8_ref(q, k8, v8, ks, vs, kp, bt, pos,
+                                         window=window)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("paged_attention", dt))
+    for r in null_rows:
+        assert torch.all(out[r] == 0)
+    dense = ops.paged_attention(q, ref.dequantize_kv(k8, ks, dt),
+                                ref.dequantize_kv(v8, vs, dt), kp, bt, pos,
+                                window=window)
+    assert torch.equal(out, dense)
+
+
+PP_INT8_CARD_SHAPES = ([(shape, 0) for shape in PP_CARD_SHAPES]
+                       + GEMMA3_PP_CARD_SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,min_start", PP_INT8_CARD_SHAPES)
+@pytest.mark.parametrize("window", [0, 5, 1024])
+@pytest.mark.parametrize("slot", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_prefill_int8_kernel(cuda, shape, min_start, window, slot,
+                                   dtype):
+    """The prefix of ``prefill_case`` (its first ``prefix`` lanes) int8,
+    the chunk in the model dtype; ``slot``: one query lane over the int8
+    prefix alone (a slot decode, no chunk keys)."""
+    dt = getattr(torch, dtype)
+    b, s, h, kv, hd, lp = shape
+    rng = np.random.default_rng(sum(shape) + window + 2)
+    q, k, v, kpos, qpos = (torch.from_numpy(a).to(cuda) for a in
+                           prefill_case(rng, *shape, min_start=min_start))
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    (k8, ks), (v8, vs) = _quantized(k[:, :lp]), _quantized(v[:, :lp])
+    kc, vc, kpc = k[:, lp:], v[:, lp:], kpos[:, lp:]
+    if slot:
+        q, qpos = q[:, :1].contiguous(), qpos[:, :1].contiguous()
+        kc, vc, kpc = kc[:, :0], vc[:, :0], kpc[:, :0]
+    kc, vc, kpc, kpp = (t.contiguous() for t in (kc, vc, kpc,
+                                                 kpos[:, :lp]))
+    n0, f0 = pp_mod.KERNEL_INT8.launches, pp_mod.KERNEL.launches
+    out = ops.paged_prefill_int8(q, k8, v8, ks, vs, kpp, kc, vc, kpc, qpos,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert pp_mod.KERNEL_INT8.launches == n0 + 1
+    assert pp_mod.KERNEL.launches == f0
+    plain = ref.paged_prefill_int8_ref(q, k8, v8, ks, vs, kpp, kc, vc, kpc,
+                                       qpos, window=window)
+    kp_all = torch.cat([kpp, kpc], 1)
+    qp, kp = qpos[:, :, None], kp_all[:, None, :]
+    vis = (kp >= 0) & (kp <= qp)
+    if window:
+        vis &= qp - kp < window
+    lanes = vis.any(-1)
+    torch.testing.assert_close(out[lanes].float(), plain[lanes].float(),
+                               **_tol("paged_prefill", dt))
+    dense = ops.paged_prefill(
+        q, torch.cat([ref.dequantize_kv(k8, ks, dt), kc], 1).contiguous(),
+        torch.cat([ref.dequantize_kv(v8, vs, dt), vc], 1).contiguous(),
+        kp_all.contiguous(), qpos, window=window)
+    assert torch.equal(out, dense)
+
+
+@pytest.mark.cuda
+def test_int8_caches_are_refused_by_the_float_entries(cuda):
+    """An int8 pool handed to the float entries raises (``ops`` on any
+    device, the wrappers on the card); the int8 entries refuse float
+    pools and misshapen scales."""
+    rng = np.random.default_rng(0)
+    q, k, v, kp, bt, pos = (torch.from_numpy(a).to(cuda) for a in
+                            decode_case(rng, 2, 4, 2, 16, 9, 4, 3))
+    (k8, ks), (v8, vs) = _quantized(k), _quantized(v)
+    with pytest.raises(ValueError, match="int8"):
+        ops.paged_attention(q, k8, v8, kp, bt, pos)
+    with pytest.raises(ValueError, match="k_pool and v_pool"):
+        pa_mod.paged_attention(q, k8, v8, kp, bt, pos)
+    with pytest.raises(ValueError, match="k_pool and v_pool"):
+        pa_mod.paged_attention_int8(q, k, v, ks, vs, kp, bt, pos)
+    with pytest.raises(ValueError, match="k_scale"):
+        pa_mod.paged_attention_int8(q, k8, v8, ks[:, :2].contiguous(), vs,
+                                    kp, bt, pos)
+    qq, kk, vv, kpos, qpos = (torch.from_numpy(a).to(cuda) for a in
+                              prefill_case(rng, 2, 4, 4, 2, 16, 8))
+    (p8, ps), _ = _quantized(kk[:, :8]), None
+    with pytest.raises(ValueError, match="int8"):
+        ops.paged_prefill(qq, torch.cat([p8, p8], 1), kk, kpos, qpos)
+    with pytest.raises(ValueError, match="int8"):
+        pp_mod.paged_prefill_int8(qq, kk[:, :8].contiguous(),
+                                  kk[:, :8].contiguous(), ps, ps,
+                                  kpos[:, :8].contiguous(),
+                                  kk[:, 8:].contiguous(),
+                                  vv[:, 8:].contiguous(),
+                                  kpos[:, 8:].contiguous(), qpos)

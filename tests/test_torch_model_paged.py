@@ -206,10 +206,14 @@ def test_init_schema_matches_reference(pair):
 def test_model_refuses_unported_configs():
     base = get_config("qwen3-0.6b").reduced()
     for bad in (dataclasses.replace(base, is_encoder_decoder=True),
-                dataclasses.replace(base, kv_cache_quant=True),
                 dataclasses.replace(base, frontend="vision")):
         with pytest.raises(ValueError):
             Model(bad, device="cpu")
+    # the int8 KV cache is ported: the model builds, its pools are int8
+    quant = Model(dataclasses.replace(base, kv_cache_quant=True),
+                  device="cpu")
+    assert quant.pool_init(4, 2)["periods"]["slot0"]["k"].dtype == \
+        torch.int8
     with pytest.raises(KeyError, match="not carried"):
         get_config("whisper-tiny")
     if not torch.cuda.is_available():

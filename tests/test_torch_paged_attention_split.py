@@ -171,6 +171,6 @@ def test_kernel_source_matches_the_planner():
     assert "cfg.gridDim = dim3(a.n_pieces * B * a.KV);" in text
     assert "attr[0].val.clusterDim.x = a.n_pieces;" in text
     assert f"constexpr int kMaxPieces = {pa_mod.MAX_PIECES};" in text
-    cases = re.findall(r"case (\d+): return launch_g<T, \1>", text)
+    cases = re.findall(r"case (\d+): return launch_g<T, S, \1>", text)
     assert tuple(map(int, cases)) == pa_mod.HEAD_DIMS
     assert f"constexpr int kMaxGroup = {pa_mod.MAX_GROUP};" in text

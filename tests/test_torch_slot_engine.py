@@ -212,7 +212,10 @@ def test_slot_engine_token_identical_to_reference(pair, reference_slot_run):
     outs = _drain(eng, wl)
     assert ops.launch_counts() == {"conv2d": 0, "conv2d_wgrad": 0,
                                    "flash_attention": 0,
-                                   "paged_attention": 0, "paged_prefill": 0,
+                                   "paged_attention": 0,
+                                   "paged_attention_int8": 0,
+                                   "paged_prefill": 0,
+                                   "paged_prefill_int8": 0,
                                    "rwkv6_scan": 0, "ssm_scan": 0}
     assert outs == ref_outs
     assert len(outs) == len(wl.prompts)
