@@ -162,6 +162,24 @@ then runs its phases, each raising on failure:
    ``conv2d_wgrad`` 360, its checkpoint restored and served; ``local_sgd``
    and ``elastic`` at ``bench_strategies``' budget (8,000 / 24 / 2), each
    >= 0.98;
+6c. LLM training (``launch/train.py``'s path, which launches no kernel:
+   the reference trains through its q-chunked jnp attention, as its
+   kernels have no VJP): the CLI refuses rwkv6-1.6b and
+   jamba-1.5-large-398b on the card, naming the scan kernels that lack a
+   backward; qwen3-0.6b at its published width (28 layers, bf16) for the
+   CLI's 100 steps at batch 8 x seq 128 with a checkpoint every 25: every
+   loss and grad norm finite, the LEARNING verdict, no kernel launched,
+   the step-100 checkpoint restoring bit-equal weights and optimizer
+   state, a restart from step 75 repeating the losses within
+   ``RESUME_ATOL``; the median step time and memory high-water mark; the
+   training forward's logits against ``Model.forward``'s
+   (``flash_attention``) on the trained weights within the model
+   tolerance; a profile of 3 more steps (device busy share, device time
+   by kernel); at 2 layers in float32 (TF32 off) the loss and every
+   gradient leaf on the card against the CPU; gemma3-4b (6 of 34 layers,
+   seq 2,048: the window across two query chunks at head_dim 256) and
+   dbrx-132b (1 of 40 layers: the router term) at their published widths,
+   10 steps each, losses finite and falling;
 7. times: each kernel's time beside its bound, its plain version's and
    one PyTorch library call's where there is one (a yardstick only; the
    port never calls it), the kernel and the library call both by events
@@ -201,6 +219,8 @@ import functools
 import gc
 import io
 import json
+import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2131,7 +2151,7 @@ def int8_phase(torch, device, ops, ref, serve, Model, ragged_dispatch,
             r = flips[0]
             i = first_flip(outs[r], bf_outs[r])
             margin, top1, top2 = logit_margin(torch, model, params,
-                                              prompts[r], outs[r][:i])
+                                              prompts[r - 1], outs[r][:i])
             line += (f"; first flip req {r} token {i}: int8 {outs[r][i]}, "
                      f"bf16 {bf_outs[r][i]}, top-2 margin {margin:.4f} "
                      f"({top1} vs {top2})")
@@ -2157,6 +2177,24 @@ def int8_phase(torch, device, ops, ref, serve, Model, ragged_dispatch,
     log("engine qwen3-0.6b float32 2 layers int8 KV cache: each mode's "
         f"tokens through the kernels equal its plain versions'; modes "
         f"agreeing: {sorted(k for k, v in same.items() if v)}")
+    # a reading (ROADMAP Queue 3 record item 8): where a mode parts from
+    # fusion on, the first differing token and the top-2 margin of the
+    # full-precision logits there (a whole-prompt prefill of the prompt
+    # and the tokens both emitted)
+    base = tokens["fusion on", "kernels"]
+    for mode in INT8_MODES:
+        got = tokens[mode, "kernels"]
+        flips = [r for r in sorted(got) if got[r] != base[r]]
+        if not flips:
+            continue
+        r = flips[0]
+        i = first_flip(got[r], base[r])
+        margin, top1, top2 = logit_margin(torch, small_q, small_params,
+                                          prompts[r - 1], got[r][:i])
+        log(f"  {mode} parts from fusion on in {len(flips)} of {len(got)} "
+            f"requests; first at req {r} token {i}: {got[r][i]} against "
+            f"{base[r][i]}, full-precision top-2 margin {margin:.3e} "
+            f"({top1} vs {top2})")
 
     # the CPU tests' reduced config, settings and workload: every mode
     # emits the same tokens through the kernels (as the reference does)
@@ -3253,6 +3291,235 @@ def training_phase(torch, device, ops, ref, smi) -> tuple:
     return err, counts
 
 
+# ---------------------------------------------------------------- LLM training
+
+
+# phase 6c: the LLM train CLI (``launch/train.py``) at qwen3-0.6b's
+# published width, bf16, its defaults otherwise (100 steps, batch 8, seq
+# 128, a checkpoint every 25 steps)
+TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--no-reduced"]
+# a run restarted from the step-75 checkpoint against the first run's
+# losses at the same steps: its first step reads bit-equal weights and
+# the same batch (a forward: no atomics); later steps follow weights
+# that CUDA's embedding backward (atomic adds, in no fixed order) moved
+# by rounding, which bf16 rounding of each update can widen to an ulp
+RESUME_FIRST_ATOL = 1e-3
+RESUME_ATOL = 2e-2
+# 2 layers of qwen3-0.6b in float32, TF32 off, the card against the same
+# port on the CPU: the loss, and each gradient leaf within this many times
+# its max|g| (the CPU tests' tolerances against jax.value_and_grad)
+TRAIN_LOSS_ATOL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+# configs at their published widths cut in depth, a few steps each:
+# (arch, layers, batch, seq, steps).  gemma3-4b's 6 layers are 5 windowed
+# (1,024) and 1 global, and seq 2,048 makes two query chunks of 1,024
+# that the window cuts across, at head_dim 256; dbrx-132b's one layer
+# (4.5 B parameters, 16 experts) puts the router term in the loss
+TRAIN_CUTS = (("gemma3-4b", 6, 2, 2048, 10), ("dbrx-132b", 1, 8, 128, 10))
+
+
+def _loss_and_grads(torch, model, params, batch):
+    """-> (loss, metrics, gradient leaves in ``tree_leaves`` order)."""
+    from repro_torch.core.strategies import _value_and_grad
+    from repro_torch.optim.optimizers import tree_leaves
+
+    loss, metrics, grads = _value_and_grad(
+        lambda p, b: model.loss(p, b), params, batch)
+    return loss, metrics, tree_leaves(grads)
+
+
+def llm_training_phase(torch, device, ops, ref, smi) -> None:
+    """Phase 6c: LLM training through ``launch/train.py``'s path.  The
+    CLI refuses rwkv6 and jamba on the card by name; qwen3-0.6b at its
+    published width trains for the CLI's 100 steps with every loss and
+    grad norm finite, its LEARNING verdict, no kernel launched, the
+    step-100 checkpoint restoring bit-equal weights and optimizer state
+    and a restart from step 75 repeating the losses; the median step time
+    and the memory high-water mark; its training forward's logits
+    (q-chunked attention, no kernel) against ``Model.forward``'s
+    (``flash_attention``); a profile of 3 steps; 2 layers in float32, loss and every gradient
+    leaf on the card against the CPU; then gemma3-4b and dbrx-132b at
+    their published widths cut in depth (``TRAIN_CUTS``), a few steps
+    each, losses finite and falling."""
+    import os
+    import statistics
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.trainer import make_train_step
+    from repro_torch.data.tokens import make_stream
+    from repro_torch.launch import train
+    from repro_torch.models.api import Model
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    def cli_log(line):
+        log(f"  train: {line}")
+
+    for arch, kernel in (("rwkv6-1.6b", "rwkv6_scan"),
+                         ("jamba-1.5-large-398b", "ssm_scan")):
+        try:
+            train.main(["--arch", arch, "--no-reduced"])
+        except SystemExit as e:
+            assert kernel in str(e), e
+            log(f"train CLI --arch {arch} on the card refused: {e}")
+        else:
+            raise AssertionError(f"the train CLI trained {arch} on the card")
+
+    args = train.make_parser().parse_args(TRAIN_ARGV)
+    cfg = train.config_for(args)
+    with tempfile.TemporaryDirectory() as root:
+        args.ckpt_dir = os.path.join(root, "run")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out = train.run(args, log=cli_log)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses, gnorms = out["losses"], out["grad_norms"]
+        median = statistics.median(out["step_seconds"])
+        log(f"train qwen3-0.6b bf16 {cfg.num_layers} layers, batch "
+            f"{args.batch} x seq {args.seq}, {args.steps} steps: median step "
+            f"{1e3 * median:.1f} ms (first {1e3 * out['step_seconds'][0]:.1f}"
+            f" ms), memory high-water {peak:.2f} GiB, loss {losses[0]:.4f} "
+            f"-> {losses[-1]:.4f}, grad_norm {gnorms[0]:.3f} -> "
+            f"{gnorms[-1]:.3f}, {out['verdict']}; launches {counts} | {smi}")
+        assert len(losses) == len(gnorms) == args.steps
+        assert all(map(math.isfinite, losses + gnorms)), (losses, gnorms)
+        assert out["verdict"] == "LEARNING", out["verdict"]
+        assert not any(counts.values()), counts
+
+        ckpt = CheckpointManager(args.ckpt_dir)
+        step, tree = ckpt.restore_latest({"params": out["params"],
+                                          "opt": out["opt_state"]})
+        assert step == args.steps, step
+        pairs = list(zip(tree_leaves(tree),
+                         tree_leaves({"params": out["params"],
+                                      "opt": out["opt_state"]})))
+        assert all(torch.equal(a, b) for a, b in pairs)
+        log(f"  checkpoint step {step} restored: {len(pairs)} leaves of "
+            "params and optimizer state bit-equal")
+        del tree, pairs
+        mid = 3 * args.steps // 4
+        resume = os.path.join(root, "resume")
+        os.makedirs(resume)
+        os.replace(ckpt.dir_for(mid), os.path.join(resume, f"step_{mid}"))
+        shutil.rmtree(args.ckpt_dir)
+        args.ckpt_dir = resume
+        again = train.run(args, log=cli_log)
+        assert again["start"] == mid, again["start"]
+        diffs = [abs(a - b) for a, b in zip(again["losses"], losses[mid:])]
+        log(f"  restarted from step {mid}: {len(diffs)} steps, first loss "
+            f"{again['losses'][0]:.6f} against {losses[mid]:.6f} "
+            f"(|diff| {diffs[0]:.2e}), largest |diff| {max(diffs):.2e}")
+        assert len(diffs) == args.steps - mid
+        assert diffs[0] <= RESUME_FIRST_ATOL, diffs
+        assert max(diffs) <= RESUME_ATOL, diffs
+        del again
+
+    # the training forward against the draft's inference forward, on the
+    # trained weights
+    model = Model(cfg, device=device)
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    stream = make_stream(cfg.vocab_size, args.seq, args.batch, args.seed)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in stream.batch(args.steps).items()}
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        logits, _ = model.forward_train(params, batch)
+        train_counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        draft = model.forward(params, batch)
+        draft_counts = ops.launch_counts()
+    rel = _rel_err(torch, logits, draft)
+    log(f"train qwen3-0.6b bf16: forward_train logits (q-chunked, launches "
+        f"{sum(train_counts.values())}) against Model.forward "
+        f"(flash_attention x {draft_counts['flash_attention']}): rel_err "
+        f"{rel:.3e}")
+    assert rel <= MODEL_TOL["bfloat16"], rel
+    assert not any(train_counts.values()), train_counts
+    assert draft_counts["flash_attention"] == cfg.num_layers, draft_counts
+    del logits, draft
+
+    # where a step's time goes: 3 more donated steps under the profiler
+    step_fn = make_train_step(lambda p, b: model.loss(p, b),
+                              train.optimizer_for(args), clip=1.0)
+
+    def steps(n):
+        nonlocal params, opt_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            float(metrics["loss"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    steps(1)
+    secs, busy, rows = profile_engine(torch, lambda: steps(3))
+    log(f"profile train qwen3-0.6b bf16, 3 steps: wall {secs:.3f}s under "
+        f"the profiler, device busy {busy:.3f}s ({100 * busy / secs:.1f}%), "
+        f"{sum(r[1] for r in rows)} kernels")
+    for us, n, key in rows[:8]:
+        log(f"  {us / 1e3:9.2f} ms {n:6d}x  {key[:90]}")
+    del model, params, opt_state, step_fn
+
+    # 2 layers, float32 (TF32 off): the card against the CPU
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    cpu_model = Model(small, device="cpu")
+    cpu_params = cpu_model.init(seed=0)
+    card_model = Model(small, device=device)
+    card_params = tree_map(lambda t: t.to(device), cpu_params)
+    nb = make_stream(small.vocab_size, args.seq, 2, 0).batch(0)
+    got = _loss_and_grads(torch, card_model, card_params,
+                          {k: torch.from_numpy(v).to(device)
+                           for k, v in nb.items()})
+    want = _loss_and_grads(torch, cpu_model, cpu_params,
+                           {k: torch.from_numpy(v) for k, v in nb.items()})
+    loss_diff = abs(float(got[0]) - float(want[0]))
+    worst = max((g.cpu() - w).abs().max().item()
+                / max(w.abs().max().item(), 1e-30)
+                for g, w in zip(got[2], want[2]))
+    log(f"train qwen3-0.6b float32 2 layers, card vs CPU: loss "
+        f"{float(got[0]):.6f} vs {float(want[0]):.6f} (|diff| "
+        f"{loss_diff:.2e}), worst gradient leaf |diff| / max|g| "
+        f"{worst:.2e} over {len(want[2])} leaves")
+    assert loss_diff <= TRAIN_LOSS_ATOL, loss_diff
+    assert worst <= TRAIN_GRAD_REL, worst
+    del card_params, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for arch, layers, b, s, steps in TRAIN_CUTS:
+        full = get_config(arch)
+        cut = dataclasses.replace(full, num_layers=layers)
+        a = train.make_parser().parse_args(
+            ["--arch", arch, "--no-reduced", "--batch", str(b), "--seq",
+             str(s), "--steps", str(steps), "--log-every", "1"])
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = train.run(a, cfg=cut, log=cli_log)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ls = res["losses"]
+        log(f"train {arch} bf16 at its published widths, cut to {layers} of "
+            f"{full.num_layers} layers ({', '.join(cut.kinds_for_layers)}), "
+            f"batch {b} x seq {s}, {steps} steps: median step "
+            f"{1e3 * statistics.median(res['step_seconds']):.1f} ms, memory "
+            f"high-water {peak:.2f} GiB, loss {ls[0]:.4f} -> {ls[-1]:.4f}, "
+            f"router loss {res['aux'][0]:.4f} -> {res['aux'][-1]:.4f}; "
+            f"launches {sum(counts.values())} | {smi}")
+        assert all(map(math.isfinite, ls + res["grad_norms"])), ls
+        assert ls[-1] < ls[0], ls
+        assert not any(counts.values()), counts
+        if full.num_experts:
+            assert min(res["aux"]) > 0, res["aux"]
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- timing
 
 
@@ -4330,6 +4597,11 @@ def main() -> int:
     launches["conv2d_wgrad"] = train_counts["conv2d_wgrad"]
 
     phase_done("6b")
+
+    # 6c. LLM training through the train CLI's path
+    llm_training_phase(torch, device, ops, ref, smi)
+
+    phase_done("6c")
 
     # 7. times
     times = kernel_times(torch, device, ops, ref)

@@ -1,9 +1,14 @@
-"""Model API for inference (the port of ``repro.models.api.Model``).
+"""Model API (the port of ``repro.models.api.Model``).
 
-``Model(cfg, device)`` carries the schema, a seeded ``init``, and the
-entry points the serving engines call: ``forward(params, batch)``
-(logits at every position, no cache: the speculative draft's), the slot
-engine's:
+``Model(cfg, device)`` carries the schema, a seeded ``init``, the
+training entry points:
+
+    forward_train(params, batch)   (logits, router loss), differentiable
+    loss(params, batch)            (total, {"loss", "xent", "aux"})
+
+``forward(params, batch)`` (logits at every position, no cache, through
+the kernels: the speculative draft's), and the entry points the serving
+engines call, the slot engine's:
 
     cache_init(batch, cache_max)               slot caches (pos lanes -1)
     prefill(params, batch, cache_max=...)      (last logits, caches)
@@ -46,7 +51,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (embed_apply, embed_schema, norm_apply,
-                                       norm_schema, unembed_apply)
+                                       norm_schema, softmax_xent,
+                                       unembed_apply)
 from repro_torch.models.module import init_params, torch_dtype
 
 
@@ -71,20 +77,51 @@ class Model:
     def init(self, seed: int = 0):
         return init_params(self.schema(), seed, self.cfg.dtype, self.device)
 
-    # ------------------------------------------------------------ forward
-    def forward(self, params, batch):
-        """Cacheless forward over ``batch["tokens"]`` (B,S) at positions
-        0..S-1, attention through ``ops.flash_attention`` (the CUDA
-        kernel on the card): what the draft model of speculative decoding
-        runs.  -> logits (B,S,V) at every position.  Inference only: the
-        kernels have no backward, and the reference's second output (the
-        MoE router loss, a training term) is not returned."""
+    def _positions(self, s: int):
+        return torch.arange(s, dtype=torch.int32, device=self.device)
+
+    # ------------------------------------------------------------ train
+    def forward_train(self, params, batch, *, remat: bool = True):
+        """The reference's ``Model.forward`` for token stacks: the
+        training forward over ``batch["tokens"]`` (B,S) at positions
+        0..S-1, differentiable, attention through ``attn_apply``'s
+        q-chunked branch (no kernel, as in the reference), mamba and
+        rwkv6 from zero states.  ``remat`` recomputes each period of
+        layers in the backward pass.  -> (logits (B,S,V), the MoE router
+        loss summed over layers, float32)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=self.device)
+        positions = self._positions(tokens.shape[1])
         x = embed_apply(params["embed"], tokens)
-        x = tf.stack_apply(params["stack"], cfg, x, positions)
+        x, aux = tf.stack_apply_train(params["stack"], cfg, x, positions,
+                                      remat=remat)
+        x = norm_apply(params["final_norm"], x, cfg.norm_kind)
+        return unembed_apply(params["embed"], cfg, x), aux
+
+    def loss(self, params, batch, *, remat: bool = True):
+        """Mean next-token cross-entropy against ``batch["labels"]``
+        (B,S) (``batch["mask"]`` weights positions where given) plus
+        ``cfg.router_aux_coef`` times the router loss.
+        -> (total, {"loss": total, "xent", "aux"})."""
+        logits, aux = self.forward_train(params, batch, remat=remat)
+        xent = softmax_xent(logits, batch["labels"], batch.get("mask"))
+        total = xent + self.cfg.router_aux_coef * aux
+        return total, {"loss": total, "xent": xent, "aux": aux}
+
+    # ------------------------------------------------------------ forward
+    def forward(self, params, batch):
+        """Cacheless inference forward over ``batch["tokens"]`` (B,S) at
+        positions 0..S-1, attention through ``ops.flash_attention`` (the
+        CUDA kernel on the card): what the draft model of speculative
+        decoding runs.  -> logits (B,S,V) at every position.  The kernels
+        have no backward and the router loss is not returned: training
+        runs ``forward_train`` (the reference's ``Model.forward``), whose
+        logits these equal within rounding."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed_apply(params["embed"], tokens)
+        x = tf.stack_apply(params["stack"], cfg, x,
+                           self._positions(tokens.shape[1]))
         x = norm_apply(params["final_norm"], x, cfg.norm_kind)
         return unembed_apply(params["embed"], cfg, x)
 
@@ -106,10 +143,9 @@ class Model:
         ``cache_max`` lanes or recurrent states, in the stack layout)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=self.device)
         x = embed_apply(params["embed"], tokens)
-        x, caches = tf.stack_prefill(params["stack"], cfg, x, positions,
+        x, caches = tf.stack_prefill(params["stack"], cfg, x,
+                                     self._positions(tokens.shape[1]),
                                      cache_max=cache_max)
         x = norm_apply(params["final_norm"], x, cfg.norm_kind)
         return unembed_apply(params["embed"], cfg, x[:, -1:, :]), caches

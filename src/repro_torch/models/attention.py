@@ -1,6 +1,12 @@
-"""Attention: GQA, RoPE, qk-norm; the slot cache and the block-paged pool.
+"""Attention: GQA, RoPE, qk-norm; full-sequence attention for training
+and inference, the slot cache and the block-paged pool.
 
-The port of ``repro.models.attention`` for inference.  Two cache shapes:
+The port of ``repro.models.attention``.  ``attn_apply`` is the
+full-sequence layer: its kernel branch (``allow_kernel=True``, the
+draft model's and the reference's inference forward) runs
+``ops.flash_attention``; its q-chunked branch (training, prefix-LM,
+cross-attention) is the reference's differentiable formulation in plain
+PyTorch, with no kernel, as in the reference.  Two cache shapes:
 
 * the slot cache of one layer (``init_cache``): ``{"k", "v": (B, C, KV,
   hd), "pos": (B, C) int32}``, one strip of ``C`` lanes per slot, filled
@@ -26,13 +32,28 @@ such place says so.
 """
 from __future__ import annotations
 
+import contextvars
+import functools
+import math
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import dequantize_kv as _dequantize_kv  # noqa: F401
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.module import ParamSpec
+
+NEG_INF = -2.0 ** 30  # large-negative that survives bf16
+
+# q-chunk override: forces the chunk length of ``attn_apply``'s q-chunked
+# branch (the reference's roofline lowering forces one chunk); a
+# contextvar, so model code stays signature-stable
+_Q_CHUNK_OVERRIDE: contextvars.ContextVar[Optional[int]] = \
+    contextvars.ContextVar("q_chunk_override", default=None)
 
 # ------------------------------------------------------------------ schema
 
@@ -103,35 +124,139 @@ def _bcast_pos(positions, b, s):
 # ------------------------------------------------------------- full-seq
 
 
-def _flash_attend(p, cfg: ModelConfig, q, k, v, *, kind: str):
-    """Causal self-attention: q (B,S,H,hd), k/v (B,S,KV,hd) -> y (B,S,D)
+def _flash_attend(p, cfg: ModelConfig, q, k, v, *, kind: str,
+                  causal: bool = True):
+    """Self-attention: q (B,S,H,hd), k/v (B,S,KV,hd) -> y (B,S,D)
     through ``ops.flash_attention`` (the CUDA kernel on the card, its
     plain version on the CPU).  The kernel reads the ``(B,H,S,hd)``
     transposed views through their strides and writes its output in q's
     layout, so neither direction copies on the card."""
     window = cfg.sliding_window if kind == "attn_local" else 0
     out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), window=window)
+                                     v.transpose(1, 2), causal=causal,
+                                     window=window)
     return _out_proj(out.transpose(1, 2), p["wo"])
 
 
-def attn_apply(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
-               allow_kernel: bool = False):
-    """Full-sequence causal self-attention at contiguous ``positions``
-    (S,): the reference's kernel branch (``allow_kernel=True``), through
-    ``ops.flash_attention``.  -> y (B,S,D).
+def _repeat_kv(k, h: int):
+    """(B,S,KV,hd) -> (B,S,H,hd), each KV head repeated for its group."""
+    kv = k.shape[2]
+    if kv != h:
+        k = torch.repeat_interleave(k, h // kv, dim=2)
+    return k
 
-    The reference's q-chunked jnp branch serves training, prefix-LM and
-    cross-attention, none of which the port constructs yet: asking for
-    it (``allow_kernel=False``, or per-row (B,S) positions) raises."""
-    if not allow_kernel or positions.dim() != 1:
-        raise NotImplementedError(
-            "attn_apply: only the inference kernel branch (allow_kernel="
-            "True, positions (S,)) is ported to repro_torch; the q-chunked "
-            "branch (training, prefix-LM, cross-attention) is not")
-    q, k, v = _project_qkv(p, cfg, x, positions, cfg.pos_kind == "rope",
-                           kind)
-    return _flash_attend(p, cfg, q, k, v, kind=kind)
+
+def _scores(q, k_rep):
+    """q (B,Sq,H,hd), k_rep (B,Sk,H,hd) -> (B,H,Sq,Sk), in their dtype."""
+    return torch.einsum("bqhd,bshd->bhqs", q, k_rep)
+
+
+def _attn_out(probs, v_rep):
+    """probs (B,H,Sq,Sk), v_rep (B,Sk,H,hd) -> (B,Sq,H,hd)."""
+    return torch.einsum("bhqs,bshd->bqhd", probs, v_rep)
+
+
+def _softmax(scores, mask):
+    """float32 softmax over the last axis, masked lanes at ``NEG_INF``;
+    the max is held out of the gradient (``stop_gradient`` in the
+    reference)."""
+    scores = torch.where(mask, scores.float(), NEG_INF)
+    m = torch.amax(scores, dim=-1, keepdim=True).detach()
+    e = torch.exp(scores - m)
+    z = torch.sum(e, dim=-1, keepdim=True)
+    return e / torch.clamp(z, min=1e-30)
+
+
+def _chunk_attend(qi, pi, kpos, k_rep, v_rep, *, scale: float, causal: bool,
+                  bidir_prefix: int, window: int):
+    """One query chunk of the q-chunked branch: qi (B,qc,H,hd) at
+    positions pi (B,qc) against every key -> (B,qc,H,hd)."""
+    sc = _scores(qi, k_rep) * scale
+    kp = kpos[:, None, None, :]
+    qp = pi[:, None, :, None]
+    if causal:
+        mask = (qp >= kp) & (kp >= 0)
+        if bidir_prefix:
+            mask = mask | ((kp >= 0) & (kp < bidir_prefix) & (qp >= 0))
+    else:
+        mask = kp >= 0
+    if window:
+        mask = mask & (qp - kp < window)
+    probs = _softmax(sc, mask).to(v_rep.dtype)
+    return _attn_out(probs, v_rep)
+
+
+def attn_apply(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
+               causal: bool = True, kv_override=None, q_chunk: int = 1024,
+               bidir_prefix: int = 0, allow_kernel: bool = False):
+    """Full-sequence attention.  -> y (B,S,D).
+
+    kind: "attn" (global) or "attn_local" (sliding window of
+    ``cfg.sliding_window``).  ``kv_override=(k, v, kv_positions)``
+    switches to cross-attention (no causal mask, no RoPE on the kv side
+    here).  ``bidir_prefix``: the first N positions attend
+    bidirectionally (prefix-LM).
+
+    ``allow_kernel=True`` with self-attention at (S,) positions and no
+    bidirectional prefix takes the reference's kernel branch, through
+    ``ops.flash_attention`` (inference only: the kernel has no
+    backward).  Everything else runs the reference's q-chunked branch,
+    in plain PyTorch under autograd: the queries in ``ceil(S / q_chunk)``
+    equal chunks (padded query lanes at position -1), scores in the model
+    dtype against every key, the masked float32 ``_softmax``, the
+    probabilities cast to v's dtype for the value product.  Each chunk
+    is recomputed in the backward pass
+    (``torch.utils.checkpoint.checkpoint``, the reference's
+    ``jax.checkpoint`` on its chunk body), so the (S, S) scores are never
+    kept for the backward.  The reference's own training path takes this
+    branch: its kernels have no VJP."""
+    hd = cfg.resolved_head_dim
+    rope = cfg.pos_kind == "rope"
+    positions = torch.as_tensor(positions, dtype=torch.int32,
+                                device=x.device)
+    if kv_override is None:
+        q, k, v = _project_qkv(p, cfg, x, positions, rope, kind)
+        kv_pos = positions
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        k, v, kv_pos = kv_override
+        causal = False
+    window = cfg.sliding_window if kind == "attn_local" else 0
+
+    if (allow_kernel and kv_override is None and not bidir_prefix
+            and positions.dim() == 1):
+        return _flash_attend(p, cfg, q, k, v, kind=kind, causal=causal)
+
+    b, s, h, _ = q.shape
+    q_chunk = _Q_CHUNK_OVERRIDE.get() or q_chunk
+    nchunk = max(1, -(-s // q_chunk))
+    q_chunk = -(-s // nchunk)
+    pad = nchunk * q_chunk - s
+    qpos = _bcast_pos(positions, b, s)
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        qpos = F.pad(qpos, (0, pad), value=-1)
+    kpos = _bcast_pos(torch.as_tensor(kv_pos, device=x.device), b,
+                      k.shape[1])
+    k_rep, v_rep = _repeat_kv(k, h), _repeat_kv(v, h)
+    body = functools.partial(_chunk_attend, scale=1.0 / math.sqrt(hd),
+                             causal=causal, bidir_prefix=bidir_prefix,
+                             window=window)
+    outs = []
+    for i in range(nchunk):
+        qi = q[:, i * q_chunk:(i + 1) * q_chunk]
+        pi = qpos[:, i * q_chunk:(i + 1) * q_chunk]
+        if torch.is_grad_enabled():
+            # the forward draws no random numbers: no RNG state to keep
+            outs.append(checkpoint(body, qi, pi, kpos, k_rep, v_rep,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False))
+        else:
+            outs.append(body(qi, pi, kpos, k_rep, v_rep))
+    out = torch.cat(outs, dim=1)[:, :s]
+    return _out_proj(out, p["wo"])
 
 
 # ------------------------------------------------------------- slot cache

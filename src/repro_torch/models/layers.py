@@ -1,5 +1,5 @@
 """Shared layer library: rmsnorm and layernorm, RoPE, the gated MLPs
-(swiglu, geglu), embeddings.
+(swiglu, geglu), embeddings, the next-token cross-entropy.
 
 Plain functions on tensors with the arithmetic of ``repro.models.layers``:
 norms and RoPE compute in float32 and cast back to the input dtype;
@@ -119,3 +119,20 @@ def unembed_apply(p, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
         return x @ p["tokens"].T
     return x @ p["unembed"]
+
+
+# ---------------------------------------------------------------- loss
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean next-token cross-entropy in float32, as logsumexp minus the
+    gold logit.  labels: int (B,S); ``mask`` (B,S) weights each position
+    (the mean over ``max(sum(mask), 1)``)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

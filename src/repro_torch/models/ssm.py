@@ -108,3 +108,13 @@ def ssm_forward(p, cfg: ModelConfig, x, state, seq_len=None):
         a.contiguous(), state["h"].float().contiguous())
     y = y * F.silu(z)
     return y @ p["out_proj"], {"h": h_final, "conv": new_conv.contiguous()}
+
+
+def ssm_apply(p, cfg: ModelConfig, x):
+    """Full-sequence forward from a zero state, no cache: what the
+    reference's training block runs.  x (B,S,D) -> y (B,S,D).  The scan
+    goes through ``ops.ssm_scan``; its plain version (a CPU tensor)
+    differentiates, and the CUDA kernel refuses autograd (it has no
+    backward yet)."""
+    st = init_state(cfg, x.shape[0], x.dtype, x.device)
+    return ssm_forward(p, cfg, x, st)[0]

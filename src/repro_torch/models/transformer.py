@@ -1,7 +1,8 @@
-"""Layer blocks and period-stacked stacks: the cacheless forward
-(``stack_apply``, what the speculative draft runs), the slot path
-(whole-prompt prefill, one-token decode against slot caches) and the
-paged path.
+"""Layer blocks and period-stacked stacks: the training forward
+(``stack_apply_train``, differentiable, with the MoE router loss), the
+cacheless inference forward (``stack_apply``, through the kernels: what
+the speculative draft runs), the slot path (whole-prompt prefill,
+one-token decode against slot caches) and the paged path.
 
 Parameters, pools and caches keep the reference's layout
 (``repro.models.transformer``): ``{"periods": {"slot{j}": leaves with a
@@ -24,6 +25,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -128,7 +130,7 @@ def _to_layout(cfg: ModelConfig, per_layer: list):
     return {"periods": periods, "rem": rem}
 
 
-# ------------------------------------------------------------ slot path
+# ------------------------------------------- the cacheless inference forward
 
 
 def _ffn(p, cfg: ModelConfig, x, moe: bool):
@@ -166,9 +168,10 @@ def _recurrent_fwd(p, cfg: ModelConfig, x, st, *, kind: str, moe: bool,
 
 def block_apply(p, cfg: ModelConfig, x, positions, *, kind: str,
                 moe: bool = False):
-    """Cacheless forward of one layer at contiguous ``positions`` (S,):
-    attention through ``attn_apply``'s kernel branch (mamba, rwkv6: their
-    state from zeros).  -> x."""
+    """Cacheless inference forward of one layer at contiguous
+    ``positions`` (S,): attention through ``attn_apply``'s kernel branch
+    (mamba, rwkv6: their state from zeros), the MoE's router loss
+    dropped.  ``block_apply_train`` is the training block.  -> x."""
     if kind in RECURRENT_KINDS:
         st = _init_state(cfg, kind, x.shape[0], x.dtype, x.device)
         return _recurrent_fwd(p, cfg, x, st, kind=kind, moe=moe)[0]
@@ -180,10 +183,87 @@ def block_apply(p, cfg: ModelConfig, x, positions, *, kind: str,
 
 
 def stack_apply(params, cfg: ModelConfig, x, positions):
-    """Cacheless forward of the whole stack.  -> x."""
+    """Cacheless inference forward of the whole stack, through the
+    kernels (the draft model's).  -> x."""
     for p, (kind, moe) in zip(layer_views(cfg, params), layer_sigs(cfg)):
         x = block_apply(p, cfg, x, positions, kind=kind, moe=moe)
     return x
+
+
+# ------------------------------------------------------------ training
+
+
+def _ffn_train(p, cfg: ModelConfig, x, moe: bool):
+    """The block's FFN -> (y, router loss: the MoE's, or a float32 0)."""
+    if moe:
+        return moe_mod.moe_apply(p["ffn"], cfg, x)
+    return (mlp_apply(p["ffn"], x, cfg.mlp_kind),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def block_apply_train(p, cfg: ModelConfig, x, positions, *, kind: str,
+                      moe: bool = False, bidir_prefix: int = 0):
+    """The reference's training block (``block_apply``): attention
+    through ``attn_apply``'s q-chunked branch, mamba through
+    ``ssm_apply``, rwkv6's time-mix and channel-mix from zero states.
+    -> (x, router loss, float32)."""
+    if kind == "rwkv6":
+        st = _init_state(cfg, kind, x.shape[0], x.dtype, x.device)
+        x = _recurrent_fwd(p, cfg, x, st, kind=kind, moe=moe)[0]
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    h = norm_apply(p["norm1"], x, cfg.norm_kind)
+    if kind == "mamba":
+        y = ssm_mod.ssm_apply(p["mix"], cfg, h)
+    else:
+        y = attn.attn_apply(p["mix"], cfg, h, positions, kind=kind,
+                            bidir_prefix=bidir_prefix)
+    x = x + y
+    h = norm_apply(p["norm2"], x, cfg.norm_kind)
+    y, aux = _ffn_train(p, cfg, h, moe)
+    return x + y, aux
+
+
+def stack_apply_train(params, cfg: ModelConfig, x, positions, *,
+                      bidir_prefix: int = 0, remat: bool = True):
+    """The reference's training stack (``stack_apply``): every layer's
+    ``block_apply_train``, the router losses summed in float32.
+    ``remat`` recomputes each period of P layers in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` on
+    its scanned period body), so only the residual entering each period
+    is kept; the remainder layers run as they are, as in the reference.
+    Gradients do not depend on it.  -> (x, router loss)."""
+    p, n_per, n_rem = layout(cfg)
+    sigs = [slot_sig(cfg, j) for j in range(p)]
+
+    def period(x, period_params):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, (kind, moe) in enumerate(sigs):
+            x, a = block_apply_train(period_params[f"slot{j}"], cfg, x,
+                                     positions, kind=kind, moe=moe,
+                                     bidir_prefix=bidir_prefix)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_per):
+        pp = _index(params["periods"], i)
+        if remat and torch.is_grad_enabled():
+            # the forward draws no random numbers: no RNG state to keep
+            x, a = checkpoint(period, x, pp, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = period(x, pp)
+        aux = aux + a
+    for j in range(n_rem):
+        kind, moe = slot_sig(cfg, n_per * p + j)
+        x, a = block_apply_train(params["rem"][f"layer{j}"], cfg, x,
+                                 positions, kind=kind, moe=moe,
+                                 bidir_prefix=bidir_prefix)
+        aux = aux + a
+    return x, aux
+
+
+# ------------------------------------------------------------ slot path
 
 
 def block_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,

@@ -107,8 +107,10 @@ def layer():
 
 
 def test_attn_apply_matches_reference_kernel_branch(layer, monkeypatch):
-    """The port's ``attn_apply`` is the reference's kernel branch (Pallas
-    flash kernel in interpret mode); its q-chunked branch raises."""
+    """The port's ``attn_apply`` with ``allow_kernel`` is the reference's
+    kernel branch (Pallas flash kernel in interpret mode); without it,
+    the reference's q-chunked branch.  (Its gradients and the branch's
+    other masks: ``tests/test_torch_llm_train.py``.)"""
     cfg, jp, tp = layer
     monkeypatch.setenv("REPRO_USE_KERNELS", "1")
     monkeypatch.setenv("REPRO_FORCE_PALLAS_INTERPRET", "1")
@@ -121,8 +123,11 @@ def test_attn_apply_matches_reference_kernel_branch(layer, monkeypatch):
                             torch.from_numpy(pos), allow_kernel=True)
     np.testing.assert_allclose(ours.numpy(), np.asarray(expect),
                                atol=1e-4, rtol=1e-4)
-    with pytest.raises(NotImplementedError):
-        tattn.attn_apply(tp, cfg, torch.from_numpy(x), torch.from_numpy(pos))
+    chunked = jattn.attn_apply(jp, cfg, jnp.asarray(x), jnp.asarray(pos))
+    ours = tattn.attn_apply(tp, cfg, torch.from_numpy(x),
+                            torch.from_numpy(pos))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(chunked),
+                               atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("cache_max", [16, 11, 7])
