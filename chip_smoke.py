@@ -32,7 +32,13 @@ then runs its phases, each raising on failure:
    bfloat16 and float32, at the dense configs' heads and at gemma3-4b's
    head_dim 256 (windows 0 and 1,024), each within ``KERNEL_TOL`` of its
    int8 plain version and bit-equal to the float kernel on the
-   dequantized keys;
+   dequantized keys; the two backward kernels at their training shapes
+   (``SCAN_BWD_SHAPES``: ``rwkv6_scan_bwd`` at rwkv6-1.6b's 8 x 128 and
+   one row of 300, ``ssm_scan_bwd`` at jamba's 8 x 128 with float32 and
+   bf16 x and 2 x 2,048 with bf16 x), with a start state and a
+   final-state gradient, every gradient within ``BWD_GRAD_REL`` x its
+   max|g| of the plain backward (bf16 dx within 2 ulps), a repeat launch
+   bit-identical;
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
    random weights): one ragged prefill dispatch and one decode step of
    the paged path, and two whole-prompt prefills and one decode step of
@@ -162,11 +168,12 @@ then runs its phases, each raising on failure:
    ``conv2d_wgrad`` 360, its checkpoint restored and served; ``local_sgd``
    and ``elastic`` at ``bench_strategies``' budget (8,000 / 24 / 2), each
    >= 0.98;
-6c. LLM training (``launch/train.py``'s path, which launches no kernel:
-   the reference trains through its q-chunked jnp attention, as its
-   kernels have no VJP): the CLI refuses rwkv6-1.6b and
-   jamba-1.5-large-398b on the card, naming the scan kernels that lack a
-   backward; qwen3-0.6b at its published width (28 layers, bf16) for the
+6c. LLM training (``launch/train.py``'s path: attention launches no
+   kernel, as the reference trains through its q-chunked jnp attention,
+   its kernels having no VJP; rwkv6's and mamba's scans run their
+   kernels forward and their backward kernels under autograd, exactly
+   ``train_launches`` a run): qwen3-0.6b at its published width (28
+   layers, bf16) for the
    CLI's 100 steps at batch 8 x seq 128 with a checkpoint every 25: every
    loss and grad norm finite, the LEARNING verdict, no kernel launched,
    the step-100 checkpoint restoring bit-equal weights and optimizer
@@ -176,10 +183,17 @@ then runs its phases, each raising on failure:
    (``flash_attention``) on the trained weights within the model
    tolerance; a profile of 3 more steps (device busy share, device time
    by kernel); at 2 layers in float32 (TF32 off) the loss and every
-   gradient leaf on the card against the CPU; gemma3-4b (6 of 34 layers,
-   seq 2,048: the window across two query chunks at head_dim 256) and
-   dbrx-132b (1 of 40 layers: the router term) at their published widths,
-   10 steps each, losses finite and falling;
+   gradient leaf on the card against the CPU; rwkv6-1.6b uncut through
+   the CLI at its defaults (100 steps, batch 8 x seq 128: 48
+   ``rwkv6_scan`` and 24 ``rwkv6_scan_bwd`` a step, LEARNING, the median
+   step and memory); the card against the CPU at rwkv6's 2 layers and
+   jamba's reduced config (dropless) in float32, through the backward
+   kernels; gemma3-4b (6 of 34 layers, seq 2,048: the window across two
+   query chunks at head_dim 256), dbrx-132b (1 of 40 layers: the router
+   term) and jamba-1.5-large-398b (1 of 72 layers, a mamba layer at
+   d_inner 16,384 over seq 2,048: one ``ssm_scan`` and one
+   ``ssm_scan_bwd`` a step) at their published widths, 10 steps each,
+   losses finite and falling;
 7. times: each kernel's time beside its bound, its plain version's and
    one PyTorch library call's where there is one (a yardstick only; the
    port never calls it), the kernel and the library call both by events
@@ -200,7 +214,10 @@ then runs its phases, each raising on failure:
    bound (bytes counted by dtype), its SFU floor (16 exponentials a
    (row, step, channel) at 16 a clock per SM and the card's top SM
    clock) and its plain version (no library call computes the selective
-   scan), and its ring's slot size; the int8 variants at phase 2's bf16
+   scan), and its ring's slot size; the two backward kernels at
+   ``SCAN_BWD_SHAPES`` beside their bounds (bytes and operations as the
+   sources count them; ``ssm_scan_bwd`` also its SFU floor) and their
+   plain versions (no library call computes a scan's VJP); the int8 variants at phase 2's bf16
    shapes beside their bound (q, the int8 K/V and scales, kpos and the
    output each moved once), the bf16 kernel on the dequantized keys,
    their plain versions and SDPA over the dequantized keys (a yardstick:
@@ -494,6 +511,16 @@ SSM_D_INNER = 16384
 # and a long document's whole prompt on the slot engine, one row of 2,048
 SSM_TIMED = SSM_SHAPES + ((1, 2048),)
 SFU_EX2_PER_CLOCK = 16        # MUFU.EX2 results a clock per SM (Hopper)
+# the backward kernels at the shapes training gives them: rwkv6-1.6b at the
+# CLI's batch 8 x seq 128 and one row past a 16-step chunk; jamba's mamba
+# layer at 8 x 128 (float32 and bf16 x) and at phase 6c's 2 x 2,048 (bf16)
+SCAN_BWD_SHAPES = {"rwkv6_scan_bwd": ((8, 128), (1, 300)),
+                   "ssm_scan_bwd": ((8, 128, "float32"), (8, 128, "bfloat16"),
+                                    (2, 2048, "bfloat16"))}
+# the backward kernels against their plain versions: each gradient within
+# this many times its max|g| (sums over rows, columns, channels and steps
+# in other orders; ex2.approx for exp(dt a)); bf16 dx also 2 bf16 ulps
+BWD_GRAD_REL = 1e-4
 # paged decode (rows, table width, all-null rows): decode_case's shape and
 # the fusion-off engine's (8 rows, cache-max 256 over blocks of 16), both
 # split on an H100, and 24 rows (192 CTAs), which the planner leaves whole
@@ -912,6 +939,78 @@ def ssm_parity(torch, device, ops, ref) -> float:
     log("parity ssm_scan bf16 x 8 rows S=256 cut at 100 / 156, state "
         "carried: y and the state bit-equal to one call")
     return worst
+
+
+def _bwd_err(torch, name, got, want, bf16=False) -> float:
+    """Assert one gradient within ``BWD_GRAD_REL`` x its max|plain| (a
+    bf16 one within 2 bf16 ulps of the plain value plus that floor) ->
+    its max abs error."""
+    g, w = got.float(), want.float()
+    floor = BWD_GRAD_REL * w.abs().max().item()
+    slack = floor
+    if bf16:
+        slack = floor + 2 * torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(1e-30))) - 7)
+    err = (g - w).abs()
+    assert bool((err <= slack).all()), (name, err.max().item(), floor)
+    return err.max().item()
+
+
+def scan_backward_parity(torch, device, ops, ref) -> dict:
+    """Phase 2, the two backward kernels at their training shapes
+    (``SCAN_BWD_SHAPES``) with a start state and a final-state gradient:
+    every gradient against the plain backward within ``BWD_GRAD_REL`` x
+    its max|g| (bf16 dx within 2 ulps), a second launch bit-identical.
+    -> {kernel: max abs error}."""
+    from repro_torch.kernels import rwkv6_scan_bwd as rwb
+    from repro_torch.kernels import ssm_scan_bwd as ssb
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    errs = {"rwkv6_scan_bwd": 0.0, "ssm_scan_bwd": 0.0}
+    for b, s in SCAN_BWD_SHAPES["rwkv6_scan_bwd"]:
+        args = list(rwkv_case(torch, gen, device, b=b, s=s))
+        dout = torch.randn(b, s, 32, 64, generator=gen,
+                           device=device).transpose(1, 2)
+        dsf = torch.randn(args[5].shape, generator=gen, device=device)
+        got = rwb.rwkv6_scan_bwd(*args, dout, dsf)
+        again = rwb.rwkv6_scan_bwd(*args, dout, dsf)
+        want = ref.rwkv6_scan_bwd_ref(*args, dout, dsf)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, g, a, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                                 again, want):
+            assert torch.equal(g, a), f"rwkv6_scan_bwd {name}: a repeat " \
+                "launch changed the bits"
+            worst = max(worst, _bwd_err(torch, name, g, w))
+        log(f"parity rwkv6_scan_bwd float32 {b} rows S={s} (32 heads of "
+            f"64): max_abs_err={worst:.3e} over dr, dk, dv, dw, du, ds0 "
+            f"(max |du| {want[4].abs().max().item():.1f}); repeat "
+            "bit-identical")
+        errs["rwkv6_scan_bwd"] = max(errs["rwkv6_scan_bwd"], worst)
+    for b, s, xdt in SCAN_BWD_SHAPES["ssm_scan_bwd"]:
+        args = list(ssm_case(torch, gen, device, b, s))
+        args[3] = args[3].to(getattr(torch, xdt))
+        dy = torch.randn(b, s, SSM_D_INNER, generator=gen,
+                         device=device).to(args[3].dtype)
+        dhf = torch.randn(args[5].shape, generator=gen, device=device)
+        got = ssb.ssm_scan_bwd(*args, dy, dhf)
+        again = ssb.ssm_scan_bwd(*args, dy, dhf)
+        want = ref.ssm_scan_bwd_ref(*args, dy, dhf)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, g, a, w in zip(("ddt", "dbm", "dcm", "dx", "da", "dh0"),
+                                 got, again, want):
+            assert torch.equal(g, a), f"ssm_scan_bwd {name}: a repeat " \
+                "launch changed the bits"
+            worst = max(worst, _bwd_err(torch, name, g, w,
+                                        bf16=name == "dx"
+                                        and xdt == "bfloat16"))
+        log(f"parity ssm_scan_bwd {xdt} x {b} rows S={s} d_inner "
+            f"{SSM_D_INNER}: max_abs_err={worst:.3e} over ddt, dbm, dcm, "
+            f"dx, da, dh0 (max |dbm| {want[1].abs().max().item():.1f}); "
+            "repeat bit-identical")
+        errs["ssm_scan_bwd"] = max(errs["ssm_scan_bwd"], worst)
+    return errs
 
 
 def plain_ops(ops, ref):
@@ -3314,8 +3413,33 @@ TRAIN_GRAD_REL = 1e-4
 # (arch, layers, batch, seq, steps).  gemma3-4b's 6 layers are 5 windowed
 # (1,024) and 1 global, and seq 2,048 makes two query chunks of 1,024
 # that the window cuts across, at head_dim 256; dbrx-132b's one layer
-# (4.5 B parameters, 16 experts) puts the router term in the loss
-TRAIN_CUTS = (("gemma3-4b", 6, 2, 2048, 10), ("dbrx-132b", 1, 8, 128, 10))
+# (4.5 B parameters, 16 experts) puts the router term in the loss;
+# jamba-1.5-large-398b's first layer (a mamba layer and its dense MLP,
+# 2.1 B parameters) runs ``ssm_scan`` and ``ssm_scan_bwd`` at d_inner
+# 16,384 over 2,048 steps
+TRAIN_CUTS = (("gemma3-4b", 6, 2, 2048, 10), ("dbrx-132b", 1, 8, 128, 10),
+              ("jamba-1.5-large-398b", 1, 2, 2048, 10))
+# rwkv6-1.6b uncut through the CLI at its defaults (100 steps, batch 8 x
+# seq 128): 24 rwkv6 layers, each a remat period of its own
+RWKV_TRAIN_ARGV = ["--arch", "rwkv6-1.6b", "--no-reduced"]
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """The kernel launches ``steps`` training steps of ``cfg`` make: per
+    rwkv6 / mamba layer and step one backward scan, and one forward scan,
+    or two in a remat period (recomputed in the backward pass); attention
+    launches none (the q-chunked branch)."""
+    from repro_torch.models import transformer
+
+    p, n_per, _ = transformer.layout(cfg)
+    want = {}
+    for i, kind in enumerate(transformer.layer_kinds(cfg)):
+        scan = {"rwkv6": "rwkv6_scan", "mamba": "ssm_scan"}.get(kind)
+        if scan:
+            fwd = 2 if i < p * n_per else 1
+            want[scan] = want.get(scan, 0) + fwd * steps
+            want[scan + "_bwd"] = want.get(scan + "_bwd", 0) + steps
+    return want
 
 
 def _loss_and_grads(torch, model, params, batch):
@@ -3328,19 +3452,101 @@ def _loss_and_grads(torch, model, params, batch):
     return loss, metrics, tree_leaves(grads)
 
 
-def llm_training_phase(torch, device, ops, ref, smi) -> None:
-    """Phase 6c: LLM training through ``launch/train.py``'s path.  The
-    CLI refuses rwkv6 and jamba on the card by name; qwen3-0.6b at its
-    published width trains for the CLI's 100 steps with every loss and
-    grad norm finite, its LEARNING verdict, no kernel launched, the
-    step-100 checkpoint restoring bit-equal weights and optimizer state
-    and a restart from step 75 repeating the losses; the median step time
-    and the memory high-water mark; its training forward's logits
-    (q-chunked attention, no kernel) against ``Model.forward``'s
-    (``flash_attention``); a profile of 3 steps; 2 layers in float32, loss and every gradient
-    leaf on the card against the CPU; then gemma3-4b and dbrx-132b at
-    their published widths cut in depth (``TRAIN_CUTS``), a few steps
-    each, losses finite and falling."""
+def _leaf_paths(tree, prefix=""):
+    """The leaves' paths, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items()
+                for q in _leaf_paths(v, f"{prefix}/{k}")]
+    return [prefix]
+
+
+def card_vs_cpu_gradients(torch, device, ops, cfg, label, seq,
+                          perturb=False) -> dict:
+    """``cfg`` (float32, TF32 off) on the card against the same port on
+    the CPU, from one seed-0 draw (``perturb``: the rwkv6 leaves the init
+    zeroes drawn) and the token stream's first batch of 2 rows: the loss
+    within ``TRAIN_LOSS_ATOL`` and every gradient leaf within
+    ``TRAIN_GRAD_REL`` x its max|g|; beside it, a reading of each run's
+    leaves against the same weights in a float64 model on the CPU.  ->
+    the card run's launch counts."""
+    from repro_torch.data.tokens import make_stream
+    from repro_torch.models.api import Model
+    from repro_torch.optim.optimizers import tree_map
+
+    cpu_model = Model(cfg, device="cpu")
+    cpu_params = cpu_model.init(seed=0)
+    if perturb:
+        perturb_zero_init(torch, cpu_params, 1)
+    card_model = Model(cfg, device=device)
+    card_params = tree_map(lambda t: t.to(device), cpu_params)
+    nb = make_stream(cfg.vocab_size, seq, 2, 0).batch(0)
+    ops.reset_launch_counts()
+    got = _loss_and_grads(torch, card_model, card_params,
+                          {k: torch.from_numpy(v).to(device)
+                           for k, v in nb.items()})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = _loss_and_grads(torch, cpu_model, cpu_params,
+                           {k: torch.from_numpy(v) for k, v in nb.items()})
+    # a reading of float32 rounding alone: the same weights in a float64
+    # model on the CPU (every layer, scan and sum in float64), against
+    # which the CPU's float32 run and the card's are each read
+    exact = _loss_and_grads(
+        torch, Model(dataclasses.replace(cfg, dtype="float64"),
+                     device="cpu"),
+        tree_map(lambda t: t.double(), cpu_params),
+        {k: torch.from_numpy(v) for k, v in nb.items()})
+
+    def rel(a, b):
+        return (a.cpu().double() - b.double()).abs().max().item() / max(
+            b.abs().max().item(), 1e-30)
+
+    loss_diff = abs(float(got[0]) - float(want[0]))
+    worst, leaf = max((rel(g, w), i)
+                      for i, (g, w) in enumerate(zip(got[2], want[2])))
+    cpu_err, cpu_leaf = max((rel(g, e), i)
+                            for i, (g, e) in enumerate(zip(want[2],
+                                                           exact[2])))
+    card_err = max(rel(g, e) for g, e in zip(got[2], exact[2]))
+    paths = _leaf_paths(cpu_params)
+    log(f"train {label} float32, card vs CPU: loss {float(got[0]):.6f} vs "
+        f"{float(want[0]):.6f} (|diff| {loss_diff:.2e}), worst gradient "
+        f"leaf |diff| / max|g| {worst:.2e} ({paths[leaf]}) over "
+        f"{len(want[2])} leaves; card launches "
+        f"{({k: n for k, n in counts.items() if n})}")
+    log(f"train {label} against float64 on the CPU (float32 rounding, a "
+        f"reading): CPU float32 loss |diff| "
+        f"{abs(float(want[0]) - float(exact[0])):.2e}, worst leaf "
+        f"{cpu_err:.2e} ({paths[cpu_leaf]}), {paths[leaf]} "
+        f"{rel(want[2][leaf], exact[2][leaf]):.2e}; card worst leaf "
+        f"{card_err:.2e}, {paths[leaf]} "
+        f"{rel(got[2][leaf], exact[2][leaf]):.2e}")
+    assert loss_diff <= TRAIN_LOSS_ATOL, loss_diff
+    assert worst <= TRAIN_GRAD_REL, worst
+    del card_params, got, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def llm_training_phase(torch, device, ops, ref, smi) -> dict:
+    """Phase 6c: LLM training through ``launch/train.py``'s path.
+    qwen3-0.6b at its published width trains for the CLI's 100 steps with
+    every loss and grad norm finite, its LEARNING verdict, no kernel
+    launched, the step-100 checkpoint restoring bit-equal weights and
+    optimizer state and a restart from step 75 repeating the losses; the
+    median step time and the memory high-water mark; its training
+    forward's logits (q-chunked attention, no kernel) against
+    ``Model.forward``'s (``flash_attention``); a profile of 3 steps; 2
+    layers in float32, loss and every gradient leaf on the card against
+    the CPU; rwkv6-1.6b uncut through the CLI at its defaults (the
+    ``rwkv6_scan`` kernels forward, in the remat recompute and backward:
+    launches exact, LEARNING); the card against the CPU at rwkv6's 2
+    layers and jamba's reduced config (dropless) in float32; then
+    gemma3-4b, dbrx-132b and jamba-1.5-large-398b at their published
+    widths cut in depth (``TRAIN_CUTS``), a few steps each, losses finite
+    and falling, launches exact.  -> the launches of the training runs
+    (the CLI's and the cuts')."""
     import os
     import statistics
 
@@ -3350,20 +3556,18 @@ def llm_training_phase(torch, device, ops, ref, smi) -> None:
     from repro_torch.data.tokens import make_stream
     from repro_torch.launch import train
     from repro_torch.models.api import Model
-    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import tree_leaves
 
     def cli_log(line):
         log(f"  train: {line}")
 
-    for arch, kernel in (("rwkv6-1.6b", "rwkv6_scan"),
-                         ("jamba-1.5-large-398b", "ssm_scan")):
-        try:
-            train.main(["--arch", arch, "--no-reduced"])
-        except SystemExit as e:
-            assert kernel in str(e), e
-            log(f"train CLI --arch {arch} on the card refused: {e}")
-        else:
-            raise AssertionError(f"the train CLI trained {arch} on the card")
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+
+    def expect(cfg, steps, counts):
+        want = train_launches(cfg, steps)
+        assert counts == {k: want.get(k, 0) for k in counts}, (counts, want)
+        for k, n in counts.items():
+            launches[k] += n
 
     args = train.make_parser().parse_args(TRAIN_ARGV)
     cfg = train.config_for(args)
@@ -3387,7 +3591,7 @@ def llm_training_phase(torch, device, ops, ref, smi) -> None:
         assert len(losses) == len(gnorms) == args.steps
         assert all(map(math.isfinite, losses + gnorms)), (losses, gnorms)
         assert out["verdict"] == "LEARNING", out["verdict"]
-        assert not any(counts.values()), counts
+        expect(cfg, args.steps, counts)
 
         ckpt = CheckpointManager(args.ckpt_dir)
         step, tree = ckpt.restore_latest({"params": out["params"],
@@ -3466,30 +3670,51 @@ def llm_training_phase(torch, device, ops, ref, smi) -> None:
     del model, params, opt_state, step_fn
 
     # 2 layers, float32 (TF32 off): the card against the CPU
-    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
-    cpu_model = Model(small, device="cpu")
-    cpu_params = cpu_model.init(seed=0)
-    card_model = Model(small, device=device)
-    card_params = tree_map(lambda t: t.to(device), cpu_params)
-    nb = make_stream(small.vocab_size, args.seq, 2, 0).batch(0)
-    got = _loss_and_grads(torch, card_model, card_params,
-                          {k: torch.from_numpy(v).to(device)
-                           for k, v in nb.items()})
-    want = _loss_and_grads(torch, cpu_model, cpu_params,
-                           {k: torch.from_numpy(v) for k, v in nb.items()})
-    loss_diff = abs(float(got[0]) - float(want[0]))
-    worst = max((g.cpu() - w).abs().max().item()
-                / max(w.abs().max().item(), 1e-30)
-                for g, w in zip(got[2], want[2]))
-    log(f"train qwen3-0.6b float32 2 layers, card vs CPU: loss "
-        f"{float(got[0]):.6f} vs {float(want[0]):.6f} (|diff| "
-        f"{loss_diff:.2e}), worst gradient leaf |diff| / max|g| "
-        f"{worst:.2e} over {len(want[2])} leaves")
-    assert loss_diff <= TRAIN_LOSS_ATOL, loss_diff
-    assert worst <= TRAIN_GRAD_REL, worst
-    del card_params, got
+    card_vs_cpu_gradients(
+        torch, device, ops, dataclasses.replace(cfg, num_layers=2,
+                                                dtype="float32"),
+        "qwen3-0.6b 2 layers", args.seq)
+
+    # rwkv6-1.6b uncut through the CLI at its defaults
+    args = train.make_parser().parse_args(RWKV_TRAIN_ARGV)
+    cfg = train.config_for(args)
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train.run(args, log=cli_log)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, gnorms = out["losses"], out["grad_norms"]
+    log(f"train rwkv6-1.6b bf16 {cfg.num_layers} layers, batch {args.batch} "
+        f"x seq {args.seq}, {args.steps} steps: median step "
+        f"{1e3 * statistics.median(out['step_seconds']):.1f} ms (first "
+        f"{1e3 * out['step_seconds'][0]:.1f} ms), memory high-water "
+        f"{peak:.2f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"grad_norm {gnorms[0]:.3f} -> {gnorms[-1]:.3f}, {out['verdict']}; "
+        f"launches {({k: n for k, n in counts.items() if n})} | {smi}")
+    assert len(losses) == len(gnorms) == args.steps
+    assert all(map(math.isfinite, losses + gnorms)), (losses, gnorms)
+    assert out["verdict"] == "LEARNING", out["verdict"]
+    expect(cfg, args.steps, counts)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the scans' backward kernels inside Model.loss: the card against the
+    # CPU at rwkv6's 2 layers and jamba's reduced config, float32
+    jamba = get_config("jamba-1.5-large-398b").reduced()
+    jamba = dataclasses.replace(
+        jamba, moe_capacity_factor=jamba.num_experts
+        / jamba.num_experts_per_tok)                    # dropless
+    for small, label, seq in (
+            (dataclasses.replace(cfg, num_layers=2, dtype="float32"),
+             "rwkv6-1.6b 2 layers", args.seq),
+            (jamba, "jamba-1.5-large-398b reduced (dropless)", args.seq)):
+        counts = card_vs_cpu_gradients(torch, device, ops, small, label, seq,
+                                       perturb=True)
+        want = train_launches(small, 1)
+        assert counts == {k: want.get(k, 0) for k in counts}, (counts, want)
 
     for arch, layers, b, s, steps in TRAIN_CUTS:
         full = get_config(arch)
@@ -3509,15 +3734,16 @@ def llm_training_phase(torch, device, ops, ref, smi) -> None:
             f"{1e3 * statistics.median(res['step_seconds']):.1f} ms, memory "
             f"high-water {peak:.2f} GiB, loss {ls[0]:.4f} -> {ls[-1]:.4f}, "
             f"router loss {res['aux'][0]:.4f} -> {res['aux'][-1]:.4f}; "
-            f"launches {sum(counts.values())} | {smi}")
+            f"launches {({k: n for k, n in counts.items() if n})} | {smi}")
         assert all(map(math.isfinite, ls + res["grad_norms"])), ls
         assert ls[-1] < ls[0], ls
-        assert not any(counts.values()), counts
-        if full.num_experts:
+        expect(cut, steps, counts)
+        if any(cut.layer_is_moe(i) for i in range(layers)):
             assert min(res["aux"]) > 0, res["aux"]
         del res
         gc.collect()
         torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------- timing
@@ -4022,6 +4248,59 @@ def kernel_times(torch, device, ops, ref):
                 slot=(f"{ss_mod.slot_steps(b, di, xs, sms)}-step ring "
                       "slots" if s > 1 else "no ring (decode)"))
 
+    # the two backward kernels at their training shapes
+    # (``SCAN_BWD_SHAPES``), from a generator of their own; bytes: each
+    # input read once and each gradient written once (rwkv6: r, k, v, w,
+    # dout and dr, dk, dv, dw (B,H,S,hd), u and du, s0, ds_final and ds0;
+    # mamba: dt, ddt, x, dy, dx (B,S,di), bm, cm, dbm, dcm, a, da, h0,
+    # dh_final, dh0); operations: 14 a (row, head, step, i, j) and 18 a
+    # (row, step, channel, state), as the sources' notes count them; the
+    # SFU floor: one exponential a (row, step, channel, state)
+    from repro_torch.kernels import rwkv6_scan_bwd as rwb_mod
+    from repro_torch.kernels import ssm_scan_bwd as ssb_mod
+
+    bwd_gen = torch.Generator(device=device).manual_seed(13)
+    for b, s in SCAN_BWD_SHAPES["rwkv6_scan_bwd"]:
+        args = list(rwkv_case(torch, bwd_gen, device, b=b, s=s))
+        _, h, _, hd = args[0].shape
+        dout = torch.randn(b, s, h, hd, generator=bwd_gen,
+                           device=device).transpose(1, 2)
+        dsf = torch.randn(args[5].shape, generator=bwd_gen, device=device)
+        key = f"rwkv6_scan_bwd_{b}x{s}"
+        calls[key] = (lambda args=tuple(args), dout=dout, dsf=dsf:
+                      rwb_mod.rwkv6_scan_bwd(*args, dout, dsf), None)
+        n = b * h * s * hd
+        out[key] = dict(
+            ms=time_ms(torch, calls[key][0]),
+            plain_ms=time_ms(torch, lambda args=tuple(args), dout=dout,
+                             dsf=dsf: ref.rwkv6_scan_bwd_ref(*args, dout,
+                                                              dsf), iters=5),
+            library_ms=None, dtype="float32",
+            bytes=4 * (9 * n + 2 * h * hd + 3 * b * h * hd * hd),
+            flops=14 * n * hd)
+    for b, s, xdt in SCAN_BWD_SHAPES["ssm_scan_bwd"]:
+        args = list(ssm_case(torch, bwd_gen, device, b, s))
+        args[3] = args[3].to(getattr(torch, xdt))
+        di, n_st = args[4].shape
+        xs = args[3].element_size()
+        dy = torch.randn(b, s, di, generator=bwd_gen,
+                         device=device).to(args[3].dtype)
+        dhf = torch.randn(args[5].shape, generator=bwd_gen, device=device)
+        key = f"ssm_scan_bwd_{b}x{s}_{xdt}"
+        calls[key] = (lambda args=tuple(args), dy=dy, dhf=dhf:
+                      ssb_mod.ssm_scan_bwd(*args, dy, dhf), None)
+        n = b * s * di
+        out[key] = dict(
+            ms=time_ms(torch, calls[key][0]),
+            plain_ms=time_ms(torch, lambda args=tuple(args), dy=dy, dhf=dhf:
+                             ref.ssm_scan_bwd_ref(*args, dy, dhf),
+                             iters=5 if s <= 256 else 2),
+            library_ms=None, dtype="float32", x_dtype=xdt,
+            bytes=(4 * (2 * n + 4 * b * s * n_st + 2 * di * n_st
+                        + 3 * b * di * n_st) + 3 * xs * n),
+            flops=18 * n * n_st,
+            sfu_ms=n * n_st / (SFU_EX2_PER_CLOCK * sms * clock_hz) * 1e3)
+
     # the digit CNN's conv layer in float32 (the model's dtype) at the
     # consumer's batches of 1 and 32 and evaluation's 2,000 test digits;
     # bytes: x and w read, the output written (28x the input here);
@@ -4394,6 +4673,7 @@ def main() -> int:
         errs[k] = max(errs[k], err)
     errs.update(int8_kernel_parity(torch, device, ops, ref))
     errs["ssm_scan"] = ssm_parity(torch, device, ops, ref)
+    errs.update(scan_backward_parity(torch, device, ops, ref))
 
     phase_done("2")
 
@@ -4599,7 +4879,8 @@ def main() -> int:
     phase_done("6b")
 
     # 6c. LLM training through the train CLI's path
-    llm_training_phase(torch, device, ops, ref, smi)
+    for k, n in llm_training_phase(torch, device, ops, ref, smi).items():
+        launches[k] += n
 
     phase_done("6c")
 
@@ -4765,6 +5046,29 @@ def main() -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "graph_ms": t["graph_ms"]})
+    for key, t in times.items():
+        if not key.startswith(("rwkv6_scan_bwd_", "ssm_scan_bwd_")):
+            continue
+        sfu = (f", SFU floor {t['sfu_ms']:.4f} ms" if "sfu_ms" in t else "")
+        log(f"time {key} (float32{', x ' + t['x_dtype'] if 'x_dtype' in t else ''}): "
+            f"{t['ms']:.4f} ms (graph-replayed {t['graph_ms']:.4f}), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "
+            f"{t['flops']} FLOP){sfu}, plain {t['plain_ms']:.4f} ms, no "
+            "library call (no PyTorch call computes the scan's VJP)")
+    for name, key, replaces in (
+            ("rwkv6_scan_bwd", "rwkv6_scan_bwd_8x128",
+             "src/repro/models/rwkv6.py:190"),
+            ("ssm_scan_bwd", "ssm_scan_bwd_8x128_bfloat16",
+             "src/repro/models/ssm.py:134")):
+        t = times[key]                  # the training shapes
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "graph_ms": t["graph_ms"]})
     for b in (1, 32, 2000):
         t = times[f"conv2d_{b}"]
         pl = cv_mod.launch_plan((b, 28, 28, 1), (3, 3, 1, 32), torch.float32,
@@ -4814,6 +5118,8 @@ def main() -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "graph_ms": t["graph_ms"]})
+    unlaunched = [r["name"] for r in records if r["launches"] < 1]
+    assert not unlaunched, f"the main paths never launched {unlaunched}"
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

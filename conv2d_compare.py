@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time a conv kernel or the selective scan of several checkouts on one
-card, in turns.
+"""Time a conv kernel, the selective scan or the WKV6 backward of several
+checkouts on one card, in turns.
 
-    python3 conv2d_compare.py [--kernel conv2d|conv2d_wgrad|ssm_scan] TREE [TREE ...]
+    python3 conv2d_compare.py [--kernel conv2d|conv2d_wgrad|ssm_scan|rwkv6_scan_bwd] TREE [TREE ...]
 
 Each TREE is the root of a checkout holding ``src/repro_torch`` (for
 another commit: ``git archive <commit> | tar -x -C build/<dir>``).  The
@@ -20,7 +20,10 @@ off) and the floor (one launch on one element), both ways.  ``conv2d``
 selective scan at ``chip_smoke.py``'s ``SSM_SHAPES`` and one row of
 S = 2,048 (jamba's d_inner 16,384), float32, and with bf16 x and y where
 the tree's kernel takes them (no library call computes it: the floor
-stands beside it instead).  Prints a line per run,
+stands beside it instead).  ``rwkv6_scan_bwd``: the WKV6 backward at
+``chip_smoke.py``'s ``SCAN_BWD_SHAPES`` (32 heads of 64, a start state
+and a final-state gradient), held to the plain backward within
+``BWD_GRAD_REL`` x max|g| (no library call either).  Prints a line per run,
 the card's name and power limit, and a JSON object of every reading
 last.  Needs one NVIDIA GPU.
 """
@@ -33,7 +36,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 BATCHES = {"conv2d": (1, 32, 2000), "conv2d_wgrad": (64, 320, 2000),
-           "ssm_scan": ()}
+           "ssm_scan": (), "rwkv6_scan_bwd": ()}
 
 
 def ssm_child(torch, cs, dev) -> dict:
@@ -65,6 +68,31 @@ def ssm_child(torch, cs, dev) -> dict:
     return res
 
 
+def rwkv_bwd_child(torch, cs, dev) -> dict:
+    """The tree's ``rwkv6_scan_bwd`` held against its plain version, then
+    timed at ``cs.SCAN_BWD_SHAPES``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan_bwd as rwb
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    res = {}
+    for b, s in cs.SCAN_BWD_SHAPES["rwkv6_scan_bwd"]:
+        args = list(cs.rwkv_case(torch, gen, dev, b=b, s=s))
+        dout = torch.randn(b, s, 32, 64, generator=gen,
+                           device=dev).transpose(1, 2)
+        dsf = torch.randn(args[5].shape, generator=gen, device=dev)
+        got = rwb.rwkv6_scan_bwd(*args, dout, dsf)
+        want = ref.rwkv6_scan_bwd_ref(*args, dout, dsf)
+        for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                              want):
+            cs._bwd_err(torch, name, g, w)
+        fn = (lambda args=tuple(args), dout=dout, dsf=dsf:
+              rwb.rwkv6_scan_bwd(*args, dout, dsf))
+        res[f"rwkv6_scan_bwd_{b}x{s}"] = (cs.time_ms(torch, fn),
+                                          cs.graph_ms(torch, fn))
+    return res
+
+
 def child(tree: Path, kernel: str) -> dict:
     import torch
     import torch.nn.functional as F
@@ -86,6 +114,8 @@ def child(tree: Path, kernel: str) -> dict:
                      cs.graph_ms(torch, lambda: one.add_(1)))}
     if kernel == "ssm_scan":
         return {**res, **ssm_child(torch, cs, dev)}
+    if kernel == "rwkv6_scan_bwd":
+        return {**res, **rwkv_bwd_child(torch, cs, dev)}
     for b in BATCHES[kernel]:
         x = torch.rand(b, 28, 28, 1, generator=gen, device=dev)
         xn = x.permute(0, 3, 1, 2)

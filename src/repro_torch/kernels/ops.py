@@ -8,8 +8,13 @@ be built or launched; a CPU tensor goes to the plain version in
 Function whose backward is written over these entries: the filter
 gradient through ``conv2d_wgrad``, the input gradient (only where the
 input needs one) through ``conv2d`` itself, as the full convolution of
-the padded output gradient with the flipped filter.  The raw kernel
-wrappers, and the attention and scan entries, refuse autograd.
+the padded output gradient with the flipped filter.  ``rwkv6_scan`` and
+``ssm_scan`` differentiate through autograd Functions too, whose
+backwards are the hand-written ``rwkv6_scan_bwd`` / ``ssm_scan_bwd``
+kernels on the card and ``ref.rwkv6_scan_bwd_ref`` /
+``ref.ssm_scan_bwd_ref`` on the CPU, asked only for the gradients that
+autograd needs.  The raw kernel wrappers, and the attention entries,
+refuse autograd.
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_prefill as _pp
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rwkv6_scan as _rw
+from repro_torch.kernels import rwkv6_scan_bwd as _rwb
 from repro_torch.kernels import ssm_scan as _ss
+from repro_torch.kernels import ssm_scan_bwd as _ssb
 
 
 def _on_cuda(t) -> bool:
@@ -88,18 +95,93 @@ def paged_prefill_int8(q, k_prefix, v_prefix, k_scale, v_scale, kpos_prefix,
               kpos, qpos, window=window)
 
 
+def _saves(*tensors) -> bool:
+    """Whether a gradient can be asked for: grad mode on and one of the
+    inputs requiring one (not under ``torch.no_grad()`` or
+    ``torch.inference_mode()``).  Where not, ``conv2d``'s Function keeps
+    nothing and the scans skip theirs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class _Rwkv6Scan(torch.autograd.Function):
+    """``rwkv6_scan`` with its backward (``rwkv6_scan_bwd``): the
+    gradients of r, k, v, w, u and s0 from those of out and s_final (a
+    gradient autograd does not pass counts as zeros)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        fn = _rw.rwkv6_scan if _on_cuda(r) else _ref.rwkv6_scan_ref
+        return fn(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, dout, ds_final):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if dout is None:
+            dout = torch.zeros_like(r)
+        if _on_cuda(r):
+            if dout.stride(-1) != 1:
+                dout = dout.contiguous()
+            if ds_final is not None:
+                ds_final = ds_final.contiguous()
+            grads = _rwb.rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final,
+                                        need=need)
+        else:
+            grads = _ref.rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dout,
+                                            ds_final)
+        return tuple(g if n else None for g, n in zip(grads, need))
+
+
 def rwkv6_scan(r, k, v, w, u, s0=None):
     """WKV6 recurrence: r/k/v/w (B,H,S,hd) float32 (w = decay in (0,1)),
     u (H,hd), s0 (B,H,hd,hd) or None (zeros) -> (out (B,H,S,hd),
-    s_final (B,H,hd,hd) float32)."""
+    s_final (B,H,hd,hd) float32).  Differentiable in every input; where
+    no gradient can be asked for (grad mode off, as in serving, or no
+    input requiring one) the kernel or plain version is called alone."""
+    if _saves(r, k, v, w, u, s0):
+        return _Rwkv6Scan.apply(r, k, v, w, u, s0)
     fn = _rw.rwkv6_scan if _on_cuda(r) else _ref.rwkv6_scan_ref
     return fn(r, k, v, w, u, s0)
+
+
+class _SsmScan(torch.autograd.Function):
+    """``ssm_scan`` with its backward (``ssm_scan_bwd``): the gradients of
+    dt, bm, cm, x, a and h0 from those of y and h_final (a gradient
+    autograd does not pass counts as zeros)."""
+
+    @staticmethod
+    def forward(ctx, dt, bm, cm, x, a, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dt, bm, cm, x, a, h0)
+        fn = _ss.ssm_scan if _on_cuda(dt) else _ref.ssm_scan_ref
+        return fn(dt, bm, cm, x, a, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        dt, bm, cm, x, a, h0 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if _on_cuda(dt):
+            grads = _ssb.ssm_scan_bwd(dt, bm, cm, x, a, h0, dy, dh_final,
+                                      need=need)
+        else:
+            grads = _ref.ssm_scan_bwd_ref(dt, bm, cm, x, a, h0, dy,
+                                          dh_final)
+        return tuple(g if n else None for g, n in zip(grads, need))
 
 
 def ssm_scan(dt, bm, cm, x, a, h0):
     """Mamba's selective scan: dt (B,S,di), bm / cm (B,S,N), a (di,N)
     decays (negative), h0 (B,di,N), float32; x (B,S,di) in the model
-    dtype -> (y (B,S,di) in x's dtype, h_final (B,di,N) float32)."""
+    dtype -> (y (B,S,di) in x's dtype, h_final (B,di,N) float32).
+    Differentiable in every input; as ``rwkv6_scan``, the kernel or plain
+    version alone where no gradient can be asked for."""
+    if _saves(dt, bm, cm, x, a, h0):
+        return _SsmScan.apply(dt, bm, cm, x, a, h0)
     fn = _ss.ssm_scan if _on_cuda(dt) else _ref.ssm_scan_ref
     return fn(dt, bm, cm, x, a, h0)
 
@@ -134,8 +216,7 @@ def conv2d(x, w):
     """Valid, stride-1 convolution: x (B,H,W,Cin) NHWC x w (KH,KW,Cin,Cout)
     HWIO -> (B,H-KH+1,W-KW+1,Cout) in x's dtype, summed in float32.
     Differentiable in x and w."""
-    save = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
-    return _Conv2d.apply(x, w, save)
+    return _Conv2d.apply(x, w, _saves(x, w))
 
 
 def conv2d_wgrad(x, dy, kh: int, kw: int):
@@ -151,7 +232,8 @@ _KERNELS = {"conv2d": _cv.KERNEL, "conv2d_wgrad": _cw.KERNEL,
             "paged_attention_int8": _pa.KERNEL_INT8,
             "paged_prefill": _pp.KERNEL,
             "paged_prefill_int8": _pp.KERNEL_INT8,
-            "rwkv6_scan": _rw.KERNEL, "ssm_scan": _ss.KERNEL}
+            "rwkv6_scan": _rw.KERNEL, "rwkv6_scan_bwd": _rwb.KERNEL,
+            "ssm_scan": _ss.KERNEL, "ssm_scan_bwd": _ssb.KERNEL}
 
 
 def launch_counts() -> dict:

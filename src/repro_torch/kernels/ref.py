@@ -1,12 +1,14 @@
 """Plain PyTorch versions of the attention kernels (their int8-cache
 variants too, and the split-key combine pass of their bf16 tile), the
-WKV6 scan, mamba's selective scan, the convolution and its filter
-gradient.
+WKV6 scan, mamba's selective scan and the backward of both, the
+convolution and its filter gradient.
 
 The kernels' plain versions define their semantics, copied from
 ``repro.kernels.ref`` (the selective scan from the ``lax.scan`` step of
-``repro.models.ssm``): the CUDA kernels are held to them on the card,
-and a CPU tensor is served by them (``kernels/ops.py``).
+``repro.models.ssm``; the two scans' backwards written out from the
+reference's scans, which train through ``jax.grad``): the CUDA kernels
+are held to them on the card, and a CPU tensor is served by them
+(``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -197,6 +199,97 @@ def rwkv6_scan_ref(r, k, v, w, u, s0=None):
                                  state + u32 * kv))
         state = w32[:, :, t, :, None] * state + kv
     return torch.stack(outs, dim=2).to(r.dtype), state
+
+
+def rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dout, ds_final=None):
+    """The gradients of ``rwkv6_scan_ref``, one time step at a time
+    backwards, in float32 (float64 for float64 inputs): the states S_t
+    recomputed forward from ``s0`` (None: zeros), then the state's
+    adjoint G from ``ds_final`` (None: zeros) back to step 0,
+
+        G_{t-1} = diag(w_t) G_t + r_t (x) do_t
+        dr_t[i] = sum_j do_t[j] (S_{t-1}[i,j] + u[i] k_t[i] v_t[j])
+        dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
+        dk_t[i] = sum_j (G_t[i,j] + r_t[i] u[i] do_t[j]) v_t[j]
+        dv_t[j] = sum_i (G_t[i,j] + r_t[i] u[i] do_t[j]) k_t[i]
+        du[i]   = sum_{b,t} r_t[i] k_t[i] sum_j do_t[j] v_t[j]
+
+    (G_t the adjoint of the state after step t).  -> (dr, dk, dv, dw in
+    r's dtype, du in u's dtype, ds0 float32 or float64)."""
+    b, h, s, hd = r.shape
+    ft = torch.promote_types(r.dtype, torch.float32)
+    r32, k32, v32, w32, do32 = (t.to(ft) for t in (r, k, v, w, dout))
+    u32 = u.to(ft)[None, :, :]
+    state = torch.zeros(b, h, hd, hd, dtype=ft,
+                        device=r.device) if s0 is None else s0.to(ft)
+    states = []
+    for t in range(s):
+        states.append(state)
+        state = (w32[:, :, t, :, None] * state
+                 + k32[:, :, t, :, None] * v32[:, :, t, None, :])
+    g = (torch.zeros_like(state) if ds_final is None
+         else ds_final.to(ft))
+    grads = [torch.empty_like(t) for t in (r32, k32, v32, w32)]
+    du = torch.zeros(h, hd, dtype=ft, device=r.device)
+    for t in reversed(range(s)):
+        rt, kt, vt, wt, dot = (x[:, :, t] for x in (r32, k32, v32, w32,
+                                                    do32))
+        prev = states[t]
+        kv = kt[..., :, None] * vt[..., None, :]
+        grads[0][:, :, t] = torch.einsum("bhij,bhj->bhi",
+                                         prev + u32[..., None] * kv, dot)
+        grads[3][:, :, t] = (g * prev).sum(-1)
+        dkv = g + (rt * u32)[..., :, None] * dot[..., None, :]
+        grads[1][:, :, t] = (dkv * vt[..., None, :]).sum(-1)
+        grads[2][:, :, t] = (dkv * kt[..., :, None]).sum(-2)
+        du = du + (rt * kt * (dot * vt).sum(-1, keepdim=True)).sum(0)
+        g = wt[..., :, None] * g + rt[..., :, None] * dot[..., None, :]
+    dr, dk, dv, dw = (x.to(r.dtype) for x in grads)
+    return dr, dk, dv, dw, du.to(u.dtype), g
+
+
+def ssm_scan_bwd_ref(dt, bm, cm, x, a, h0, dy, dh_final=None):
+    """The gradients of ``ssm_scan_ref``, one time step at a time
+    backwards, in float32 (float64 for float64 inputs): the states h_t
+    recomputed forward from ``h0``, then the state's adjoint from
+    ``dh_final`` (None: zeros) back to step 0,
+
+        g_t   = C_t dy_t + exp(dt_{t+1} a) g_{t+1}   (g after step t)
+        dC_t  = sum_d dy_t[d] h_t[d]
+        dB_t  = sum_d g_t[d] dt_t[d] x_t[d]
+        dx_t  = dt_t sum_n g_t[n] B_t[n]
+        ddt_t = sum_n g_t[n] (a[n] exp(dt_t a[n]) h_{t-1}[n] + x_t B_t[n])
+        da    = sum_{b,t} g_t dt_t exp(dt_t a) h_{t-1}
+        dh0   = exp(dt_0 a) g_0
+
+    -> (ddt, dbm, dcm float32 or float64, dx in x's dtype, da, dh0
+    float32 or float64)."""
+    s = dt.shape[1]
+    ft = torch.promote_types(dt.dtype, torch.float32)
+    x_dtype = x.dtype
+    dt, bm, cm, x, a, dy = (t.to(ft) for t in (dt, bm, cm, x, a, dy))
+    h = h0.to(ft)
+    states = [h]
+    for t in range(s):
+        h = (torch.exp(dt[:, t, :, None] * a[None]) * h
+             + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :])
+        states.append(h)
+    g = torch.zeros_like(h) if dh_final is None else dh_final.to(ft)
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    dbm, dcm = torch.empty_like(bm), torch.empty_like(cm)
+    da = torch.zeros_like(a)
+    for t in reversed(range(s)):
+        g = g + dy[:, t, :, None] * cm[:, t, None, :]
+        decay = torch.exp(dt[:, t, :, None] * a[None])
+        dcm[:, t] = torch.einsum("bdn,bd->bn", states[t + 1], dy[:, t])
+        dbm[:, t] = torch.einsum("bdn,bd->bn", g, dt[:, t] * x[:, t])
+        gb = torch.einsum("bdn,bn->bd", g, bm[:, t])
+        dx[:, t] = dt[:, t] * gb
+        gh = g * decay * states[t]
+        ddt[:, t] = (gh * a[None]).sum(-1) + x[:, t] * gb
+        da = da + (gh * dt[:, t, :, None]).sum(0)
+        g = decay * g
+    return ddt, dbm, dcm, dx.to(x_dtype), da, g
 
 
 def ssm_scan_ref(dt, bm, cm, x, a, h0):

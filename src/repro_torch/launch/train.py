@@ -21,13 +21,15 @@ params and optimizer state donated (updated in place, as the reference
 jits its step with ``donate_argnums=(0, 1)``).  Its forward runs the
 reference's training path: attention in ``attn_apply``'s q-chunked
 branch, which launches no kernel, as the reference's reaches no Pallas
-kernel.  Weights are drawn from ``--seed`` by the port's own
+kernel; rwkv6's and mamba's recurrences through ``ops.rwkv6_scan`` and
+``ops.ssm_scan``, whose autograd Functions run the ``rwkv6_scan`` /
+``ssm_scan`` kernels forward and the ``rwkv6_scan_bwd`` /
+``ssm_scan_bwd`` kernels backward on the card (their plain versions on
+the CPU).  Weights are drawn from ``--seed`` by the port's own
 initialiser.
 
-Refused, before any step: configs the port's ``Model`` refuses; and on
-the card, stacks with rwkv6 or mamba layers, whose ``rwkv6_scan`` and
-``ssm_scan`` kernels have no backward yet (they train with ``--device
-cpu``, where the scans' plain versions differentiate).
+Refused, before any step: configs the port's ``Model`` refuses, and
+``--device cuda`` without a card.
 """
 from __future__ import annotations
 
@@ -44,9 +46,6 @@ from repro_torch.data.tokens import make_stream
 from repro_torch.models.api import Model
 from repro_torch.optim import adamw, cosine_warmup
 from repro_torch.optim.optimizers import tree_leaves
-
-# layer kinds whose recurrence runs in a kernel with no backward yet
-SCAN_KERNELS = {"rwkv6": "rwkv6_scan", "mamba": "ssm_scan"}
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -78,19 +77,11 @@ def optimizer_for(args):
     return adamw(cosine_warmup(args.lr, args.steps // 10 + 1, args.steps))
 
 
-def check_args(args, cfg: ModelConfig) -> None:
+def check_args(args) -> None:
     """Refuse a run the port cannot carry, before any weight is drawn."""
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch.cuda.is_available() is "
                          "False (pass --device cpu to run on the CPU)")
-    if args.device == "cuda":
-        missing = sorted({SCAN_KERNELS[k] for k in cfg.kinds_for_layers
-                          if k in SCAN_KERNELS})
-        if missing:
-            raise SystemExit(
-                f"{cfg.name}: training on the card needs the backward "
-                f"kernels of {' and '.join(missing)}, which are not written "
-                "yet (the CPU's plain scans differentiate: --device cpu)")
 
 
 def run(args, cfg: ModelConfig = None, log=print) -> dict:
@@ -101,7 +92,7 @@ def run(args, cfg: ModelConfig = None, log=print) -> dict:
     "start" (the restored step, or 0), "first", "last", "verdict",
     "params", "opt_state"}."""
     cfg = cfg or config_for(args)
-    check_args(args, cfg)
+    check_args(args)
     model = Model(cfg, device=args.device)
     log(f"arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model} "
         f"vocab={cfg.vocab_size}")

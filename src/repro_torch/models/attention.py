@@ -45,7 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import dequantize_kv as _dequantize_kv  # noqa: F401
 from repro_torch.models.layers import apply_rope, rms_norm
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, at_least_f32
 
 NEG_INF = -2.0 ** 30  # large-negative that survives bf16
 
@@ -160,7 +160,7 @@ def _softmax(scores, mask):
     """float32 softmax over the last axis, masked lanes at ``NEG_INF``;
     the max is held out of the gradient (``stop_gradient`` in the
     reference)."""
-    scores = torch.where(mask, scores.float(), NEG_INF)
+    scores = torch.where(mask, at_least_f32(scores), NEG_INF)
     m = torch.amax(scores, dim=-1, keepdim=True).detach()
     e = torch.exp(scores - m)
     z = torch.sum(e, dim=-1, keepdim=True)

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, at_least_f32
 
 # ---------------------------------------------------------------- norms
 
@@ -27,17 +27,17 @@ def norm_schema(cfg: ModelConfig):
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
-    x32 = x.float()
+    x32 = at_least_f32(x)
     ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+    return (x32 * torch.rsqrt(ms + eps) * at_least_f32(scale)).to(x.dtype)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-6):
-    x32 = x.float()
+    x32 = at_least_f32(x)
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    return (y * at_least_f32(scale) + at_least_f32(bias)).to(x.dtype)
 
 
 def norm_apply(p, x, kind: str, eps: float = 1e-6):
@@ -64,7 +64,7 @@ def apply_rope(x, positions, theta: float):
     ang = rope_angles(positions, x.shape[-1], theta)   # (B?, S, hd/2)
     cos = torch.cos(ang)[..., None, :]                  # (B?, S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(at_least_f32(x), 2, dim=-1)
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
@@ -128,7 +128,7 @@ def softmax_xent(logits, labels, mask=None):
     """Mean next-token cross-entropy in float32, as logsumexp minus the
     gold logit.  labels: int (B,S); ``mask`` (B,S) weights each position
     (the mean over ``max(sum(mask), 1)``)."""
-    logits = logits.float()
+    logits = at_least_f32(logits)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold

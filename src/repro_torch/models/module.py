@@ -11,7 +11,10 @@ the reference's scale rules:
 * ``"zeros"`` / ``"ones"`` as named.
 
 A spec's ``dtype`` overrides the model dtype for its leaf (the MoE
-router is float32 whatever the model dtype, as in the reference).
+router is float32 whatever the model dtype, as in the reference), except
+in a float64 model, which keeps every leaf and every computation in
+float64 (a rounding yardstick for float32 runs, on the CPU: the layers
+compute through ``at_least_f32`` where they would take float32).
 
 The numbers differ from ``jax.random``'s for the same seed; tests that
 compare the two packages bridge the reference's weights instead
@@ -25,7 +28,8 @@ from typing import Optional, Tuple
 
 import torch
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -35,6 +39,13 @@ def torch_dtype(name: str) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}; "
                          f"known: {sorted(DTYPES)}") from None
+
+
+def at_least_f32(t):
+    """``t`` in float32, or as it is where it is float64: where the layers
+    compute in float32 whatever the model dtype, a float64 model stays in
+    float64."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +63,8 @@ def init_params(schema, seed: int, dtype: str, device) -> dict:
     gen.manual_seed(int(seed))
 
     def draw(spec: ParamSpec):
-        dt = torch_dtype(spec.dtype or dtype)
+        dt = torch_dtype(dtype if dtype == "float64"
+                         else spec.dtype or dtype)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "ones":

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, at_least_f32
 
 EXPERT_KINDS = ("swiglu", "geglu", "gelu")
 
@@ -68,7 +68,7 @@ def _experts(p, kind: str, xe):
 def route(p, cfg: ModelConfig, x):
     """The router, in float32: x (B,S,D) -> (probs (B,S,E), gates
     (B,S,K) renormalised over the top k, expert ids (B,S,K))."""
-    logits = x.float() @ p["router"].float()                  # (B,S,E)
+    logits = at_least_f32(x) @ at_least_f32(p["router"])      # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, cfg.num_experts_per_tok,
                                        dim=-1)
@@ -86,7 +86,8 @@ def moe_apply(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     probs, gate_vals, expert_idx = route(p, cfg, x)
 
     # Switch aux loss: E * sum_e(fraction routed top-1 to e * mean prob e)
-    frac = F.one_hot(expert_idx[..., 0], e).float().mean(dim=(0, 1))
+    frac = F.one_hot(expert_idx[..., 0], e).to(probs.dtype).mean(
+        dim=(0, 1))
     aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
 
     # position-in-expert over the flattened (S*K) order of each row

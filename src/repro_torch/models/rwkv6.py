@@ -22,7 +22,9 @@ chunk and one decode token alike.  The reference's masked per-row scan
 (``seq_len``, right-padded ragged paged prefill) takes the same scan:
 past a row's valid lanes the decay is 1 and the key 0, so ``S = 1 S +
 0 (x) v`` carries the state through exactly where the reference freezes
-it.
+it.  In training the scan differentiates through ``ops``'s autograd
+Function (backward: the ``rwkv6_scan_bwd`` kernel on the card, its plain
+version on the CPU), and so do the (B,H,S,hd) views it is given.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, at_least_f32
 
 LORA_RANK = 64
 
@@ -121,7 +123,7 @@ def _decay(p, xw):
     """Per-channel decay in (0,1): w = exp(-exp(w_base + lora_w(xw) - 3)),
     float32."""
     lo = torch.tanh(xw) @ p["w_a"]
-    raw = p["w_base"].float() + (lo @ p["w_b"]).float()
+    raw = at_least_f32(p["w_base"]) + at_least_f32(lo @ p["w_b"])
     return torch.exp(-torch.exp(raw - 3.0))            # -3: init near slow decay
 
 
@@ -150,21 +152,21 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, state, seq_len=None):
     v = (xv @ p["wv"]).reshape(b, s, h, hd)
     g = F.silu(xg @ p["wg"])
     w = _decay(p, xw).reshape(b, s, h, hd)             # float32
-    u = p["u"].float()
+    u = at_least_f32(p["u"])
     if seq_len is not None:
         pad = (torch.arange(s, device=x.device)[None, :]
                >= seq_len.long()[:, None])[:, :, None, None]
         w = torch.where(pad, 1.0, w)
-        k = torch.where(pad, 0.0, k.float())
+        k = torch.where(pad, 0.0, at_least_f32(k))
 
     def heads_first(t):                                # (B,H,S,hd) view
-        return t.float().transpose(1, 2)
+        return at_least_f32(t).transpose(1, 2)
 
     out, s_final = kernel_ops.rwkv6_scan(
         heads_first(r), heads_first(k), heads_first(v), heads_first(w), u,
-        state["s"].float())
+        at_least_f32(state["s"]))
     o = out.transpose(1, 2)                            # (B,S,H,hd)
-    o = _headnorm(o, p["head_scale"].float())
+    o = _headnorm(o, at_least_f32(p["head_scale"]))
     o = o.reshape(b, s, d).to(x.dtype) * g
     y = o @ p["wo"]
     return y, {"s": s_final, "x_tm": _last_valid(x, seq_len)}

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, at_least_f32
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -67,8 +67,8 @@ def _selective_terms(p, cfg: ModelConfig, x_c):
     """-> dt (B,S,di), bm (B,S,N), cm (B,S,N) float32, xc = silu(x_c)."""
     n = cfg.ssm_state_dim
     xc = F.silu(x_c)
-    proj = xc.float() @ p["x_proj"].float()
-    v = proj[..., :1] + p["dt_bias"].float()
+    proj = at_least_f32(xc) @ at_least_f32(p["x_proj"])
+    v = proj[..., :1] + at_least_f32(p["dt_bias"])
     dt = torch.logaddexp(v, torch.zeros_like(v))          # softplus
     return dt, proj[..., 1:1 + n], proj[..., 1 + n:], xc
 
@@ -89,7 +89,7 @@ def ssm_forward(p, cfg: ModelConfig, x, state, seq_len=None):
     x_in, z = xz[..., :di], xz[..., di:]
     x_c, xp = _causal_conv(p, x_in, state["conv"])
     dt, bm, cm, xc = _selective_terms(p, cfg, x_c)
-    a = -torch.exp(p["a_log"].float())                   # (di, N)
+    a = -torch.exp(at_least_f32(p["a_log"]))             # (di, N)
     if seq_len is None:
         new_conv = xp[:, -(w - 1):]
     else:
@@ -105,7 +105,7 @@ def ssm_forward(p, cfg: ModelConfig, x, state, seq_len=None):
     y, h_final = kernel_ops.ssm_scan(
         dt.contiguous(), bm.clone(memory_format=torch.contiguous_format),
         cm.clone(memory_format=torch.contiguous_format), xc.contiguous(),
-        a.contiguous(), state["h"].float().contiguous())
+        a.contiguous(), at_least_f32(state["h"]).contiguous())
     y = y * F.silu(z)
     return y @ p["out_proj"], {"h": h_final, "conv": new_conv.contiguous()}
 
@@ -113,8 +113,8 @@ def ssm_forward(p, cfg: ModelConfig, x, state, seq_len=None):
 def ssm_apply(p, cfg: ModelConfig, x):
     """Full-sequence forward from a zero state, no cache: what the
     reference's training block runs.  x (B,S,D) -> y (B,S,D).  The scan
-    goes through ``ops.ssm_scan``; its plain version (a CPU tensor)
-    differentiates, and the CUDA kernel refuses autograd (it has no
-    backward yet)."""
+    goes through ``ops.ssm_scan``, whose autograd Function differentiates
+    it on both devices (backward: the ``ssm_scan_bwd`` kernel on the card,
+    its plain version on the CPU)."""
     st = init_state(cfg, x.shape[0], x.dtype, x.device)
     return ssm_forward(p, cfg, x, st)[0]

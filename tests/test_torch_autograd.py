@@ -1,14 +1,18 @@
-"""The kernel wrappers refuse autograd; ``ops.conv2d`` and the plain path
-differentiate.
+"""The kernel wrappers refuse autograd; ``ops.conv2d``, ``ops.rwkv6_scan``,
+``ops.ssm_scan`` and the plain path differentiate.
 
-The seven CUDA wrappers fill their outputs through ctypes, so a result
+The nine CUDA wrappers fill their outputs through ctypes, so a result
 would carry no ``grad_fn`` and an input that requires grad would get no
 gradient, silently.  Each raw wrapper raises when grad mode is on and a
 tensor input requires grad (on any device: the check comes before the
 device check), and launches as before under ``torch.no_grad()`` or on
-detached inputs.  The convolution differentiates through the autograd
-Function in ``ops.conv2d`` (its backward runs ``conv2d_wgrad`` and
-``conv2d``, kernels on the card, plain versions on the CPU); the other
+detached inputs; the two backward kernels' wrappers too, so a gradient
+of a gradient is refused rather than cut.  The convolution
+differentiates through the autograd Function in ``ops.conv2d`` (its
+backward runs ``conv2d_wgrad`` and ``conv2d``, kernels on the card,
+plain versions on the CPU), and the two scans through theirs in ``ops``
+(backward: ``rwkv6_scan_bwd`` / ``ssm_scan_bwd`` on the card, their plain
+versions on the CPU: ``tests/test_torch_scan_backward.py``); the other
 plain versions, which ``ops`` takes for CPU tensors, are ordinary
 PyTorch.  The port's ``cnn_loss`` gradients on the CPU match
 ``jax.grad`` of the reference's ``cnn_loss`` on the same weights and
@@ -30,7 +34,9 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rw_mod  # noqa: E402
+from repro_torch.kernels import rwkv6_scan_bwd as rwb_mod  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss_mod  # noqa: E402
+from repro_torch.kernels import ssm_scan_bwd as ssb_mod  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from test_torch_kernels import decode_case, prefill_case  # noqa: E402
 
@@ -62,24 +68,35 @@ def kernel_inputs(name, device):
     if name == "paged_prefill":
         args = [t(a) for a in prefill_case(rng, 2, 4, 4, 2, 16, 8)]
         return pp_mod.paged_prefill, pp_mod.KERNEL, args, (0, 1, 2)
-    if name == "ssm_scan":
+    if name.startswith("ssm_scan"):
         b, s, di, n = 2, 5, 8, ss_mod.STATE_DIM
         args = [t(np.full((b, s, di), 0.5, np.float32))]
         args += [t(rng.normal(size=shape).astype(np.float32)) for shape in
                  ((b, s, n), (b, s, n), (b, s, di))]
         args += [t(-np.ones((di, n), np.float32)),
                  t(rng.normal(size=(b, di, n)).astype(np.float32))]
-        return ss_mod.ssm_scan, ss_mod.KERNEL, args, (0, 1, 2, 3, 4, 5)
+        if name == "ssm_scan":
+            return ss_mod.ssm_scan, ss_mod.KERNEL, args, (0, 1, 2, 3, 4, 5)
+        args += [t(rng.normal(size=shape).astype(np.float32)) for shape in
+                 ((b, s, di), (b, di, n))]              # dy, dh_final
+        return (ssb_mod.ssm_scan_bwd, ssb_mod.KERNEL, args,
+                (0, 1, 2, 3, 4, 5, 6, 7))
     shape = (1, 2, 5, 8)
     args = [t(rng.normal(size=shape).astype(np.float32)) for _ in range(3)]
     args += [t(np.full(shape, 0.9, np.float32)),
              t(rng.normal(size=(2, 8)).astype(np.float32)),
              t(rng.normal(size=(1, 2, 8, 8)).astype(np.float32))]
-    return rw_mod.rwkv6_scan, rw_mod.KERNEL, args, (0, 1, 2, 3, 4, 5)
+    if name == "rwkv6_scan":
+        return rw_mod.rwkv6_scan, rw_mod.KERNEL, args, (0, 1, 2, 3, 4, 5)
+    args += [t(rng.normal(size=shape).astype(np.float32)),    # dout
+             t(rng.normal(size=(1, 2, 8, 8)).astype(np.float32))]
+    return (rwb_mod.rwkv6_scan_bwd, rwb_mod.KERNEL, args,
+            (0, 1, 2, 3, 4, 5, 6, 7))
 
 
 KERNELS = ["conv2d", "conv2d_wgrad", "flash_attention", "paged_attention",
-           "paged_prefill", "rwkv6_scan", "ssm_scan"]
+           "paged_prefill", "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan",
+           "ssm_scan_bwd"]
 
 
 @pytest.mark.parametrize("name", KERNELS)

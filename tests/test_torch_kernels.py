@@ -55,7 +55,9 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_mod  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rw_mod  # noqa: E402
+from repro_torch.kernels import rwkv6_scan_bwd as rwb_mod  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss_mod  # noqa: E402
+from repro_torch.kernels import ssm_scan_bwd as ssb_mod  # noqa: E402
 
 ATOL = 1e-5
 
@@ -188,10 +190,12 @@ def test_cuda_sources_export_what_the_wrappers_bind():
     here to check it)."""
     assert build.sources() == ["conv2d", "conv2d_wgrad", "flash_attention",
                                "paged_attention", "paged_prefill",
-                               "rwkv6_scan", "ssm_scan"]
+                               "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan",
+                               "ssm_scan_bwd"]
     for kern in (cv_mod.KERNEL, cw_mod.KERNEL, fa_mod.KERNEL, pa_mod.KERNEL,
                  pa_mod.KERNEL_INT8, pp_mod.KERNEL, pp_mod.KERNEL_INT8,
-                 rw_mod.KERNEL, ss_mod.KERNEL):
+                 rw_mod.KERNEL, rwb_mod.KERNEL, ss_mod.KERNEL,
+                 ssb_mod.KERNEL):
         text = (build.CSRC / f"{kern.library}.cu").read_text()
         for sym, argtypes in ((kern.symbol, kern.argtypes),
                               (kern.smem_symbol, kern.smem_argtypes)):

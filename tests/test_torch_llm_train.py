@@ -18,8 +18,10 @@ as ``tests/test_torch_hybrid.py`` does, so no gradient is trivially 0):
   jamba-1.5-large-398b: the loss within 1e-5, each leaf within 1e-4 x
   its max|g|; the gradients with remat on equal those with it off;
 * three ``make_train_step`` steps (``adamw`` over ``cosine_warmup``,
-  clip 1.0) step for step against the reference's: losses and grad norms
-  within 1e-5; parameters as ``tests/test_torch_train.py`` holds Adam
+  clip 1.0) step for step against the reference's (qwen3-0.6b,
+  dbrx-132b, rwkv6-1.6b, jamba-1.5-large-398b): losses and grad norms
+  within 1e-5 (the recurrent stacks' grad norms, ~25, within 1e-5 of
+  their size); parameters as ``tests/test_torch_train.py`` holds Adam
   (its ``m / (sqrt(v) + eps)`` is ~1 in size wherever a gradient is
   tiny, so rounding may flip such a step: every element within 2 x lr x
   steps, and >= 99.9 % within 1e-5); the step's in-place update, a slice
@@ -27,8 +29,11 @@ as ``tests/test_torch_hybrid.py`` does, so no gradient is trivially 0):
   bit;
 * the CLI: ``--device cpu --reduced`` against the reference CLI on the
   same weights (every printed loss within 1.5e-4: 4 decimals printed),
-  a restart from ``--ckpt-dir`` resuming the same losses, and its
-  refusals.
+  a restart from ``--ckpt-dir`` resuming the same losses, its refusals,
+  and rwkv6 and jamba passing its checks with a card present (their
+  scans differentiate through ``ops``'s autograd Functions, whose
+  backward kernels ``tests/test_torch_scan_backward_card.py`` holds to
+  the plain versions on the card).
 """
 import dataclasses
 import re
@@ -63,6 +68,7 @@ from repro_torch.models.api import Model  # noqa: E402
 
 ARCHS = ["qwen3-0.6b", "gemma3-4b", "dbrx-132b", "rwkv6-1.6b",
          "jamba-1.5-large-398b"]
+RECURRENT = ("rwkv6-1.6b", "jamba-1.5-large-398b")
 B, S = 2, 48          # S past gemma3's reduced window of 32
 
 
@@ -393,7 +399,7 @@ def test_training_forward_agrees_with_the_draft_forward():
 # ------------------------------------------------------------ train step
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "dbrx-132b", *RECURRENT])
 def test_train_steps_match_reference_step_for_step(arch):
     jm, jp, tm, tree = pair(arch)
     lr, steps = 3e-4, 3
@@ -418,8 +424,13 @@ def test_train_steps_match_reference_step_for_step(arch):
         assert sorted(tmet) == sorted(jmet) == \
             ["aux", "grad_norm", "loss", "xent"]
         for k in jmet:
+            # the recurrent stacks' grad norms are ~25 (their drawn decay
+            # and bonus leaves): after an Adam step float32 rounding alone
+            # moves them past 1e-5, so they are held to 1e-5 of their size
+            scale = (max(1.0, float(jmet[k]))
+                     if k == "grad_norm" and arch in RECURRENT else 1.0)
             np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
-                                       atol=1e-5, rtol=0,
+                                       atol=1e-5 * scale, rtol=0,
                                        err_msg=f"step {step} {k}")
     for (name, got), (_, want) in zip(
             _leaves(_np(tp)), _leaves(_np(jax.tree.map(np.asarray, jp)))):
@@ -539,18 +550,13 @@ def test_train_cli_refusals(argv, error, match, monkeypatch):
         ttrain.main(argv)
 
 
-@pytest.mark.parametrize("arch,kernels", [
-    ("rwkv6-1.6b", "rwkv6_scan"), ("jamba-1.5-large-398b", "ssm_scan")])
-def test_train_cli_refuses_recurrent_stacks_on_the_card(arch, kernels,
-                                                        monkeypatch):
-    """On the card the scans run kernels with no backward: the CLI
-    refuses these stacks by name before drawing a weight; the CPU trains
-    them."""
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_train_cli_takes_recurrent_stacks_on_the_card(arch, monkeypatch):
+    """The scans differentiate on both devices (their backward kernels on
+    the card): with a card present the CLI's checks pass rwkv6 and jamba;
+    the CPU trains them."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(Model, "init", lambda *a, **k: pytest.fail(
-        "drew weights before refusing"))
-    with pytest.raises(SystemExit, match=kernels):
-        ttrain.main(["--arch", arch])
+    ttrain.check_args(ttrain.make_parser().parse_args(["--arch", arch]))
     monkeypatch.undo()
     args = ttrain.make_parser().parse_args(
         ["--arch", arch, "--device", "cpu", "--steps", "2", "--batch", "1",
