@@ -48,14 +48,21 @@
 // int8 prefix (kQuant, the int8 KV cache's ragged prefill): keys [0, Lp)
 // are int8 rows with a float32 scale each, keys [Lp, Sk) the chunk's own
 // bf16 rows, and the tile loader picks a key's source by its index (a
-// tile may straddle Lp, a multiple of the block size and not of 64).  A
-// tile's int8 rows are copied 16 elements a cp.async into a staging
-// buffer of their own, beside their scales; once they are in, the CTA
-// converts them to bf16 in the K or V tile (int8 times its scale in
-// float32, rounded to bf16: the reference's dequantization) and the tile
-// goes through the same ldmatrix / mma.sync path as a bf16 one, two more
-// barriers a tile.  So a launch equals, bit for bit, the bf16 launch over
-// the concatenated dequantized keys.
+// tile may straddle Lp, a multiple of the block size and not of 64; the
+// tiles stay those of the concatenated keys, so the online softmax
+// rescales where the bf16 launch does).  A tile's int8 rows and scales
+// are copied 16 elements a cp.async into a staging buffer of their own,
+// double-buffered: tile t+1's K and V rows are issued at the top of tile
+// t's pass and waited for at its middle barrier, so their copy overlaps
+// Q.K(t)^T and the softmax (the P.V(t) that follows reads only the bf16
+// tile).  The CTA converts each prefix row once into the bf16 tile, V(t)'s
+// while Q.K(t)^T runs and K(t+1)'s while P.V(t) runs, inside the two
+// barriers a tile the bf16 launch has (no barrier of its own).  A prefix
+// key or value is dequantized as the reference does (int8 times its scale
+// in float32, rounded to bf16; the int8 -> float32 step is exact through
+// the exponent bits of 2^23, a byte permute and a subtraction, no I2F), so
+// a launch equals, bit for bit, the bf16 launch over the concatenated
+// dequantized keys.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -217,6 +224,20 @@ __device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi,
   return pack_bf16(lo - __low2float(r), hi - __high2float(r));
 }
 
+// bytes lo, lo + 1 of u (int8 already offset by 128: x ^ 0x80 a byte),
+// times their scales, -> bf16x2 (byte lo in the low half); int8 ->
+// float32 is exact: the byte as the low mantissa bits of 2^23, less 2^23 +
+// 128
+template <int lo>
+__device__ __forceinline__ uint32_t dequant_pair_u(uint32_t u, float s0,
+                                                   float s1) {
+  const float f0 =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + lo));
+  const float f1 =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651 + lo));
+  return pack_bf16((f0 - 8388736.f) * s0, (f1 - 8388736.f) * s1);
+}
+
 // Allow a kernel its dynamic shared memory, once per device: the attribute
 // persists, and setting it on every launch costs host time.
 template <typename Kernel>
@@ -235,13 +256,21 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes,
 // head dims past 128 keep Q in shared memory (see the header)
 __host__ __device__ constexpr bool q_in_smem(int hd) { return hd > 128; }
 
+// kQuant: one int8 staging buffer, a K and a V tile's rows (pitch hd +
+// 16 bytes, so a warp's fragment reads fall in distinct banks) and their
+// scales
+__host__ __device__ constexpr int int8_pitch(int hd) { return hd + 16; }
+__host__ __device__ constexpr size_t int8_buffer_bytes(int hd) {
+  return (size_t)2 * kTK * int8_pitch(hd) + 2 * kTK * sizeof(float);
+}
+
 __host__ __device__ constexpr size_t smem_bytes(int hd, bool quant = false) {
   // a K and a V tile (and at q_in_smem a Q tile of kRows = kTK rows),
-  // then K's key positions and the rows' lanes and heads; kQuant: the
-  // int8 staging of a K and a V tile and their scales
+  // then K's key positions and the rows' lanes and heads; kQuant: two
+  // int8 staging buffers
   return (size_t)(q_in_smem(hd) ? 3 : 2) * kTK * (hd + kPad) * sizeof(bf16) +
          (kTK + 2 * kRows) * sizeof(int) +
-         (quant ? (size_t)2 * kTK * (hd + sizeof(float)) : 0);
+         (quant ? 2 * int8_buffer_bytes(hd) : 0);
 }
 
 // ------------------------------------------------------------ the tile
@@ -289,11 +318,16 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
                                                      kPitch);
   int* const sRowS = sPos + kTK;     // row r -> its query lane, or -1
   int* const sRowH = sRowS + kRows;  // row r -> its query head
-  // kQuant: int8 staging of a K and a V tile, then their scales
-  int8_t* const sK8 = reinterpret_cast<int8_t*>(sRowH + kRows);
-  int8_t* const sV8 = sK8 + kTK * HD;
-  float* const sKs = reinterpret_cast<float*>(sV8 + kTK * HD);
-  float* const sVs = sKs + kTK;
+  // kQuant: two int8 staging buffers, each a K and a V tile's rows and
+  // their scales
+  constexpr int kP8 = int8_pitch(HD);
+  int8_t* const s8 = reinterpret_cast<int8_t*>(sRowH + kRows);
+  auto sK8 = [&](int buf) { return s8 + buf * int8_buffer_bytes(HD); };
+  auto sV8 = [&](int buf) { return sK8(buf) + kTK * kP8; };
+  auto sKs = [&](int buf) {
+    return reinterpret_cast<float*>(sK8(buf) + 2 * kTK * kP8);
+  };
+  auto sVs = [&](int buf) { return sKs(buf) + kTK; };
 
   const int bkv = p.B * p.KV;
   const int x = blockIdx.x / bkv;
@@ -410,7 +444,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   const bf16* const vbase = p.v + b * p.vs.b + kvh * p.vs.h + kch * 8;
   // the thread's rows of tile t, from base (rows `stride` apart) to dst;
   // kQuant: the chunk's rows only (row key - Lp of base), the prefix's
-  // int8 rows go through load_rows8
+  // int8 rows go through load_int8
   auto load_rows = [&](bf16* dst, const bf16* base, long long stride,
                        int t) {
     const int k0 = t * kTK;
@@ -423,49 +457,54 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
                  ok ? base + (key - lp) * stride : base, ok);
     }
   };
-  // kQuant: tile t's int8 prefix rows, 16 elements a copy, into the
-  // staging dst8, and their scales into dscale
+  // kQuant: tile t's int8 prefix rows of K and V, 16 elements a copy,
+  // and their scales into staging buffer buf
   constexpr int kChunks8 = HD / 16;
-  auto load_rows8 = [&](int8_t* dst8, float* dscale, const int8_t* src8,
-                        const float* scale, int t) {
+  auto load_int8 = [&](int buf, int t) {
     const int k0 = t * kTK;
-    const int8_t* const base8 = src8 + ((size_t)b * lp * p.KV + kvh) * HD;
-    for (int c = tid; c < kTK * kChunks8; c += kThreads) {
-      const int r = c / kChunks8, key = k0 + r;
+    const size_t row0 = (size_t)b * lp * p.KV + kvh;
+    for (int c = tid; c < 2 * kTK * kChunks8; c += kThreads) {
+      const int kv = c / (kTK * kChunks8), cc = c % (kTK * kChunks8);
+      const int r = cc / kChunks8, key = k0 + r;
       if (key >= lp) continue;
       const bool ok = key >= key_lo && key < key_hi;
-      cp_async16(dst8 + r * HD + (c % kChunks8) * 16,
-                 ok ? base8 + (size_t)key * p.KV * HD + (c % kChunks8) * 16
+      const int8_t* const base8 = (kv ? p.v8 : p.k8) + row0 * HD;
+      cp_async16((kv ? sV8(buf) : sK8(buf)) + r * kP8 + (cc % kChunks8) * 16,
+                 ok ? base8 + (size_t)key * p.KV * HD + (cc % kChunks8) * 16
                     : base8,
                  ok);
     }
-    if (tid < kTK && k0 + tid < lp) {
-      const int key = k0 + tid;
-      const bool ok = key >= key_lo && key < key_hi;
-      const float* const sb = scale + (size_t)b * lp * p.KV + kvh;
-      cp_async4(dscale + tid, ok ? sb + (size_t)key * p.KV : sb, ok);
+    if (tid < 2 * kTK) {
+      const int kv = tid / kTK, r = tid % kTK, key = k0 + r;
+      if (key < lp) {
+        const bool ok = key >= key_lo && key < key_hi;
+        const float* const sb = (kv ? p.v8_scale : p.k8_scale) + row0;
+        cp_async4((kv ? sVs(buf) : sKs(buf)) + r,
+                  ok ? sb + (size_t)key * p.KV : sb, ok);
+      }
     }
   };
-  // kQuant, once tile t's staged rows are in: dst's prefix rows = int8 x
-  // scale in float32, rounded to bf16 (16 elements a thread a pass)
+  // kQuant, once tile t's staged rows are visible: dst's
+  // prefix rows = int8 x scale in float32, rounded to bf16, 16 elements a
+  // thread a pass
   auto convert8 = [&](bf16* dst, const int8_t* src8, const float* scale,
                       int t) {
     const int k0 = t * kTK;
-    for (int c = tid; c < kTK * kChunks8; c += kThreads) {
+#pragma unroll
+    for (int it = 0; it < (kTK * kChunks8 + kThreads - 1) / kThreads; ++it) {
+      const int c = tid + it * kThreads;
       const int r = c / kChunks8, ch = c % kChunks8;
-      if (k0 + r >= lp) continue;
+      if (c >= kTK * kChunks8 || k0 + r >= lp) continue;
       const float sc = scale[r];
-      const uint4 raw = *reinterpret_cast<const uint4*>(src8 + r * HD +
+      const uint4 raw = *reinterpret_cast<const uint4*>(src8 + r * kP8 +
                                                         ch * 16);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
+                             raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
       uint32_t o[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const uint32_t x = w[i / 2] >> (16 * (i % 2));
-        const int8_t lo = static_cast<int8_t>(static_cast<uint8_t>(x));
-        const int8_t hi = static_cast<int8_t>(static_cast<uint8_t>(x >> 8));
-        o[i] = pack_bf16(static_cast<float>(lo) * sc,
-                         static_cast<float>(hi) * sc);
+      for (int i = 0; i < 4; ++i) {
+        o[2 * i] = dequant_pair_u<0>(w[i], sc, sc);
+        o[2 * i + 1] = dequant_pair_u<2>(w[i], sc, sc);
       }
       uint4* const out = reinterpret_cast<uint4*>(dst + r * kPitch + ch * 16);
       out[0] = make_uint4(o[0], o[1], o[2], o[3]);
@@ -474,27 +513,28 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   };
   auto load_k = [&](int t) {
     load_rows(sK, kbase, p.ks.s, t);
-    if constexpr (kQuant) load_rows8(sK8, sKs, p.k8, p.k8_scale, t);
     if (kPaged && tid < kTK) {
       const int key = t * kTK + tid;
       const bool ok = key >= key_lo && key < key_hi;
       cp_async4(sPos + tid, ok ? key_pos_ptr(key) : p.qpos, ok);
     }
   };
-  auto load_v = [&](int t) {
-    load_rows(sV, vbase, p.vs.s, t);
-    if constexpr (kQuant) load_rows8(sV8, sVs, p.v8, p.v8_scale, t);
-  };
+  auto load_v = [&](int t) { load_rows(sV, vbase, p.vs.s, t); };
 
-  // the first K tile (it joins Q's copy group)
+  // the first K tile (it joins Q's copy group), and kQuant its int8 K
+  // and V rows into staging buffer 0
   int t = next_tile(ta);
-  if (t < tb) load_k(t);
+  int buf = 0;   // kQuant: the staging buffer of tile t
+  if (t < tb) {
+    load_k(t);
+    if constexpr (kQuant) load_int8(0, t);
+  }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   // (the barrier after Q's fragments below publishes the converted tile)
   if constexpr (kQuant)
-    if (t < tb) convert8(sK, sK8, sKs, t);
+    if (t < tb) convert8(sK, sK8(0), sKs(0), t);
 
   // Q's A fragment of dims [16 kk, 16 kk + 16) for the warp's rows
   auto q_frag = [&](uint32_t (&r)[4], int kk) {
@@ -519,9 +559,18 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   // K(t) is in shared memory at the top of each pass; V(t) loads while
   // S = Q K(t) and the softmax run, K(next) while P V(t) runs
   while (t < tb) {
+    const int tn = next_tile(t + 1);
     load_v(t);
     cp_async_commit();
     const int k0 = t * kTK;
+    if constexpr (kQuant) {
+      // tile tn's int8 rows into the other buffer, in by the middle barrier
+      if (tn < tb) load_int8(buf ^ 1, tn);
+      cp_async_commit();
+      // V(t)'s prefix rows: sV is free since the last barrier, V(t)'s
+      // staging visible since then
+      convert8(sV, sV8(buf), sVs(buf), t);
+    }
 
     // S = Q K^T over the warp's keys [kw, kw + 8 NB)
     float s[NB][4];
@@ -623,15 +672,13 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
       }
     }
 
-    const int tn = next_tile(t + 1);
     cp_async_wait<0>();
     __syncthreads();  // V(t) is in; every warp is done with K(t)
     if (tn < tb) load_k(tn);
     cp_async_commit();
-    if constexpr (kQuant) {
-      convert8(sV, sV8, sVs, t);
-      __syncthreads();  // V(t) is whole in bf16
-    }
+    // K(tn)'s prefix rows, visible since the barrier, into the free sK
+    if constexpr (kQuant)
+      if (tn < tb) convert8(sK, sK8(buf ^ 1), sKs(buf ^ 1), tn);
 
     // acc += P V: P's C fragments of keys 16kk.. are the A fragment
 #pragma unroll
@@ -662,13 +709,12 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
         }
       }
     }
+    // K(tn) is in (and its prefix rows converted); every warp is done
+    // with V(t)
     cp_async_wait<0>();
-    __syncthreads();  // K(tn) is in; every warp is done with V(t)
-    if constexpr (kQuant) {
-      if (tn < tb) convert8(sK, sK8, sKs, tn);
-      __syncthreads();  // K(tn) is whole in bf16
-    }
+    __syncthreads();
     t = tn;
+    buf ^= 1;
   }
 
 #pragma unroll

@@ -56,8 +56,9 @@
 // _dequantize_kv), then used as a float key is. So an int8 launch equals,
 // bit for bit, the float launch over the concatenated dequantized keys
 // (same shape, plan and dtype). bfloat16: attention_mma.cuh's kQuant
-// tile (int8 rows staged in shared memory and converted there); float32:
-// the tile below converts as it loads.
+// tile (int8 rows double-buffered in shared memory, each row converted
+// once into the bf16 tile inside that tile's own barriers); float32: the
+// tile below converts as it loads.
 #include "attention_mma.cuh"
 #include "attention_tile.cuh"
 

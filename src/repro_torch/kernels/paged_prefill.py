@@ -33,10 +33,12 @@ fresh keys), so neither a dequantized copy of the prefix nor the
 concatenation is made.  The tile loader picks a key's segment by its
 index (a 64-key tile may straddle the boundary: the prefix is a
 multiple of the block size, not of 64 keys).  The bf16 tile stages a
-tile's int8 rows and scales in shared memory with 16-byte copies and
-converts them to bf16 there, before the ldmatrix / mma.sync path; the
-float32 tile converts as it loads.  Bound: bytes, at half the prefix's
-bytes of the float launch.
+tile's int8 rows and scales in shared memory with 16-byte copies,
+double-buffered (the next tile's rows land while this one's Q.K^T and
+softmax run), and converts each prefix row once into the bf16 tile
+inside the two barriers a tile the bf16 launch has; the float32 tile
+converts as it loads.  Bound: bytes,
+at half the prefix's bytes of the float launch.
 """
 from __future__ import annotations
 

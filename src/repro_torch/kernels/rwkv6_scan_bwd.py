@@ -15,17 +15,23 @@ Bound on an H100: operations, at rwkv6-1.6b's training shape (14 a
 sum, against the bytes of the inputs and the gradients; the source note
 counts both).
 
-Design: the forward's split, a CTA per (batch row, head, block of 16
-value columns), 256 threads a CTA, a state row to 4 threads with 4
-columns each.  Nothing is saved by the forward: the kernel re-runs the
-state from s0, keeps one state a chunk of ``CHUNK`` steps in a workspace,
-then walks the chunks backwards, re-running each chunk's states from its
-checkpoint into registers.  dr, dk and dw are summed over the columns
-per block and written as per-block partials, which a second kernel of
-the same launch adds in block order (du over the rows too): no float
-atomics, so the bits depend on the inputs alone.  Operands are read
-through element strides like the forward's (the model's transposed views
-go in without copies), and dr, dk, dv, dw take the layouts of r, k, v, w.
+Design: the time axis in parallel.  Both recurrences (the state and its
+adjoint) are elementwise in (i, j), so a first kernel runs them alone,
+the state forward from s0 and the adjoint backward from ds_final, one
+task a (batch row, head, span of ``SPAN`` value columns, direction), and
+writes each at every chunk boundary of ``CHUNK`` steps (two operations
+an element a step).  The second kernel then takes every (batch row,
+head, chunk) as an item: it re-runs the chunk's states from the
+checkpoint into registers and walks them in reverse from the adjoint
+checkpoint, summing dr, dk, dw, dv and du; a thread takes two state rows
+of four columns.  The spans of an item are one thread-block cluster:
+dr, dk and dw are summed over the spans through distributed shared
+memory in span order and written once; du's per-chunk partials are
+summed in (row, chunk) order by the last CTA of the head to take a
+ticket.  No float atomics, so the bits depend on the inputs alone.
+Operands are read through element strides like the forward's (the
+model's transposed views go in without copies), and dr, dk, dv, dw take
+the layouts of r, k, v, w.
 """
 from __future__ import annotations
 
@@ -36,15 +42,15 @@ import torch
 from repro_torch.kernels.build import CudaKernel, refuse_autograd
 
 MAX_HEAD_DIM = 64
-COLS = 16                   # value columns a CTA takes
-CHUNK = 16                  # steps between checkpoints of the state
+SPAN = 32                   # value columns a CTA takes (a cluster's rank)
+CHUNK = 16                  # steps a CTA of the second kernel takes
 THREADS = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel(
     "rwkv6_scan_bwd", "rwkv6_scan_bwd_launch",
-    [_P] * 17 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 5 + [_P])
+    [_P] * 18 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 5 + [_P])
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -52,13 +58,16 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"rwkv6_scan_bwd kernel: {msg}")
 
 
-def workspace_floats(b: int, h: int, s: int, hd: int) -> dict:
-    """Floats of the launch's scratch: the per-block partials of dr, dk,
-    dw and du, and one state a chunk past the first (at least 1 each)."""
-    nblk, nchunks = -(-hd // COLS), -(-s // CHUNK)
-    return {"part": 3 * nblk * b * h * s * hd,
-            "du_part": nblk * b * h * hd,
-            "ckpt": max(1, b * h * nblk * (nchunks - 1) * THREADS * 4)}
+def scratch_sizes(b: int, h: int, s: int, hd: int) -> dict:
+    """Elements of the launch's scratch: one state (``ck_s``) and one
+    adjoint (``ck_g``) checkpoint a boundary between chunks of ``CHUNK``
+    steps, two float4 a thread of each span of ``SPAN`` columns (at least
+    1 float each); du's partials a (row, chunk), float32; one int32
+    ticket a head; in the order the launcher takes them."""
+    nspan, nchunks = -(-hd // SPAN), -(-s // CHUNK)
+    ckpt = max(1, b * h * (nchunks - 1) * nspan * THREADS * 8)
+    return {"ck_s": ckpt, "ck_g": ckpt, "du_part": b * nchunks * h * hd,
+            "tickets": h}
 
 
 def rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final=None,
@@ -112,8 +121,9 @@ def rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final=None,
     strides = (ctypes.c_longlong * 27)(
         *(0 if t is None else t.stride(i) for t in strided
           for i in range(3)))
-    ws = {key: torch.empty(n, dtype=torch.float32, device=dev)
-          for key, n in workspace_floats(b, h, s, hd).items()}
+    ws = {key: torch.empty(n, dtype=torch.int32 if key == "tickets"
+                           else torch.float32, device=dev)
+          for key, n in scratch_sizes(b, h, s, hd).items()}
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -122,8 +132,7 @@ def rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final=None,
     with torch.cuda.device(dev):
         KERNEL.launch(ptr(r), ptr(k), ptr(v), ptr(w), ptr(u), ptr(s0),
                       ptr(dout), ptr(ds_final), *map(ptr, outs), ptr(du),
-                      ptr(ds0), ws["part"].data_ptr(),
-                      ws["du_part"].data_ptr(), ws["ckpt"].data_ptr(),
+                      ptr(ds0), *(t.data_ptr() for t in ws.values()),
                       strides, b, h, s, hd,
                       sum(1 << i for i, n in enumerate(need) if n),
                       stream)

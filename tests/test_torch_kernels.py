@@ -980,20 +980,16 @@ PP_INT8_CARD_SHAPES = ([(shape, 0) for shape in PP_CARD_SHAPES]
                        + GEMMA3_PP_CARD_SHAPES)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,min_start", PP_INT8_CARD_SHAPES)
-@pytest.mark.parametrize("window", [0, 5, 1024])
-@pytest.mark.parametrize("slot", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_prefill_int8_kernel(cuda, shape, min_start, window, slot,
-                                   dtype):
+def _check_int8_prefill(device, shape, min_start, window, slot, dtype):
     """The prefix of ``prefill_case`` (its first ``prefix`` lanes) int8,
     the chunk in the model dtype; ``slot``: one query lane over the int8
-    prefix alone (a slot decode, no chunk keys)."""
+    prefix alone (a slot decode, no chunk keys).  One launch of the int8
+    entry, within tolerance of its plain version on the valid lanes and
+    bit-equal to the float entry over the dequantized keys."""
     dt = getattr(torch, dtype)
     b, s, h, kv, hd, lp = shape
     rng = np.random.default_rng(sum(shape) + window + 2)
-    q, k, v, kpos, qpos = (torch.from_numpy(a).to(cuda) for a in
+    q, k, v, kpos, qpos = (torch.from_numpy(a).to(device) for a in
                            prefill_case(rng, *shape, min_start=min_start))
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
     (k8, ks), (v8, vs) = _quantized(k[:, :lp]), _quantized(v[:, :lp])
@@ -1024,6 +1020,38 @@ def test_paged_prefill_int8_kernel(cuda, shape, min_start, window, slot,
         torch.cat([ref.dequantize_kv(v8, vs, dt), vc], 1).contiguous(),
         kp_all.contiguous(), qpos, window=window)
     assert torch.equal(out, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,min_start", PP_INT8_CARD_SHAPES)
+@pytest.mark.parametrize("window", [0, 5, 1024])
+@pytest.mark.parametrize("slot", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_prefill_int8_kernel(cuda, shape, min_start, window, slot,
+                                   dtype):
+    """``_check_int8_prefill`` at the float entries' card shapes (their
+    prefixes 40-512 lanes, tiles straddling Lp where it is not a multiple
+    of 64) and gemma3-4b's."""
+    _check_int8_prefill(cuda, shape, min_start, window, slot, dtype)
+
+
+# The bf16 tile's int8 prefix at both shapes of work: decode shapes (16
+# query rows or fewer, the warps on their own keys) and chunks (each warp
+# on its own rows); no prefix (Lp = 0), a prefix ending inside the first
+# tile or just past it (Lp = 1, 63, 65: a tile straddling Lp), a group of
+# 1 with 16 query lanes, head_dim 256
+PP_INT8_TILE_SHAPES = [
+    (4, 1, 16, 8, 128, 0), (2, 40, 16, 8, 128, 0), (4, 1, 16, 8, 128, 1),
+    (4, 1, 16, 8, 128, 63), (4, 1, 16, 8, 128, 65), (2, 100, 16, 8, 128, 65),
+    (2, 16, 8, 8, 64, 77), (3, 1, 8, 1, 128, 130), (8, 1, 8, 4, 256, 100),
+    (2, 64, 8, 4, 256, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PP_INT8_TILE_SHAPES)
+@pytest.mark.parametrize("window", [0, 5, 1024])
+def test_paged_prefill_int8_tile_paths(cuda, shape, window):
+    _check_int8_prefill(cuda, shape, 0, window, False, "bfloat16")
 
 
 @pytest.mark.cuda

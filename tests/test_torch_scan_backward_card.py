@@ -3,7 +3,8 @@ without a card, and import no JAX, so they run with ``--noconftest``).
 
 ``rwkv6_scan_bwd`` at rwkv6-1.6b's heads (32 of 64) and ``ssm_scan_bwd``
 at jamba-1.5-large-398b's width (d_inner 16,384, 16 states), at S = 1,
-128 (the training shape, 8 rows) and 2,048 (2 rows), each against its
+128 (the training shape, 8 rows), 300 (1 row) and 2,048 (2 rows), each
+against its
 plain version (``ref.rwkv6_scan_bwd_ref`` / ``ref.ssm_scan_bwd_ref``) on
 the card on the same inputs, with a non-zero start state and a given
 gradient of the final state.  float32: every gradient within 1e-4 x its
@@ -16,9 +17,13 @@ atomics).  Also: masked lanes (rwkv6 decay 1 and key 0; mamba dt = 0);
 the model's transposed (B,S,H,hd) views giving the bits of contiguous
 copies; other head dims (a column block part-full; 4-byte copies) and
 d_inner widths (a CTA part-full); a subset of the gradients giving the full launch's bits for
-those; the autograd Functions in ``ops`` launching each kernel once a
-forward and once a backward; and a backward whose kernel cannot launch
-raising rather than falling back to the plain version.
+those; the WKV6 backward's chunk grid at head dims 32, 48 and 64 (one
+or two column spans, its cluster's size) and S = 1, 7, 37, 129 and 300,
+with and without a final-state gradient and with masked rows, and every
+one of its 63 subsets of gradients; the autograd Functions in ``ops``
+launching each kernel once a forward and once a backward; and a
+backward whose kernel cannot launch raising rather than falling back to
+the plain version.
 """
 from unittest import mock
 
@@ -33,9 +38,15 @@ from repro_torch.kernels import ssm_scan_bwd as ssb_mod  # noqa: E402
 REL = 1e-4
 HEADS, HEAD_DIM = 32, 64          # rwkv6-1.6b
 D_INNER, STATES = 16384, 16       # jamba-1.5-large-398b
-# (rows, S, masked): S = 1, the training shape, a long sequence
-CASES = [(8, 1, False), (8, 128, False), (8, 128, True), (2, 2048, False),
-         (2, 2048, True)]
+# (rows, S, masked): S = 1, the training shape, one row of 300 (19
+# chunks, the last part-full), a long sequence
+CASES = [(8, 1, False), (8, 128, False), (8, 128, True), (1, 300, False),
+         (1, 300, True), (2, 2048, False), (2, 2048, True)]
+# rwkv6_scan_bwd's chunk grid: head dims of 2, 3 and 4 column blocks (the
+# cluster's size) at S = 1, under one chunk of 16, not a multiple of it
+# (37, 129) and 300
+GRID_CASES = [(32, 1), (48, 7), (64, 37), (32, 300), (48, 129), (64, 300)]
+GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
 
 
 @pytest.fixture
@@ -140,6 +151,58 @@ def test_rwkv6_scan_bwd_other_head_dims_match_plain(cuda, hd, s):
     torch.cuda.synchronize()
     for name, g, w_ in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
         assert_close(g, w_, name)
+
+
+def grid_case(device, hd, s, masked=False, b=2, h=4):
+    """Contiguous float32 inputs at ``hd`` and ``s``; masked: row 0's
+    second half has decay 1 and key 0."""
+    gen = torch.Generator(device=device).manual_seed(hd * 1000 + s)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    r, k, v = (randn(b, h, s, hd) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, h, s, hd) - 2.0))
+    if masked:
+        w[0, :, s // 2:] = 1.0
+        k[0, :, s // 2:] = 0.0
+    args = [r, k, v, w, randn(h, hd) * 0.5, randn(b, h, hd, hd) * 0.1]
+    return args, randn(b, h, s, hd), randn(b, h, hd, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,s", GRID_CASES)
+@pytest.mark.parametrize("variant", ["final", "no_final", "masked"])
+def test_rwkv6_scan_bwd_chunk_grid_matches_plain(cuda, hd, s, variant):
+    """Every chunk at once, the column blocks summed in a cluster: each
+    gradient within 1e-4 x max|g| of the plain version, with a final
+    state gradient, without one (zeros), and with masked rows; a second
+    launch gives the same bits."""
+    args, dout, dsf = grid_case(cuda, hd, s, masked=variant == "masked")
+    if variant == "no_final":
+        dsf = None
+    got = rwb_mod.rwkv6_scan_bwd(*args, dout, dsf)
+    again = rwb_mod.rwkv6_scan_bwd(*args, dout, dsf)
+    want = ref.rwkv6_scan_bwd_ref(*args, dout, dsf)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(GRADS, got, again, want):
+        assert torch.equal(g, a), name
+        assert_close(g, w, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,s", [(48, 37), (64, 130)])
+def test_rwkv6_scan_bwd_every_need_subset_gives_the_full_bits(cuda, hd, s):
+    """Each of the 63 subsets of (dr, dk, dv, dw, du, ds0) launches alone
+    and gives, for the gradients it asks for, the full launch's bits."""
+    args, dout, dsf = grid_case(cuda, hd, s)
+    full = rwb_mod.rwkv6_scan_bwd(*args, dout, dsf)
+    for mask in range(1, 64):
+        need = tuple(bool(mask >> i & 1) for i in range(6))
+        part = rwb_mod.rwkv6_scan_bwd(*args, dout, dsf, need=need)
+        for name, g, p, n in zip(GRADS, full, part, need):
+            assert (p is None) != n, (mask, name)
+            assert p is None or torch.equal(g, p), (mask, name)
 
 
 @pytest.mark.cuda
