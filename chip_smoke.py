@@ -173,18 +173,18 @@ then runs its phases, each raising on failure:
    its kernels having no VJP; rwkv6's and mamba's scans run their
    kernels forward and their backward kernels under autograd, exactly
    ``train_launches`` a run): qwen3-0.6b at its published width (28
-   layers, bf16) for the
-   CLI's 100 steps at batch 8 x seq 128 with a checkpoint every 25: every
-   loss and grad norm finite, the LEARNING verdict, no kernel launched,
-   the step-100 checkpoint restoring bit-equal weights and optimizer
-   state, a restart from step 75 repeating the losses within
+   layers, bf16) for 20 steps (the CLI's 100 cut to keep the script
+   inside its time) at batch 8 x seq 128 with a checkpoint every 5:
+   every loss and grad norm finite, the LEARNING verdict, no kernel
+   launched, the step-20 checkpoint restoring bit-equal weights and
+   optimizer state, a restart from step 15 repeating the losses within
    ``RESUME_ATOL``; the median step time and memory high-water mark; the
    training forward's logits against ``Model.forward``'s
    (``flash_attention``) on the trained weights within the model
    tolerance; a profile of 3 more steps (device busy share, device time
    by kernel); at 2 layers in float32 (TF32 off) the loss and every
    gradient leaf on the card against the CPU; rwkv6-1.6b uncut through
-   the CLI at its defaults (100 steps, batch 8 x seq 128: 48
+   the CLI (20 steps, batch 8 x seq 128: 48
    ``rwkv6_scan`` and 24 ``rwkv6_scan_bwd`` a step, LEARNING, the median
    step and memory); the card against the CPU at rwkv6's 2 layers and
    jamba's reduced config (dropless) in float32, through the backward
@@ -193,7 +193,8 @@ then runs its phases, each raising on failure:
    term) and jamba-1.5-large-398b (1 of 72 layers, a mamba layer at
    d_inner 16,384 over seq 2,048: one ``ssm_scan`` and one
    ``ssm_scan_bwd`` a step) at their published widths, 10 steps each,
-   losses finite and falling;
+   losses finite and falling; each sub-step's seconds (the phase's
+   seconds too, as every phase's);
 7. times: each kernel's time beside its bound, its plain version's and
    one PyTorch library call's where there is one (a yardstick only; the
    port never calls it), the kernel and the library call both by events
@@ -345,6 +346,18 @@ CONV_SHAPES = ((5, 28, 28, 1, 3, 32), (130, 28, 28, 1, 3, 32),
                (5000, 28, 28, 1, 3, 32))
 MICRO_BATCHED = dict(max_batch=32, consume_base=0.05,
                      balancer_policy="power_of_two")
+
+
+def lapper(prefix):
+    """-> lap(what), which logs the seconds since the previous lap (the
+    first: since this call), under ``prefix``."""
+    last = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"  {prefix} {what}: {now - last[0]:.1f}s")
+        last[0] = now
+    return lap
 
 
 def log(*a):
@@ -958,11 +971,13 @@ def _bwd_err(torch, name, got, want, bf16=False) -> float:
 
 def scan_backward_parity(torch, device, ops, ref) -> dict:
     """Phase 2, the two backward kernels at their training shapes
-    (``SCAN_BWD_SHAPES``) with a start state and a final-state gradient:
-    every gradient against the plain backward within ``BWD_GRAD_REL`` x
-    its max|g| (bf16 dx within 2 ulps), a second launch bit-identical.
+    (``SCAN_BWD_SHAPES``) with a start state and a final-state gradient
+    (``ssm_scan_bwd`` from the training forward's checkpoints): every
+    gradient against the plain backward within ``BWD_GRAD_REL`` x its
+    max|g| (bf16 dx within 2 ulps), a second launch bit-identical.
     -> {kernel: max abs error}."""
     from repro_torch.kernels import rwkv6_scan_bwd as rwb
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import ssm_scan_bwd as ssb
 
     gen = torch.Generator(device=device).manual_seed(12)
@@ -993,8 +1008,9 @@ def scan_backward_parity(torch, device, ops, ref) -> dict:
         dy = torch.randn(b, s, SSM_D_INNER, generator=gen,
                          device=device).to(args[3].dtype)
         dhf = torch.randn(args[5].shape, generator=gen, device=device)
-        got = ssb.ssm_scan_bwd(*args, dy, dhf)
-        again = ssb.ssm_scan_bwd(*args, dy, dhf)
+        ck = ss.ssm_scan(*args, checkpoints=True)[2]     # the forward's
+        got = ssb.ssm_scan_bwd(*args, dy, dhf, ckpt=ck)
+        again = ssb.ssm_scan_bwd(*args, dy, dhf, ckpt=ck)
         want = ref.ssm_scan_bwd_ref(*args, dy, dhf)
         torch.cuda.synchronize()
         worst = 0.0
@@ -2640,7 +2656,9 @@ def gemma3_phase(torch, device, ops, ref, serve, ragged_dispatch, validate,
     past the window with exact launch counts, a profile of the fused
     engine, weight bytes and memory high-water marks.  -> (launch counts
     summed over its engine runs, {kernel: max abs error})."""
+    lap = lapper("4e")
     errs = gemma3_kernel_parity(torch, device, ops, ref)
+    lap("kernel parity at head_dim 256")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     args = serve.make_parser().parse_args(GEMMA3_ARGV)
@@ -2668,6 +2686,7 @@ def gemma3_phase(torch, device, ops, ref, serve, ragged_dispatch, validate,
     parity_peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    lap("weights and model parity")
 
     prompts = gemma3_workload(cfg.vocab_size)
     launches = dict.fromkeys(ops.launch_counts(), 0)
@@ -2753,6 +2772,7 @@ def gemma3_phase(torch, device, ops, ref, serve, ragged_dispatch, validate,
     log("profile engine " + what + " decode_fusion=on, device ms "
         "(launches): " + ", ".join(f"{k} {ms:.2f} ({n})"
                                    for k, (ms, n) in sums.items()))
+    lap("engines and the profile")
     log(f"gemma3-4b memory high-water marks (torch.cuda.max_memory_"
         f"allocated; {smi}): drawing the weights {init_peak / 2**30:.2f} "
         f"GiB (each leaf in float32 before its cast), model parity "
@@ -3394,10 +3414,12 @@ def training_phase(torch, device, ops, ref, smi) -> tuple:
 
 
 # phase 6c: the LLM train CLI (``launch/train.py``) at qwen3-0.6b's
-# published width, bf16, its defaults otherwise (100 steps, batch 8, seq
-# 128, a checkpoint every 25 steps)
-TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--no-reduced"]
-# a run restarted from the step-75 checkpoint against the first run's
+# published width, bf16, its defaults otherwise (batch 8, seq 128, a
+# checkpoint every steps / 4) but 20 steps, not 100, for the script's
+# time limit (LEARNING asks the last 5 losses' mean 0.2 under the first
+# 5's; 12.14 -> 9.31 by step 20 on an H100)
+TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--no-reduced", "--steps", "20"]
+# a run restarted from the step-15 checkpoint against the first run's
 # losses at the same steps: its first step reads bit-equal weights and
 # the same batch (a forward: no atomics); later steps follow weights
 # that CUDA's embedding backward (atomic adds, in no fixed order) moved
@@ -3419,9 +3441,9 @@ TRAIN_GRAD_REL = 1e-4
 # 16,384 over 2,048 steps
 TRAIN_CUTS = (("gemma3-4b", 6, 2, 2048, 10), ("dbrx-132b", 1, 8, 128, 10),
               ("jamba-1.5-large-398b", 1, 2, 2048, 10))
-# rwkv6-1.6b uncut through the CLI at its defaults (100 steps, batch 8 x
-# seq 128): 24 rwkv6 layers, each a remat period of its own
-RWKV_TRAIN_ARGV = ["--arch", "rwkv6-1.6b", "--no-reduced"]
+# rwkv6-1.6b uncut through the CLI at its defaults but 20 steps (batch 8
+# x seq 128): 24 rwkv6 layers, each a remat period of its own
+RWKV_TRAIN_ARGV = ["--arch", "rwkv6-1.6b", "--no-reduced", "--steps", "20"]
 
 
 def train_launches(cfg, steps: int) -> dict:
@@ -3480,14 +3502,17 @@ def card_vs_cpu_gradients(torch, device, ops, cfg, label, seq,
     card_model = Model(cfg, device=device)
     card_params = tree_map(lambda t: t.to(device), cpu_params)
     nb = make_stream(cfg.vocab_size, seq, 2, 0).batch(0)
+    secs = [time.perf_counter()]
     ops.reset_launch_counts()
     got = _loss_and_grads(torch, card_model, card_params,
                           {k: torch.from_numpy(v).to(device)
                            for k, v in nb.items()})
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    secs.append(time.perf_counter())
     want = _loss_and_grads(torch, cpu_model, cpu_params,
                            {k: torch.from_numpy(v) for k, v in nb.items()})
+    secs.append(time.perf_counter())
     # a reading of float32 rounding alone: the same weights in a float64
     # model on the CPU (every layer, scan and sum in float64), against
     # which the CPU's float32 run and the card's are each read
@@ -3496,6 +3521,7 @@ def card_vs_cpu_gradients(torch, device, ops, cfg, label, seq,
                      device="cpu"),
         tree_map(lambda t: t.double(), cpu_params),
         {k: torch.from_numpy(v) for k, v in nb.items()})
+    secs.append(time.perf_counter())
 
     def rel(a, b):
         return (a.cpu().double() - b.double()).abs().max().item() / max(
@@ -3520,7 +3546,9 @@ def card_vs_cpu_gradients(torch, device, ops, cfg, label, seq,
         f"{cpu_err:.2e} ({paths[cpu_leaf]}), {paths[leaf]} "
         f"{rel(want[2][leaf], exact[2][leaf]):.2e}; card worst leaf "
         f"{card_err:.2e}, {paths[leaf]} "
-        f"{rel(got[2][leaf], exact[2][leaf]):.2e}")
+        f"{rel(got[2][leaf], exact[2][leaf]):.2e}; seconds: card "
+        f"{secs[1] - secs[0]:.1f}, CPU float32 {secs[2] - secs[1]:.1f}, CPU "
+        f"float64 {secs[3] - secs[2]:.1f}")
     assert loss_diff <= TRAIN_LOSS_ATOL, loss_diff
     assert worst <= TRAIN_GRAD_REL, worst
     del card_params, got, exact
@@ -3531,10 +3559,10 @@ def card_vs_cpu_gradients(torch, device, ops, cfg, label, seq,
 
 def llm_training_phase(torch, device, ops, ref, smi) -> dict:
     """Phase 6c: LLM training through ``launch/train.py``'s path.
-    qwen3-0.6b at its published width trains for the CLI's 100 steps with
+    qwen3-0.6b at its published width trains for ``TRAIN_ARGV``'s steps with
     every loss and grad norm finite, its LEARNING verdict, no kernel
-    launched, the step-100 checkpoint restoring bit-equal weights and
-    optimizer state and a restart from step 75 repeating the losses; the
+    launched, the step-20 checkpoint restoring bit-equal weights and
+    optimizer state and a restart from step 15 repeating the losses; the
     median step time and the memory high-water mark; its training
     forward's logits (q-chunked attention, no kernel) against
     ``Model.forward``'s (``flash_attention``); a profile of 3 steps; 2
@@ -3546,7 +3574,7 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
     gemma3-4b, dbrx-132b and jamba-1.5-large-398b at their published
     widths cut in depth (``TRAIN_CUTS``), a few steps each, losses finite
     and falling, launches exact.  -> the launches of the training runs
-    (the CLI's and the cuts')."""
+    (the CLI's and the cuts').  Each sub-step's seconds are logged."""
     import os
     import statistics
 
@@ -3561,6 +3589,7 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
     def cli_log(line):
         log(f"  train: {line}")
 
+    lap = lapper("6c")
     launches = dict.fromkeys(ops.launch_counts(), 0)
 
     def expect(cfg, steps, counts):
@@ -3592,6 +3621,7 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
         assert all(map(math.isfinite, losses + gnorms)), (losses, gnorms)
         assert out["verdict"] == "LEARNING", out["verdict"]
         expect(cfg, args.steps, counts)
+        lap(f"qwen3-0.6b {args.steps} steps")
 
         ckpt = CheckpointManager(args.ckpt_dir)
         step, tree = ckpt.restore_latest({"params": out["params"],
@@ -3620,6 +3650,7 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
         assert diffs[0] <= RESUME_FIRST_ATOL, diffs
         assert max(diffs) <= RESUME_ATOL, diffs
         del again
+        lap(f"qwen3-0.6b restore and restart from step {mid}")
 
     # the training forward against the draft's inference forward, on the
     # trained weights
@@ -3645,6 +3676,7 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
     assert not any(train_counts.values()), train_counts
     assert draft_counts["flash_attention"] == cfg.num_layers, draft_counts
     del logits, draft
+    lap("qwen3-0.6b forward_train against Model.forward")
 
     # where a step's time goes: 3 more donated steps under the profiler
     step_fn = make_train_step(lambda p, b: model.loss(p, b),
@@ -3668,14 +3700,16 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
     for us, n, key in rows[:8]:
         log(f"  {us / 1e3:9.2f} ms {n:6d}x  {key[:90]}")
     del model, params, opt_state, step_fn
+    lap("qwen3-0.6b profile of 3 steps")
 
     # 2 layers, float32 (TF32 off): the card against the CPU
     card_vs_cpu_gradients(
         torch, device, ops, dataclasses.replace(cfg, num_layers=2,
                                                 dtype="float32"),
         "qwen3-0.6b 2 layers", args.seq)
+    lap("qwen3-0.6b 2 layers card vs CPU")
 
-    # rwkv6-1.6b uncut through the CLI at its defaults
+    # rwkv6-1.6b uncut through the CLI
     args = train.make_parser().parse_args(RWKV_TRAIN_ARGV)
     cfg = train.config_for(args)
     gc.collect()
@@ -3700,6 +3734,7 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
     del out
     gc.collect()
     torch.cuda.empty_cache()
+    lap(f"rwkv6-1.6b {args.steps} steps")
 
     # the scans' backward kernels inside Model.loss: the card against the
     # CPU at rwkv6's 2 layers and jamba's reduced config, float32
@@ -3715,6 +3750,7 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
                                        perturb=True)
         want = train_launches(small, 1)
         assert counts == {k: want.get(k, 0) for k in counts}, (counts, want)
+        lap(f"{label} card vs CPU")
 
     for arch, layers, b, s, steps in TRAIN_CUTS:
         full = get_config(arch)
@@ -3743,6 +3779,7 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
         del res
         gc.collect()
         torch.cuda.empty_cache()
+        lap(f"{arch} {layers} layers {steps} steps")
     return launches
 
 
@@ -3755,8 +3792,9 @@ def profile_engine(torch, run):
     [(device us, launches, kernel name)] largest first)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the rows are kernels, and host-op events (every
+    # eager op of an engine run) cost tens of seconds to fold up
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         secs = run()
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
@@ -4253,7 +4291,8 @@ def kernel_times(torch, device, ops, ref):
     # input read once and each gradient written once (rwkv6: r, k, v, w,
     # dout and dr, dk, dv, dw (B,H,S,hd), u and du, s0, ds_final and ds0;
     # mamba: dt, ddt, x, dy, dx (B,S,di), bm, cm, dbm, dcm, a, da, h0,
-    # dh_final, dh0); operations: 14 a (row, head, step, i, j) and 18 a
+    # dh_final, dh0; the training forward's checkpoints, made before the
+    # timing, are scratch of this design and not counted); operations: 14 a (row, head, step, i, j) and 18 a
     # (row, step, channel, state), as the sources' notes count them; the
     # SFU floor: one exponential a (row, step, channel, state)
     from repro_torch.kernels import rwkv6_scan_bwd as rwb_mod
@@ -4286,9 +4325,10 @@ def kernel_times(torch, device, ops, ref):
         dy = torch.randn(b, s, di, generator=bwd_gen,
                          device=device).to(args[3].dtype)
         dhf = torch.randn(args[5].shape, generator=bwd_gen, device=device)
+        ck = ss_mod.ssm_scan(*args, checkpoints=True)[2]
         key = f"ssm_scan_bwd_{b}x{s}_{xdt}"
-        calls[key] = (lambda args=tuple(args), dy=dy, dhf=dhf:
-                      ssb_mod.ssm_scan_bwd(*args, dy, dhf), None)
+        calls[key] = (lambda args=tuple(args), dy=dy, dhf=dhf, ck=ck:
+                      ssb_mod.ssm_scan_bwd(*args, dy, dhf, ckpt=ck), None)
         n = b * s * di
         out[key] = dict(
             ms=time_ms(torch, calls[key][0]),
@@ -4583,7 +4623,7 @@ def int8_ptxas(build):
     import shutil
 
     entries = []
-    for lib in ("paged_attention", "paged_prefill"):
+    for lib in ("paged_attention_int8", "paged_prefill_int8"):
         text = (build.BUILD_DIR / f"{lib}.log").read_text().splitlines()
         fn = spill = None
         for line in text:
@@ -4637,8 +4677,13 @@ def main() -> int:
     smi = nvidia_smi()
     t_start = time.perf_counter()
 
+    t_phase = [t_start]
+
     def phase_done(name):
-        log(f"phase {name} done at {time.perf_counter() - t_start:.1f}s")
+        now = time.perf_counter()
+        log(f"phase {name} done at {now - t_start:.1f}s (took "
+            f"{now - t_phase[0]:.1f}s)")
+        t_phase[0] = now
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -4698,6 +4743,7 @@ def main() -> int:
     phase_done("3")
 
     # 4. engine through the serve path
+    lap = lapper("4")
     args = serve.make_parser().parse_args(SERVE_ARGV)
     serve.check_args(args)
     cfg, model, params = serve.build_model(args)
@@ -4752,6 +4798,7 @@ def main() -> int:
     assert counts["paged_prefill"] > 0 and counts["paged_attention"] == 0
     for k, n in counts.items():
         launches[k] += n
+    lap("engines: paged fusion on and off, slot")
 
     args.decode_fusion = "on"
     engine = serve.build_engine(args, model, params)
@@ -4782,6 +4829,7 @@ def main() -> int:
         f"{sum(r[1] for r in decode)} launches")
     for us, n, key in rows[:6]:
         log(f"  {us / 1e3:9.2f} ms {n:6d}x  {key[:90]}")
+    lap("profiles of fusion on and off")
 
     small_model = Model(small, device=device)
     small_params = small_model.init(seed=args.seed)
@@ -4800,6 +4848,7 @@ def main() -> int:
     assert tokens["on"] == tokens["off"], "fusion on/off tokens differ"
     assert tokens["slot"] == tokens["on"], "slot and paged tokens differ"
     log("engine float32 paged fusion on/off and slot: token-identical")
+    lap("float32 2 layers, three engines")
 
     phase_done("4")
 
@@ -4885,8 +4934,11 @@ def main() -> int:
     phase_done("6c")
 
     # 7. times
+    lap = lapper("7")
     times = kernel_times(torch, device, ops, ref)
+    lap("kernel_times")
     int8_times = int8_kernel_times(torch, device, ops, ref)
+    lap("int8_kernel_times")
     phase_done("7")
     one = torch.zeros(1, device=device)
     log(f"time floor: one launch on one element (add_), same timing: "
@@ -4988,7 +5040,7 @@ def main() -> int:
         t = int8_times[key]
         records.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name[:-len('_int8')]}.cu",
+            "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

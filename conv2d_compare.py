@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time a conv kernel, the selective scan, the WKV6 backward or the int8
-ragged prefill of several checkouts on one card, in turns.
+"""Time a conv kernel, the selective scan or its backward, the WKV6
+backward or an int8 attention kernel of several checkouts on one card,
+in turns.
 
     python3 conv2d_compare.py [--kernel KERNEL] [--need SUBSET ...] TREE [TREE ...]
 
-KERNEL: conv2d (the default), conv2d_wgrad, ssm_scan, rwkv6_scan_bwd or
-paged_prefill_int8.  Each TREE is the root of a checkout holding
+KERNEL: conv2d (the default), conv2d_wgrad, ssm_scan, ssm_scan_bwd,
+rwkv6_scan_bwd, paged_prefill_int8 or paged_attention_int8.  Each TREE is the root of a checkout holding
 ``src/repro_torch`` (for another commit: ``git archive <commit> | tar -x
 -C build/<dir>``).  The trees run in the order given and then in reverse
 (parent, change, change, parent), each in a child process of its own,
@@ -26,7 +27,20 @@ tree's kernel takes them (no library call computes it).
 gradient), held to the plain backward within ``BWD_GRAD_REL`` x max|g|
 (no library call either); each ``--need`` SUBSET (gradient names joined
 by commas, of dr, dk, dv, dw, du, ds0; default all six) is timed on its
-own.  ``paged_prefill_int8``: the int8 KV cache's ragged prefill in bf16
+own.  ``ssm_scan_bwd``: mamba's selective-scan backward at
+``SCAN_BWD_SHAPES`` (jamba's d_inner 16,384, a start state and a
+final-state gradient) against the plain backward, the same way, with
+``--need`` subsets of ddt, dbm, dcm, dx, da, dh0; where the tree's
+backward reads the forward's checkpoints (a ``ckpt`` argument) they are
+made before the timing by the tree's training forward, which is timed
+too (``ssm_scan_fwd_ckpt``); where a SUBSET is all six, the serving
+forward at ``SSM_TIMED`` is timed beside it, as ``--kernel ssm_scan``
+times it.  ``paged_attention_int8``: the int8 KV
+cache's decode in bf16 at phase 7's int8 decode shapes (8 rows x 32
+blocks of 16 at 16/8 heads; tables of 16 blocks at the dense configs'
+and gemma3-4b's heads), each bit-equal to the bf16 kernel over the
+dequantized pools and timed beside it, the outputs' SHA-256 printed.
+``paged_prefill_int8``: the int8 KV cache's ragged prefill in bf16
 at phase 7's four int8 shapes (a chunk of S = 256 over an int8 prefix of
 512, fused decode, slot decode, spec verify), each held bit-equal to the
 bf16 kernel over the concatenated dequantized keys and timed beside it
@@ -46,8 +60,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 BATCHES = {"conv2d": (1, 32, 2000), "conv2d_wgrad": (64, 320, 2000),
-           "ssm_scan": (), "rwkv6_scan_bwd": (), "paged_prefill_int8": ()}
-GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+           "ssm_scan": (), "ssm_scan_bwd": (), "rwkv6_scan_bwd": (),
+           "paged_prefill_int8": (), "paged_attention_int8": ()}
+GRADS = {"rwkv6_scan_bwd": ("dr", "dk", "dv", "dw", "du", "ds0"),
+         "ssm_scan_bwd": ("ddt", "dbm", "dcm", "dx", "da", "dh0")}
 
 
 def ssm_child(torch, cs, dev) -> dict:
@@ -117,14 +133,15 @@ def rwkv_bwd_child(torch, cs, dev, needs) -> dict:
         dsf = torch.randn(args[5].shape, generator=gen, device=dev)
         want = ref.rwkv6_scan_bwd_ref(*args, dout, dsf)
         for subset in needs:
-            need = tuple(n in subset for n in GRADS)
+            need = tuple(n in subset for n in GRADS["rwkv6_scan_bwd"])
             got = rwb.rwkv6_scan_bwd(*args, dout, dsf, need=need)
-            for name, g, w, n in zip(GRADS, got, want, need):
+            for name, g, w, n in zip(GRADS["rwkv6_scan_bwd"], got, want,
+                                     need):
                 if n:
                     cs._bwd_err(torch, name, g, w)
             fn = (lambda args=tuple(args), dout=dout, dsf=dsf, need=need:
                   rwb.rwkv6_scan_bwd(*args, dout, dsf, need=need))
-            tag = "" if len(subset) == len(GRADS) else "_" + "+".join(subset)
+            tag = "" if len(subset) == 6 else "_" + "+".join(subset)
             res[f"rwkv6_scan_bwd_{b}x{s}{tag}"] = (cs.time_ms(torch, fn),
                                                    cs.graph_ms(torch, fn))
             if not tag:
@@ -173,7 +190,97 @@ def int8_child(torch, cs, dev) -> dict:
     return res
 
 
-def child(tree: Path, kernel: str, needs=(GRADS,)) -> dict:
+def ssm_bwd_child(torch, cs, dev, needs) -> dict:
+    """The tree's ``ssm_scan_bwd`` held against its plain version (and a
+    repeat against itself, bit for bit), then timed at
+    ``cs.SCAN_BWD_SHAPES`` for each subset of gradients in ``needs``; its
+    full launch split by kernel; where it reads the forward's checkpoints,
+    the training forward that makes them; then the serving forward
+    (``ssm_child``)."""
+    import inspect
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss_mod
+    from repro_torch.kernels import ssm_scan_bwd as ssb
+
+    names = GRADS["ssm_scan_bwd"]
+    full = any(len(sub) == 6 for sub in needs)
+    takes_ckpt = "ckpt" in inspect.signature(ssb.ssm_scan_bwd).parameters
+    gen = torch.Generator(device=dev).manual_seed(13)
+    res = {}
+    for b, s, xdt in cs.SCAN_BWD_SHAPES["ssm_scan_bwd"]:
+        args = list(cs.ssm_case(torch, gen, dev, b, s))
+        args[3] = args[3].to(getattr(torch, xdt))
+        dy = torch.randn(b, s, args[0].shape[2], generator=gen,
+                         device=dev).to(args[3].dtype)
+        dhf = torch.randn(args[5].shape, generator=gen, device=dev)
+        want = ref.ssm_scan_bwd_ref(*args, dy, dhf)
+        shape = f"{b}x{s}_{xdt}"
+        kw = {}
+        if takes_ckpt:
+            kw["ckpt"] = ss_mod.ssm_scan(*args, checkpoints=True)[2]
+            fwd = (lambda a=tuple(args):
+                   ss_mod.ssm_scan(*a, checkpoints=True))
+            res[f"ssm_scan_fwd_ckpt_{shape}"] = (cs.time_ms(torch, fwd),
+                                                 cs.graph_ms(torch, fwd))
+        fwd = lambda a=tuple(args): ss_mod.ssm_scan(*a)     # noqa: E731
+        res[f"ssm_scan_fwd_{shape}"] = (cs.time_ms(torch, fwd),
+                                        cs.graph_ms(torch, fwd))
+        for subset in needs:
+            need = tuple(n in subset for n in names)
+            got = ssb.ssm_scan_bwd(*args, dy, dhf, need=need, **kw)
+            again = ssb.ssm_scan_bwd(*args, dy, dhf, need=need, **kw)
+            for name, g, a, w, n in zip(names, got, again, want, need):
+                if n:
+                    assert torch.equal(g, a), (name, "repeat")
+                    cs._bwd_err(torch, name, g, w,
+                                bf16=name == "dx" and xdt == "bfloat16")
+            fn = (lambda a=tuple(args), dy=dy, dhf=dhf, need=need, kw=kw:
+                  ssb.ssm_scan_bwd(*a, dy, dhf, need=need, **kw))
+            tag = "" if len(subset) == 6 else "_" + "+".join(subset)
+            res[f"ssm_scan_bwd_{shape}{tag}"] = (cs.time_ms(torch, fn),
+                                                 cs.graph_ms(torch, fn))
+            if not tag:
+                res[f"kernels_{shape}"] = kernel_split(torch, fn)
+    return {**res, **(ssm_child(torch, cs, dev) if full else {})}
+
+
+def paged_int8_child(torch, cs, dev) -> dict:
+    """The tree's ``paged_attention_int8`` (bf16) at phase 7's int8
+    decode shapes: bit-equal to the tree's ``paged_attention`` over the
+    dequantized pools, then both timed."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = torch.bfloat16
+    shapes = [("decode", cs.decode_case(torch, gen, dev, dt))]
+    heads = {arch: dict(h=h, kv=kv) for arch, (h, kv)
+             in cs.DENSE_HEADS.items()}
+    heads["gemma3-4b"] = cs.GEMMA3_HEADS
+    for arch, kw in heads.items():
+        shapes.append((arch, cs.decode_case(torch, gen, dev, dt, nb=16,
+                                            null_rows=(2,), **kw)))
+    res, digests = {}, {}
+    for name, args in shapes:
+        i8 = cs.int8_decode_args(args)
+        deq = cs.dequantized_args(torch, ref, i8)
+        out = ops.paged_attention_int8(*i8)
+        dense = ops.paged_attention(*deq)
+        torch.cuda.synchronize()
+        assert torch.equal(out, dense), \
+            f"paged_attention_int8 {name}: not bit-equal to the bf16 kernel"
+        digests[name] = hashlib.sha256(
+            out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+        for key, fn in ((f"paged_attention_int8_{name}",
+                         lambda a=i8: ops.paged_attention_int8(*a)),
+                        (f"paged_attention_bf16_{name}",
+                         lambda a=deq: ops.paged_attention(*a))):
+            res[key] = (cs.time_ms(torch, fn), cs.graph_ms(torch, fn))
+    res["digests"] = digests
+    return res
+
+
+def child(tree: Path, kernel: str, needs=()) -> dict:
     import torch
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_weight
@@ -195,9 +302,15 @@ def child(tree: Path, kernel: str, needs=(GRADS,)) -> dict:
     if kernel == "ssm_scan":
         return {**res, **ssm_child(torch, cs, dev)}
     if kernel == "rwkv6_scan_bwd":
-        return {**res, **rwkv_bwd_child(torch, cs, dev, needs)}
+        return {**res, **rwkv_bwd_child(torch, cs, dev,
+                                        needs or (GRADS[kernel],))}
+    if kernel == "ssm_scan_bwd":
+        return {**res, **ssm_bwd_child(torch, cs, dev,
+                                       needs or (GRADS[kernel],))}
     if kernel == "paged_prefill_int8":
         return {**res, **int8_child(torch, cs, dev)}
+    if kernel == "paged_attention_int8":
+        return {**res, **paged_int8_child(torch, cs, dev)}
     for b in BATCHES[kernel]:
         x = torch.rand(b, 28, 28, 1, generator=gen, device=dev)
         xn = x.permute(0, 3, 1, 2)
@@ -225,7 +338,7 @@ def child(tree: Path, kernel: str, needs=(GRADS,)) -> dict:
 
 def main(argv) -> int:
     if len(argv) >= 3 and argv[0] == "--child":
-        needs = tuple(tuple(n.split(",")) for n in argv[3:]) or (GRADS,)
+        needs = tuple(tuple(n.split(",")) for n in argv[3:])
         print(json.dumps(child(Path(argv[1]), argv[2], needs)))
         return 0
     kernel, needs = "conv2d", []
@@ -237,9 +350,10 @@ def main(argv) -> int:
         argv = argv[2:]
     import torch
 
-    bad = [n for sub in needs for n in sub.split(",") if n not in GRADS]
+    bad = [n for sub in needs for n in sub.split(",")
+           if n not in GRADS.get(kernel, ())]
     if (not torch.cuda.is_available() or not argv or kernel not in BATCHES
-            or bad or (needs and kernel != "rwkv6_scan_bwd")):
+            or bad):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))

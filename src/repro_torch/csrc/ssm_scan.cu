@@ -77,6 +77,14 @@
 //  - Decode (S = 1) reads its step straight from device memory (no ring,
 //    no shared memory): the state is the traffic, read and written as
 //    float4s, 512 contiguous bytes a warp.
+//  - Checkpoints for the backward (csrc/ssm_scan_bwd.cu), only where the
+//    caller asks (the training forward of ops.ssm_scan's autograd
+//    Function): the state after every kCkptSteps = 16 steps that is not
+//    the last, ckpt (B, ceil(S / 16) - 1, di, N) float32, written as
+//    h_final is, after the group of 4 steps that ends at the boundary (16
+//    is a multiple of the group and of both slot sizes, so a boundary
+//    always ends a group). A separate instantiation (kCk): the serving
+//    kernels are compiled as before and write nothing more.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,6 +101,7 @@ constexpr int kC = kThreads / kG * kCT;   // channels per CTA (64)
 constexpr int kGroup = 4;            // steps whose y one reduce4 takes
 constexpr int kStages = 2;           // ring slots
 constexpr int kBarBytes = 128;       // the slots' mbarriers, then the ring
+constexpr int kCkptSteps = 16;       // steps between checkpoints
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
@@ -104,6 +113,7 @@ struct Args {
   const float* h0;
   void* y;
   float* h_final;
+  float* ckpt;         // kCk: [B][ceil(S / kCkptSteps) - 1][di][kN]
   int S;
   int di;
 };
@@ -291,8 +301,8 @@ __device__ __forceinline__ void store_y(XT* dst, const float (&v)[kCT]) {
 // Thread (c, g) holds states [g kPer, (g + 1) kPer) of the CTA's kCT
 // neighbouring channels kCT c + i. kL > 0: steps staged kL at a time in
 // the shared-memory ring (any S); kL = 0: each step read straight from
-// device memory (a decode step).
-template <typename XT, int kL>
+// device memory (a decode step). kCk: write the checkpoints too.
+template <typename XT, int kL, bool kCk>
 __global__ void __launch_bounds__(kThreads, 8)
     ssm_scan_kernel(const Args p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -393,6 +403,18 @@ __global__ void __launch_bounds__(kThreads, 8)
 #pragma unroll
         for (int i = 0; i < kCT; ++i) yv[i] = reduce4(part[i], g);
         if (live) store_y<XT>(yk + (long long)(j + g) * p.di, yv);
+        if constexpr (kCk) {
+          const int done = k * kL + j + kGroup;   // steps taken so far
+          if (done % kCkptSteps == 0 && done < p.S && live) {
+            const int nck = (p.S - 1) / kCkptSteps;
+#pragma unroll
+            for (int i = 0; i < kCT; ++i)
+              *reinterpret_cast<float4*>(
+                  p.ckpt + (((long long)b * nck + done / kCkptSteps - 1) *
+                                p.di + d0 + kCT * c + i) * kN + g * kPer) =
+                  make_float4(h[i][0], h[i][1], h[i][2], h[i][3]);
+          }
+        }
       }
       for (; j < n; ++j) {
         const float4 bv = sb[j * kG], cv = sc[j * kG];
@@ -417,11 +439,19 @@ __global__ void __launch_bounds__(kThreads, 8)
   }
 }
 
+// kCk (checkpoints kept) where the caller passes them and S > 16: a
+// sequence of 16 steps or fewer has none, and a decode step never
 template <typename XT, int kL>
 int launch(const Args& args, int B, cudaStream_t stream) {
   const dim3 grid((args.di + kC - 1) / kC, B);
   const int smem = kL > 0 ? smem_bytes(kL, sizeof(XT)) : 0;
-  ssm_scan_kernel<XT, kL><<<grid, kThreads, smem, stream>>>(args);
+  if constexpr (kL > 0) {
+    if (args.ckpt != nullptr && args.S > kCkptSteps) {
+      ssm_scan_kernel<XT, kL, true><<<grid, kThreads, smem, stream>>>(args);
+      return (int)cudaGetLastError();
+    }
+  }
+  ssm_scan_kernel<XT, kL, false><<<grid, kThreads, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
@@ -436,17 +466,19 @@ int launch_steps(const Args& args, int B, int steps, cudaStream_t stream) {
 }  // namespace repro_torch
 
 // x_bf16: x and y are bfloat16 (else float32); steps: the ring's slot
-// size, 16 or 32 (kernels/ssm_scan.py slot_steps). Every operand 16-byte
-// aligned and di a multiple of 8 (the wrapper checks both first).
+// size, 16 or 32 (kernels/ssm_scan.py slot_steps); ckpt: null, or the
+// checkpoints' B * (ceil(S / 16) - 1) * di * N floats. Every operand
+// 16-byte aligned and di a multiple of 8 (the wrapper checks both first).
 extern "C" int ssm_scan_launch(const void* dt, const void* bm, const void* cm,
                                const void* x, const void* a, const void* h0,
-                               void* y, void* h_final, int B, int S, int di,
-                               int N, int x_bf16, int steps, void* stream) {
+                               void* y, void* h_final, void* ckpt, int B,
+                               int S, int di, int N, int x_bf16, int steps,
+                               void* stream) {
   using namespace repro_torch::ssm;
   if (N != kN || B < 1 || S < 1 || di < 1 || B > 65535 || di % 8 != 0 ||
       (steps != 16 && steps != 32))
     return (int)cudaErrorInvalidValue;
-  const void* const ptrs[] = {dt, bm, cm, x, a, h0, y, h_final};
+  const void* const ptrs[] = {dt, bm, cm, x, a, h0, y, h_final, ckpt};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
@@ -459,6 +491,7 @@ extern "C" int ssm_scan_launch(const void* dt, const void* bm, const void* cm,
   args.h0 = static_cast<const float*>(h0);
   args.y = y;
   args.h_final = static_cast<float*>(h_final);
+  args.ckpt = static_cast<float*>(ckpt);
   args.S = S;
   args.di = di;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

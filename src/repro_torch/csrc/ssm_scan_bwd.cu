@@ -19,47 +19,78 @@
 // and dh0 = g after step 0. Layout: dt, ddt (B, S, di), bm, cm, dbm, dcm
 // (B, S, N), a, da (di, N), h0, dh_final, dh0 (B, di, N), contiguous
 // float32; x, dy, dx (B, S, di) contiguous in x's dtype (float32 or
-// bfloat16). N = 16. exp(v a) is taken as 2 ** (v (a log2 e)), as the
-// forward takes it.
+// bfloat16); ckpt (B, ceil(S / 16) - 1, di, N) float32, the state after
+// every 16 steps short of S, as the training forward (ssm_scan.cu with
+// checkpoints) writes it. N = 16. exp(v a) is taken as 2 ** (v (a log2 e)),
+// as the forward takes it.
 //
 // Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s float32 on CUDA cores),
 // each input read once and each output written once, at jamba's training
 // shape B=8, S=128, di=16,384, bf16 x: dt read and ddt written 134.2 MB,
 // x, dy read and dx written 100.7 MB, h0, dh_final read and dh0 written
 // 25.2 MB, a read and da written 2.1 MB, bm, cm, dbm, dcm 0.3 MB: 262.4
-// MB, 78.3 us; the least operations, 18 a (row, step, channel, state)
-// (the state recomputed: dt a, the exponent's argument, and e h + (dt x)
-// B, 4; g's C dy + g and e g, 3; the sums of dC, dB and dx, 2 each; q =
-// (e g) h_{t-1}, 1; da's dt q and ddt's a q, 2 each), 4.83 GFLOP, 72.1 us,
-// plus the decays' exponentials, 268 M, 64 us on the SFU (16 a clock per
-// SM at 1.98 GHz). Bytes bound it, with the arithmetic close behind.
+// MB, 78.3 us (the checkpoints, 58.7 MB more, are scratch the forward
+// keeps for this design, not counted); the least operations, 18 a (row, step, channel, state) (the
+// state recomputed: dt a, the exponent's argument, and e h + (dt x) B, 4;
+// g's C dy + g and e g, 3; the sums of dC, dB and dx, 2 each; q = (e g)
+// h_{t-1}, 1; da's dt q and ddt's a q, 2 each), 4.83 GFLOP, 72.1 us, plus
+// the decays' exponentials, 268 M, 64 us on the SFU (16 a clock per SM at
+// 1.98 GHz). Bytes bound it, with the arithmetic close behind.
 //
-// Design (a first, simple kernel: right, deterministic, no float atomics):
+// Design (deterministic, no float atomics):
 //  - The forward's split over channels: a CTA of 256 threads per (row b,
 //    64 channels), a channel's 16 states over 4 neighbouring threads.
-//  - Saved states: none from the forward (it stays the serving kernel,
-//    unchanged). Phase 1 re-runs the recurrence from h0 (the forward's own
-//    expression, so the same bits) and writes the state at the start of
-//    every chunk of kL = 16 steps to a workspace, each thread its own 16
-//    bytes. Phase 2 walks the chunks backwards, re-runs a chunk's 17
-//    states from its checkpoint into registers, then its steps in reverse,
-//    taking each decay's ex2 again. The recurrence is never run
-//    backwards: the decays underflow toward 0.
-//  - Sums: ddt and dx over a channel's 4 threads by shuffles; dB and dC
-//    over the warp's 8 channels by shuffles, then the CTA's 8 warps in
-//    shared memory at the chunk's end, written per CTA as partials
-//    (B, S, di / 64, N); da per thread over the steps, written per row b.
-//    A second kernel adds the partials in block order (da in row order).
-//    Every sum has a fixed order, so two launches on the same inputs give
-//    the same bits.
-//  - Inputs staged a chunk at a time with 16-byte cp.async copies (the
-//    launcher takes only 16-byte aligned operands and di a multiple of 8,
-//    so every row piece is whole 16-byte pieces), the next chunk in flight
-//    while the current one computes; ddt and dx leave through shared
-//    memory as whole rows.
+//  - No walk from h0: chunk k of kL = 16 steps starts from the forward's
+//    checkpoint k - 1 (h0 for the first), read as one float4 a thread.
+//    The chunks go backwards. Each re-runs its states with the forward's
+//    own expression, fma(ex2(dt a2), h, (dt x) B), so the same bits, and
+//    takes each decay e = ex2(dt a2) once: the first 8 steps' decays go to
+//    a shared-memory array of its own (a float4 a thread a step, 32 KB)
+//    while the state runs through them; the last 8 steps' decays and
+//    states stay in registers and are walked in reverse; then the first 8
+//    steps' states are re-run from the chunk's start with the kept decays
+//    (an FMA a state a step, no ex2) into the same registers and walked.
+//    Sixteen steps of both in registers would take 132 a thread; all
+//    sixteen steps' decays in shared memory (64 KB, with spills and
+//    little L1 left) measured slower than taking ex2 twice (PERF.md).
+//    The recurrence is never run backwards: the decays underflow toward
+//    0.
+//  - Steps past S in the last chunk are zeros in the staging buffer (dt,
+//    x, dy, B, C), which makes them the identity (e = 1, nothing added or
+//    summed), so every chunk walks all 16 steps without a test.
+//  - Sums: ddt and dx over a channel's 4 threads by shuffles, kept by the
+//    channel's first thread in shared memory and written as whole rows at
+//    the chunk's end; dB and dC over the warp's 8 channels by
+//    a reduce-scatter of shuffles, then over the CTA's 8 warps in shared
+//    memory, then over the kCluster = 2 column blocks of a thread-block
+//    cluster (clusters of 4-16 measured slower: the card holds fewer CTAs
+//    at once, 248-224 against 264, which costs a wave at 2 x 2,048;
+//    PERF.md): rank o owns half of a chunk's 512 sums; each CTA pushes
+//    its chunk sums into their owners' inboxes (remote stores into
+//    distributed shared memory, nothing waits on them), and after the
+//    cluster's barrier each owner adds its inbox in rank order and writes
+//    the cluster's partial (B, S, clusters, N). One cluster barrier a
+//    chunk: a chunk's pushes are taken at the next chunk's end, and two
+//    inboxes alternate. A second kernel adds the clusters' partials in
+//    cluster order (a warp a (row, step), two interleaved halves), and
+//    da's per-row partials in row order. Every sum has
+//    a fixed order, so two launches on the same inputs give the same
+//    bits.
+//  - Inputs staged a chunk at a time with 16-byte cp.async copies, a
+//    thread's piece of each tensor fixed once (no division in the loop;
+//    the launcher takes only 16-byte aligned operands and di a multiple of
+//    8, so every row piece is whole 16-byte pieces), the next chunk in
+//    flight while the current one computes.
+//  - __launch_bounds__(256, 2): 128 registers, and 88 KB of shared memory
+//    at float32 x (80 KB at bf16), so two CTAs, 16 warps, share an SM
+//    (one CTA an SM with free registers measured 1.5x slower: latency,
+//    not issue, holds a step).
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace repro_torch {
 namespace ssm_bwd {
@@ -70,7 +101,11 @@ constexpr int kPer = kN / kG;          // states per thread
 constexpr int kC = 64;                 // channels per CTA
 constexpr int kThreads = kC * kG;      // 256
 constexpr int kWarps = kThreads / 32;
-constexpr int kL = 16;                 // steps per chunk
+constexpr int kL = 16;                 // steps per chunk = checkpoint interval
+constexpr int kH = kL / 2;             // steps whose states are in registers
+constexpr int kSums = kL * 2 * kN;     // a chunk's dB and dC sums
+constexpr int kCluster = 2;            // column blocks a cluster takes
+constexpr int kPerRank = kSums / kCluster;   // sums a rank owns
 constexpr float kLog2e = 1.4426950408889634f;
 
 // which gradients the caller wants (the others are neither summed nor
@@ -87,14 +122,14 @@ struct Args {
   const float* h0;
   const void* dy;
   const float* dhf;    // null: zeros
+  const float* ckpt;   // [B][nchunks - 1][di][kN]
   float* ddt;
   void* dx;
   float* dh0;
-  float* dbm_part;     // [B][S][nblk][kN]
-  float* dcm_part;     // [B][S][nblk][kN]
+  float* dbm_part;     // [B][S][nclus][kN]
+  float* dcm_part;     // [B][S][nclus][kN]
   float* da_part;      // [B][di][kN]
-  float4* ckpt;        // [B][nblk][nchunks - 1][kThreads]
-  int B, S, di, nblk, nchunks, need;
+  int B, S, di, nclus, nchunks, need;
 };
 
 struct ReduceArgs {
@@ -104,7 +139,7 @@ struct ReduceArgs {
   float* dbm;
   float* dcm;
   float* da;
-  int B, S, di, nblk, need;
+  int B, S, di, nclus, need;
 };
 
 // one staging buffer: dt [kL][kC] float32, x and dy [kL][kC] in x's type,
@@ -113,13 +148,20 @@ template <typename XT>
 __host__ __device__ constexpr int buf_bytes() {
   return kL * (kC * 4 + 2 * kC * (int)sizeof(XT) + 2 * kN * 4);
 }
-// then the sums: dB, dC per warp [kWarps][kL][2 kN], ddt and dx [kL][kC]
-constexpr int kRedBytes = kWarps * kL * 2 * kN * 4;
+// then the first half-chunk's decays [kH][kThreads] float4, the warps'
+// sums [kWarps][kSums], two inboxes of the ranks' pushed sums [2][kSums],
+// the chunk's ddt and dx rows [2][kL][kC] float32
+constexpr int kDecayBytes = kH * kThreads * 16;
+constexpr int kRedBytes = kWarps * kSums * 4;
+constexpr int kInboxBytes = 2 * kSums * 4;
 constexpr int kRowBytes = 2 * kL * kC * 4;
 template <typename XT>
 __host__ __device__ constexpr int smem_bytes() {
-  return 2 * buf_bytes<XT>() + kRedBytes + kRowBytes;
+  return 2 * buf_bytes<XT>() + kDecayBytes + kRedBytes + kInboxBytes +
+         kRowBytes;
 }
+static_assert(2 * (smem_bytes<float>() + 1024) <= 233472,
+              "two CTAs share an SM");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -143,24 +185,21 @@ __device__ __forceinline__ void commit() {
 __device__ __forceinline__ void wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
 
 // 2^v on the SFU, as the forward takes it (ex2 of -0 and +0 is +1)
 __device__ __forceinline__ float ex2(float v) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
   return r;
-}
-
-// Copy n rows of `bytes` bytes, row x from src + x * stride bytes, into
-// dst rows of pitch bytes, in 16-byte pieces.
-__device__ __forceinline__ void copy_rows(unsigned char* dst, int pitch,
-                                          const unsigned char* src,
-                                          long long stride, int n,
-                                          int bytes) {
-  const int q = bytes / 16;
-  for (int e = threadIdx.x; e < n * q; e += kThreads)
-    cp16(dst + (e / q) * pitch + (e % q) * 16,
-         src + (e / q) * stride + (e % q) * 16);
 }
 
 // Sum N values over the lanes that differ in bits OFF, OFF/2, .., LAST,
@@ -197,7 +236,10 @@ struct Buf {
   }
 };
 
-// Thread (c, g) holds states [g kPer, (g + 1) kPer) of the CTA's channel c.
+// blockIdx.x = column block (a cluster of kCluster consecutive ones, rank
+// = blockIdx.x % kCluster; blocks past di take part in the sums as zeros),
+// blockIdx.y = row. Thread (c, g) holds states [g kPer, (g + 1) kPer) of
+// the CTA's channel c.
 template <typename XT>
 __global__ void __launch_bounds__(kThreads, 2)
     ssm_scan_bwd_kernel(const Args p) {
@@ -205,103 +247,75 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = tid / kG, g = tid % kG;
   const int b = blockIdx.y, blk = blockIdx.x, d0 = blk * kC;
-  const int nc = min(kC, p.di - d0);
+  const int rank = blk % kCluster, clus = blk / kCluster;
+  const int nc = max(0, min(kC, p.di - d0));
   const bool live = c < nc;
   const int d = d0 + c;
   const int S = p.S;
-  float* sred = reinterpret_cast<float*>(smem + 2 * buf_bytes<XT>());
-  float* sddt = sred + kWarps * kL * 2 * kN;     // [kL][kC]
-  float* sdx = sddt + kL * kC;                   // [kL][kC]
-  float4* ckpt = p.ckpt + ((long long)b * p.nblk + blk) * (p.nchunks - 1) *
-                              kThreads + tid;
+  float4* const sdecay =
+      reinterpret_cast<float4*>(smem + 2 * buf_bytes<XT>());   // [kH][kThreads]
+  float* const sred = reinterpret_cast<float*>(sdecay + kH * kThreads);
+  float* const inbox = sred + kWarps * kSums;          // [2][sender][kPerRank]
+  float* const sddt = inbox + 2 * kSums;               // [kL][kC]
+  float* const sdx = sddt + kL * kC;                   // [kL][kC]
+  const bool sums = p.need & (kNeedDbm | kNeedDcm);
+  static_assert(kSums % kCluster == 0, "a chunk's sums split evenly");
+  cg::cluster_group cluster = cg::this_cluster();
+  if (sums) cluster_arrive_relaxed();                  // this CTA started
 
-  // chunk k into buffer k & 1: dt, x, bm always, dy and cm for phase 2
-  auto stage = [&](int k, bool all) {
+  // chunk k into buffer k & 1, a 16-byte copy of each tensor a thread at
+  // most (a chunk's dt, x or dy rows are 16 x nc / 4 or fewer pieces, bm's
+  // and cm's 64), the thread's piece fixed here once
+  constexpr int kXE = 16 / (int)sizeof(XT);         // x elements a copy
+  const int qd = nc / 4, qx = nc / kXE;             // pieces a row
+  const int rd = qd ? tid / qd : kL, cd = qd ? tid % qd * 4 : 0;
+  const int rx = qx ? tid / qx : kL, cx = qx ? tid % qx * kXE : 0;
+  auto stage = [&](int k) {
     const Buf<XT> st(smem + (k & 1) * buf_bytes<XT>());
     const long long row = (long long)b * S + (long long)k * kL;
     const int nt = min(kL, S - k * kL);
-    copy_rows(reinterpret_cast<unsigned char*>(st.dt), kC * 4,
-              reinterpret_cast<const unsigned char*>(p.dt + row * p.di + d0),
-              (long long)p.di * 4, nt, nc * 4);
-    copy_rows(reinterpret_cast<unsigned char*>(st.x), kC * sizeof(XT),
-              reinterpret_cast<const unsigned char*>(
-                  static_cast<const XT*>(p.x) + row * p.di + d0),
-              (long long)p.di * sizeof(XT), nt, nc * sizeof(XT));
-    copy_rows(reinterpret_cast<unsigned char*>(st.bm), 0,
-              reinterpret_cast<const unsigned char*>(p.bm + row * kN), 0, 1,
-              nt * kN * 4);
-    if (all) {
-      copy_rows(reinterpret_cast<unsigned char*>(st.dy), kC * sizeof(XT),
-                reinterpret_cast<const unsigned char*>(
-                    static_cast<const XT*>(p.dy) + row * p.di + d0),
-                (long long)p.di * sizeof(XT), nt, nc * sizeof(XT));
-      copy_rows(reinterpret_cast<unsigned char*>(st.cm), 0,
-                reinterpret_cast<const unsigned char*>(p.cm + row * kN), 0, 1,
-                nt * kN * 4);
+    if (rd < nt)
+      cp16(st.dt + rd * kC + cd, p.dt + (row + rd) * p.di + d0 + cd);
+    if (rx < nt) {
+      const long long at = (row + rx) * p.di + d0 + cx;
+      cp16(st.x + rx * kC + cx, static_cast<const XT*>(p.x) + at);
+      cp16(st.dy + rx * kC + cx, static_cast<const XT*>(p.dy) + at);
     }
+    if (tid < 4 * nt)
+      cp16(st.bm + 4 * tid, p.bm + row * kN + 4 * tid);
+    else if (tid >= 128 && tid - 128 < 4 * nt)
+      cp16(st.cm + 4 * (tid - 128), p.cm + row * kN + 4 * (tid - 128));
   };
 
-  // channels past d_inner are never copied: zero them in both buffers (dt =
-  // x = dy = 0 keeps their states and adjoints at 0 and out of every sum)
-  for (int k = 0; k < 2; ++k) {
-    const Buf<XT> st(smem + k * buf_bytes<XT>());
-    for (int e = tid; e < kL * kC; e += kThreads) {
-      if (e % kC >= nc) {
-        st.dt[e] = 0.f;
-        from_f32(st.x + e, 0.f);
-        from_f32(st.dy + e, 0.f);
+  // zeros that no copy overwrites: channels past d_inner in both buffers,
+  // and the last chunk's steps past S (its buffer's later chunks are whole)
+  {
+    const int last = p.nchunks - 1, tail = S - last * kL;
+    for (int k = 0; k < 2; ++k) {
+      const Buf<XT> st(smem + k * buf_bytes<XT>());
+      const int from = k == (last & 1) ? tail : kL;
+      for (int e = tid; e < kL * kC; e += kThreads) {
+        if (e % kC >= nc || e / kC >= from) {
+          st.dt[e] = 0.f;
+          from_f32(st.x + e, 0.f);
+          from_f32(st.dy + e, 0.f);
+        }
+      }
+      for (int e = tid; e < kL * kN; e += kThreads) {
+        if (e / kN >= from) st.bm[e] = st.cm[e] = 0.f;
       }
     }
   }
 
-  // the state, the decays (a and a log2 e)
-  float h[kPer], av[kPer], a2[kPer];
+  // the decays a, the adjoint from dh_final
+  float av[kPer], gs[kPer], da[kPer];
+  const long long at = ((long long)b * p.di + d) * kN + g * kPer;
   {
-    const long long at = ((long long)b * p.di + d) * kN + g * kPer;
-    const float4 hv = live ? *reinterpret_cast<const float4*>(p.h0 + at)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
     const float4 aa =
         live ? __ldg(reinterpret_cast<const float4*>(p.a + (long long)d * kN +
                                                      g * kPer))
              : make_float4(0.f, 0.f, 0.f, 0.f);
-    h[0] = hv.x, h[1] = hv.y, h[2] = hv.z, h[3] = hv.w;
     av[0] = aa.x, av[1] = aa.y, av[2] = aa.z, av[3] = aa.w;
-#pragma unroll
-    for (int n = 0; n < kPer; ++n) a2[n] = __fmul_rn(av[n], kLog2e);
-  }
-  __syncthreads();
-
-  // ---- phase 1: the recurrence from h0, a checkpoint a chunk
-  if (p.nchunks > 1) {
-    stage(0, false);
-    commit();
-  }
-  for (int k = 0; k + 1 < p.nchunks; ++k) {
-    wait_all();
-    __syncthreads();   // chunk k is here; chunk k - 1's buffer is free
-    if (k + 2 < p.nchunks) {
-      stage(k + 1, false);
-      commit();
-    }
-    const Buf<XT> st(smem + (k & 1) * buf_bytes<XT>());
-#pragma unroll 4
-    for (int x = 0; x < kL; ++x) {   // every chunk but the last is whole
-      const float dtv = st.dt[x * kC + c];
-      const float dx = __fmul_rn(dtv, to_f32(st.x[x * kC + c]));
-      const float4 bv = reinterpret_cast<const float4*>(st.bm + x * kN)[g];
-      const float bb[kPer] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int n = 0; n < kPer; ++n)
-        h[n] = __fmaf_rn(ex2(__fmul_rn(dtv, a2[n])), h[n],
-                         __fmul_rn(dx, bb[n]));
-    }
-    ckpt[(long long)k * kThreads] = make_float4(h[0], h[1], h[2], h[3]);
-  }
-
-  // ---- phase 2: the chunks backwards
-  float gs[kPer], da[kPer];
-  {
-    const long long at = ((long long)b * p.di + d) * kN + g * kPer;
     const float4 gv = (p.dhf && live)
                           ? *reinterpret_cast<const float4*>(p.dhf + at)
                           : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -309,48 +323,109 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int n = 0; n < kPer; ++n) da[n] = 0.f;
   }
-  __syncthreads();     // phase 1's buffers are read
-  stage(p.nchunks - 1, true);
+
+  // this CTA's chunk-k sums (its warps' added in order) into the inbox of
+  // each sum's owner, at this rank's place
+  auto push = [&](int k) {
+    float* const box = inbox + (k & 1) * kSums + rank * kPerRank;
+    for (int e = tid; e < kSums; e += kThreads) {
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) acc += sred[w * kSums + e];
+      cluster.map_shared_rank(box, e / kPerRank)[e % kPerRank] = acc;
+    }
+  };
+  // chunk k's sums this rank owns, its inbox added in rank order: the
+  // cluster's partials of dB and dC
+  auto take = [&](int k) {
+    const float* const box = inbox + (k & 1) * kSums;
+    const long long row = (long long)b * S + (long long)k * kL;
+    const int total = min(kL, S - k * kL) * 2 * kN;
+    for (int i = tid; i < kPerRank; i += kThreads) {
+      const int e = rank * kPerRank + i;
+      if (e >= total) break;
+      float acc = 0.f;
+#pragma unroll
+      for (int o = 0; o < kCluster; ++o) acc += box[o * kPerRank + i];
+      const int x = e / (2 * kN), kn = e % (2 * kN);
+      if (p.need & (kn < kN ? kNeedDbm : kNeedDcm))
+        (kn < kN ? p.dbm_part : p.dcm_part)[((row + x) * p.nclus + clus) *
+                                                kN + kn % kN] = acc;
+    }
+  };
+
+  stage(p.nchunks - 1);
   commit();
   for (int k = p.nchunks - 1; k >= 0; --k) {
     wait_all();
-    // chunk k is here; chunk k + 1's buffer and sums are written out
+    // chunk k is here; chunk k + 1's buffer and warp sums are read
     __syncthreads();
     if (k > 0) {
-      stage(k - 1, true);
+      stage(k - 1);
       commit();
     }
     const Buf<XT> st(smem + (k & 1) * buf_bytes<XT>());
     const int t0 = k * kL, n = min(kL, S - t0);
 
-    // hs[x]: the state before the chunk's step x; hs[n]: after its last
-    float hs[kL + 1][kPer];
-    if (k == 0) {
-      const long long at = ((long long)b * p.di + d) * kN + g * kPer;
-      const float4 hv = live ? *reinterpret_cast<const float4*>(p.h0 + at)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-      hs[0][0] = hv.x, hs[0][1] = hv.y, hs[0][2] = hv.z, hs[0][3] = hv.w;
-    } else {
-      const float4 f = ckpt[(long long)(k - 1) * kThreads];
-      hs[0][0] = f.x, hs[0][1] = f.y, hs[0][2] = f.z, hs[0][3] = f.w;
+    // the chunk's start state
+    float h0v[kPer];
+    {
+      const float4 hv =
+          !live ? make_float4(0.f, 0.f, 0.f, 0.f)
+          : k == 0
+              ? *reinterpret_cast<const float4*>(p.h0 + at)
+              : *reinterpret_cast<const float4*>(
+                    p.ckpt + (((long long)b * (p.nchunks - 1) + k - 1) * p.di +
+                              d) * kN + g * kPer);
+      h0v[0] = hv.x, h0v[1] = hv.y, h0v[2] = hv.z, h0v[3] = hv.w;
     }
+    float a2[kPer];
 #pragma unroll
-    for (int x = 0; x < kL; ++x) {
-      if (x < n) {
-        const float dtv = st.dt[x * kC + c];
-        const float dx = __fmul_rn(dtv, to_f32(st.x[x * kC + c]));
-        const float4 bv = reinterpret_cast<const float4*>(st.bm + x * kN)[g];
-        const float bb[kPer] = {bv.x, bv.y, bv.z, bv.w};
+    for (int q = 0; q < kPer; ++q) a2[q] = __fmul_rn(av[q], kLog2e);
+
+    // one step of the recurrence, as the forward takes it
+    auto step = [&](int x, const float (&e)[kPer], const float (&h)[kPer],
+                    float (&out)[kPer]) {
+      const float dx = __fmul_rn(st.dt[x * kC + c], to_f32(st.x[x * kC + c]));
+      const float4 bv = reinterpret_cast<const float4*>(st.bm + x * kN)[g];
+      const float bb[kPer] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-        for (int q = 0; q < kPer; ++q)
-          hs[x + 1][q] = __fmaf_rn(ex2(__fmul_rn(dtv, a2[q])), hs[x][q],
-                                   __fmul_rn(dx, bb[q]));
-      }
+      for (int q = 0; q < kPer; ++q)
+        out[q] = __fmaf_rn(e[q], h[q], __fmul_rn(dx, bb[q]));
+    };
+    auto decay = [&](int x, float (&e)[kPer]) {
+      const float dtv = st.dt[x * kC + c];
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) e[q] = ex2(__fmul_rn(dtv, a2[q]));
+    };
+
+    // the first half's decays into shared memory, its states run through
+    float hs[kH + 1][kPer], ee[kH][kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) hs[0][q] = h0v[q];
+#pragma unroll
+    for (int x = 0; x < kH; ++x) {
+      float e[kPer];
+      decay(x, e);
+      sdecay[x * kThreads + tid] = make_float4(e[0], e[1], e[2], e[3]);
+      step(x, e, hs[0], hs[0]);
+    }
+    // the second half's decays and states in registers
+#pragma unroll
+    for (int x = 0; x < kH; ++x) {
+      decay(kH + x, ee[x]);
+      step(kH + x, ee[x], hs[x], hs[x + 1]);
     }
 
+    const int slot = (lane >> 2) & 7;
+    float* const wsum = sred + warp * kSums + (slot / kPer) * kN + g * kPer +
+                        slot % kPer;
+    // steps base + kH - 1 down to base, from hs (hs[x]: the state before
+    // step base + x) and ee
+    auto walk = [&](int base) {
 #pragma unroll
-    for (int x = kL - 1; x >= 0; --x) {
-      if (x < n) {
+      for (int i = kH - 1; i >= 0; --i) {
+        const int x = base + i;
         const float dtv = st.dt[x * kC + c];
         const float xv = to_f32(st.x[x * kC + c]);
         const float dyv = to_f32(st.dy[x * kC + c]);
@@ -359,19 +434,18 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float4 cv = reinterpret_cast<const float4*>(st.cm + x * kN)[g];
         const float bb[kPer] = {bv.x, bv.y, bv.z, bv.w};
         const float cc[kPer] = {cv.x, cv.y, cv.z, cv.w};
-        float sums[2 * kPer];        // dB[0..3], dC[0..3]
+        float sums8[2 * kPer];        // dB[0..3], dC[0..3]
         float sb = 0.f, sa = 0.f;
 #pragma unroll
         for (int q = 0; q < kPer; ++q) {
-          const float e = ex2(__fmul_rn(dtv, a2[q]));
           const float gq = fmaf(cc[q], dyv, gs[q]);     // adjoint of h_t
-          sums[kPer + q] = dyv * hs[x + 1][q];
-          sums[q] = gq * dx;
+          sums8[kPer + q] = dyv * hs[i + 1][q];
+          sums8[q] = gq * dx;
           sb = fmaf(gq, bb[q], sb);
-          const float gh = gq * (e * hs[x][q]);
+          const float gh = gq * (ee[i][q] * hs[i][q]);
           sa = fmaf(gh, av[q], sa);
           da[q] = fmaf(gh, dtv, da[q]);
-          gs[q] = e * gq;
+          gs[q] = ee[i][q] * gq;
         }
         // ddt and dx over the channel's 4 threads
         sa += __shfl_xor_sync(0xffffffffu, sa, 1);
@@ -383,40 +457,55 @@ __global__ void __launch_bounds__(kThreads, 2)
           sdx[x * kC + c] = dtv * sb;
         }
         // dB and dC over the warp's 8 channels: the lane keeps value
-        // (lane >> 2) & 7, dB for its state group's states below 4, dC
-        // above
-        reduce_scatter<2 * kPer, 16, 4>(sums, lane);
-        const int slot = (lane >> 2) & 7;
-        sred[(warp * kL + x) * 2 * kN + (slot / kPer) * kN + g * kPer +
-             slot % kPer] = sums[0];
+        // `slot`, dB for its state group's states below 4, dC above
+        reduce_scatter<2 * kPer, 16, 4>(sums8, lane);
+        wsum[x * 2 * kN] = sums8[0];
       }
-    }
-    __syncthreads();   // the chunk's sums are in
-
-    const long long row = (long long)b * S + t0;
-    if (p.need & (kNeedDdt | kNeedDx)) {
-      for (int e = tid; e < n * nc; e += kThreads) {
-        const int x = e / nc, cc = e % nc;
-        const long long at = (row + x) * p.di + d0 + cc;
-        if (p.need & kNeedDdt) p.ddt[at] = sddt[x * kC + cc];
-        if (p.need & kNeedDx)
-          from_f32(static_cast<XT*>(p.dx) + at, sdx[x * kC + cc]);
-      }
-    }
-    if (p.need & (kNeedDbm | kNeedDcm)) {
-      for (int e = tid; e < n * 2 * kN; e += kThreads) {
-        const int x = e / (2 * kN), kn = e % (2 * kN);
-        float acc = 0.f;
+    };
+    walk(kH);
+    // the first half again from the chunk's start, its decays read back
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) acc += sred[(w * kL + x) * 2 * kN + kn];
-        float* part = kn < kN ? p.dbm_part : p.dcm_part;
-        if (p.need & (kn < kN ? kNeedDbm : kNeedDcm))
-          part[((row + x) * p.nblk + blk) * kN + kn % kN] = acc;
+    for (int q = 0; q < kPer; ++q) hs[0][q] = h0v[q];
+#pragma unroll
+    for (int x = 0; x < kH; ++x) {
+      const float4 ev = sdecay[x * kThreads + tid];
+      ee[x][0] = ev.x, ee[x][1] = ev.y, ee[x][2] = ev.z, ee[x][3] = ev.w;
+      step(x, ee[x], hs[x], hs[x + 1]);
+    }
+    walk(0);
+
+    __syncthreads();   // the chunk's rows and warp sums are in
+    // ddt and dx as whole rows, 16 bytes a thread (the staging's pieces)
+    {
+      const long long row = (long long)b * S + t0;
+      if ((p.need & kNeedDdt) && rd < n) {
+        const float* r = sddt + rd * kC + cd;
+        *reinterpret_cast<float4*>(p.ddt + (row + rd) * p.di + d0 + cd) =
+            make_float4(r[0], r[1], r[2], r[3]);
       }
+      if ((p.need & kNeedDx) && rx < n) {
+        alignas(16) XT v[kXE];
+#pragma unroll
+        for (int i = 0; i < kXE; ++i) from_f32(v + i, sdx[rx * kC + cx + i]);
+        *reinterpret_cast<uint4*>(static_cast<XT*>(p.dx) +
+                                  (row + rx) * p.di + d0 + cx) =
+            *reinterpret_cast<const uint4*>(v);
+      }
+    }
+    if (sums) {
+      // every rank has started (the last chunk) or pushed chunk k + 1's
+      // sums and taken chunk k + 2's (whose inbox chunk k takes)
+      cluster_wait();
+      push(k);
+      if (k + 1 < p.nchunks) take(k + 1);
+      cluster_arrive();  // this CTA's pushes of chunk k are made
     }
   }
+  if (sums) {
+    cluster_wait();    // every rank's chunk-0 sums are in
+    take(0);
+  }
 
-  const long long at = ((long long)b * p.di + d) * kN + g * kPer;
   if (live && (p.need & kNeedDh0))
     *reinterpret_cast<float4*>(p.dh0 + at) =
         make_float4(gs[0], gs[1], gs[2], gs[3]);
@@ -425,26 +514,30 @@ __global__ void __launch_bounds__(kThreads, 2)
         make_float4(da[0], da[1], da[2], da[3]);
 }
 
-// dbm, dcm: the channel blocks' partials added in block order; da: the
-// rows' partials added in row order.
+// dbm, dcm: a warp per (row b, step t, which of the two): lane (n, h)
+// adds the clusters' partials h, h + 2, .. in cluster order, then the two
+// halves are added (a fixed order); da: a thread per (channel, state), the
+// rows' partials in row order.
 __global__ void ssm_scan_bwd_reduce(const ReduceArgs p) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long nbt = (long long)p.B * p.S;
   const long long first = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long nbc = (long long)p.B * p.S * kN;
-  for (long long e = first; e < nbc; e += stride) {
-    const long long bt = e / kN, n = e % kN;
-    if (p.need & kNeedDbm) {
-      float acc = 0.f;
-      for (int q = 0; q < p.nblk; ++q)
-        acc += p.dbm_part[(bt * p.nblk + q) * kN + n];
-      p.dbm[e] = acc;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31, n = lane & (kN - 1), h = lane / kN;
+  for (long long w = first >> 5; w < 2 * nbt; w += stride >> 5) {
+    const bool c = w & 1;
+    if (!(p.need & (c ? kNeedDcm : kNeedDbm))) continue;
+    const long long bt = w >> 1;
+    const float* src = (c ? p.dcm_part : p.dbm_part) + bt * p.nclus * kN + n;
+    float acc = 0.f;
+    int q = h;
+    for (; q + 6 < p.nclus; q += 8) {
+      const float v0 = src[q * kN], v1 = src[(q + 2) * kN],
+                  v2 = src[(q + 4) * kN], v3 = src[(q + 6) * kN];
+      acc = (((acc + v0) + v1) + v2) + v3;
     }
-    if (p.need & kNeedDcm) {
-      float acc = 0.f;
-      for (int q = 0; q < p.nblk; ++q)
-        acc += p.dcm_part[(bt * p.nblk + q) * kN + n];
-      p.dcm[e] = acc;
-    }
+    for (; q < p.nclus; q += 2) acc += src[q * kN];
+    acc += __shfl_xor_sync(0xffffffffu, acc, kN);
+    if (h == 0) (c ? p.dcm : p.dbm)[bt * kN + n] = acc;
   }
   if (!(p.need & kNeedDa)) return;
   const long long nda = (long long)p.di * kN;
@@ -456,25 +549,46 @@ __global__ void ssm_scan_bwd_reduce(const ReduceArgs p) {
 }
 
 template <typename XT>
-int launch(const Args& args, const ReduceArgs& ra, cudaStream_t stream) {
+cudaError_t allow(void) {
   static unsigned long long allowed = 0;   // a bit per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   if (!(allowed >> dev & 1ull)) {
     err = cudaFuncSetAttribute(ssm_scan_bwd_kernel<XT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes<XT>());
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
     allowed |= 1ull << dev;
   }
-  ssm_scan_bwd_kernel<XT>
-      <<<dim3(args.nblk, args.B), kThreads, smem_bytes<XT>(), stream>>>(args);
+  return cudaSuccess;
+}
+
+// the column blocks of a row, kCluster at a time, form a cluster
+template <typename XT>
+int launch(const Args& args, const ReduceArgs& ra, cudaStream_t stream) {
+  cudaError_t err = allow<XT>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(args.nclus * kCluster, args.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes<XT>();
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ssm_scan_bwd_kernel<XT>, args);
+  if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (!(args.need & (kNeedDbm | kNeedDcm | kNeedDa))) return 0;
-  const long long n = (long long)args.B * args.S * kN > (long long)args.di * kN
-                          ? (long long)args.B * args.S * kN
+  // a warp per (row, step) and partial array, a thread per (channel, state)
+  const long long n = 64LL * args.B * args.S > (long long)args.di * kN
+                          ? 64LL * args.B * args.S
                           : (long long)args.di * kN;
   const long long blocks = (n + 255) / 256;
   ssm_scan_bwd_reduce<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0,
@@ -486,24 +600,24 @@ int launch(const Args& args, const ReduceArgs& ra, cudaStream_t stream) {
 }  // namespace repro_torch
 
 // x_bf16: x, dy and dx are bfloat16 (else float32). dh_final may be null
-// (zeros); an output whose bit is clear in `need` (ddt 1, dbm 2, dcm 4,
-// dx 8, da 16, dh0 32) may be null. Every operand 16-byte aligned and di a
-// multiple of 8 (the wrapper checks both first). Workspace: dbm_part and
-// dcm_part B*S*nblk*16 floats each, da_part B*di*16, ckpt
-// B*nblk*(nchunks - 1)*256*4 (nblk = ceil(di / 64), nchunks =
-// ceil(S / 16)). Returns a cudaError_t (0 = launched).
+// (zeros); ckpt is the forward's (null where S <= 16); an output whose bit
+// is clear in `need` (ddt 1, dbm 2, dcm 4, dx 8, da 16, dh0 32) may be null.
+// nclus = ceil(ceil(di / 64) / 2), the clusters of a row. Every operand
+// 16-byte aligned and di a multiple of 8 (the wrapper checks both first).
+// Workspace: dbm_part and dcm_part B*S*nclus*16 floats each, da_part
+// B*di*16. Returns a cudaError_t (0 = launched).
 extern "C" int ssm_scan_bwd_launch(
     const void* dt, const void* bm, const void* cm, const void* x,
     const void* a, const void* h0, const void* dy, const void* dhf,
-    void* ddt, void* dbm, void* dcm, void* dx, void* da, void* dh0,
-    void* dbm_part, void* dcm_part, void* da_part, void* ckpt, int B, int S,
+    const void* ckpt, void* ddt, void* dbm, void* dcm, void* dx, void* da,
+    void* dh0, void* dbm_part, void* dcm_part, void* da_part, int B, int S,
     int di, int N, int x_bf16, int need, void* stream) {
   using namespace repro_torch::ssm_bwd;
-  if (N != kN || B < 1 || S < 1 || di < 1 || B > 65535 || di % 8 != 0)
+  if (N != kN || B < 1 || S < 1 || di < 1 || B > 65535 || di % 8 != 0 ||
+      (S > kL && ckpt == nullptr))
     return (int)cudaErrorInvalidValue;
-  const void* const ptrs[] = {dt, bm, cm, x, a, h0, dy, dhf, ddt, dbm,
-                              dcm, dx, da, dh0, dbm_part, dcm_part, da_part,
-                              ckpt};
+  const void* const ptrs[] = {dt, bm, cm, x, a, h0, dy, dhf, ckpt, ddt, dbm,
+                              dcm, dx, da, dh0, dbm_part, dcm_part, da_part};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
@@ -516,17 +630,17 @@ extern "C" int ssm_scan_bwd_launch(
   args.h0 = static_cast<const float*>(h0);
   args.dy = dy;
   args.dhf = static_cast<const float*>(dhf);
+  args.ckpt = static_cast<const float*>(ckpt);
   args.ddt = static_cast<float*>(ddt);
   args.dx = dx;
   args.dh0 = static_cast<float*>(dh0);
   args.dbm_part = static_cast<float*>(dbm_part);
   args.dcm_part = static_cast<float*>(dcm_part);
   args.da_part = static_cast<float*>(da_part);
-  args.ckpt = static_cast<float4*>(ckpt);
   args.B = B;
   args.S = S;
   args.di = di;
-  args.nblk = (di + kC - 1) / kC;
+  args.nclus = ((di + kC - 1) / kC + kCluster - 1) / kCluster;
   args.nchunks = (S + kL - 1) / kL;
   args.need = need;
   ReduceArgs ra{};
@@ -539,7 +653,7 @@ extern "C" int ssm_scan_bwd_launch(
   ra.B = B;
   ra.S = S;
   ra.di = di;
-  ra.nblk = args.nblk;
+  ra.nclus = args.nclus;
   ra.need = need;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return x_bf16 ? launch<__nv_bfloat16>(args, ra, st)

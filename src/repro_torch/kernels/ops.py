@@ -150,27 +150,30 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
 class _SsmScan(torch.autograd.Function):
     """``ssm_scan`` with its backward (``ssm_scan_bwd``): the gradients of
     dt, bm, cm, x, a and h0 from those of y and h_final (a gradient
-    autograd does not pass counts as zeros)."""
+    autograd does not pass counts as zeros).  The forward also keeps the
+    state every 16 steps (``checkpoints=True``), from which the backward
+    re-runs each chunk instead of the whole recurrence from h0."""
 
     @staticmethod
     def forward(ctx, dt, bm, cm, x, a, h0):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(dt, bm, cm, x, a, h0)
         fn = _ss.ssm_scan if _on_cuda(dt) else _ref.ssm_scan_ref
-        return fn(dt, bm, cm, x, a, h0)
+        y, h_final, ckpt = fn(dt, bm, cm, x, a, h0, checkpoints=True)
+        ctx.save_for_backward(dt, bm, cm, x, a, h0, ckpt)
+        return y, h_final
 
     @staticmethod
     def backward(ctx, dy, dh_final):
-        dt, bm, cm, x, a, h0 = ctx.saved_tensors
+        dt, bm, cm, x, a, h0, ckpt = ctx.saved_tensors
         need = ctx.needs_input_grad
         if dy is None:
             dy = torch.zeros_like(x)
         if _on_cuda(dt):
             grads = _ssb.ssm_scan_bwd(dt, bm, cm, x, a, h0, dy, dh_final,
-                                      need=need)
+                                      need=need, ckpt=ckpt)
         else:
             grads = _ref.ssm_scan_bwd_ref(dt, bm, cm, x, a, h0, dy,
-                                          dh_final)
+                                          dh_final, ckpt=ckpt)
         return tuple(g if n else None for g, n in zip(grads, need))
 
 

@@ -4,7 +4,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py``
 (``paged_attention``): one-token decode against a block-paged KV pool,
 read through each request's block table with an online softmax, GQA,
 windows, and zeros for rows with no visible key.  Source:
-``csrc/paged_attention.cu``; semantics: ``ref.paged_attention_ref``.
+``csrc/paged_attention.cuh`` (the kernel) with its C entries in
+``csrc/paged_attention.cu`` and, for int8 pools,
+``csrc/paged_attention_int8.cu`` (compiled apart); semantics:
+``ref.paged_attention_ref``.
 
 Bound on an H100: bytes.  A decode step reads each live K/V block once
 and does about one float32 FMA per byte of it, far below the ~295
@@ -29,10 +32,14 @@ operands, or it raises.
 ``paged_attention_int8`` reads an int8 pool (the int8 KV cache) with a
 float32 scale per (block, lane, KV head): the same kernel with int8
 rings, 16-byte copies of 16 int8 elements and each chunk's 16 scales
-beside them; a key or value is dequantized where it is read from the
-ring (int8 times its scale in float32, rounded to the model dtype, as the
-reference's ``_dequantize_kv``) and then used as the float kernel uses
-it.  It halves the bytes a decode step streams.
+beside them; a lane reads its int8 slice of a key or value in one 8-byte
+load where the float kernel reads its slice and dequantizes it exactly
+as the reference's ``_dequantize_kv`` (int8 times its scale in float32,
+rounded to the model dtype) with no conversion instruction: int8 ->
+float32 by a byte permute and a subtraction, bf16 rounded two at a time
+and widened back as the float kernel unpacks bf16; from there it is
+used as the float kernel uses it.  It halves the bytes a decode step
+streams.
 """
 from __future__ import annotations
 
@@ -69,9 +76,10 @@ KERNEL = CudaKernel(
     [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, _I, _I, _P],
     "paged_attention_smem_bytes", [_I, _I, _I, _I, _I])
-# the int8-pool entry of the same library: two scale pointers more
+# the int8 pools' entry (csrc/paged_attention_int8.cu, the same kernel):
+# two scale pointers more
 KERNEL_INT8 = CudaKernel(
-    "paged_attention", "paged_attention_int8_launch",
+    "paged_attention_int8", "paged_attention_int8_launch",
     [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, _I, _I, _P],
     "paged_attention_int8_smem_bytes", [_I, _I, _I, _I, _I])

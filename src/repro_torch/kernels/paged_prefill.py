@@ -2,9 +2,12 @@
 
 Replaces ``repro/kernels/ops.py:paged_prefill``, which has no Pallas
 kernel (both of its arms run the reference): the attention of every
-default serving-engine step.  Source: ``csrc/paged_prefill.cu``;
-semantics: ``ref.paged_prefill_ref``, over the keys the caller has
-already assembled (gathered prefix, then the chunk).
+default serving-engine step.  Source: ``csrc/paged_prefill.cuh`` (the
+launcher; the bf16 tile in ``attention_mma.cuh``) with its C entries in
+``csrc/paged_prefill.cu`` and, for an int8 prefix,
+``csrc/paged_prefill_int8.cu`` (compiled apart); semantics:
+``ref.paged_prefill_ref``, over the keys the caller has already
+assembled (gathered prefix, then the chunk).
 
 Bound on an H100: bytes at decode and small-chunk sizes (q, k, v and
 the positions read once, the output written once, over 3.35 TB/s); a
@@ -60,10 +63,11 @@ KERNEL = CudaKernel(
     [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, _I, _I, _P, _P, _P],
     "paged_prefill_smem_bytes", [_I, _I, _I, _I, _I])
-# the int8-prefix entry of the same library: the prefix's int8 k, v,
+# the int8 prefix's entry (csrc/paged_prefill_int8.cu, the same
+# launcher): the prefix's int8 k, v,
 # float32 scales and kpos before the chunk's k, v, kpos; Lp before Lc
 KERNEL_INT8 = CudaKernel(
-    "paged_prefill", "paged_prefill_int8_launch",
+    "paged_prefill_int8", "paged_prefill_int8_launch",
     [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
      _I, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P],
     "paged_prefill_int8_smem_bytes", [_I, _I, _I, _I, _I])

@@ -17,6 +17,7 @@ import math
 import torch
 
 NEG_INF = -2.0 ** 30
+SSM_CKPT_STEPS = 16     # steps between the selective scan's checkpoints
 LOG2E = 1.4426950408889634
 
 
@@ -248,11 +249,12 @@ def rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dout, ds_final=None):
     return dr, dk, dv, dw, du.to(u.dtype), g
 
 
-def ssm_scan_bwd_ref(dt, bm, cm, x, a, h0, dy, dh_final=None):
+def ssm_scan_bwd_ref(dt, bm, cm, x, a, h0, dy, dh_final=None, ckpt=None):
     """The gradients of ``ssm_scan_ref``, one time step at a time
     backwards, in float32 (float64 for float64 inputs): the states h_t
-    recomputed forward from ``h0``, then the state's adjoint from
-    ``dh_final`` (None: zeros) back to step 0,
+    recomputed forward from ``h0`` (with ``ckpt``, the forward's
+    checkpoints, each run of ``SSM_CKPT_STEPS`` steps from its own), then
+    the state's adjoint from ``dh_final`` (None: zeros) back to step 0,
 
         g_t   = C_t dy_t + exp(dt_{t+1} a) g_{t+1}   (g after step t)
         dC_t  = sum_d dy_t[d] h_t[d]
@@ -271,6 +273,8 @@ def ssm_scan_bwd_ref(dt, bm, cm, x, a, h0, dy, dh_final=None):
     h = h0.to(ft)
     states = [h]
     for t in range(s):
+        if ckpt is not None and t and t % SSM_CKPT_STEPS == 0:
+            h = ckpt[:, t // SSM_CKPT_STEPS - 1].to(ft)
         h = (torch.exp(dt[:, t, :, None] * a[None]) * h
              + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :])
         states.append(h)
@@ -292,14 +296,16 @@ def ssm_scan_bwd_ref(dt, bm, cm, x, a, h0, dy, dh_final=None):
     return ddt, dbm, dcm, dx.to(x_dtype), da, g
 
 
-def ssm_scan_ref(dt, bm, cm, x, a, h0):
+def ssm_scan_ref(dt, bm, cm, x, a, h0, checkpoints: bool = False):
     """Mamba's selective scan, one time step at a time in float32
     (float64 for float64 inputs).  dt (B,S,di) step sizes, bm / cm
     (B,S,N) input and output projections, x (B,S,di) the scanned input
     in the model dtype (cast to float32 in the step, as the reference
     does), a (di,N) the negative state decays, h0 (B,di,N) the start
     state.  -> (y (B,S,di) in x's dtype, h_final (B,di,N) float32, or
-    float64).
+    float64), and with ``checkpoints`` the state after every
+    ``SSM_CKPT_STEPS`` steps short of S, (B, ceil(S/16) - 1, di, N), as
+    the kernel's training forward keeps them for its backward.
 
         h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) B_t
         y_t = h_t . C_t
@@ -309,12 +315,19 @@ def ssm_scan_ref(dt, bm, cm, x, a, h0):
     out_dtype = x.dtype
     dt, bm, cm, x, a = (t.to(ft) for t in (dt, bm, cm, x, a))
     h = h0.to(ft)
-    ys = []
+    ys, kept = [], []
     for t in range(s):
         decay = torch.exp(dt[:, t, :, None] * a[None])
         h = decay * h + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, cm[:, t]))
-    return torch.stack(ys, dim=1).to(out_dtype), h
+        if checkpoints and (t + 1) % SSM_CKPT_STEPS == 0 and t + 1 < s:
+            kept.append(h)
+    y = torch.stack(ys, dim=1).to(out_dtype)
+    if not checkpoints:
+        return y, h
+    ckpt = (torch.stack(kept, dim=1) if kept
+            else h.new_zeros(h.shape[0], 0, *h.shape[1:]))
+    return y, h, ckpt
 
 
 def conv2d_ref(x, w):

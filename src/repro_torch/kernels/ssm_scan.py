@@ -24,6 +24,12 @@ arithmetic.  A decode step (S = 1) reads its operands straight from
 device memory.  The kernel takes no sequence length: the masked route
 sets ``dt`` to 0 past a row's valid lanes, which carries its state
 through exactly.
+
+``checkpoints=True`` (the training forward of ``ops.ssm_scan``'s
+autograd Function) also returns the state after every ``CKPT_STEPS``
+steps but the last, (B, ceil(S / 16) - 1, di, N) float32, which the
+backward kernel starts each of its chunks from; a separate instantiation
+writes them, so the serving launches compute and write what they did.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.kernels import attention_split
 from repro_torch.kernels.build import CudaKernel, refuse_autograd
 
 STATE_DIM = 16
+CKPT_STEPS = 16             # steps between the training forward's states
 CHANNELS = 64               # channels a CTA takes (128 threads, 2 each)
 STEPS = (32, 16)            # steps a ring slot holds: while every CTA is
                             # resident at once, and else
@@ -49,7 +56,7 @@ X_DTYPES = (torch.float32, torch.bfloat16)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("ssm_scan", "ssm_scan_launch",
-                    [_P] * 8 + [_I] * 4          # operands, B, S, di, N
+                    [_P] * 9 + [_I] * 4          # operands, B, S, di, N
                     + [_I] * 2 + [_P])           # x_bf16, steps, stream
 
 
@@ -81,11 +88,19 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"ssm_scan kernel: {msg}")
 
 
-def ssm_scan(dt, bm, cm, x, a, h0):
+def checkpoint_count(s: int) -> int:
+    """States ``checkpoints=True`` keeps: one at each multiple of
+    ``CKPT_STEPS`` steps short of S."""
+    return (s - 1) // CKPT_STEPS
+
+
+def ssm_scan(dt, bm, cm, x, a, h0, checkpoints: bool = False):
     """dt (B,S,di), bm / cm (B,S,N), a (di,N), h0 (B,di,N) contiguous
     float32, x (B,S,di) contiguous float32 or bfloat16, all on the card
     and 16-byte aligned, N = 16, di a multiple of 8.  -> (y (B,S,di) in
-    x's dtype, h_final (B,di,N) float32)."""
+    x's dtype, h_final (B,di,N) float32), and with ``checkpoints`` the
+    states after steps 16, 32, .. short of S, (B, ceil(S/16) - 1, di, N)
+    float32."""
     refuse_autograd("ssm_scan", dt=dt, bm=bm, cm=cm, x=x, a=a, h0=h0)
     _check(dt.is_cuda, "dt must be a CUDA tensor (CPU tensors take "
            "ops.ssm_scan's plain version)")
@@ -118,11 +133,15 @@ def ssm_scan(dt, bm, cm, x, a, h0):
                        attention_split.sm_count(dt.device))
     y = torch.empty_like(x)
     h_final = torch.empty_like(h0)
+    ckpt = (torch.empty(b, checkpoint_count(s), di, n, dtype=torch.float32,
+                        device=dt.device) if checkpoints else None)
     dev = dt.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         KERNEL.launch(dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
                       x.data_ptr(), a.data_ptr(), h0.data_ptr(),
-                      y.data_ptr(), h_final.data_ptr(), b, s, di, n,
+                      y.data_ptr(), h_final.data_ptr(),
+                      ckpt.data_ptr() if ckpt is not None and ckpt.numel()
+                      else None, b, s, di, n,
                       int(x.dtype == torch.bfloat16), steps, stream)
-    return y, h_final
+    return (y, h_final) if ckpt is None else (y, h_final, ckpt)

@@ -14,15 +14,23 @@ Bound on an H100: bytes, at jamba's training shape, with the arithmetic
 and the exponentials close behind (the source note counts them).
 
 Design: the forward's split, a CTA of 256 threads per (batch row, 64
-channels), a channel's 16 states over 4 threads.  Nothing is saved by the
-forward: the kernel re-runs the recurrence from h0, keeps one state a
-chunk of ``CHUNK`` steps in a workspace, then walks the chunks backwards,
-re-running each chunk's states from its checkpoint into registers.  dB
-and dC sum over every channel, so each CTA writes its sums as partials
-(B, S, di / 64, N), and a second kernel of the same launch adds them in
-block order (da over the rows too): no float atomics, so the bits depend
-on the inputs alone.  Operands must be contiguous and 16-byte aligned, N
-= 16 and di a multiple of 8, as for the forward.
+channels), a channel's 16 states over 4 threads.  The training forward
+keeps the state every ``CHUNK`` steps (``ssm_scan(..., checkpoints=True)``,
+the ``ckpt`` argument here); the kernel walks the chunks backwards and
+re-runs each chunk's states from its checkpoint, taking each decay's
+``ex2`` once: the first 8 steps' decays are kept in shared memory, the
+last 8 steps' decays and states in registers, and the first 8 steps'
+states are re-run from the kept decays after the last 8 are walked.  dB
+and dC sum over every channel: the CTAs of ``CLUSTER`` = 2 column
+blocks of a row (a thread-block cluster, fixed in the kernel: larger
+clusters leave fewer CTAs resident, PERF.md) add theirs over distributed
+shared memory in rank order, and each cluster writes a partial (B, S,
+clusters, N); a second kernel of the same launch adds the partials in
+cluster order (da over the rows too): no float atomics, so the bits
+depend on the inputs alone.  Where S > ``CHUNK`` the caller passes the
+checkpoints (``ops.ssm_scan``'s autograd Function saves them).
+Operands must be contiguous and 16-byte aligned, N = 16 and di a
+multiple of 8, as for the forward.
 """
 from __future__ import annotations
 
@@ -30,12 +38,15 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import ssm_scan as _ss
 from repro_torch.kernels.build import CudaKernel, refuse_autograd
 from repro_torch.kernels.ssm_scan import STATE_DIM, X_DTYPES
 
 CHANNELS = 64               # channels a CTA takes
-CHUNK = 16                  # steps between checkpoints of the state
+CHUNK = _ss.CKPT_STEPS      # steps between checkpoints of the state
 THREADS = 256
+CLUSTER = 2                 # column blocks a cluster takes (the kernel's
+                            # kCluster)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,14 +60,14 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def workspace_floats(b: int, s: int, di: int) -> dict:
-    """Floats of the launch's scratch: the per-CTA partials of dbm and
-    dcm, the per-row partials of da, and one state a chunk past the first
-    (at least 1 each)."""
-    nblk, nchunks = -(-di // CHANNELS), -(-s // CHUNK)
-    return {"dbm_part": b * s * nblk * STATE_DIM,
-            "dcm_part": b * s * nblk * STATE_DIM,
-            "da_part": b * di * STATE_DIM,
-            "ckpt": max(1, b * nblk * (nchunks - 1) * THREADS * 4)}
+    """Floats of a launch's scratch, as the wrapper allocates it: the
+    clusters' partials of dbm and dcm (a row's column blocks ``CLUSTER``
+    at a time, the last cluster's blocks past di summed as zeros) and
+    the per-row partials of da."""
+    nclus = -(-di // (CHANNELS * CLUSTER))
+    return {"dbm_part": b * s * nclus * STATE_DIM,
+            "dcm_part": b * s * nclus * STATE_DIM,
+            "da_part": b * di * STATE_DIM}
 
 
 def _aligned(t):
@@ -67,14 +78,16 @@ def _aligned(t):
 
 
 def ssm_scan_bwd(dt, bm, cm, x, a, h0, dy, dh_final=None,
-                 need=(True,) * 6):
+                 need=(True,) * 6, ckpt=None):
     """The gradients of ``ssm_scan(dt, bm, cm, x, a, h0)`` on the card:
     dt (B,S,di), bm / cm (B,S,N), a (di,N), h0 (B,di,N) contiguous float32
     and 16-byte aligned, as the forward takes them; x (B,S,di) and dy in
     x's dtype (float32 or bfloat16), dh_final (B,di,N) float32 or None
     (zeros); dy and dh_final are copied where they are not contiguous and
     aligned.  ``need``: which of (ddt, dbm, dcm, dx, da, dh0) to compute.
-    -> those six, None where not needed."""
+    ``ckpt``: the forward's checkpoints (B, ceil(S/16) - 1, di, N), as
+    ``ssm_scan(..., checkpoints=True)`` returns them; needed where S > 16
+    (None: none, where S <= 16).  -> those six, None where not needed."""
     refuse_autograd("ssm_scan_bwd", dt=dt, bm=bm, cm=cm, x=x, a=a, h0=h0,
                     dy=dy, dh_final=dh_final)
     _check(dt.is_cuda, "dt must be a CUDA tensor (CPU tensors take "
@@ -112,10 +125,20 @@ def ssm_scan_bwd(dt, bm, cm, x, a, h0, dy, dh_final=None,
            "multiple of 8)")
     need = tuple(bool(f) for f in need)
     _check(len(need) == 6, "need: six flags (ddt, dbm, dcm, dx, da, dh0)")
+    want_ck = (b, _ss.checkpoint_count(s), di, n)
+    if ckpt is None:
+        _check(s <= CHUNK, f"S = {s} needs ckpt, the forward's checkpoints "
+               "(ssm_scan(..., checkpoints=True))")
+    else:
+        _check(ckpt.device == dt.device and ckpt.dtype == torch.float32
+               and tuple(ckpt.shape) == want_ck and ckpt.is_contiguous()
+               and ckpt.data_ptr() % 16 == 0,
+               f"ckpt must be {want_ck} float32 on {dt.device}, contiguous "
+               "and 16-byte aligned (ssm_scan(..., checkpoints=True))")
     outs = [torch.empty_like(t) if f else None
             for t, f in zip((dt, bm, cm, x, a, h0), need)]
-    ws = {key: torch.empty(f, dtype=torch.float32, device=dt.device)
-          for key, f in workspace_floats(b, s, di).items()}
+    ws = [torch.empty(size, dtype=torch.float32, device=dt.device)
+          for size in workspace_floats(b, s, di).values()]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -124,10 +147,9 @@ def ssm_scan_bwd(dt, bm, cm, x, a, h0, dy, dh_final=None,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         KERNEL.launch(ptr(dt), ptr(bm), ptr(cm), ptr(x), ptr(a), ptr(h0),
-                      ptr(dy), ptr(dh_final), *map(ptr, outs),
-                      *(ws[k].data_ptr() for k in ("dbm_part", "dcm_part",
-                                                   "da_part", "ckpt")),
+                      ptr(dy), ptr(dh_final),
+                      ptr(ckpt) if ckpt is not None and ckpt.numel()
+                      else None, *map(ptr, outs), *map(ptr, ws),
                       b, s, di, n, int(x.dtype == torch.bfloat16),
-                      sum(1 << i for i, f in enumerate(need) if f),
-                      stream)
+                      sum(1 << i for i, f in enumerate(need) if f), stream)
     return tuple(outs)

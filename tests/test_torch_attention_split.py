@@ -308,7 +308,9 @@ def test_bf16_sources_compile_the_planners_head_dims(kernel):
     beside K and V: 102,144 bytes, two CTAs to an SM's 228 KB."""
     import re
 
-    text = (build.CSRC / f"{kernel}.cu").read_text()
+    text = "".join(p.read_text() for p in (build.CSRC / f"{kernel}.cu",
+                                          build.CSRC / f"{kernel}.cuh")
+                   if p.exists())
     cases = re.findall(r"case (\d+): return launch_mma<\1,", text)
     assert tuple(map(int, cases)) == split.MMA_HEAD_DIMS
     tile = (build.CSRC / "attention_mma.cuh").read_text()

@@ -189,7 +189,8 @@ def test_cuda_sources_export_what_the_wrappers_bind():
     with the argument count the wrapper declares (the compiler is not
     here to check it)."""
     assert build.sources() == ["conv2d", "conv2d_wgrad", "flash_attention",
-                               "paged_attention", "paged_prefill",
+                               "paged_attention", "paged_attention_int8",
+                               "paged_prefill", "paged_prefill_int8",
                                "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan",
                                "ssm_scan_bwd"]
     for kern in (cv_mod.KERNEL, cw_mod.KERNEL, fa_mod.KERNEL, pa_mod.KERNEL,

@@ -163,7 +163,8 @@ def test_attention_by_pieces_matches_the_whole(case, window):
 def test_kernel_source_matches_the_planner():
     """The kernel's piece arithmetic, compiled head dims and group limit
     are the wrapper's (the compiler is not here to check them)."""
-    text = (build.CSRC / "paged_attention.cu").read_text()
+    text = "".join((build.CSRC / f).read_text()
+                   for f in ("paged_attention.cuh", "paged_attention.cu"))
     assert "const int piece = blockIdx.x % a.n_pieces;" in text
     assert "const int p_lo = piece * a.blocks_per_piece;" in text
     assert "const int p_hi = min(p_lo + a.blocks_per_piece, a.nb);" in text

@@ -23,7 +23,13 @@ with and without a final-state gradient and with masked rows, and every
 one of its 63 subsets of gradients; the autograd Functions in ``ops``
 launching each kernel once a forward and once a backward; and a
 backward whose kernel cannot launch raising rather than falling back to
-the plain version.
+the plain version.  The selective scan's training forward: each
+checkpoint bit-equal to the final state of a call over that prefix, and
+y and h_final bit-equal to the serving call's; ``ssm_scan_bwd`` from
+those checkpoints against the plain version, and its repeats
+bit-identical, where d_inner leaves a cluster of 2 column blocks
+part-full (blocks past d_inner summed as zeros); the backward refusing
+to run without them where S > 16.
 """
 from unittest import mock
 
@@ -33,6 +39,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan_bwd as rwb_mod  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss_mod  # noqa: E402
 from repro_torch.kernels import ssm_scan_bwd as ssb_mod  # noqa: E402
 
 REL = 1e-4
@@ -97,6 +104,13 @@ def ssm_case(device, b, s, xdt, seed=0, masked=False):
             randn(b, s, D_INNER).to(xdt), -torch.exp(randn(D_INNER, STATES)),
             randn(b, D_INNER, STATES)]
     return args, randn(b, s, D_INNER).to(xdt), randn(b, D_INNER, STATES)
+
+
+def ssm_bwd(args, dy, dhf=None, **kw):
+    """``ssm_scan_bwd`` from the training forward's checkpoints, as
+    ``ops.ssm_scan``'s autograd Function passes them."""
+    ck = ss_mod.ssm_scan(*args, checkpoints=True)[2]
+    return ssb_mod.ssm_scan_bwd(*args, dy, dhf, ckpt=ck, **kw)
 
 
 def assert_close(got, want, name):
@@ -229,8 +243,8 @@ def test_rwkv6_scan_bwd_views_and_subsets_give_the_same_bits(cuda):
 @pytest.mark.parametrize("b,s,masked", CASES)
 def test_ssm_scan_bwd_matches_plain(cuda, b, s, masked, xdt):
     args, dy, dhf = ssm_case(cuda, b, s, getattr(torch, xdt), masked=masked)
-    got = ssb_mod.ssm_scan_bwd(*args, dy, dhf)
-    again = ssb_mod.ssm_scan_bwd(*args, dy, dhf)
+    got = ssm_bwd(args, dy, dhf)
+    again = ssm_bwd(args, dy, dhf)
     want = ref.ssm_scan_bwd_ref(*args, dy, dhf)
     torch.cuda.synchronize()
     for name, g, a, w in zip(("ddt", "dbm", "dcm", "dx", "da", "dh0"), got,
@@ -263,7 +277,7 @@ def test_ssm_scan_bwd_other_widths_match_plain(cuda, di, xdt):
             randn(b, s, STATES), randn(b, s, di).to(getattr(torch, xdt)),
             -torch.exp(randn(di, STATES)), randn(b, di, STATES)]
     dy, dhf = randn(b, s, di).to(args[3].dtype), randn(b, di, STATES)
-    got = ssb_mod.ssm_scan_bwd(*args, dy, dhf)
+    got = ssm_bwd(args, dy, dhf)
     want = ref.ssm_scan_bwd_ref(*args, dy, dhf)
     torch.cuda.synchronize()
     for name, g, w in zip(("ddt", "dbm", "dcm", "dx", "da", "dh0"), got,
@@ -277,13 +291,15 @@ def test_ssm_scan_bwd_other_widths_match_plain(cuda, di, xdt):
 @pytest.mark.cuda
 def test_ssm_scan_bwd_subsets_give_the_same_bits(cuda):
     args, dy, dhf = ssm_case(cuda, 2, 45, torch.bfloat16)
-    full = ssb_mod.ssm_scan_bwd(*args, dy, dhf)
+    full = ssm_bwd(args, dy, dhf)
     need = (True, False, True, False, True, False)
-    part = ssb_mod.ssm_scan_bwd(*args, dy, dhf, need=need)
+    part = ssm_bwd(args, dy, dhf, need=need)
     for g, p, n in zip(full, part, need):
         assert (p is None) != n and (p is None or torch.equal(g, p))
-    zero = ssb_mod.ssm_scan_bwd(*args, dy)
-    want = ssb_mod.ssm_scan_bwd(*args, dy, torch.zeros_like(dhf))
+    zero = ssm_bwd(args, dy)
+    want = ssm_bwd(args, dy, torch.zeros_like(dhf))
+    with pytest.raises(ValueError, match="needs ckpt"):
+        ssb_mod.ssm_scan_bwd(*args, dy, dhf)
     assert all(torch.equal(a, b) for a, b in zip(zero, want))
 
 
@@ -295,7 +311,7 @@ def test_functions_launch_each_kernel_once_a_pass(cuda):
             (ops.rwkv6_scan, rwkv_case(cuda, 2, 40), "rwkv6_scan",
              "rwkv6_scan_bwd", rwb_mod.rwkv6_scan_bwd),
             (ops.ssm_scan, ssm_case(cuda, 2, 40, torch.float32), "ssm_scan",
-             "ssm_scan_bwd", ssb_mod.ssm_scan_bwd)):
+             "ssm_scan_bwd", lambda *a: ssm_bwd(a[:6], *a[6:]))):
         args, cot, cot_final = case
         leaves = [t.detach().clone().requires_grad_(True) for t in args]
         ops.reset_launch_counts()
@@ -326,3 +342,57 @@ def test_a_backward_that_cannot_launch_raises(cuda):
                            side_effect=RuntimeError("no launch")), \
             pytest.raises(RuntimeError, match="no launch"):
         (y * dy).sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_ssm_scan_checkpoints_are_the_prefix_final_states(cuda, xdt):
+    """Checkpoint k of the training forward equals, bit for bit, h_final
+    of a call over the first 16 (k + 1) steps; its y and h_final equal
+    the serving call's."""
+    args, _, _ = ssm_case(cuda, 2, 70, getattr(torch, xdt))
+    y, hf, ck = ss_mod.ssm_scan(*args, checkpoints=True)
+    y0, hf0 = ss_mod.ssm_scan(*args)
+    assert torch.equal(y, y0) and torch.equal(hf, hf0)
+    assert tuple(ck.shape) == (2, 4, D_INNER, STATES)
+    for k in range(ck.shape[1]):
+        n = 16 * (k + 1)
+        cut = [t[:, :n].contiguous() for t in args[:4]] + args[4:]
+        assert torch.equal(ck[:, k], ss_mod.ssm_scan(*cut)[1]), k
+    assert ss_mod.ssm_scan(*[t[:, :16].contiguous() for t in args[:4]]
+                           + args[4:], checkpoints=True)[2].shape[1] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("di", [8, 200, 328, 16192])
+def test_ssm_scan_bwd_ragged_clusters_repeat_bit_identical(cuda, di):
+    """Clusters of 2 column blocks where d_inner is not a multiple of
+    their 128 channels: 8 (one block, the other past d_inner), 200 (the
+    last block 8 channels), 328 (the last cluster's second block 8
+    channels) and 16,192 (253 blocks, the last cluster one block), S = 45
+    (a part-full last chunk) from the forward's checkpoints: within the
+    plain version's tolerance, and a repeat gives the same bits."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=cuda).manual_seed(di)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    b, s = 2, 45
+    args = [F.softplus(randn(b, s, di) * 0.5 - 1.0), randn(b, s, STATES),
+            randn(b, s, STATES), randn(b, s, di).to(torch.bfloat16),
+            -torch.exp(randn(di, STATES)), randn(b, di, STATES)]
+    dy, dhf = randn(b, s, di).to(torch.bfloat16), randn(b, di, STATES)
+    ck = ss_mod.ssm_scan(*args, checkpoints=True)[2]
+    got = ssb_mod.ssm_scan_bwd(*args, dy, dhf, ckpt=ck)
+    again = ssb_mod.ssm_scan_bwd(*args, dy, dhf, ckpt=ck)
+    want = ref.ssm_scan_bwd_ref(*args, dy, dhf)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(("ddt", "dbm", "dcm", "dx", "da", "dh0"), got,
+                             again, want):
+        assert torch.equal(g, a), name
+        if name == "dx":
+            assert_bf16_close(g, w, name)
+        else:
+            assert_close(g, w, name)
