@@ -32,7 +32,13 @@ then runs its phases, each raising on failure:
    bfloat16 and float32, at the dense configs' heads and at gemma3-4b's
    head_dim 256 (windows 0 and 1,024), each within ``KERNEL_TOL`` of its
    int8 plain version and bit-equal to the float kernel on the
-   dequantized keys; the two backward kernels at their training shapes
+   dequantized keys; ``flash_attention`` and ``paged_prefill`` at
+   whisper-tiny's and paligemma-3b's shapes (``FRONTEND_*_SHAPES``:
+   the encoder's non-causal 1,500 frames at 6/6 heads of 64, the
+   cross-attention at Sq 1 (8 rows) and 200 over those frames, the
+   prefix-LM at 8/1 heads of 256 with prefixes of 256 and 200 at
+   S=456, slot decode at both configs' heads) in bfloat16 and float32;
+   the two backward kernels at their training shapes
    (``SCAN_BWD_SHAPES``: ``rwkv6_scan_bwd`` at rwkv6-1.6b's 8 x 128 and
    one row of 300, ``ssm_scan_bwd`` at jamba's 8 x 128 with float32 and
    bf16 x and 2 x 2,048 with bf16 x), with a start state and a
@@ -49,7 +55,8 @@ then runs its phases, each raising on failure:
    (``paged_prefill``) and off (``paged_attention``), with a pool tight
    enough to preempt, and with the slot engine (``flash_attention`` for
    each admission, ``paged_prefill`` for decode); the launch counts show
-   each kernel ran; a profile of the paged engine in each mode lists
+   each kernel ran; a profile of the paged engine in each mode (8
+   tokens a prompt) lists
    device time by kernel, the bf16 attention's combine pass and
    ``paged_attention`` included; then at full
    width with 2 layers in float32 the paged engine's two modes and the
@@ -130,6 +137,21 @@ then runs its phases, each raising on failure:
    marks; a profile of jamba's fused engine; then the three reduced
    configs in float32 under dropless capacity: paged fusion on, off and
    slot emit identical tokens;
+4h. whisper-tiny (4 + 4 layers, 1,500 frames) and paligemma-3b (18
+   layers, 256 patches) uncut, bf16, seeded weights and frontend
+   embeddings, one after the other, through ``Model.prefill`` and
+   ``Model.decode_step`` (no engine serves them, as none of the
+   reference's does): the 8 smoke prompts prefilled one at a time,
+   then decoding 16 greedy tokens as one batch; exactly 12
+   ``flash_attention`` launches a whisper prefill (4 encoder, 4 self,
+   4 cross) and 4 (cross) plus 4 ``paged_prefill`` a decode step, 18
+   ``flash_attention`` a paligemma prefill (the prefix-LM) and 18
+   ``paged_prefill`` a decode step; the plain versions fed the
+   kernels' tokens, logits within ``MODEL_TOL``, the tokens they
+   choose alike and the top-2 margin at each first flip;
+   ``Model.forward`` against ``forward_train``; the median decode step
+   and memory high-water marks; the reduced configs in float32, card
+   (kernels) against CPU (plain versions), the same tokens;
 5. rwkv6: with the qwen3 model freed, rwkv6-1.6b at its published
    width (24 layers, bfloat16, seeded random weights with the
    reference's zero-initialised leaves drawn too) through the serve
@@ -192,8 +214,11 @@ then runs its phases, each raising on failure:
    query chunks at head_dim 256), dbrx-132b (1 of 40 layers: the router
    term) and jamba-1.5-large-398b (1 of 72 layers, a mamba layer at
    d_inner 16,384 over seq 2,048: one ``ssm_scan`` and one
-   ``ssm_scan_bwd`` a step) at their published widths, 10 steps each,
-   losses finite and falling; each sub-step's seconds (the phase's
+   ``ssm_scan_bwd`` a step) at their published widths, and whisper-tiny
+   and paligemma-3b uncut (each step's frontend embeddings drawn from
+   its seed), 10 steps each, losses finite and falling, no kernel
+   launched; the card against the CPU at whisper's and paligemma's
+   reduced configs in float32; each sub-step's seconds (the phase's
    seconds too, as every phase's);
 7. times: each kernel's time beside its bound, its plain version's and
    one PyTorch library call's where there is one (a yardstick only; the
@@ -222,8 +247,10 @@ then runs its phases, each raising on failure:
    shapes beside their bound (q, the int8 K/V and scales, kpos and the
    output each moved once), the bf16 kernel on the dequantized keys,
    their plain versions and SDPA over the dequantized keys (a yardstick:
-   no PyTorch call reads int8 K/V); the floor of both methods (one
-   launch on one element).
+   no PyTorch call reads int8 K/V); ``flash_attention`` and
+   ``paged_prefill`` at whisper-tiny's and paligemma-3b's shapes as in
+   phase 2, beside SDPA (the prefix as a boolean mask, the backend SDPA
+   ran named); the floor of both methods (one launch on one element).
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -744,6 +771,77 @@ def dense_head_parity(torch, device, ops, ref):
     return errs
 
 
+# whisper-tiny's and paligemma-3b's attention shapes (phases 2 and 7):
+# flash_attention (B, H, KV, Sq, Sk, hd, causal, prefix): the encoder's
+# non-causal 1,500 frames, the cross-attention at a decode step of the
+# 8-row batch and at a 200-token prompt's prefill, paligemma's prefix-LM
+# over its 256 patches and a 200-token prompt, and a prefix of 200 (not a
+# multiple of the 64-key tile); paged_prefill's slot decode (B, H, KV, hd,
+# lanes) of the 8-row batch at both configs' heads, strips of the longest
+# smoke prompt plus 16 tokens (and paligemma's 256 patches)
+FRONTEND_FA_SHAPES = {
+    "encoder": (1, 6, 6, 1500, 1500, 64, False, 0),
+    "cross_decode": (8, 6, 6, 1, 1500, 64, False, 0),
+    "cross_prefill": (1, 6, 6, 200, 1500, 64, False, 0),
+    "prefix_256": (1, 8, 1, 456, 456, 256, True, 256),
+    "prefix_200": (1, 8, 1, 456, 456, 256, True, 200),
+}
+FRONTEND_PP_SHAPES = {"whisper_slot": (8, 6, 6, 64, 216),
+                      "paligemma_slot": (8, 8, 1, 256, 472)}
+
+
+def frontend_fa_case(torch, gen, device, dtype, shape):
+    b, h, kv, sq, sk, hd, _, _ = shape
+    return flash_case(torch, gen, device, dtype, b=b, h=h, kv=kv, hd=hd,
+                      sq=sq, sk=sk)
+
+
+def frontend_pp_case(torch, gen, device, dtype, shape):
+    b, h, kv, hd, lanes = shape
+    return slot_decode_case(torch, gen, device, dtype, b=b, lanes=lanes, h=h,
+                            kv=kv, hd=hd)
+
+
+def frontend_kernel_parity(torch, device, ops, ref):
+    """Phase 2, whisper-tiny's and paligemma-3b's shapes
+    (``FRONTEND_FA_SHAPES``, ``FRONTEND_PP_SHAPES``) in bfloat16 and
+    float32, in the model's layouts.  -> {kernel: max abs error over the
+    bfloat16 cases}."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    errs = {"flash_attention": 0.0, "paged_prefill": 0.0}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for name, shape in FRONTEND_FA_SHAPES.items():
+            causal, prefix = shape[6:]
+            q, k, v = frontend_fa_case(torch, gen, device, dtype, shape)
+            out = ops.flash_attention(q, k, v, causal=causal, prefix=prefix)
+            plain = ref.flash_attention_ref(q, k, v, causal=causal,
+                                            prefix=prefix)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            torch.testing.assert_close(
+                out.float(), plain.float(),
+                **KERNEL_TOL["flash_attention", dtype_name])
+            log(f"parity flash_attention {dtype_name} {name} {shape[:6]} "
+                f"causal={causal} prefix={prefix}: max_abs_err={err:.3e}")
+            if dtype_name == "bfloat16":
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+        for name, shape in FRONTEND_PP_SHAPES.items():
+            args = frontend_pp_case(torch, gen, device, dtype, shape)
+            out = ops.paged_prefill(*args)
+            plain = ref.paged_prefill_ref(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            torch.testing.assert_close(
+                out.float(), plain.float(),
+                **KERNEL_TOL["paged_prefill", dtype_name])
+            log(f"parity paged_prefill {dtype_name} {name} {shape}: "
+                f"max_abs_err={err:.3e}")
+            if dtype_name == "bfloat16":
+                errs["paged_prefill"] = max(errs["paged_prefill"], err)
+    return errs
+
+
 # the int8 KV cache's kernels (phase 2): the prefix lengths of the
 # ragged prefill's int8 segment beside phase 2's 512, one not a multiple
 # of 64 (31 blocks of 16), and slot strips of 256 and 200 lanes
@@ -1245,6 +1343,9 @@ def smoke_workload(vocab_size, seed=0, n=8, prefix=32, lo=32, hi=200):
     return prompts
 
 
+# phase 4's two engine profiles: the smoke prompts, 8 new tokens each
+# (the engine runs take 16; the profiler's fold-up grows with the run)
+PROFILE_NEW = 8
 SERVE_ARGV = ["--arch", "qwen3-0.6b", "--no-reduced", "--num-blocks", "32",
               "--block-size", "16", "--cache-max", "256", "--max-new", "16",
               "--prefix-cache", "on"]
@@ -2783,6 +2884,243 @@ def gemma3_phase(torch, device, ops, ref, serve, ragged_dispatch, validate,
     return launches, errs
 
 
+# ---------------------------------------------------------------- frontends
+
+
+# phase 4h: whisper-tiny (4 + 4 layers, 1,500 frames, 6 heads of 64) and
+# paligemma-3b (18 layers, 256 patches, 8 query heads over 1 KV head of
+# 256), uncut, bf16, seeded weights and frontend embeddings, through
+# Model.prefill and Model.decode_step: each smoke prompt prefilled alone,
+# then the 8 caches decoding FRONTEND_NEW greedy tokens as one batch
+FRONTEND_ARCHS = ("whisper-tiny", "paligemma-3b")
+FRONTEND_NEW = 16
+
+
+def frontend_launches(cfg) -> dict:
+    """Kernel launches of a prefill (B = 1) and of a decode step: whisper's
+    encoder, decoder self- and cross-attention each one ``flash_attention``
+    a layer at prefill, its decode step a cross ``flash_attention`` and a
+    slot ``paged_prefill`` a layer; paligemma one ``flash_attention`` a
+    layer at prefill (the prefix-LM), one ``paged_prefill`` a decode
+    step."""
+    if cfg.is_encoder_decoder:
+        return ({"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers},
+                {"flash_attention": cfg.num_layers,
+                 "paged_prefill": cfg.num_layers})
+    return ({"flash_attention": cfg.num_layers},
+            {"paged_prefill": cfg.num_layers})
+
+
+def splice_row(big, one, row):
+    """Copy whisper's batch-1 decoder caches (every leaf batch-first)
+    into row ``row`` of batched ones, in place (a stack's caches go
+    through ``kvcache.write_slot``)."""
+    for k, v in one.items():
+        if isinstance(v, dict):
+            splice_row(big[k], v, row)
+        else:
+            big[k][row] = v[0]
+
+
+def frontend_run(torch, model, params, prompts, embeds, new, teacher=None,
+                 counts=None, step_secs=None):
+    """Each prompt prefilled alone with its row of ``embeds``, its cache
+    spliced into row i of one batch, then ``new`` decode steps over the
+    batch at each row's own positions, greedy or fed ``teacher`` (new, B)
+    tokens.  ``counts`` collects each call's launches, ``step_secs`` each
+    decode step's seconds.  -> (prefill logits (B,V), step logits (new,
+    B,V), tokens fed (new, B))."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.kvcache import write_slot
+
+    cfg = model.cfg
+    device = model.device
+    splice = splice_row if cfg.is_encoder_decoder else write_slot
+    n = cfg.num_prefix_tokens if cfg.frontend == "vision" else 0
+    lens = [len(p) for p in prompts]
+    cache_max = n + max(lens) + new
+    cache = model.cache_init(len(prompts), cache_max)
+    first = []
+    with torch.inference_mode():
+        for i, p in enumerate(prompts):
+            ops.reset_launch_counts()
+            toks = torch.from_numpy(p[None]).to(device)
+            lg, c1 = model.prefill(params, {"tokens": toks,
+                                            "embeds": embeds[i:i + 1]},
+                                   cache_max=cache_max)
+            if counts is not None:
+                counts["prefill"].append(ops.launch_counts())
+            first.append(lg[0, -1])
+            splice(cache, c1, i)
+        logits = torch.stack(first)
+        fed, steps = [], []
+        pos = torch.tensor([n + m for m in lens], dtype=torch.int32,
+                           device=device)
+        for t in range(new):
+            tok = (logits.argmax(-1) if teacher is None
+                   else teacher[t]).to(torch.int32)
+            fed.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.reset_launch_counts()
+            lg, cache = model.decode_step(params, cache, tok[:, None],
+                                          pos + t)
+            torch.cuda.synchronize()
+            if step_secs is not None:
+                step_secs.append(time.perf_counter() - t0)
+            if counts is not None:
+                counts["decode"].append(ops.launch_counts())
+            logits = lg[:, 0]
+            steps.append(logits)
+    return torch.stack(first), torch.stack(steps), torch.stack(fed)
+
+
+def frontend_card_vs_cpu(torch, device, Model, fe, arch):
+    """The reduced config (float32, TF32 off): 2 prompts prefilled and 4
+    greedy tokens decoded on the card (kernels) and on the CPU (plain
+    versions) from one weight draw: logits within ``MODEL_TOL`` float32,
+    the same tokens.  -> (rel_err prefill, rel_err decode)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.optim.optimizers import tree_map
+
+    cfg = get_config(arch).reduced()
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(seed=0)
+    card = Model(cfg, device=device)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (20, 13)]
+    emb = fe.fake_embeds(cfg, 2, cfg.dtype, seed=2, device="cpu")
+    got = frontend_run(torch, card, tree_map(lambda t: t.to(device), params),
+                       prompts, emb.to(device), 4)
+    want = frontend_run(torch, cpu, params, prompts, emb, 4,
+                        teacher=got[2].cpu())
+    choice = torch.cat([want[0][None], want[1][:-1]]).argmax(-1)
+    assert torch.equal(choice, want[2]), "card and CPU tokens differ"
+    return (_rel_err(torch, got[0].cpu(), want[0]),
+            _rel_err(torch, got[1].cpu(), want[1]))
+
+
+def frontend_phase(torch, device, ops, ref, Model, smi) -> dict:
+    """Phase 4h: whisper-tiny and paligemma-3b uncut, bf16, one after the
+    other: the smoke prompts (each with its own seeded frontend
+    embeddings) prefilled and decoded ``FRONTEND_NEW`` greedy tokens
+    through the kernels, exactly ``frontend_launches`` a call; the plain
+    versions fed the kernels' tokens, logits within ``MODEL_TOL``, the
+    tokens each greedy step shares and the top-2 margin at each first
+    flip; ``Model.forward`` against ``forward_train``; the median decode
+    step and memory high-water marks; the reduced configs in float32,
+    card against CPU.  -> the launch counts of the kernel runs (the
+    kernels' errors are phase 2's)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import frontend as fe
+    import statistics
+
+    lap = lapper("4h")
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    for arch in FRONTEND_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        model = Model(cfg, device=device)
+        params = model.init(seed=0)
+        init_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        what = f"{arch} {cfg.dtype}"
+        shape = (f"{cfg.encoder_layers} + {cfg.num_layers} layers, "
+                 f"{cfg.encoder_frames} frames" if cfg.is_encoder_decoder
+                 else f"{cfg.num_layers} layers, {cfg.num_prefix_tokens} "
+                 f"patches of {fe.VISION_WIDTH} projected")
+        log(f"{what}: {tree_bytes(params) / 2**30:.2f} GiB of weights, "
+            f"{shape}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+            f"{cfg.resolved_head_dim}, d_model {cfg.d_model}, d_ff "
+            f"{cfg.d_ff} ({cfg.mlp_kind}), {cfg.pos_kind} positions, vocab "
+            f"{cfg.vocab_size}")
+        prompts = smoke_workload(cfg.vocab_size)
+        embeds = fe.fake_embeds(cfg, len(prompts), cfg.dtype, seed=1,
+                                device=device)
+        counts = {"prefill": [], "decode": []}
+        secs = []
+        frontend_run(torch, model, params, prompts[:1], embeds[:1],
+                     2)                                         # warm-up
+        got = frontend_run(torch, model, params, prompts, embeds,
+                           FRONTEND_NEW, counts=counts, step_secs=secs)
+        want_pre, want_dec = frontend_launches(cfg)
+        for kind, want in (("prefill", want_pre), ("decode", want_dec)):
+            for c in counts[kind]:
+                assert c == {k: want.get(k, 0) for k in c}, (kind, c, want)
+                for k, n in c.items():
+                    launches[k] += n
+        with plain_ops(ops, ref):
+            plain = frontend_run(torch, model, params, prompts, embeds,
+                                 FRONTEND_NEW, teacher=got[2])
+        rel_pre = _rel_err(torch, got[0], plain[0])
+        rel_dec = _rel_err(torch, got[1], plain[1])
+        # the plain versions' greedy choice at each step against the
+        # kernels' token there; the kernels' top-2 margin at each row's
+        # first flip
+        choice = torch.cat([plain[0][None], plain[1][:-1]]).argmax(-1)
+        agree = choice == got[2]
+        margins = []
+        for row in range(len(prompts)):
+            bad = (~agree[:, row]).nonzero()
+            if len(bad):
+                t = int(bad[0])
+                lg = (got[0] if t == 0 else got[1][t - 1])[row].float()
+                top = torch.topk(lg, 2).values
+                margins.append((row, t, (top[0] - top[1]).item()))
+        log(f"model {what} kernels vs plain, {len(prompts)} prompts of "
+            f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+            f"{FRONTEND_NEW} greedy steps: prefill rel_err={rel_pre:.3e} "
+            f"decode rel_err={rel_dec:.3e}; tokens the plain versions "
+            f"choose alike {int(agree.sum())} of {agree.numel()}, first "
+            f"flips (row, step, kernels' top-2 margin): {margins}; launches "
+            f"a prefill {counts['prefill'][0]}, a decode step "
+            f"{counts['decode'][0]}")
+        assert max(rel_pre, rel_dec) <= MODEL_TOL["bfloat16"], \
+            (rel_pre, rel_dec)
+        assert torch.isfinite(got[1]).all()
+        step = statistics.median(secs)
+        lap(f"{arch} prompts, kernels and plain")
+
+        with torch.inference_mode():
+            toks = torch.from_numpy(prompts[0][None]).to(device)
+            batch = {"tokens": toks, "embeds": embeds[:1]}
+            ops.reset_launch_counts()
+            logits = model.forward(params, batch)
+            fwd_counts = ops.launch_counts()
+            train_logits, _ = model.forward_train(params, batch)
+        rel = _rel_err(torch, logits, train_logits)
+        log(f"model {what}: Model.forward (launches {fwd_counts}) against "
+            f"forward_train (q-chunked, no kernel) over a "
+            f"{len(prompts[0])}-token prompt: rel_err {rel:.3e}")
+        assert rel <= MODEL_TOL["bfloat16"], rel
+        assert fwd_counts == {k: want_pre.get(k, 0) for k in fwd_counts}
+        del logits, train_logits
+        log(f"{what}: median decode step over the batch of "
+            f"{len(prompts)}: {1e3 * step:.2f} ms (first "
+            f"{1e3 * secs[0]:.2f}, {smi}); memory high-water (torch.cuda."
+            f"max_memory_allocated): drawing the weights "
+            f"{init_peak / 2**30:.2f} GiB, the prompts, decode and "
+            f"forwards {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model, params, embeds, got, plain
+        lap(f"{arch} forward against forward_train")
+
+        rel_pre, rel_dec = frontend_card_vs_cpu(torch, device, Model, fe,
+                                                arch)
+        log(f"model {arch} reduced float32, card (kernels) vs CPU (plain "
+            f"versions), 2 prompts and 4 greedy tokens: prefill rel_err="
+            f"{rel_pre:.3e} decode rel_err={rel_dec:.3e}, tokens identical")
+        assert max(rel_pre, rel_dec) <= MODEL_TOL["float32"], \
+            (rel_pre, rel_dec)
+        lap(f"{arch} reduced float32 card vs CPU")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- MoE, mamba
 
 
@@ -3438,9 +3776,14 @@ TRAIN_GRAD_REL = 1e-4
 # (4.5 B parameters, 16 experts) puts the router term in the loss;
 # jamba-1.5-large-398b's first layer (a mamba layer and its dense MLP,
 # 2.1 B parameters) runs ``ssm_scan`` and ``ssm_scan_bwd`` at d_inner
-# 16,384 over 2,048 steps
+# 16,384 over 2,048 steps; whisper-tiny (4 + 4 layers, its encoder over
+# 1,500 frames a row) and paligemma-3b (18 layers, 2.5 B parameters, 256
+# patches before each row's 128 tokens) uncut, each step's frontend
+# embeddings drawn from its own seed, as the CLI draws them
 TRAIN_CUTS = (("gemma3-4b", 6, 2, 2048, 10), ("dbrx-132b", 1, 8, 128, 10),
-              ("jamba-1.5-large-398b", 1, 2, 2048, 10))
+              ("jamba-1.5-large-398b", 1, 2, 2048, 10),
+              ("whisper-tiny", 4, 8, 128, 10),
+              ("paligemma-3b", 18, 8, 128, 10))
 # rwkv6-1.6b uncut through the CLI at its defaults but 20 steps (batch 8
 # x seq 128): 24 rwkv6 layers, each a remat period of its own
 RWKV_TRAIN_ARGV = ["--arch", "rwkv6-1.6b", "--no-reduced", "--steps", "20"]
@@ -3489,9 +3832,11 @@ def card_vs_cpu_gradients(torch, device, ops, cfg, label, seq,
     zeroes drawn) and the token stream's first batch of 2 rows: the loss
     within ``TRAIN_LOSS_ATOL`` and every gradient leaf within
     ``TRAIN_GRAD_REL`` x its max|g|; beside it, a reading of each run's
-    leaves against the same weights in a float64 model on the CPU.  ->
-    the card run's launch counts."""
+    leaves against the same weights in a float64 model on the CPU (a
+    frontend config: with seeded embeddings of 2 rows, float64 in the
+    float64 model).  -> the card run's launch counts."""
     from repro_torch.data.tokens import make_stream
+    from repro_torch.models import frontend as fe
     from repro_torch.models.api import Model
     from repro_torch.optim.optimizers import tree_map
 
@@ -3502,6 +3847,9 @@ def card_vs_cpu_gradients(torch, device, ops, cfg, label, seq,
     card_model = Model(cfg, device=device)
     card_params = tree_map(lambda t: t.to(device), cpu_params)
     nb = make_stream(cfg.vocab_size, seq, 2, 0).batch(0)
+    if cfg.frontend != "none":
+        nb["embeds"] = fe.fake_embeds(cfg, 2, cfg.dtype, seed=0,
+                                      device="cpu").numpy()
     secs = [time.perf_counter()]
     ops.reset_launch_counts()
     got = _loss_and_grads(torch, card_model, card_params,
@@ -3520,20 +3868,29 @@ def card_vs_cpu_gradients(torch, device, ops, cfg, label, seq,
         torch, Model(dataclasses.replace(cfg, dtype="float64"),
                      device="cpu"),
         tree_map(lambda t: t.double(), cpu_params),
-        {k: torch.from_numpy(v) for k, v in nb.items()})
+        {k: (torch.from_numpy(v).double() if k == "embeds"
+             else torch.from_numpy(v)) for k, v in nb.items()})
     secs.append(time.perf_counter())
 
-    def rel(a, b):
+    # a leaf whose float64 gradient is 0 to 1e-9 of the largest leaf's
+    # (whisper's self-attention ``bk``: it shifts every score of a query
+    # alike) holds rounding noise on both sides: it is read against the
+    # largest leaf's max|g|, every other leaf against its own
+    top = max(e.abs().max().item() for e in exact[2])
+    null = [e.abs().max().item() <= 1e-9 * top for e in exact[2]]
+
+    def rel(a, b, i):
         return (a.cpu().double() - b.double()).abs().max().item() / max(
-            b.abs().max().item(), 1e-30)
+            top if null[i] else b.abs().max().item(), 1e-30)
 
     loss_diff = abs(float(got[0]) - float(want[0]))
-    worst, leaf = max((rel(g, w), i)
+    worst, leaf = max((rel(g, w, i), i)
                       for i, (g, w) in enumerate(zip(got[2], want[2])))
-    cpu_err, cpu_leaf = max((rel(g, e), i)
+    cpu_err, cpu_leaf = max((rel(g, e, i), i)
                             for i, (g, e) in enumerate(zip(want[2],
                                                            exact[2])))
-    card_err = max(rel(g, e) for g, e in zip(got[2], exact[2]))
+    card_err = max(rel(g, e, i)
+                   for i, (g, e) in enumerate(zip(got[2], exact[2])))
     paths = _leaf_paths(cpu_params)
     log(f"train {label} float32, card vs CPU: loss {float(got[0]):.6f} vs "
         f"{float(want[0]):.6f} (|diff| {loss_diff:.2e}), worst gradient "
@@ -3544,9 +3901,9 @@ def card_vs_cpu_gradients(torch, device, ops, cfg, label, seq,
         f"reading): CPU float32 loss |diff| "
         f"{abs(float(want[0]) - float(exact[0])):.2e}, worst leaf "
         f"{cpu_err:.2e} ({paths[cpu_leaf]}), {paths[leaf]} "
-        f"{rel(want[2][leaf], exact[2][leaf]):.2e}; card worst leaf "
+        f"{rel(want[2][leaf], exact[2][leaf], leaf):.2e}; card worst leaf "
         f"{card_err:.2e}, {paths[leaf]} "
-        f"{rel(got[2][leaf], exact[2][leaf]):.2e}; seconds: card "
+        f"{rel(got[2][leaf], exact[2][leaf], leaf):.2e}; seconds: card "
         f"{secs[1] - secs[0]:.1f}, CPU float32 {secs[2] - secs[1]:.1f}, CPU "
         f"float64 {secs[3] - secs[2]:.1f}")
     assert loss_diff <= TRAIN_LOSS_ATOL, loss_diff
@@ -3572,8 +3929,10 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
     launches exact, LEARNING); the card against the CPU at rwkv6's 2
     layers and jamba's reduced config (dropless) in float32; then
     gemma3-4b, dbrx-132b and jamba-1.5-large-398b at their published
-    widths cut in depth (``TRAIN_CUTS``), a few steps each, losses finite
-    and falling, launches exact.  -> the launches of the training runs
+    widths cut in depth, whisper-tiny and paligemma-3b uncut
+    (``TRAIN_CUTS``), a few steps each, losses finite and falling,
+    launches exact; the card against the CPU at whisper's and
+    paligemma's reduced configs in float32.  -> the launches of the training runs
     (the CLI's and the cuts').  Each sub-step's seconds are logged."""
     import os
     import statistics
@@ -3745,7 +4104,11 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
     for small, label, seq in (
             (dataclasses.replace(cfg, num_layers=2, dtype="float32"),
              "rwkv6-1.6b 2 layers", args.seq),
-            (jamba, "jamba-1.5-large-398b reduced (dropless)", args.seq)):
+            (jamba, "jamba-1.5-large-398b reduced (dropless)", args.seq),
+            (get_config("whisper-tiny").reduced(), "whisper-tiny reduced",
+             args.seq),
+            (get_config("paligemma-3b").reduced(), "paligemma-3b reduced",
+             args.seq)):
         counts = card_vs_cpu_gradients(torch, device, ops, small, label, seq,
                                        perturb=True)
         want = train_launches(small, 1)
@@ -3764,8 +4127,13 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         ls = res["losses"]
-        log(f"train {arch} bf16 at its published widths, cut to {layers} of "
-            f"{full.num_layers} layers ({', '.join(cut.kinds_for_layers)}), "
+        depth = (f"uncut ({layers} layers"
+                 + (f" + {full.encoder_layers} encoder layers"
+                    if full.is_encoder_decoder else "") + ")"
+                 if layers == full.num_layers else
+                 f"cut to {layers} of {full.num_layers} layers "
+                 f"({', '.join(cut.kinds_for_layers)})")
+        log(f"train {arch} bf16 at its published widths, {depth}, "
             f"batch {b} x seq {s}, {steps} steps: median step "
             f"{1e3 * statistics.median(res['step_seconds']):.1f} ms, memory "
             f"high-water {peak:.2f} GiB, loss {ls[0]:.4f} -> {ls[-1]:.4f}, "
@@ -4569,6 +4937,64 @@ def kernel_times(torch, device, ops, ref):
                 kernel="flash_attention", window=window,
                 what=f"one causal row of S={s}")
 
+    # whisper-tiny's and paligemma-3b's shapes (phase 2's): the encoder,
+    # the cross-attention and the prefix-LM; SDPA with the prefix mask as
+    # a boolean mask, its backend named; the slot decode of both
+    fgen = torch.Generator(device=device).manual_seed(12)
+    for name, shape in FRONTEND_FA_SHAPES.items():
+        b, h, kv, sq, sk, hd, causal, prefix = shape
+        q, k, v = frontend_fa_case(torch, fgen, device, dt, shape)
+        i, j = (torch.arange(n, device=device) for n in (sq, sk))
+        seen = ((j[None] <= i[:, None]) | (j[None] < prefix) if causal
+                else torch.ones(sq, sk, dtype=torch.bool, device=device))
+        key = f"flash_attention_fe_{name}"
+        split_fns[key] = (lambda q=q, k=k, v=v, c=causal, p=prefix:
+                          ops.flash_attention(q, k, v, causal=c, prefix=p))
+        calls[key] = (split_fns[key],
+                      (lambda q=q, k=k, v=v, mask=seen[None, None]:
+                       sdpa(torch, q, k, v, mask)) if causal else
+                      (lambda q=q, k=k, v=v: sdpa(torch, q, k, v)))
+        out[key] = dict(
+            ms=time_ms(torch, split_fns[key]),
+            plain_ms=time_ms(torch, lambda q=q, k=k, v=v, c=causal,
+                             p=prefix: ref.flash_attention_ref(
+                                 q, k, v, causal=c, prefix=p)),
+            library_ms=time_ms(torch, calls[key][1]),
+            bytes=(2 * q.numel() + k.numel() + v.numel()) * elt,
+            flops=4 * hd * h * b * int(seen.sum()),
+            split=fa_mod.plan(b, h, kv, sq, sk, causal, 0, sms,
+                              prefix).split,
+            backend=(sdpa_backend(torch, q, k, v, seen[None, None])
+                     if causal else sdpa_backend(torch, q, k, v)),
+            kernel="flash_attention", what=f"{name} {shape[:6]} "
+            f"causal={causal} prefix={prefix}")
+    for name, shape in FRONTEND_PP_SHAPES.items():
+        q, k, v, kpos, qpos = frontend_pp_case(torch, fgen, device, dt,
+                                               shape)
+        b, _, h, hd = q.shape
+        kv = k.shape[2]
+        vis = prefill_visible(torch, kpos, qpos, 0)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        key = f"paged_prefill_fe_{name}"
+        split_fns[key] = (lambda q=q, k=k, v=v, kpos=kpos, qpos=qpos:
+                          ops.paged_prefill(q, k, v, kpos, qpos))
+        calls[key] = (split_fns[key],
+                      lambda qt=qt, kt=kt, vt=vt, mask=vis[:, None]:
+                      sdpa(torch, qt, kt, vt, mask))
+        out[key] = dict(
+            ms=time_ms(torch, split_fns[key]),
+            plain_ms=time_ms(torch, lambda q=q, k=k, v=v, kpos=kpos,
+                             qpos=qpos: ref.paged_prefill_ref(
+                                 q, k, v, kpos, qpos)),
+            library_ms=time_ms(torch, calls[key][1]),
+            bytes=(2 * q.numel() * elt + kpos.numel() * 4
+                   + qpos.numel() * 4
+                   + int(vis.any(1).sum()) * 2 * kv * hd * elt),
+            flops=4 * hd * h * int(vis.sum()),
+            split=pp_mod.plan(b, 1, k.shape[1], h, kv, sms).split,
+            backend=sdpa_backend(torch, qt, kt, vt, vis[:, None]),
+            kernel="paged_prefill", what=f"{name} slot decode {shape}")
+
     # the bf16 attention shapes whose key ranges the planners split, timed
     # again with every range whole (one piece, no combine)
     for key, fn in split_fns.items():
@@ -4614,16 +5040,15 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def int8_ptxas(build):
-    """``ptxas -v`` of the int8 KV cache's instantiations (the pools'
-    element type ``signed char``, ``paged_prefill``'s kQuant ones) ->
-    [(function, its "Used ..." line, its spill line)], names demangled by
-    ``cu++filt`` where the toolkit has it."""
+def ptxas_entries(build, libs):
+    """``ptxas -v`` of the libraries ``libs`` -> [(function, its "Used
+    ..." line, its spill line)], names demangled by ``cu++filt`` where the
+    toolkit has it."""
     import re
     import shutil
 
     entries = []
-    for lib in ("paged_attention_int8", "paged_prefill_int8"):
+    for lib in libs:
         text = (build.BUILD_DIR / f"{lib}.log").read_text().splitlines()
         fn = spill = None
         for line in text:
@@ -4642,9 +5067,31 @@ def int8_ptxas(build):
         names = res.stdout.splitlines()
         if len(names) == len(entries):
             entries = [(n, u, s) for n, (_, u, s) in zip(names, entries)]
-    return [e for e in entries
+    return entries
+
+
+def int8_ptxas(build):
+    """``ptxas -v`` of the int8 KV cache's instantiations (the pools'
+    element type ``signed char``, ``paged_prefill``'s kQuant ones)."""
+    return [e for e in ptxas_entries(build, ("paged_attention_int8",
+                                             "paged_prefill_int8"))
             if "signed char" in e[0] or "(bool)1>" in e[0]
             or ", true>" in e[0]]
+
+
+def prefix_ptxas(build):
+    """``ptxas -v`` of ``flash_attention``'s prefix-LM instantiations (the
+    last template argument, kPrefix, true) and of the bf16 tile's others
+    at head_dim 256, beside them."""
+    def keep(name):
+        if "<" not in name:                 # not demangled
+            return "Lb1EEEv" in name or "ILi256E" in name
+        args = name[name.index("<") + 1:name.rindex(">")].split(", ")
+        return args[-1] in ("(bool)1", "true") or args[0] in ("(int)256",
+                                                               "256")
+
+    return [e for e in ptxas_entries(build, ("flash_attention",))
+            if keep(e[0])]
 
 
 def main() -> int:
@@ -4698,6 +5145,8 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     for fn, used, spill in int8_ptxas(build):
         log(f"  ptxas int8 instantiation {fn}: {used}; {spill}")
+    for fn, used, spill in prefix_ptxas(build):
+        log(f"  ptxas flash_attention {fn}: {used}; {spill}")
     from repro_torch.kernels import paged_attention as pa_mod
     from repro_torch.kernels import paged_prefill as pp_mod
 
@@ -4715,6 +5164,8 @@ def main() -> int:
     # 2. kernel parity, then at the dense configs' heads
     errs = kernel_parity(torch, device, ops, ref)
     for k, err in dense_head_parity(torch, device, ops, ref).items():
+        errs[k] = max(errs[k], err)
+    for k, err in frontend_kernel_parity(torch, device, ops, ref).items():
         errs[k] = max(errs[k], err)
     errs.update(int8_kernel_parity(torch, device, ops, ref))
     errs["ssm_scan"] = ssm_parity(torch, device, ops, ref)
@@ -4800,10 +5251,12 @@ def main() -> int:
         launches[k] += n
     lap("engines: paged fusion on and off, slot")
 
+    # the profiles take PROFILE_NEW tokens a prompt: the profiler's
+    # fold-up, not the run, costs most of their time
     args.decode_fusion = "on"
     engine = serve.build_engine(args, model, params)
     secs, busy, rows = profile_engine(
-        torch, lambda: run_engine(engine, prompts, args.max_new, sync)[1])
+        torch, lambda: run_engine(engine, prompts, PROFILE_NEW, sync)[1])
     ours = sum(us for us, _, key in rows if "paged_" in key) / 1e6
     log(f"profile engine bf16 28 layers decode_fusion=on: wall {secs:.3f}s "
         f"under the profiler, device busy {busy:.3f}s "
@@ -4819,7 +5272,7 @@ def main() -> int:
     args.decode_fusion = "off"
     engine = serve.build_engine(args, model, params)
     secs, busy, rows = profile_engine(
-        torch, lambda: run_engine(engine, prompts, args.max_new, sync)[1])
+        torch, lambda: run_engine(engine, prompts, PROFILE_NEW, sync)[1])
     decode = [r for r in rows if "paged_attention_kernel" in r[2]]
     assert decode, "the fusion-off decode steps must run paged_attention"
     log(f"profile engine bf16 28 layers decode_fusion=off: wall {secs:.3f}s "
@@ -4905,6 +5358,12 @@ def main() -> int:
         launches[k] += n
 
     phase_done("4f")
+
+    # 4h. whisper-tiny and paligemma-3b: the encoder-decoder and prefix-LM
+    for k, n in frontend_phase(torch, device, ops, ref, Model, smi).items():
+        launches[k] += n
+
+    phase_done("4h")
 
     # 5. rwkv6-1.6b through the slot and paged engines
     launches["rwkv6_scan"] += rwkv6_phase(torch, device, ops, ref, serve,
@@ -4999,6 +5458,19 @@ def main() -> int:
             split += f" (whole ranges: {t['whole_ms']:.4f} ms)"
         log(f"time {t['kernel']} bf16 at {t['what']} at gemma3-4b's heads "
             f"(8/4 of 256), window {t['window']}: {t['ms']:.4f} ms "
+            f"(graph-replayed {t['graph_ms']:.4f}), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms "
+            f"(graph-replayed {t['library_graph_ms']:.4f}; backend "
+            f"{t['backend']}), kernel / sdpa "
+            f"{t['ms'] / t['library_ms']:.2f}{split}")
+    for key, t in times.items():
+        if "_fe_" not in key:
+            continue
+        split = f", key ranges split={t['split']}"
+        if "whole_ms" in t:
+            split += f" (whole ranges: {t['whole_ms']:.4f} ms)"
+        log(f"time {t['kernel']} bf16 at {t['what']}: {t['ms']:.4f} ms "
             f"(graph-replayed {t['graph_ms']:.4f}), bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms "

@@ -6,7 +6,8 @@ in turns.
     python3 conv2d_compare.py [--kernel KERNEL] [--need SUBSET ...] TREE [TREE ...]
 
 KERNEL: conv2d (the default), conv2d_wgrad, ssm_scan, ssm_scan_bwd,
-rwkv6_scan_bwd, paged_prefill_int8 or paged_attention_int8.  Each TREE is the root of a checkout holding
+rwkv6_scan_bwd, paged_prefill_int8, paged_attention_int8 or
+attention_bits.  Each TREE is the root of a checkout holding
 ``src/repro_torch`` (for another commit: ``git archive <commit> | tar -x
 -C build/<dir>``).  The trees run in the order given and then in reverse
 (parent, change, change, parent), each in a child process of its own,
@@ -45,7 +46,15 @@ at phase 7's four int8 shapes (a chunk of S = 256 over an int8 prefix of
 512, fused decode, slot decode, spec verify), each held bit-equal to the
 bf16 kernel over the concatenated dequantized keys and timed beside it
 and beside SDPA on those keys; the outputs' SHA-256 is printed, the same
-in every run where the trees' kernels give the same bits.  The full
+in every run where the trees' kernels give the same bits.
+``attention_bits``: ``flash_attention``, ``paged_prefill`` and
+``paged_prefill_int8`` (the kernels over the shared bf16 tile,
+``csrc/attention_mma.cuh``) at the shapes ``chip_smoke.py`` checks
+without a prefix (phase 2's, the draft's, the dense configs' and
+gemma3-4b's heads, windows 0 and 64 / 1,024), bf16 and float32: each
+output's SHA-256, which must be the same in every run, and each tree's
+``ptxas -v`` registers and spills of those kernels' instantiations, a
+prefix instantiation's (``kPrefix``, that tree's own) left out.  The full
 launches are also split by kernel under ``torch.profiler`` (device time
 a call).  Prints a line per run, the card's name and power limit, and a
 JSON object of every reading last.  Needs one NVIDIA GPU.
@@ -61,7 +70,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 BATCHES = {"conv2d": (1, 32, 2000), "conv2d_wgrad": (64, 320, 2000),
            "ssm_scan": (), "ssm_scan_bwd": (), "rwkv6_scan_bwd": (),
-           "paged_prefill_int8": (), "paged_attention_int8": ()}
+           "paged_prefill_int8": (), "paged_attention_int8": (),
+           "attention_bits": ()}
 GRADS = {"rwkv6_scan_bwd": ("dr", "dk", "dv", "dw", "du", "ds0"),
          "ssm_scan_bwd": ("ddt", "dbm", "dcm", "dx", "da", "dh0")}
 
@@ -280,6 +290,112 @@ def paged_int8_child(torch, cs, dev) -> dict:
     return res
 
 
+def ptxas_table(tree: Path, libs) -> dict:
+    """``ptxas -v`` of the tree's build logs -> {instantiation: "regs /
+    spill stores"}, an instantiation named by its kernel and template
+    arguments; a flash kernel's trailing ``kPrefix`` argument, where the
+    tree has one, is dropped when false (so trees with and without it
+    name their other instantiations alike) and its true instantiations
+    are left out."""
+    import re
+
+    # flash kernels: template arguments without / with kPrefix
+    arity = {"flash_attention_mma_kernel": 2,
+             "flash_attention_combine_kernel": 1,
+             "flash_attention_kernel": 1}
+    table = {}
+    for lib in libs:
+        fn = spill = None
+        for line in (tree / "build" / "kernels" / f"{lib}.log").read_text() \
+                .splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn, spill = m.group(1), None
+            elif fn and "spill stores" in line:
+                spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+            elif fn and "Used" in line and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                kind = re.match(r"_ZN11repro_torch\d+(\w+?)I", fn).group(1)
+                args = re.findall(r"L[ib](\d+)E",
+                                  fn[:fn.index("EEEv") + 3])
+                fn = None
+                if kind in arity and len(args) == arity[kind] + 1:
+                    if args.pop() == "1":
+                        continue
+                table[f"{lib}:{kind}<{','.join(args)}>"] = \
+                    f"{regs} / {spill}"
+    return table
+
+
+def attention_bits_child(torch, cs, dev) -> dict:
+    """The tree's bf16-tile attention kernels at the shapes phase 2 and
+    phase 4e check without a prefix, both dtypes -> {"digests": {case:
+    SHA-256 of the output}, "ptxas": ptxas_table}."""
+    from repro_torch.kernels import ops
+
+    digests = {}
+
+    def keep(name, out):
+        torch.cuda.synchronize()
+        raw = out.view(torch.int16) if out.dtype == torch.bfloat16 else out
+        digests[name] = hashlib.sha256(
+            raw.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        spec_gen = torch.Generator(device=dev).manual_seed(4)
+        for sq, sk, causal, window in ((37, 37, True, 0), (37, 37, True, 64),
+                                       (512, 512, True, 0),
+                                       (512, 512, True, 64),
+                                       (2048, 2048, True, 0),
+                                       (37, 100, False, 0)):
+            q, k, v = cs.flash_case(torch, gen, dev, dt, sq=sq, sk=sk)
+            keep(f"flash {dtype_name} {sq}x{sk} c{int(causal)} w{window}",
+                 ops.flash_attention(q, k, v, causal=causal, window=window))
+        for s, valid in cs.DRAFT_SHAPES:
+            q, k, v = cs.draft_case(torch, spec_gen, dev, dt, s, valid)
+            keep(f"flash {dtype_name} draft {s}", ops.flash_attention(q, k, v))
+        for window in (0, 64):
+            for name, args in (
+                    ("chunk", cs.prefill_case(torch, gen, dev, dt, b=4,
+                                              s=256)),
+                    ("fused", cs.prefill_case(torch, gen, dev, dt, b=8,
+                                              s=1)),
+                    ("slot", cs.slot_decode_case(torch, gen, dev, dt)),
+                    ("verify", cs.verify_case(torch, spec_gen, dev, dt))):
+                keep(f"paged_prefill {dtype_name} {name} w{window}",
+                     ops.paged_prefill(*args, window=window))
+                for lp in cs.INT8_PREFIXES[:1] if name == "chunk" else ():
+                    keep(f"paged_prefill_int8 {dtype_name} {name} w{window}",
+                         ops.paged_prefill_int8(*cs.int8_prefill_args(
+                             args, lp), window=window))
+        hgen = torch.Generator(device=dev).manual_seed(7)
+        for arch, (h, kv) in cs.DENSE_HEADS.items():
+            q, k, v = cs.flash_case(torch, hgen, dev, dt, h=h, kv=kv, sq=512)
+            keep(f"flash {dtype_name} {arch}", ops.flash_attention(q, k, v))
+            args = cs.prefill_case(torch, hgen, dev, dt, b=4, s=256, h=h,
+                                   kv=kv)
+            keep(f"paged_prefill {dtype_name} {arch}",
+                 ops.paged_prefill(*args))
+        ggen = torch.Generator(device=dev).manual_seed(11)
+        for window in (0, cs.GEMMA3_WINDOW):
+            for what, kw in cs.GEMMA3_PP_SHAPES:
+                args = cs.prefill_case(torch, ggen, dev, dt, **kw,
+                                       **cs.GEMMA3_HEADS)
+                keep(f"paged_prefill {dtype_name} hd256 {what} w{window}",
+                     ops.paged_prefill(*args, window=window))
+            for s in cs.GEMMA3_FA_SHAPES:
+                q, k, v = cs.flash_case(torch, ggen, dev, dt, sq=s,
+                                        **cs.GEMMA3_HEADS)
+                keep(f"flash {dtype_name} hd256 {s} w{window}",
+                     ops.flash_attention(q, k, v, window=window))
+    return {"digests": digests,
+            "ptxas": ptxas_table(Path(ops.__file__).parents[3],
+                                 ("flash_attention", "paged_prefill",
+                                  "paged_prefill_int8"))}
+
+
 def child(tree: Path, kernel: str, needs=()) -> dict:
     import torch
     import torch.nn.functional as F
@@ -311,6 +427,8 @@ def child(tree: Path, kernel: str, needs=()) -> dict:
         return {**res, **int8_child(torch, cs, dev)}
     if kernel == "paged_attention_int8":
         return {**res, **paged_int8_child(torch, cs, dev)}
+    if kernel == "attention_bits":
+        return {**res, **attention_bits_child(torch, cs, dev)}
     for b in BATCHES[kernel]:
         x = torch.rand(b, 28, 28, 1, generator=gen, device=dev)
         xn = x.permute(0, 3, 1, 2)
@@ -375,13 +493,19 @@ def main(argv) -> int:
             if not isinstance(v, dict))
             + "  (ms, event / graph-replayed)", flush=True)
         for k, v in res.items():
-            if isinstance(v, dict) and k != "digests":
+            if isinstance(v, dict) and k not in ("digests", "ptxas"):
                 print(f"  {k} (profiler, ms a call): " + ", ".join(
                     f"{n} {t:.4f}" for n, t in v.items()), flush=True)
     digests = [r.get("digests") for r in runs]
     if digests[0]:
         print("outputs' SHA-256 the same in every run: "
               + str(all(d == digests[0] for d in digests)), digests[0])
+    tables = [r.get("ptxas") for r in runs]
+    if tables[0]:
+        for r in runs[:len(trees)]:
+            print(f"ptxas {r['tree']}: {r['ptxas']}")
+        print("ptxas registers / spill stores the same in every tree: "
+              + str(all(t == tables[0] for t in tables)))
     smi = cs.nvidia_smi()
     print(smi)
     print(json.dumps({"card": smi, "kernel": kernel, "runs": runs}))

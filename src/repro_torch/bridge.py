@@ -2,9 +2,11 @@
 
 ``params_from_jax`` takes the reference model's parameter tree with numpy
 leaves (``jax.tree.map(np.asarray, Model(cfg).init(key))``) and returns
-the same tree — ``embed``, ``stack/periods/slot{j}`` with the leading
-``n_periods`` axis, ``stack/rem/layer{j}``, ``final_norm`` — with torch
-tensors on ``device``.  The digit CNN's tree is flat: ``conv_w`` (3,3,1,32)
+the same tree — ``embed`` (with ``positions`` for learned positions),
+``stack/periods/slot{j}`` with the leading ``n_periods`` axis,
+``stack/rem/layer{j}``, or whisper's ``encdec`` (``encoder/layer{i}``,
+``enc_pos``, ``enc_norm``, ``decoder/layer{i}``), paligemma's
+``projector``, ``final_norm`` — with torch tensors on ``device``.  The digit CNN's tree is flat: ``conv_w`` (3,3,1,32)
 HWIO, ``conv_b``, ``dense1_w`` (5408,128) in the reference's (h, w, c)
 flatten order, ``dense1_b``, ``dense2_w``, ``dense2_b``
 (``jax.tree.map(np.asarray, init_params(cnn_schema(cfg), key,

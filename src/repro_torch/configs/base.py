@@ -12,7 +12,9 @@ import importlib
 from typing import Tuple
 
 _MODULE_FOR = {
+    "whisper-tiny": "whisper_tiny",
     "qwen3-0.6b": "qwen3_0_6b",
+    "paligemma-3b": "paligemma_3b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen1.5-110b": "qwen1_5_110b",
     "rwkv6-1.6b": "rwkv6_1_6b",

@@ -63,6 +63,12 @@
 // the exponent bits of 2^23, a byte permute and a subtraction, no I2F), so
 // a launch equals, bit for bit, the bf16 launch over the concatenated
 // dequantized keys.
+//
+// Prefix-LM (kPrefix, flash only: paligemma's image patches): every query
+// sees the first p.prefix keys as well as its causal ones.  Query i's
+// causal bound becomes max(i, prefix - 1), through query_pos, so the key
+// ranges, the full-tile test and the mask are the causal ones over those
+// positions; a separate instantiation, so the others compile unchanged.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -112,11 +118,13 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
   float* part_acc;   // [B*KV][n_pieces][TQ*g][hd] when split
   float2* part_ml;   // [B*KV][n_pieces][TQ*g] (m, l) when split
+  int prefix;        // kPrefix: keys [0, prefix) seen by every query
 };
 
-// Keys query tile i can see, [lo, hi): flash's causal and window bounds,
-// or every lane for the paged kernel.  attention_split.py mirrors this.
-template <bool kPaged>
+// Keys query tile i can see, [lo, hi): flash's causal and window bounds
+// (kPrefix: a causal tile's end at least the prefix), or every lane for
+// the paged kernel.  attention_split.py mirrors this.
+template <bool kPaged, bool kPrefix = false>
 __host__ __device__ __forceinline__ void key_range(const Params& p, int i,
                                                    int& lo, int& hi) {
   if (kPaged) {
@@ -124,16 +132,18 @@ __host__ __device__ __forceinline__ void key_range(const Params& p, int i,
     hi = p.Sk;
     return;
   }
-  const int s0 = i * p.TQ, s_end = s0 + p.TQ < p.Sq ? s0 + p.TQ : p.Sq;
+  const int s0 = i * p.TQ;
+  int s_end = s0 + p.TQ < p.Sq ? s0 + p.TQ : p.Sq;
+  if (kPrefix && p.prefix > s_end) s_end = p.prefix;
   lo = p.window && s0 - p.window + 1 > 0 ? s0 - p.window + 1 : 0;
   hi = p.causal && s_end < p.Sk ? s_end : p.Sk;
 }
 
-template <bool kPaged>
+template <bool kPaged, bool kPrefix = false>
 __host__ __device__ __forceinline__ int pieces_of(const Params& p, int i,
                                                   int& tlo, int& thi) {
   int lo, hi;
-  key_range<kPaged>(p, i, lo, hi);
+  key_range<kPaged, kPrefix>(p, i, lo, hi);
   tlo = lo / kTK;
   thi = hi > lo ? (hi + kTK - 1) / kTK : tlo;
   const int n = (thi - tlo + p.C - 1) / p.C;
@@ -142,16 +152,16 @@ __host__ __device__ __forceinline__ int pieces_of(const Params& p, int i,
 
 // Linear piece index x -> (query tile, piece within it, its piece count),
 // walking query tiles from the last.
-template <bool kPaged>
+template <bool kPaged, bool kPrefix = false>
 __device__ __forceinline__ void locate(const Params& p, int x, int& qt,
                                        int& j, int& n) {
   int tlo, thi;
   for (qt = p.n_qtiles - 1; qt > 0; --qt) {
-    n = pieces_of<kPaged>(p, qt, tlo, thi);
+    n = pieces_of<kPaged, kPrefix>(p, qt, tlo, thi);
     if (x < n) break;
     x -= n;
   }
-  n = pieces_of<kPaged>(p, qt, tlo, thi);
+  n = pieces_of<kPaged, kPrefix>(p, qt, tlo, thi);
   j = x;
 }
 
@@ -298,9 +308,11 @@ __device__ __forceinline__ float row_reduce(const float (&s)[NB][4], int i) {
 // p.kpos / p.qpos and tiles no query of the CTA can see are skipped;
 // otherwise they are the key and query indices.
 template <int HD, bool kPaged, bool kCausal, bool kSplitP, bool kWarpKeys,
-          bool kQuant = false>
+          bool kQuant = false, bool kPrefix = false>
 __device__ __forceinline__ void attend_piece(const Params& p) {
   static_assert(!kQuant || kPaged, "an int8 prefix is the paged kernel's");
+  static_assert(!kPrefix || (kCausal && !kPaged),
+                "a prefix-LM prefix is flash's causal launch's");
   static_assert(HD % 16 == 0 && HD <= 256, "head_dim: a multiple of 16");
   static_assert(kRows == kTK, "a Q tile is laid out as a K tile");
   constexpr bool kQSmem = q_in_smem(HD);
@@ -334,12 +346,12 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   const int b = (blockIdx.x % bkv) / p.KV, kvh = blockIdx.x % p.KV;
   const int g = p.g;
   int qt, piece, npieces;
-  locate<kPaged>(p, x, qt, piece, npieces);
+  locate<kPaged, kPrefix>(p, x, qt, piece, npieces);
   const int s0 = qt * p.TQ, s_end = min(s0 + p.TQ, p.Sq);
   const int R = p.TQ * g;
   int klo, khi, tlo, thi;
-  key_range<kPaged>(p, qt, klo, khi);
-  pieces_of<kPaged>(p, qt, tlo, thi);
+  key_range<kPaged, kPrefix>(p, qt, klo, khi);
+  pieces_of<kPaged, kPrefix>(p, qt, tlo, thi);
   const int ta = tlo + piece * p.C, tb = min(ta + p.C, thi);
   const int key_lo = max(klo, ta * kTK), key_hi = min(khi, tb * kTK);
 
@@ -347,8 +359,10 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   const int rbase = kWarpKeys ? 0 : warp * 16;  // the warp's first row
   const int kw = kWarpKeys ? warp * 16 : 0;     // the warp's first key
 
+  // kPrefix: a query before the prefix's end sees keys [0, prefix)
   auto query_pos = [&](int s) -> int {
-    return kPaged ? __ldg(p.qpos + (size_t)b * p.Sq + s) : s;
+    if (kPaged) return __ldg(p.qpos + (size_t)b * p.Sq + s);
+    return kPrefix ? max(s, p.prefix - 1) : s;
   };
   // where key `key`'s position lives: the int8 prefix's or the chunk's
   const int lp = kQuant ? p.Lp : 0;
@@ -811,26 +825,26 @@ __host__ __device__ constexpr int combine_blocks(int hd) {
 }
 
 // [lo, hi): the query tiles with several pieces (lo = hi: none)
-template <bool kPaged>
+template <bool kPaged, bool kPrefix = false>
 inline void split_tiles(const Params& p, int& lo, int& hi) {
   lo = hi = 0;
   for (int i = 0, tlo, thi; i < p.n_qtiles; ++i)
-    if (pieces_of<kPaged>(p, i, tlo, thi) > 1) {
+    if (pieces_of<kPaged, kPrefix>(p, i, tlo, thi) > 1) {
       if (lo == hi) lo = i;
       hi = i + 1;
     }
 }
 
-template <int HD, bool kPaged>
+template <int HD, bool kPaged, bool kPrefix = false>
 __device__ __forceinline__ void combine_pieces(const Params& p) {
   constexpr int kBlocks = combine_blocks(HD);
   const int qt = p.combine_lo + blockIdx.x / kBlocks, bk = blockIdx.y;
   const int b = bk / p.KV, kvh = bk % p.KV, g = p.g;
   int tlo, thi, first = 0;
-  const int n = pieces_of<kPaged>(p, qt, tlo, thi);
+  const int n = pieces_of<kPaged, kPrefix>(p, qt, tlo, thi);
   if (n == 1) return;
   for (int i = p.n_qtiles - 1; i > qt; --i)
-    first += pieces_of<kPaged>(p, i, tlo, thi);
+    first += pieces_of<kPaged, kPrefix>(p, i, tlo, thi);
   const int R = p.TQ * g, s0 = qt * p.TQ;
   const int idx = (blockIdx.x % kBlocks) * kCombineThreads + threadIdx.x;
   const int r = idx / (HD / 8), d = (idx % (HD / 8)) * 8;

@@ -8,8 +8,12 @@
 // Layout: q (B, H, Sq, hd), k/v (B, KV, Sk, hd), out (B, H, Sq, hd), each
 // given by element strides over (B, H or KV, S) with head_dim contiguous,
 // so the model's (B, S, H, hd) projections go in as transposed views
-// without copies. Query i sees key j iff (not causal or j <= i) and
-// (window == 0 or i - j < window), and j < Sk.
+// without copies. Query i sees key j iff (not causal or j <= i or j <
+// prefix) and (window == 0 or i - j < window), and j < Sk. A prefix (the
+// prefix-LM's image patches; causal, no window) runs an instantiation of
+// its own (kPrefix): query i's causal bound becomes max(i, prefix - 1),
+// so its keys are the causal ones below that bound and every existing
+// instantiation compiles as it did.
 //
 // Bound on an H100: operations for prompts of a few hundred tokens and
 // up. One row's causal prefill reads q, k, v once and writes out once
@@ -55,14 +59,15 @@ struct Strides {
   long long b, h, s;
 };
 
-template <typename T, bool kCausal>
+template <typename T, bool kCausal, bool kPrefix>
 __global__ void flash_attention_kernel(const T* __restrict__ q,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v,
                                        T* __restrict__ out, Strides qs,
                                        Strides ks, Strides vs, Strides os,
                                        int H, int KV, int Sq, int Sk, int hd,
-                                       int TQ, int window, float scale) {
+                                       int TQ, int window, int prefix,
+                                       float scale) {
   extern __shared__ float smem[];
   const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int g = H / KV;
@@ -77,15 +82,18 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
     const int s = s0 + r / g, h = kvh * g + r % g;
     t.q[i] = s < Sq ? to_float(q[b * qs.b + h * qs.h + s * qs.s + d]) : 0.f;
   }
+  // a row's causal bound (kPrefix: at least prefix - 1); rows past Sq are
+  // never written
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
     const int s = s0 + r / g;
-    t.qpos[r] = s < Sq ? s : -1;   // rows past Sq are never written
+    t.qpos[r] = s < Sq ? (kPrefix ? max(s, prefix - 1) : s) : -1;
   }
   init_rows(t, R, hd);
 
   // keys some query of [s0, s_end) can see
   const int k_lo = window ? max(0, s0 - window + 1) : 0;
-  const int k_hi = kCausal ? min(Sk, s_end) : Sk;
+  const int k_hi =
+      kCausal ? min(Sk, kPrefix ? max(s_end, prefix) : s_end) : Sk;
   for (int k0 = k_lo; k0 < k_hi; k0 += TK) {
     const int nk = min(TK, k_hi - k0);
     // every thread is past init_rows / the previous attend_tile's
@@ -113,23 +121,24 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, bool kCausal>
+template <typename T, bool kCausal, bool kPrefix>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   const long long* st, int B, int H, int KV, int Sq, int Sk,
-                  int hd, int TQ, int window, float scale,
+                  int hd, int TQ, int window, int prefix, float scale,
                   cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(TQ * (H / KV), kTK, hd);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, kCausal>,
+      flash_attention_kernel<T, kCausal, kPrefix>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   dim3 grid((Sq + TQ - 1) / TQ, KV, B);
-  flash_attention_kernel<T, kCausal><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, os, H, KV,
-      Sq, Sk, hd, TQ, window, scale);
+  flash_attention_kernel<T, kCausal, kPrefix>
+      <<<grid, kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, os, H,
+          KV, Sq, Sk, hd, TQ, window, prefix, scale);
   return (int)cudaGetLastError();
 }
 
@@ -137,58 +146,61 @@ template <typename T>
 static int launch_causal(int causal, const void* q, const void* k,
                          const void* v, void* out, const long long* st,
                          int B, int H, int KV, int Sq, int Sk, int hd,
-                         int TQ, int window, float scale,
+                         int TQ, int window, int prefix, float scale,
                          cudaStream_t stream) {
+  if (causal && prefix)
+    return launch<T, true, true>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, TQ,
+                                 window, prefix, scale, stream);
   if (causal)
-    return launch<T, true>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, TQ,
-                           window, scale, stream);
-  return launch<T, false>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, TQ, window,
-                          scale, stream);
+    return launch<T, true, false>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, TQ,
+                                  window, 0, scale, stream);
+  return launch<T, false, false>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, TQ,
+                                 window, 0, scale, stream);
 }
 
 // ------------------------------------------------------------ bfloat16
 
-template <int HD, bool kCausal>
+template <int HD, bool kCausal, bool kPrefix>
 __global__ void __launch_bounds__(mma::kThreads)
     flash_attention_mma_kernel(const mma::Params p) {
-  mma::attend_piece<HD, false, kCausal, true, false>(p);
+  mma::attend_piece<HD, false, kCausal, true, false, false, kPrefix>(p);
 }
 
-template <int HD>
+template <int HD, bool kPrefix>
 __global__ void __launch_bounds__(mma::kCombineThreads)
     flash_attention_combine_kernel(const mma::Params p) {
-  mma::combine_pieces<HD, false>(p);
+  mma::combine_pieces<HD, false, kPrefix>(p);
 }
 
-template <int HD, bool kCausal>
+template <int HD, bool kCausal, bool kPrefix>
 static int launch_mma(const mma::Params& p, cudaStream_t stream) {
   const size_t smem = mma::smem_bytes(HD);
   static unsigned long long allowed = 0;   // a bit per device
-  cudaError_t err = mma::allow_smem(flash_attention_mma_kernel<HD, kCausal>,
-                                    smem, allowed);
+  cudaError_t err = mma::allow_smem(
+      flash_attention_mma_kernel<HD, kCausal, kPrefix>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_mma_kernel<HD, kCausal>
+  flash_attention_mma_kernel<HD, kCausal, kPrefix>
       <<<p.n_pieces * p.B * p.KV, mma::kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   int lo, hi;
-  mma::split_tiles<false>(p, lo, hi);
+  mma::split_tiles<false, kPrefix>(p, lo, hi);
   if (err != cudaSuccess || lo == hi) return (int)err;
   mma::Params pc = p;
   pc.combine_lo = lo;
-  flash_attention_combine_kernel<HD>
+  flash_attention_combine_kernel<HD, kPrefix>
       <<<dim3((hi - lo) * mma::combine_blocks(HD), p.B * p.KV),
          mma::kCombineThreads, 0, stream>>>(pc);
   return (int)cudaGetLastError();
 }
 
-template <bool kCausal>
+template <bool kCausal, bool kPrefix>
 static int launch_mma_hd(int hd, const mma::Params& p, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_mma<16, kCausal>(p, stream);
-    case 32: return launch_mma<32, kCausal>(p, stream);
-    case 64: return launch_mma<64, kCausal>(p, stream);
-    case 128: return launch_mma<128, kCausal>(p, stream);
-    case 256: return launch_mma<256, kCausal>(p, stream);
+    case 16: return launch_mma<16, kCausal, kPrefix>(p, stream);
+    case 32: return launch_mma<32, kCausal, kPrefix>(p, stream);
+    case 64: return launch_mma<64, kCausal, kPrefix>(p, stream);
+    case 128: return launch_mma<128, kCausal, kPrefix>(p, stream);
+    case 256: return launch_mma<256, kCausal, kPrefix>(p, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -196,7 +208,8 @@ static int launch_mma_hd(int hd, const mma::Params& p, cudaStream_t stream) {
 }  // namespace repro_torch
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, (b, head,
-// seq) of q, k, v and out in that order. TQ: queries per CTA. bfloat16
+// seq) of q, k, v and out in that order. TQ: queries per CTA. prefix: keys
+// [0, prefix) seen by every query (causal, window 0; 0 = none). bfloat16
 // only: tiles_per_piece and n_pieces from the wrapper's planner (n_pieces
 // = the query tiles' piece counts summed; equal to ceil(Sq / TQ) when no
 // range is split), part_acc (float32, B*KV*n_pieces*TQ*(H/KV)*hd) and
@@ -206,15 +219,17 @@ extern "C" int flash_attention_launch(int dtype, int causal, const void* q,
                                       const void* k, const void* v,
                                       void* out, const long long* strides,
                                       int B, int H, int KV, int Sq, int Sk,
-                                      int hd, int TQ, int window, float scale,
-                                      int tiles_per_piece, int n_pieces,
-                                      void* part_acc, void* part_ml,
-                                      void* stream) {
+                                      int hd, int TQ, int window, int prefix,
+                                      float scale, int tiles_per_piece,
+                                      int n_pieces, void* part_acc,
+                                      void* part_ml, void* stream) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (prefix < 0 || (prefix && (!causal || window)))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_causal<float>(causal, q, k, v, out, strides, B, H, KV, Sq,
-                                Sk, hd, TQ, window, scale, s);
+                                Sk, hd, TQ, window, prefix, scale, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   mma::Params p{};
   p.q = static_cast<const mma::bf16*>(q);
@@ -239,8 +254,10 @@ extern "C" int flash_attention_launch(int dtype, int causal, const void* q,
   p.scale_log2 = scale * mma::kLog2e;
   p.part_acc = static_cast<float*>(part_acc);
   p.part_ml = static_cast<float2*>(part_ml);
-  return causal ? launch_mma_hd<true>(hd, p, s)
-                : launch_mma_hd<false>(hd, p, s);
+  p.prefix = prefix;
+  if (prefix) return launch_mma_hd<true, true>(hd, p, s);
+  return causal ? launch_mma_hd<true, false>(hd, p, s)
+                : launch_mma_hd<false, false>(hd, p, s);
 }
 
 // Shared memory a launch needs, so the wrapper can refuse shapes the card

@@ -37,14 +37,15 @@ CTAS_PER_SM = 1.25      # CTAs an SM runs at the speed of one alone
 
 
 def flash_key_ranges(sq: int, sk: int, tq: int, causal: bool,
-                     window: int) -> List[Tuple[int, int]]:
+                     window: int, prefix: int = 0) -> List[Tuple[int, int]]:
     """Keys [lo, hi) some query of each query tile of ``tq`` positions can
-    see (``lo >= hi``: none)."""
+    see (``lo >= hi``: none); a causal ``prefix`` is seen by every query,
+    so a tile before its end reads [0, prefix)."""
     out = []
     for s0 in range(0, sq, tq):
         s_end = min(s0 + tq, sq)
         lo = max(0, s0 - window + 1) if window else 0
-        hi = min(sk, s_end) if causal else sk
+        hi = min(sk, max(s_end, prefix)) if causal else sk
         out.append((lo, hi))
     return out
 

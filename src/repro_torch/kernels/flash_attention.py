@@ -3,7 +3,10 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``): blockwise online-softmax attention, causal,
 sliding-window or non-causal, GQA, fully masked key blocks skipped.  It
-carries every layer of every slot-engine admission (``attn_prefill``).
+carries every layer of every slot-engine admission (``attn_prefill``),
+and whisper's and paligemma's inference attention: the encoder and the
+cross-attention non-causal (Sq = 1 at a decode step), paligemma's
+prompts causal with a ``prefix`` of image patches every query sees.
 Source: ``csrc/flash_attention.cu``; semantics:
 ``ref.flash_attention_ref``.
 
@@ -27,7 +30,11 @@ shared memory (q, k padded to hd + 1, v, scores, acc, float32) holds a
 tile of at most 64 query vectors at head_dim 256 (206,080 bytes of
 232,448), and the wrapper refuses a shape that needs more.  Operands are read through element strides, so the model's
 ``(B,S,H,hd) -> (B,H,S,hd)`` transposed views go in without copies, and
-the output takes q's layout.  Queries that see no key (only when
+the output takes q's layout.  A ``prefix`` (causal, no window) is a
+separate instantiation of both tiles: a query's causal bound becomes
+``max(i, prefix - 1)``, so a query tile's key range ends at ``min(Sk,
+max(its end, prefix))`` and ranges still grow with the tile index (the
+last tile stays the heaviest).  Queries that see no key (only when
 ``Sq > Sk`` with a window) come out 0, where the plain version averages
 every key.
 """
@@ -41,6 +48,7 @@ import torch
 from repro_torch.kernels import attention_split as split
 from repro_torch.kernels.build import CudaKernel, refuse_autograd
 from repro_torch.kernels.paged_attention import DTYPE_CODE, MAX_SMEM
+from repro_torch.kernels.ref import check_prefix
 
 ROWS_PER_CTA = 64   # query vectors (positions x group heads) per CTA: at
                     # qwen3-0.6b's group of 2, 32 positions, so a 512-token
@@ -52,7 +60,7 @@ _I = ctypes.c_int
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention_launch",
     [_I, _I, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _I, _I, _I,
-     _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P],
+     _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P],
     "flash_attention_smem_bytes", [_I, _I, _I, _I, _I])
 
 
@@ -61,10 +69,12 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attention kernel: {msg}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    prefix: int = 0):
     """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd), on the card.
     Any strides with head_dim contiguous; the output has q's layout."""
     refuse_autograd("flash_attention", q=q, k=k, v=v)
+    check_prefix(causal, window, prefix)
     _check(q.is_cuda, "q must be a CUDA tensor (CPU tensors take "
            "ops.flash_attention's plain version)")
     dev = q.device
@@ -90,7 +100,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     scratch = ()
     if q.dtype == torch.bfloat16:
         split.check_mma_operands(_check, hd, q=q, k=k, v=v, out=out)
-        pl = plan(b, h, kv, sq, sk, causal, window, split.sm_count(dev))
+        pl = plan(b, h, kv, sq, sk, causal, window, split.sm_count(dev),
+                  prefix)
         tiles_per_piece, n_pieces = pl.tiles_per_piece, pl.n_pieces
         scratch = split.scratch(pl, b * kv, tq * (h // kv), hd, dev)
     smem = KERNEL.smem_bytes(DTYPE_CODE[q.dtype], h, kv, hd, tq)
@@ -101,14 +112,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     with torch.cuda.device(dev):
         KERNEL.launch(DTYPE_CODE[q.dtype], int(bool(causal)), q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-                      b, h, kv, sq, sk, hd, tq, int(window),
+                      b, h, kv, sq, sk, hd, tq, int(window), int(prefix),
                       1.0 / math.sqrt(hd), tiles_per_piece, n_pieces,
                       *split.pointers(scratch), stream)
     return out
 
 
-def plan(b, h, kv, sq, sk, causal, window, sms) -> split.Plan:
+def plan(b, h, kv, sq, sk, causal, window, sms, prefix=0) -> split.Plan:
     """The key-range split of a bf16 launch on a card of ``sms`` SMs."""
     tq = min(ROWS_PER_CTA // (h // kv), sq)
-    return split.plan(split.flash_key_ranges(sq, sk, tq, causal, window),
-                      b * kv, sms)
+    return split.plan(split.flash_key_ranges(sq, sk, tq, causal, window,
+                                             prefix), b * kv, sms)

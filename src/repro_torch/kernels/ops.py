@@ -41,11 +41,14 @@ def _on_cuda(t) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    prefix: int = 0):
     """Whole-prompt attention: q (B,H,Sq,hd), k/v (B,KV,Sk,hd) ->
-    (B,H,Sq,hd)."""
+    (B,H,Sq,hd); causal, windowed, non-causal (an encoder,
+    cross-attention), or causal with its first ``prefix`` keys seen by
+    every query (a prefix-LM)."""
     fn = _fa.flash_attention if _on_cuda(q) else _ref.flash_attention_ref
-    return fn(q, k, v, causal=causal, window=window)
+    return fn(q, k, v, causal=causal, window=window, prefix=prefix)
 
 
 def _refuse_int8(entry, **tensors) -> None:

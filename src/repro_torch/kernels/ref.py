@@ -21,14 +21,25 @@ SSM_CKPT_STEPS = 16     # steps between the selective scan's checkpoints
 LOG2E = 1.4426950408889634
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def check_prefix(causal: bool, window: int, prefix: int) -> None:
+    """A prefix-LM prefix is a causal mask's, without a window."""
+    if prefix < 0 or (prefix and (not causal or window)):
+        raise ValueError(f"flash_attention: prefix={prefix} needs "
+                         f"causal=True and no window (causal={causal}, "
+                         f"window={window})")
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        prefix: int = 0):
     """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd).  GQA: H % KV == 0.
 
     Plain softmax attention in fp32 with optional causal (query i sees
     keys j <= i) and sliding-window (``window`` > 0: keys (i-window, i])
-    masking.  Softmax and the value product stay in float32; the output
-    is cast to q.dtype once.
+    masking.  ``prefix`` > 0 (causal, no window: the prefix-LM) lets
+    every query see keys j < prefix too.  Softmax and the value product
+    stay in float32; the output is cast to q.dtype once.
     """
+    check_prefix(causal, window, prefix)
     b, h, sq, hd = q.shape
     kv, sk = k.shape[1], k.shape[2]
     g = h // kv
@@ -38,7 +49,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     ki = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
     if causal:
-        mask = mask & (qi >= ki)
+        mask = mask & ((qi >= ki) | (ki < prefix))
     if window:
         mask = mask & (qi - ki < window)
     scores = torch.where(mask, scores, NEG_INF)

@@ -231,10 +231,15 @@ def check_args(args) -> None:
 def build_model(args):
     """-> (cfg, model, params) for ``args.arch`` at the chosen width,
     weights drawn from ``args.seed``; an unset ``--engine`` resolves to
-    paged where the stack pages, as in the reference CLI."""
+    paged where the stack pages, as in the reference CLI, which refuses
+    the frontend configs (whisper-tiny, paligemma-3b) after reading
+    them."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.frontend != "none" or cfg.is_encoder_decoder:
+        raise SystemExit(f"{cfg.name}: serve CLI drives text-only decode; "
+                         "use examples/serve_digits.py for the full app")
     model = Model(cfg, device=args.device)
     if args.engine is None:
         args.engine = "paged" if model.supports_paged else "slot"

@@ -26,10 +26,12 @@ kernel; rwkv6's and mamba's recurrences through ``ops.rwkv6_scan`` and
 ``ssm_scan`` kernels forward and the ``rwkv6_scan_bwd`` /
 ``ssm_scan_bwd`` kernels backward on the card (their plain versions on
 the CPU).  Weights are drawn from ``--seed`` by the port's own
-initialiser.
+initialiser.  whisper-tiny and paligemma-3b take frontend embeddings
+beside the tokens: each step draws its own with ``fake_embeds(seed=
+step)``, as the reference CLI does (from a ``torch.Generator``, so
+other numbers than the reference's ``jax.random``).
 
-Refused, before any step: configs the port's ``Model`` refuses, and
-``--device cuda`` without a card.
+Refused, before any step: ``--device cuda`` without a card.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core.trainer import make_train_step
 from repro_torch.data.tokens import make_stream
+from repro_torch.models import frontend as fe
 from repro_torch.models.api import Model
 from repro_torch.optim import adamw, cosine_warmup
 from repro_torch.optim.optimizers import tree_leaves
@@ -122,6 +125,9 @@ def run(args, cfg: ModelConfig = None, log=print) -> dict:
         t_step = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(model.device)
                  for k, v in stream.batch(step).items()}
+        if cfg.frontend != "none":
+            batch["embeds"] = fe.fake_embeds(cfg, args.batch, cfg.dtype,
+                                             seed=step, device=model.device)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         step_seconds.append(time.perf_counter() - t_step)

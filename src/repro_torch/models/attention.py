@@ -3,10 +3,13 @@ and inference, the slot cache and the block-paged pool.
 
 The port of ``repro.models.attention``.  ``attn_apply`` is the
 full-sequence layer: its kernel branch (``allow_kernel=True``, the
-draft model's and the reference's inference forward) runs
-``ops.flash_attention``; its q-chunked branch (training, prefix-LM,
-cross-attention) is the reference's differentiable formulation in plain
-PyTorch, with no kernel, as in the reference.  Two cache shapes:
+draft model's and the reference's inference forward, a prefix-LM's and
+an encoder's too) runs ``ops.flash_attention``; its q-chunked branch
+(training) is the reference's differentiable formulation in plain
+PyTorch, with no kernel, as in the reference.  Cross-attention (whisper)
+keeps the encoder's K/V: ``cross_apply`` is the reference's plain
+formulation (training), ``cross_attend`` the same through
+``ops.flash_attention(causal=False)`` (inference).  Two cache shapes:
 
 * the slot cache of one layer (``init_cache``): ``{"k", "v": (B, C, KV,
   hd), "pos": (B, C) int32}``, one strip of ``C`` lanes per slot, filled
@@ -58,7 +61,7 @@ _Q_CHUNK_OVERRIDE: contextvars.ContextVar[Optional[int]] = \
 # ------------------------------------------------------------------ schema
 
 
-def attn_schema(cfg: ModelConfig):
+def attn_schema(cfg: ModelConfig, cross: bool = False):
     hd = cfg.resolved_head_dim
     d = cfg.d_model
     s = {
@@ -71,7 +74,7 @@ def attn_schema(cfg: ModelConfig):
         s["bq"] = ParamSpec((cfg.num_heads, hd), init="zeros")
         s["bk"] = ParamSpec((cfg.num_kv_heads, hd), init="zeros")
         s["bv"] = ParamSpec((cfg.num_kv_heads, hd), init="zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         s["q_norm"] = ParamSpec((hd,), init="ones")
         s["k_norm"] = ParamSpec((hd,), init="ones")
     return s
@@ -124,17 +127,19 @@ def _bcast_pos(positions, b, s):
 # ------------------------------------------------------------- full-seq
 
 
-def _flash_attend(p, cfg: ModelConfig, q, k, v, *, kind: str,
-                  causal: bool = True):
-    """Self-attention: q (B,S,H,hd), k/v (B,S,KV,hd) -> y (B,S,D)
-    through ``ops.flash_attention`` (the CUDA kernel on the card, its
-    plain version on the CPU).  The kernel reads the ``(B,H,S,hd)``
+def _flash_attend(p, cfg: ModelConfig, q, k, v, *, kind: str = "attn",
+                  causal: bool = True, prefix: int = 0):
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) -> y (B,Sq,D) through
+    ``ops.flash_attention`` (the CUDA kernel on the card, its plain
+    version on the CPU): causal self-attention, its first ``prefix``
+    keys seen by every query (prefix-LM), or ``causal=False`` (the
+    encoder, cross-attention).  The kernel reads the ``(B,H,S,hd)``
     transposed views through their strides and writes its output in q's
     layout, so neither direction copies on the card."""
     window = cfg.sliding_window if kind == "attn_local" else 0
     out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                      v.transpose(1, 2), causal=causal,
-                                     window=window)
+                                     window=window, prefix=prefix)
     return _out_proj(out.transpose(1, 2), p["wo"])
 
 
@@ -197,10 +202,11 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
     here).  ``bidir_prefix``: the first N positions attend
     bidirectionally (prefix-LM).
 
-    ``allow_kernel=True`` with self-attention at (S,) positions and no
-    bidirectional prefix takes the reference's kernel branch, through
-    ``ops.flash_attention`` (inference only: the kernel has no
-    backward).  Everything else runs the reference's q-chunked branch,
+    ``allow_kernel=True`` with self-attention at (S,) positions takes
+    the reference's kernel branch, through ``ops.flash_attention``
+    (inference only: the kernel has no backward); a bidirectional prefix
+    goes to the kernel as its ``prefix`` (the reference keeps prefix-LM
+    attention off its kernel, on the q-chunked branch: the same mask).  Everything else runs the reference's q-chunked branch,
     in plain PyTorch under autograd: the queries in ``ceil(S / q_chunk)``
     equal chunks (padded query lanes at position -1), scores in the model
     dtype against every key, the masked float32 ``_softmax``, the
@@ -225,9 +231,9 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
         causal = False
     window = cfg.sliding_window if kind == "attn_local" else 0
 
-    if (allow_kernel and kv_override is None and not bidir_prefix
-            and positions.dim() == 1):
-        return _flash_attend(p, cfg, q, k, v, kind=kind, causal=causal)
+    if allow_kernel and kv_override is None and positions.dim() == 1:
+        return _flash_attend(p, cfg, q, k, v, kind=kind, causal=causal,
+                             prefix=bidir_prefix)
 
     b, s, h, _ = q.shape
     q_chunk = _Q_CHUNK_OVERRIDE.get() or q_chunk
@@ -309,7 +315,7 @@ def init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
 
 
 def attn_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
-                 cache_max: int):
+                 cache_max: int, bidir_prefix: int = 0):
     """Whole-prompt forward at positions (S,) + cache construction.
     -> (y (B,S,D), cache with ``cache_len_for`` lanes).
 
@@ -317,13 +323,14 @@ def attn_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
     for the cache); the port projects once and feeds both.  Lanes past
     the prompt carry pos -1; a prompt of at least ``clen`` tokens keeps
     its last ``clen`` positions, ring-aligned so lane j holds the
-    position p with p % clen == j.  Under ``kv_cache_quant`` the cache
+    position p with p % clen == j.  ``bidir_prefix``: every query sees
+    the prompt's first N keys (prefix-LM), the kernel's ``prefix``.  Under ``kv_cache_quant`` the cache
     holds the prompt quantized (the scales roll with it), while ``y``
     attends the fresh full-precision K/V, as the reference's."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions, cfg.pos_kind == "rope",
                            kind)
-    y = _flash_attend(p, cfg, q, k, v, kind=kind)
+    y = _flash_attend(p, cfg, q, k, v, kind=kind, prefix=bidir_prefix)
     clen = cache_len_for(cfg, kind, cache_max)
     entries = {"k": k, "v": v, "pos": _bcast_pos(positions, b, s)}
     if cfg.kv_cache_quant:
@@ -523,3 +530,45 @@ def attn_prefill_paged(p, cfg: ModelConfig, x, positions, pool, block_table,
     y = _out_proj(out, p["wo"])
 
     return y, {"k": k, "v": v, "pos": kpos_suffix}
+
+
+# ------------------------------------------------------------- cross-attn
+# Whisper's decoder attends the encoder output.  The encoder K/V are
+# computed once (at prefill) and kept in the cache as "xk"/"xv".
+
+
+def cross_kv(p, enc_out):
+    """enc_out (B,F,D) -> k, v (B,F,KV,hd).  As in the reference, the
+    schema's ``bk``/``bv`` leaves are not added."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    return k, v
+
+
+def _cross_q(p, cfg: ModelConfig, x):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    return q
+
+
+def cross_apply(p, cfg: ModelConfig, x, k, v):
+    """The reference's cross-attention, in plain PyTorch under autograd
+    (training): x (B,S,D) against precomputed k/v (B,F,KV,hd), no mask,
+    no RoPE, ``bq`` added; scores in the model dtype, the float32
+    ``_softmax``, probabilities cast to v's dtype.  -> (B,S,D)."""
+    hd = cfg.resolved_head_dim
+    q = _cross_q(p, cfg, x)
+    h = q.shape[2]
+    k_rep, v_rep = _repeat_kv(k, h), _repeat_kv(v, h)
+    sc = _scores(q, k_rep) / math.sqrt(hd)
+    probs = _softmax(sc, torch.ones((), dtype=torch.bool, device=x.device))
+    return _out_proj(_attn_out(probs.to(v.dtype), v_rep), p["wo"])
+
+
+def cross_attend(p, cfg: ModelConfig, x, k, v):
+    """``cross_apply`` for inference: the same attention through
+    ``ops.flash_attention(causal=False)`` over the (B,KV,F,hd) transposed
+    views of the cross cache (no copies on the card), Sq = S at prefill
+    and 1 at decode.  -> (B,S,D)."""
+    return _flash_attend(p, cfg, _cross_q(p, cfg, x), k, v, causal=False)

@@ -1,5 +1,6 @@
-"""Shared layer library: rmsnorm and layernorm, RoPE, the gated MLPs
-(swiglu, geglu), embeddings, the next-token cross-entropy.
+"""Shared layer library: rmsnorm and layernorm, RoPE, the MLPs (gated
+swiglu and geglu, plain gelu), embeddings with learned positions, the
+next-token cross-entropy.
 
 Plain functions on tensors with the arithmetic of ``repro.models.layers``:
 norms and RoPE compute in float32 and cast back to the input dtype;
@@ -74,45 +75,62 @@ def apply_rope(x, positions, theta: float):
 
 
 GATED_MLPS = ("swiglu", "geglu")
+MLP_KINDS = GATED_MLPS + ("gelu",)
 
 
 def mlp_schema(cfg: ModelConfig):
-    if cfg.mlp_kind not in GATED_MLPS:
+    if cfg.mlp_kind not in MLP_KINDS:
         raise ValueError(f"mlp_kind {cfg.mlp_kind!r} is not ported yet")
     d, f = cfg.d_model, cfg.d_ff
-    return {
+    s = {
         "up": ParamSpec((d, f), scale_dim=-2),
         "down": ParamSpec((f, d), scale_dim=-2),
-        "gate": ParamSpec((d, f), scale_dim=-2),
     }
+    if cfg.mlp_kind in GATED_MLPS:
+        s["gate"] = ParamSpec((d, f), scale_dim=-2)
+    return s
 
 
 def mlp_apply(p, x, kind: str):
     """Gated MLP: act(x @ gate) * (x @ up) @ down, act = silu (swiglu) or
-    gelu (geglu).  geglu takes gelu's tanh form, as ``jax.nn.gelu``'s
-    default (``approximate=True``) in the reference; the erf form moves
-    logits by ~1e-3."""
-    if kind not in GATED_MLPS:
+    gelu (geglu); plain (gelu, whisper's): gelu(x @ up) @ down.  gelu
+    takes its tanh form, as ``jax.nn.gelu``'s default
+    (``approximate=True``) in the reference; the erf form moves logits by
+    ~1e-3."""
+    if kind not in MLP_KINDS:
         raise ValueError(f"mlp_kind {kind!r} is not ported yet")
+    up = x @ p["up"]
+    if kind == "gelu":
+        return F.gelu(up, approximate="tanh") @ p["down"]
     g = x @ p["gate"]
     g = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
-    return (g * (x @ p["up"])) @ p["down"]
+    return (g * up) @ p["down"]
 
 
 # ---------------------------------------------------------------- embeddings
 
 
 def embed_schema(cfg: ModelConfig):
-    if cfg.pos_kind == "learned":
-        raise ValueError("learned positions are not ported yet")
     s = {"tokens": ParamSpec((cfg.vocab_size, cfg.d_model), init="embed")}
     if not cfg.tie_embeddings:
         s["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size), scale_dim=-2)
+    if cfg.pos_kind == "learned":
+        s["positions"] = ParamSpec((cfg.max_position, cfg.d_model),
+                                   init="embed")
     return s
 
 
-def embed_apply(p, tokens):
-    return p["tokens"][tokens.long()]
+def embed_apply(p, cfg: ModelConfig, tokens, positions=None):
+    """Token rows; with learned positions (``cfg.pos_kind == "learned"``)
+    plus the rows of ``positions`` (broadcast against tokens' (B,S); the
+    caller clips them below ``max_position``), cast to the tokens'
+    dtype."""
+    x = p["tokens"][tokens.long()]
+    if cfg.pos_kind == "learned":
+        if positions is None:
+            raise ValueError("learned positions need their positions")
+        x = x + p["positions"][positions.long()].to(x.dtype)
+    return x
 
 
 def unembed_apply(p, cfg: ModelConfig, x):

@@ -34,7 +34,7 @@ from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (mlp_apply, mlp_schema, norm_apply,
                                        norm_schema)
-from repro_torch.models.module import stack_specs
+from repro_torch.models.module import ParamSpec, stack_specs
 
 # ------------------------------------------------------------------ periods
 
@@ -167,7 +167,7 @@ def _recurrent_fwd(p, cfg: ModelConfig, x, st, *, kind: str, moe: bool,
 
 
 def block_apply(p, cfg: ModelConfig, x, positions, *, kind: str,
-                moe: bool = False):
+                moe: bool = False, bidir_prefix: int = 0):
     """Cacheless inference forward of one layer at contiguous
     ``positions`` (S,): attention through ``attn_apply``'s kernel branch
     (mamba, rwkv6: their state from zeros), the MoE's router loss
@@ -177,16 +177,19 @@ def block_apply(p, cfg: ModelConfig, x, positions, *, kind: str,
         return _recurrent_fwd(p, cfg, x, st, kind=kind, moe=moe)[0]
     h = norm_apply(p["norm1"], x, cfg.norm_kind)
     x = x + attn.attn_apply(p["mix"], cfg, h, positions, kind=kind,
-                            allow_kernel=True)
+                            bidir_prefix=bidir_prefix, allow_kernel=True)
     h = norm_apply(p["norm2"], x, cfg.norm_kind)
     return x + _ffn(p, cfg, h, moe)
 
 
-def stack_apply(params, cfg: ModelConfig, x, positions):
+def stack_apply(params, cfg: ModelConfig, x, positions, *,
+                bidir_prefix: int = 0):
     """Cacheless inference forward of the whole stack, through the
-    kernels (the draft model's).  -> x."""
+    kernels (the draft model's; paligemma's, its first ``bidir_prefix``
+    positions seen by every query).  -> x."""
     for p, (kind, moe) in zip(layer_views(cfg, params), layer_sigs(cfg)):
-        x = block_apply(p, cfg, x, positions, kind=kind, moe=moe)
+        x = block_apply(p, cfg, x, positions, kind=kind, moe=moe,
+                        bidir_prefix=bidir_prefix)
     return x
 
 
@@ -267,15 +270,17 @@ def stack_apply_train(params, cfg: ModelConfig, x, positions, *,
 
 
 def block_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
-                  cache_max: int, moe: bool = False):
+                  cache_max: int, moe: bool = False, bidir_prefix: int = 0):
     """Whole-prompt forward of one layer + its decode cache (mamba,
-    rwkv6: the state after the prompt, from zeros).  -> (x, cache)."""
+    rwkv6: the state after the prompt, from zeros); attention's first
+    ``bidir_prefix`` keys seen by every query.  -> (x, cache)."""
     if kind in RECURRENT_KINDS:
         st = _init_state(cfg, kind, x.shape[0], x.dtype, x.device)
         return _recurrent_fwd(p, cfg, x, st, kind=kind, moe=moe)
     h = norm_apply(p["norm1"], x, cfg.norm_kind)
     y, cache = attn.attn_prefill(p["mix"], cfg, h, positions, kind=kind,
-                                 cache_max=cache_max)
+                                 cache_max=cache_max,
+                                 bidir_prefix=bidir_prefix)
     x = x + y
     h = norm_apply(p["norm2"], x, cfg.norm_kind)
     return x + _ffn(p, cfg, h, moe), cache
@@ -297,12 +302,13 @@ def block_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str,
     return x + _ffn(p, cfg, h, moe), cache
 
 
-def stack_prefill(params, cfg: ModelConfig, x, positions, *, cache_max: int):
+def stack_prefill(params, cfg: ModelConfig, x, positions, *, cache_max: int,
+                  bidir_prefix: int = 0):
     """-> (x, caches), caches in the stack layout."""
     caches = []
     for p, (kind, moe) in zip(layer_views(cfg, params), layer_sigs(cfg)):
         x, c = block_prefill(p, cfg, x, positions, kind=kind, moe=moe,
-                             cache_max=cache_max)
+                             cache_max=cache_max, bidir_prefix=bidir_prefix)
         caches.append(c)
     return x, _to_layout(cfg, caches)
 
@@ -443,3 +449,132 @@ def stack_pool_init(cfg: ModelConfig, num_blocks: int, block_size: int,
                                     device)
 
     return _to_layout(cfg, [one(kind) for kind in layer_kinds(cfg)])
+
+
+# ------------------------------------------------------------------ enc-dec
+# whisper-tiny: 4 + 4 layers, unrolled as in the reference.  Parameters
+# ``{"encoder": {"layer{i}"}, "enc_pos", "enc_norm", "decoder":
+# {"layer{i}"}}``; decoder caches ``{"layer{i}": {"self": slot cache,
+# "xk", "xv": (B, F, KV, hd)}}``.  ``train=True`` runs the reference's
+# differentiable formulation (attention in ``attn_apply``'s q-chunked
+# branch, ``cross_apply``); inference runs every attention through
+# ``ops.flash_attention``: the encoder's non-causal self-attention, the
+# decoder's causal one and its cross-attention (``cross_attend``).
+
+
+def encoder_layer_schema(cfg: ModelConfig):
+    return {
+        "norm1": norm_schema(cfg),
+        "attn": attn.attn_schema(cfg),
+        "norm2": norm_schema(cfg),
+        "ffn": mlp_schema(cfg),
+    }
+
+
+def decoder_layer_schema(cfg: ModelConfig):
+    return {
+        "norm1": norm_schema(cfg),
+        "attn": attn.attn_schema(cfg),
+        "norm_x": norm_schema(cfg),
+        "cross": attn.attn_schema(cfg, cross=True),
+        "norm2": norm_schema(cfg),
+        "ffn": mlp_schema(cfg),
+    }
+
+
+def encdec_schema(cfg: ModelConfig):
+    return {
+        "encoder": {f"layer{i}": encoder_layer_schema(cfg)
+                    for i in range(cfg.encoder_layers)},
+        "enc_pos": ParamSpec((cfg.encoder_frames, cfg.d_model), init="embed"),
+        "enc_norm": norm_schema(cfg),
+        "decoder": {f"layer{i}": decoder_layer_schema(cfg)
+                    for i in range(cfg.num_layers)},
+    }
+
+
+def encoder_apply(params, cfg: ModelConfig, frames, *, train: bool = False):
+    """``params`` is the whole encdec tree; frames (B, F, D) from the
+    stubbed audio frontend -> the encoder output (B, F, D): learned frame
+    positions added, non-causal self-attention, ``enc_norm`` last."""
+    x = frames + params["enc_pos"][None].to(frames.dtype)
+    pos = torch.arange(frames.shape[1], dtype=torch.int32,
+                       device=frames.device)
+    for i in range(cfg.encoder_layers):
+        p = params["encoder"][f"layer{i}"]
+        h = norm_apply(p["norm1"], x, cfg.norm_kind)
+        x = x + attn.attn_apply(p["attn"], cfg, h, pos, causal=False,
+                                allow_kernel=not train)
+        h = norm_apply(p["norm2"], x, cfg.norm_kind)
+        x = x + mlp_apply(p["ffn"], h, cfg.mlp_kind)
+    return norm_apply(params["enc_norm"], x, cfg.norm_kind)
+
+
+def decoder_apply(params, cfg: ModelConfig, x, positions, enc_out, *,
+                  train: bool = False):
+    """Full-sequence decoder over x (B,S,D) at ``positions`` (S,) against
+    the encoder output, no cache (``params``: the decoder tree)."""
+    cross = attn.cross_apply if train else attn.cross_attend
+    for i in range(cfg.num_layers):
+        p = params[f"layer{i}"]
+        h = norm_apply(p["norm1"], x, cfg.norm_kind)
+        x = x + attn.attn_apply(p["attn"], cfg, h, positions,
+                                allow_kernel=not train)
+        h = norm_apply(p["norm_x"], x, cfg.norm_kind)
+        x = x + cross(p["cross"], cfg, h, *attn.cross_kv(p["cross"], enc_out))
+        h = norm_apply(p["norm2"], x, cfg.norm_kind)
+        x = x + mlp_apply(p["ffn"], h, cfg.mlp_kind)
+    return x
+
+
+def decoder_prefill(params, cfg: ModelConfig, x, positions, enc_out,
+                    cache_max: int):
+    """Whole-prompt decoder forward + caches: each layer's self-attention
+    slot cache of ``cache_max`` lanes and its cross K/V, computed once
+    from the encoder output.  -> (x, caches)."""
+    caches = {}
+    for i in range(cfg.num_layers):
+        p = params[f"layer{i}"]
+        h = norm_apply(p["norm1"], x, cfg.norm_kind)
+        y, c = attn.attn_prefill(p["attn"], cfg, h, positions, kind="attn",
+                                 cache_max=cache_max)
+        x = x + y
+        h = norm_apply(p["norm_x"], x, cfg.norm_kind)
+        k, v = attn.cross_kv(p["cross"], enc_out)
+        x = x + attn.cross_attend(p["cross"], cfg, h, k, v)
+        h = norm_apply(p["norm2"], x, cfg.norm_kind)
+        x = x + mlp_apply(p["ffn"], h, cfg.mlp_kind)
+        caches[f"layer{i}"] = {"self": c, "xk": k, "xv": v}
+    return x, caches
+
+
+def decoder_decode(params, cfg: ModelConfig, x, caches, pos):
+    """One-token decoder step: x (B,1,D), pos (B,).  Each layer's
+    self-attention cache is written in place (``attn_decode``); the cross
+    K/V are read.  -> (x, caches)."""
+    for i in range(cfg.num_layers):
+        p = params[f"layer{i}"]
+        c = caches[f"layer{i}"]
+        h = norm_apply(p["norm1"], x, cfg.norm_kind)
+        y, _ = attn.attn_decode(p["attn"], cfg, h, c["self"], pos,
+                                kind="attn")
+        x = x + y
+        h = norm_apply(p["norm_x"], x, cfg.norm_kind)
+        x = x + attn.cross_attend(p["cross"], cfg, h, c["xk"], c["xv"])
+        h = norm_apply(p["norm2"], x, cfg.norm_kind)
+        x = x + mlp_apply(p["ffn"], h, cfg.mlp_kind)
+    return x, caches
+
+
+def decoder_cache_init(cfg: ModelConfig, batch: int, cache_max: int, dtype,
+                       device):
+    """Zero decoder caches (self-attention pos lanes -1, cross K/V of
+    ``encoder_frames`` rows), in the layout of the reference's
+    ``Model.cache_abstract``."""
+    shape = (batch, cfg.encoder_frames, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {f"layer{i}": {
+        "self": attn.init_cache(cfg, "attn", batch, cache_max, dtype, device),
+        "xk": torch.zeros(shape, dtype=dtype, device=device),
+        "xv": torch.zeros(shape, dtype=dtype, device=device)}
+        for i in range(cfg.num_layers)}

@@ -306,7 +306,10 @@ class LLMEngine(_EngineObsMixin):
     position 0 and their outputs are discarded.  A request finishes at
     ``max_new`` tokens, ``eos_id`` or a full strip (``pos + 1 >=
     cache_max``, as in the reference, also for a recurrent stack whose
-    state does not grow).
+    state does not grow).  Token stacks only: a frontend config
+    (whisper-tiny, paligemma-3b) is refused at construction, where the
+    reference's engine fails at its first admission (it prefills
+    ``{"tokens"}`` alone, and these models need ``"embeds"``).
     """
 
     _engine_kind = "slot"
@@ -314,6 +317,10 @@ class LLMEngine(_EngineObsMixin):
     def __init__(self, model, params, num_slots: int = 4,
                  cache_max: int = 512, eos_id: Optional[int] = None,
                  obs=None):
+        cfg = model.cfg
+        if cfg.frontend != "none" or cfg.is_encoder_decoder:
+            raise ValueError(f"{cfg.name}: slot engine needs a token stack "
+                             "(its prefill takes no frontend embeddings)")
         self.model = model
         self.params = params
         self.device = model.device

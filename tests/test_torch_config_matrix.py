@@ -7,9 +7,9 @@ Every architecture the port carries must serve through
 reference's seed-0 weights bridged, MoE under dropless capacity (a row
 padded to a bucket would otherwise drop other tokens than the slot
 engine's exact-length prefill).  A carried config that does not page is
-a failure, not a skip: the port carries none of the reference's
-unpageable configs (encoder-decoder, multimodal), and ``Model`` refuses
-them.
+a failure, not a skip, except the reference's unpageable configs
+(encoder-decoder, multimodal): the port carries them through ``Model``,
+and its paged engine refuses them with the reference's ``ValueError``.
 """
 import dataclasses
 
@@ -27,9 +27,9 @@ from repro_torch.models.api import Model  # noqa: E402
 from repro_torch.serving.server import LLMEngine, PagedLLMEngine  # noqa: E402
 from repro_torch.serving.stats_schema import validate  # noqa: E402
 
-CARRIED = sorted(_MODULE_FOR)
-# the reference's unpageable configs: not carried by the port
+# the reference's unpageable configs: carried, but no engine serves them
 UNPAGEABLE = ("whisper-tiny", "paligemma-3b")
+CARRIED = sorted(set(_MODULE_FOR) - set(UNPAGEABLE))
 # the reference suite's tight pools (block_size 4, 12-token prompts,
 # max_new 12): they force preempt-and-requeue
 _TIGHT_POOL = {"gemma3-4b": 10, "jamba-1.5-large-398b": 10,
@@ -140,5 +140,10 @@ def test_paged_identity_under_preemption_with_prefix_cache(arch):
 
 @pytest.mark.parametrize("arch", UNPAGEABLE)
 def test_unpageable_config_is_not_carried(arch):
-    with pytest.raises(KeyError, match="not carried"):
-        get_config(arch)
+    """Not carried by the paged engine: the model builds and says it does
+    not page, and ``PagedLLMEngine`` refuses it with the reference's
+    ``ValueError``."""
+    model = Model(get_config(arch).reduced(), device="cpu")
+    assert not model.supports_paged and not model.paged_has_state
+    with pytest.raises(ValueError, match="decoder-only token stack"):
+        PagedLLMEngine(model, model.init(0))

@@ -130,8 +130,16 @@ def test_geglu_mlp_matches_reference(shape):
     erf = (torch.nn.functional.gelu(tx @ tp["gate"]) * (tx @ tp["up"])) \
         @ tp["down"]
     assert np.abs(erf.numpy() - want).max() > 1e-4
-    with pytest.raises(ValueError, match="gelu"):
-        tlayers.mlp_apply({}, torch.from_numpy(x), "gelu")
+    # the plain gelu MLP (whisper's, no gate) is ported too; a kind the
+    # reference does not have is refused
+    plain = {k: p[k] for k in ("up", "down")}
+    want = np.asarray(jlayers.mlp_apply(
+        {k: jnp.asarray(v) for k, v in plain.items()}, jnp.asarray(x),
+        "gelu"))
+    got = tlayers.mlp_apply({k: tp[k] for k in plain}, tx, "gelu")
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="relu"):
+        tlayers.mlp_apply({}, tx, "relu")
 
 
 # ------------------------------------------------------------ attention

@@ -1085,3 +1085,89 @@ def test_int8_caches_are_refused_by_the_float_entries(cuda):
                                   kk[:, 8:].contiguous(),
                                   vv[:, 8:].contiguous(),
                                   kpos[:, 8:].contiguous(), qpos)
+
+
+# whisper-tiny's and paligemma-3b's inference attention: the encoder's
+# non-causal self-attention over 1,500 frames (6 / 6 heads of 64; Sk not a
+# multiple of the 64-key tile), the cross-attention at a decode step (8
+# rows, Sq 1) and at a prompt's prefill (Sq 200) over those frames, and
+# paligemma's prefix-LM (8 query heads over 1 KV head of 256, a group of 8
+# at head_dim 256) with its 256 patches, and with a prefix of 200 that is
+# not a multiple of the tile, and 40 (every query sees every key); (B, H,
+# KV, Sq, Sk, hd, causal, prefix)
+FRONTEND_FA_CARD_CASES = [
+    (1, 6, 6, 1500, 1500, 64, False, 0),
+    (8, 6, 6, 1, 1500, 64, False, 0),
+    (1, 6, 6, 200, 1500, 64, False, 0),
+    (1, 8, 1, 456, 456, 256, True, 256),
+    (1, 8, 1, 456, 456, 256, True, 200),
+    (2, 8, 1, 40, 40, 256, True, 40),
+    (1, 6, 6, 70, 70, 64, True, 65),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FRONTEND_FA_CARD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_at_frontend_shapes(cuda, shape, dtype):
+    """The kernel against its plain version, in the model's transposed
+    views; with a prefix, rows before its end differ from the causal
+    launch's (the prefix is really seen) and the later rows agree with
+    it."""
+    b, h, kv, sq, sk, hd, causal, prefix = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sq + sk + prefix)
+
+    def operand(heads, s):
+        return torch.from_numpy(rng.normal(size=(b, s, heads, hd))
+                                .astype(np.float32)).to(cuda, dt) \
+            .transpose(1, 2)
+
+    q, k, v = operand(h, sq), operand(kv, sk), operand(kv, sk)
+    n0 = fa_mod.KERNEL.launches
+    out = ops.flash_attention(q, k, v, causal=causal, prefix=prefix)
+    torch.cuda.synchronize()
+    assert fa_mod.KERNEL.launches == n0 + 1
+    assert out.stride() == q.stride()
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, prefix=prefix)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("flash_attention", dt))
+    if prefix:
+        causal_out = ops.flash_attention(q, k, v)
+        assert not torch.equal(causal_out[:, :, :prefix - 1],
+                               out[:, :, :prefix - 1])
+        torch.testing.assert_close(causal_out[:, :, prefix:].float(),
+                                   out[:, :, prefix:].float(),
+                                   **_tol("flash_attention", dt))
+
+
+# slot decode (one query lane a row) at whisper-tiny's heads (6 / 6 of 64)
+# and paligemma-3b's (8 / 1 of 256): 8 rows over strips of 216 and 472
+# lanes, each row filled to its own length; (B, H, KV, hd, lanes)
+FRONTEND_SLOT_CARD_SHAPES = [(8, 6, 6, 64, 216), (8, 8, 1, 256, 472)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FRONTEND_SLOT_CARD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_prefill_kernel_at_frontend_slot_decode(cuda, shape, dtype):
+    b, h, kv, hd, lanes = shape
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(lanes)
+    q = rng.normal(size=(b, 1, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, lanes, kv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, lanes, kv, hd)).astype(np.float32)
+    n = rng.integers(lanes // 4, lanes, size=b)
+    kpos = np.where(np.arange(lanes)[None] <= n[:, None],
+                    np.arange(lanes)[None], -1).astype(np.int32)
+    qpos = n[:, None].astype(np.int32)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in (q, k, v))
+    kpos, qpos = torch.from_numpy(kpos).to(cuda), torch.from_numpy(qpos).to(
+        cuda)
+    n0 = pp_mod.KERNEL.launches
+    out = ops.paged_prefill(q, k, v, kpos, qpos)
+    torch.cuda.synchronize()
+    assert pp_mod.KERNEL.launches == n0 + 1
+    plain = ref.paged_prefill_ref(q, k, v, kpos, qpos)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("paged_prefill", dt))

@@ -38,6 +38,7 @@ as ``tests/test_torch_hybrid.py`` does, so no gradient is trivially 0):
 import dataclasses
 import re
 import shutil
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -63,6 +64,7 @@ from repro_torch.core import trainer as ttrainer  # noqa: E402
 from repro_torch.data import tokens as ttokens  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import frontend as tfe  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.api import Model  # noqa: E402
 
@@ -539,13 +541,18 @@ def test_train_cli_run_returns_its_record(tmp_path):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--arch", "whisper-tiny"], KeyError, "not carried"),
-    (["--arch", "paligemma-3b"], KeyError, "not carried"),
+    (["--arch", "whisper-tiny", "--device", "cuda"], SystemExit,
+     "is_available"),
+    (["--arch", "paligemma-3b", "--device", "cuda"], SystemExit,
+     "is_available"),
     (["--device", "cuda"], SystemExit, "is_available"),
 ])
 def test_train_cli_refusals(argv, error, match, monkeypatch):
-    if argv == ["--device", "cuda"]:
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    """No card: every config, the frontend ones too, is refused before a
+    weight is drawn."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(Model, "init", lambda self, seed=0: pytest.fail(
+        "weights drawn before the refusal"))
     with pytest.raises(error, match=match):
         ttrain.main(argv)
 
@@ -566,9 +573,22 @@ def test_train_cli_takes_recurrent_stacks_on_the_card(arch, monkeypatch):
 
 
 def test_frontend_configs_are_refused_as_the_model_refuses_them():
-    args = ttrain.make_parser().parse_args(["--device", "cpu"])
-    base = get_config("qwen3-0.6b").reduced()
-    for bad in (dataclasses.replace(base, frontend="vision"),
-                dataclasses.replace(base, is_encoder_decoder=True)):
-        with pytest.raises(ValueError, match="decoder-only"):
-            ttrain.run(args, cfg=bad, log=lambda line: None)
+    """The model carries the frontend configs, and so does the CLI:
+    reduced whisper-tiny and paligemma-3b train 2 steps on the CPU with
+    finite losses, each step's embeddings drawn with its own seed (as
+    the reference CLI's ``fake_embeds(seed=step)``)."""
+    args = ttrain.make_parser().parse_args(
+        ["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "8"])
+    for arch in ("whisper-tiny", "paligemma-3b"):
+        seeds = []
+        real = tfe.fake_embeds
+
+        def spy(cfg, batch, dtype, seed=0, device="cuda"):
+            seeds.append(seed)
+            return real(cfg, batch, dtype, seed=seed, device=device)
+
+        with mock.patch.object(tfe, "fake_embeds", spy):
+            out = ttrain.run(args, cfg=get_config(arch).reduced(),
+                             log=lambda line: None)
+        assert seeds == [0, 1]
+        assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))

@@ -204,18 +204,23 @@ def test_init_schema_matches_reference(pair):
 
 
 def test_model_refuses_unported_configs():
+    """The frontend configs (an encoder-decoder, a vision prefix) build,
+    and refuse the paged path as the reference's ``Model`` does."""
     base = get_config("qwen3-0.6b").reduced()
     for bad in (dataclasses.replace(base, is_encoder_decoder=True),
                 dataclasses.replace(base, frontend="vision")):
-        with pytest.raises(ValueError):
-            Model(bad, device="cpu")
+        model = Model(bad, device="cpu")
+        assert not model.supports_paged
+        with pytest.raises(ValueError, match="decoder-only token stack"):
+            model.pool_init(4, 2)
     # the int8 KV cache is ported: the model builds, its pools are int8
     quant = Model(dataclasses.replace(base, kv_cache_quant=True),
                   device="cpu")
     assert quant.pool_init(4, 2)["periods"]["slot0"]["k"].dtype == \
         torch.int8
+    assert get_config("whisper-tiny").is_encoder_decoder
     with pytest.raises(KeyError, match="not carried"):
-        get_config("whisper-tiny")
+        get_config("no-such-arch")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Model(base)
