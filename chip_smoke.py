@@ -250,7 +250,16 @@ then runs its phases, each raising on failure:
    no PyTorch call reads int8 K/V); ``flash_attention`` and
    ``paged_prefill`` at whisper-tiny's and paligemma-3b's shapes as in
    phase 2, beside SDPA (the prefix as a boolean mask, the backend SDPA
-   ran named); the floor of both methods (one launch on one element).
+   ran named); the floor of both methods (one launch on one element);
+8. the dry-run and the roofline of a whole step (``launch/dryrun.py``,
+   ``roofline_phase``): qwen3-0.6b train_4k as rank 0 of the (16, 16)
+   production mesh under ``tp`` on a fake process group (shapes only,
+   on the host), its per-device memory and roofline terms; then
+   qwen3-0.6b's prefill at full width in bf16 on the card (8 x 2,048
+   tokens, median of 5 after a warm-up) against the assembled per-device
+   FLOPs and bytes of the same shape on a (1, 1) fake mesh: compute_s,
+   memory_s, the measured seconds and the share of bf16 peak, beside the
+   card's name and power limit, and one prefill's device time by kernel.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -274,9 +283,11 @@ from pathlib import Path
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no tensor
-                                                      # cores for float32
+# the card's datasheet rates, set in main() from repro_torch.launch.mesh
+# (one set of constants for the kernels' bounds and the roofline):
+# HBM_BYTES_PER_S, and PEAK_FLOPS by dtype (dense; float32 on the CUDA
+# cores, no tensor cores)
+HBM_BYTES_PER_S = PEAK_FLOPS = None
 
 # tolerances, kernel vs plain version on the same inputs
 KERNEL_TOL = {
@@ -4154,6 +4165,118 @@ def llm_training_phase(torch, device, ops, ref, smi) -> dict:
 # ---------------------------------------------------------------- timing
 
 
+PHASE8_PREFILL = (8, 2048)          # rows x tokens of the timed prefill
+
+
+def roofline_phase(torch, device, Model, smi) -> dict:
+    """8. The dry-run (``launch/dryrun.py``) and the roofline of a whole
+    step.  qwen3-0.6b train_4k as rank 0 of the (16, 16) production mesh
+    under ``tp``, on a fake process group in this process (shapes only,
+    on the host): its per-device memory and roofline terms.  Then
+    qwen3-0.6b's whole-prompt prefill at full width in bf16 on the card
+    (8 x 2,048 tokens, ``flash_attention`` in every layer), the median of
+    5 timed calls after a warm-up, held against the assembled per-device
+    FLOPs and bytes of the same shape on a (1, 1) fake mesh: its share of
+    bf16 peak; then one prefill under the profiler (device time by
+    kernel, busy share).  -> the numbers logged."""
+    import statistics
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    lap = lapper("8")
+    res = dryrun.run_combo("qwen3-0.6b", "train_4k", variant="tp",
+                           with_cost=True, verbose=False)
+    mem, terms = res["memory"], res["assembled"]["terms"]
+    per = res["assembled"]["per_device"]
+    log(f"dry-run qwen3-0.6b train_4k {res['mesh']} {res['variant']} "
+        f"(fake process group, rank 0): argument {mem['argument_gib']:.3f} "
+        f"GiB, output {mem['output_gib']:.3f} GiB, peak "
+        f"{mem['peak_gib']:.3f} GiB, fits {mem['fits']}; per device "
+        f"{per['flops']:.4e} FLOPs, {per['bytes']:.4e} bytes (unfused), "
+        f"collectives {res['assembled']['coll_by_kind']}; compute "
+        f"{terms['compute_s'] * 1e3:.3f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.3f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.3f} ms, dominant "
+        f"{terms['dominant']}; useful ratio "
+        f"{res['assembled']['useful_ratio']:.4f}; lowered in "
+        f"{res['lower_seconds']} s")
+    assert mem["argument_gib"] > 0 and mem["peak_gib"] > 0
+    assert terms["compute_s"] > 0 and res["assembled"]["useful_ratio"] > 0
+    lap("dry-run qwen3-0.6b train_4k")
+
+    b, s = PHASE8_PREFILL
+    shape = InputShape(f"prefill_{b}x{s}", s, b, "prefill")
+    cfg = get_config("qwen3-0.6b")
+    one = make_mesh((1, 1), ("data", "model"))
+    asm = dryrun.assemble_cost(Model(cfg, "cpu"), shape, one, "tp")
+    whole = dryrun.lower_step(Model(cfg, "cpu"), shape, one, "tp")
+    dist.destroy_process_group()
+    lap("assembled cost of the prefill on (1, 1)")
+
+    model = Model(cfg, device)
+    params = model.init(seed=0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=device, dtype=torch.int32)
+    secs = []
+    with torch.inference_mode():
+        logits, _ = model.prefill(params, {"tokens": tokens}, cache_max=s)
+        assert logits.shape == (b, 1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits.float()).all())
+        for _ in range(5):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            model.prefill(params, {"tokens": tokens}, cache_max=s)
+            e1.record()
+            torch.cuda.synchronize()
+            secs.append(e0.elapsed_time(e1) / 1e3)
+    med = statistics.median(secs)
+    flops, nbytes = asm["per_device"]["flops"], asm["per_device"]["bytes"]
+    t = asm["terms"]
+    out = {"seconds": med, "flops": flops, "bytes": nbytes,
+           "compute_s": t["compute_s"], "memory_s": t["memory_s"],
+           "share_of_bf16_peak": flops / med / PEAK_FLOPS["bfloat16"],
+           "whole_step_flops": whole.cost["flops"]}
+    log(f"roofline qwen3-0.6b prefill {b}x{s} bf16 on {smi}: measured "
+        f"{med * 1e3:.3f} ms (median of 5: "
+        f"{', '.join(f'{x * 1e3:.3f}' for x in secs)}); assembled "
+        f"{flops:.4e} FLOPs, {nbytes:.4e} bytes (unfused) -> compute "
+        f"{t['compute_s'] * 1e3:.3f} ms, memory {t['memory_s'] * 1e3:.3f} "
+        f"ms at the datasheet rates; share of bf16 peak "
+        f"{out['share_of_bf16_peak']:.4f} (the whole step's own count, "
+        f"which unembeds the last token only: {whole.cost['flops']:.4e} "
+        f"FLOPs, {whole.cost['flops'] / med / PEAK_FLOPS['bfloat16']:.4f}); "
+        f"useful ratio {asm['useful_ratio']:.4f}")
+    lap("timed prefill")
+
+    def one_prefill():
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model.prefill(params, {"tokens": tokens}, cache_max=s)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, busy, rows = profile_engine(torch, one_prefill)
+    log(f"profile qwen3-0.6b prefill {b}x{s} bf16: wall {wall:.4f}s under "
+        f"the profiler, device busy {busy:.4f}s "
+        f"({100 * busy / wall:.1f}%), {sum(r[1] for r in rows)} kernels")
+    for us, n, key in rows[:8]:
+        log(f"  {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
+    out["busy_share"] = busy / wall
+    del model, params, tokens, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("profile of one prefill")
+    return out
+
+
 def profile_engine(torch, run):
     """Device time by kernel over one engine run under torch.profiler.
     -> (wall seconds under the profiler, device-busy seconds,
@@ -5106,7 +5229,9 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global HBM_BYTES_PER_S, PEAK_FLOPS
     from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import HBM_BYTES_PER_S, PEAK_FLOPS
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import serve
     from repro_torch.models.api import Model
@@ -5399,6 +5524,11 @@ def main() -> int:
     int8_times = int8_kernel_times(torch, device, ops, ref)
     lap("int8_kernel_times")
     phase_done("7")
+
+    # 8. the dry-run and the roofline of a whole step
+    roofline_phase(torch, device, Model, smi)
+
+    phase_done("8")
     one = torch.zeros(1, device=device)
     log(f"time floor: one launch on one element (add_), same timing: "
         f"{time_ms(torch, lambda: one.add_(1)):.4f} ms; graph-replayed: "

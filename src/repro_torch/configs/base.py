@@ -11,6 +11,20 @@ import dataclasses
 import importlib
 from typing import Tuple
 
+# the reference's order of the architectures (the dry-run's combos)
+ARCH_IDS = (
+    "whisper-tiny",
+    "qwen1.5-110b",
+    "qwen3-0.6b",
+    "paligemma-3b",
+    "phi4-mini-3.8b",
+    "rwkv6-1.6b",
+    "jamba-1.5-large-398b",
+    "gemma3-4b",
+    "dbrx-132b",
+    "grok-1-314b",
+)
+
 _MODULE_FOR = {
     "whisper-tiny": "whisper_tiny",
     "qwen3-0.6b": "qwen3_0_6b",

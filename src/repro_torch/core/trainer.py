@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.strategies import _value_and_grad
+from repro_torch.models.sharding import local_tensor, placed_like
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.optim.optimizers import tree_leaves
 
@@ -66,14 +67,16 @@ def _donated_update(optimizer: Optimizer, g_leaves: list, opt_state,
     ``g_leaves`` are the gradients in ``tree_leaves`` order, each dropped
     from the list once used.  Every optimizer of ``optim`` is elementwise
     but for its step count, so the slices give the values of one update
-    of the whole tree, and the moments are never held twice.
-    -> (params, the new state)."""
-    p_leaves = tree_leaves(params)
+    of the whole tree, and the moments are never held twice.  Sharded
+    leaves (DTensors placed alike, the dry-run's) update each device's
+    shard.  -> (params, the new state)."""
+    p_leaves = [local_tensor(p) for p in tree_leaves(params)]
+    g_leaves[:] = [local_tensor(g) for g in g_leaves]
     if not all(p.is_contiguous() for p in p_leaves):
         raise ValueError("a donated train step updates contiguous "
                          "parameters in place")
-    per_leaf = {k: tree_leaves(v) for k, v in opt_state.items()
-                if isinstance(v, dict)}
+    per_leaf = {k: [local_tensor(t) for t in tree_leaves(v)]
+                for k, v in opt_state.items() if isinstance(v, dict)}
     shared = {k: v for k, v in opt_state.items() if k not in per_leaf}
     new_shared = shared
     with torch.no_grad():
@@ -109,6 +112,9 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
 
     def train_step(params, opt_state, batch):
         _, metrics, grads = _value_and_grad(loss_fn, params, batch)
+        # sharded (the dry-run's): each gradient reduced to its
+        # parameter's placement (a no-op for plain tensors)
+        grads = placed_like(grads, params)
         if clip:
             grads, gnorm = clip_by_global_norm(grads, clip)
             metrics = {**metrics, "grad_norm": gnorm}

@@ -62,7 +62,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (embed_apply, embed_schema, norm_apply,
                                        norm_schema, softmax_xent,
                                        unembed_apply)
-from repro_torch.models.module import init_params, torch_dtype
+from repro_torch.models.module import (abstract_params, fake_mode,
+                                       init_params, param_pspecs, torch_dtype)
 
 
 class Model:
@@ -87,6 +88,78 @@ class Model:
 
     def init(self, seed: int = 0):
         return init_params(self.schema(), seed, self.cfg.dtype, self.device)
+
+    # ------------------------------------------------------------ abstract
+    # The dry-run's view (``launch/dryrun.py``): fake tensors of the
+    # global shapes (nothing allocated) and their sharding specs under a
+    # rules table, the reference's ``abstract_params`` / ``param_pspecs``
+    # / ``input_specs`` / ``cache_*``.
+
+    def abstract_params(self, dtype: Optional[str] = None):
+        return abstract_params(self.schema(), dtype or self.cfg.dtype)
+
+    def param_pspecs(self, rules):
+        return param_pspecs(self.schema(), rules)
+
+    def input_specs(self, shape, dtype: Optional[str] = None):
+        """A fake batch of ``shape`` (``configs/shapes.InputShape``):
+        train and prefill ``tokens`` (and ``labels``) (B, S) int32 with
+        S the shape's length less paligemma's patches, ``embeds`` (B, N,
+        W) for a frontend; decode ``tokens`` (B, 1), ``pos`` (B,) and the
+        caches of ``seq_len`` lanes."""
+        cfg = self.cfg
+        dt = torch_dtype(dtype or cfg.dtype)
+        b = shape.global_batch
+        n_front = fe.frontend_tokens(cfg)
+        with fake_mode():
+            i32 = dict(dtype=torch.int32)
+            if shape.mode == "decode":
+                return {"tokens": torch.empty((b, 1), **i32),
+                        "pos": torch.empty((b,), **i32),
+                        "caches": self.cache_abstract(b, shape.seq_len,
+                                                      dtype)}
+            s = shape.seq_len - (n_front if cfg.frontend == "vision" else 0)
+            specs = {"tokens": torch.empty((b, s), **i32)}
+            if shape.mode == "train":
+                specs["labels"] = torch.empty((b, s), **i32)
+            if n_front:
+                specs["embeds"] = torch.empty((b, n_front, fe.embed_dim(cfg)),
+                                              dtype=dt)
+            return specs
+
+    def cache_abstract(self, batch: int, cache_max: int,
+                       dtype: Optional[str] = None):
+        """Slot caches of ``batch`` x ``cache_max`` lanes as fake tensors
+        (``cache_init``'s layout)."""
+        cfg = self.cfg
+        dt = torch_dtype(dtype or cfg.dtype)
+        with fake_mode():
+            if cfg.is_encoder_decoder:
+                return tf.decoder_cache_init(cfg, batch, cache_max, dt, "cpu")
+            return tf.stack_cache_abstract(cfg, batch, cache_max, dt)
+
+    def cache_logical(self):
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            cross = ("batch", "frames", "kv_heads", "head_dim")
+            return {f"layer{i}": {"self": tf.block_cache_logical(cfg, "attn"),
+                                  "xk": cross, "xv": cross}
+                    for i in range(cfg.num_layers)}
+        return tf.stack_cache_logical(cfg)
+
+    def cache_pspecs(self, rules, batch: int, cache_max: int):
+        """The caches' sharding specs under ``rules``."""
+        abstract = self.cache_abstract(batch, cache_max)
+
+        def walk(lg, ab):
+            if isinstance(ab, dict):
+                return {k: walk(lg[k], ab[k]) for k in ab}
+            return rules.spec(lg, tuple(ab.shape))
+
+        return walk(self.cache_logical(), abstract)
+
+    def layer_signatures(self):
+        return tf.signatures(self.cfg)
 
     def _positions(self, s: int):
         """Positions 0..s-1, clipped at ``max_position - 1`` for learned

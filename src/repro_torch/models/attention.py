@@ -32,6 +32,14 @@ with jnp first), so no model-dtype copy of the cache is made.
 the reference rebuilds a cache or pool with ``.at[].set`` or
 ``dynamic_update_slice``, the port writes the tensors in place; each
 such place says so.
+
+The reference's ``shard()`` constraints sit where its own do on the
+paths the dry-run reaches (training, whole-prompt prefill, slot
+decode); with no sharding rules active each is a no-op
+(``models/sharding.py``).  Under rules, GQA keys are repeated to the
+full head count before a kernel's plain version reads them, as the
+reference's ``_repeat_kv`` does, so every attention intermediate shards
+by the full head count.
 """
 from __future__ import annotations
 
@@ -48,7 +56,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import dequantize_kv as _dequantize_kv  # noqa: F401
 from repro_torch.models.layers import apply_rope, rms_norm
-from repro_torch.models.module import ParamSpec, at_least_f32
+from repro_torch.models.module import ParamSpec, at_least_f32, fake_mode
+from repro_torch.models.sharding import active_rules, local, shard
 
 NEG_INF = -2.0 ** 30  # large-negative that survives bf16
 
@@ -65,18 +74,25 @@ def attn_schema(cfg: ModelConfig, cross: bool = False):
     hd = cfg.resolved_head_dim
     d = cfg.d_model
     s = {
-        "wq": ParamSpec((d, cfg.num_heads, hd), scale_dim=-3),
-        "wk": ParamSpec((d, cfg.num_kv_heads, hd), scale_dim=-3),
-        "wv": ParamSpec((d, cfg.num_kv_heads, hd), scale_dim=-3),
-        "wo": ParamSpec((cfg.num_heads, hd, d), scale_dim=-2),
+        "wq": ParamSpec((d, cfg.num_heads, hd),
+                        ("d_model", "heads", "head_dim"), scale_dim=-3),
+        "wk": ParamSpec((d, cfg.num_kv_heads, hd),
+                        ("d_model", "kv_heads", "head_dim"), scale_dim=-3),
+        "wv": ParamSpec((d, cfg.num_kv_heads, hd),
+                        ("d_model", "kv_heads", "head_dim"), scale_dim=-3),
+        "wo": ParamSpec((cfg.num_heads, hd, d),
+                        ("heads", "head_dim", "d_model"), scale_dim=-2),
     }
     if cfg.qkv_bias:
-        s["bq"] = ParamSpec((cfg.num_heads, hd), init="zeros")
-        s["bk"] = ParamSpec((cfg.num_kv_heads, hd), init="zeros")
-        s["bv"] = ParamSpec((cfg.num_kv_heads, hd), init="zeros")
+        s["bq"] = ParamSpec((cfg.num_heads, hd), ("heads", "head_dim"),
+                            init="zeros")
+        s["bk"] = ParamSpec((cfg.num_kv_heads, hd),
+                            ("kv_heads", "head_dim"), init="zeros")
+        s["bv"] = ParamSpec((cfg.num_kv_heads, hd),
+                            ("kv_heads", "head_dim"), init="zeros")
     if cfg.qk_norm and not cross:
-        s["q_norm"] = ParamSpec((hd,), init="ones")
-        s["k_norm"] = ParamSpec((hd,), init="ones")
+        s["q_norm"] = ParamSpec((hd,), ("head_dim",), init="ones")
+        s["k_norm"] = ParamSpec((hd,), ("head_dim",), init="ones")
     return s
 
 
@@ -108,6 +124,9 @@ def _project_qkv(p, cfg: ModelConfig, x, positions, rope: bool,
         theta = _theta_for(cfg, kind)
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -137,18 +156,29 @@ def _flash_attend(p, cfg: ModelConfig, q, k, v, *, kind: str = "attn",
     transposed views through their strides and writes its output in q's
     layout, so neither direction copies on the card."""
     window = cfg.sliding_window if kind == "attn_local" else 0
-    out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), causal=causal,
-                                     window=window, prefix=prefix)
-    return _out_proj(out.transpose(1, 2), p["wo"])
+    seq = "seq" if causal else "frames"
+    if active_rules() is not None:
+        k, v = _repeat_kv(k, q.shape[2], seq), _repeat_kv(v, q.shape[2], seq)
+    # each device attends its heads over every key: no sequence axis is
+    # split inside the kernel's plain version, whose masks read local
+    # indices
+    lg = ("batch", "heads", None, "head_dim")
+    attend = local(functools.partial(kernel_ops.flash_attention,
+                                     causal=causal, window=window,
+                                     prefix=prefix), (lg, lg, lg), lg)
+    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    out = shard(out.transpose(1, 2), "batch", "seq", "heads", "head_dim")
+    return shard(_out_proj(out, p["wo"]), "batch", "seq", "d_model")
 
 
-def _repeat_kv(k, h: int):
-    """(B,S,KV,hd) -> (B,S,H,hd), each KV head repeated for its group."""
+def _repeat_kv(k, h: int, seq_name: str = "seq"):
+    """(B,S,KV,hd) -> (B,S,H,hd), each KV head repeated for its group;
+    sharded by the full head count (KV alone often does not divide the
+    ``model`` axis)."""
     kv = k.shape[2]
     if kv != h:
         k = torch.repeat_interleave(k, h // kv, dim=2)
-    return k
+    return shard(k, "batch", seq_name, "heads", "head_dim")
 
 
 def _scores(q, k_rep):
@@ -250,6 +280,10 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
     body = functools.partial(_chunk_attend, scale=1.0 / math.sqrt(hd),
                              causal=causal, bidir_prefix=bidir_prefix,
                              window=window)
+    # each device's heads attend every key (inside, plain tensors: the
+    # chunk's scores unsharded)
+    heads, rows = ("batch", None, "heads", "head_dim"), ("batch", None)
+    body = local(body, (heads, rows, rows, heads, heads), heads)
     outs = []
     for i in range(nchunk):
         qi = q[:, i * q_chunk:(i + 1) * q_chunk]
@@ -261,8 +295,9 @@ def attn_apply(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
                                    preserve_rng_state=False))
         else:
             outs.append(body(qi, pi, kpos, k_rep, v_rep))
-    out = torch.cat(outs, dim=1)[:, :s]
-    return _out_proj(out, p["wo"])
+    out = shard(torch.cat(outs, dim=1)[:, :s],
+                "batch", "seq", "heads", "head_dim")
+    return shard(_out_proj(out, p["wo"]), "batch", "seq", "d_model")
 
 
 # ------------------------------------------------------------- slot cache
@@ -340,12 +375,81 @@ def attn_prefill(p, cfg: ModelConfig, x, positions, *, kind: str,
         # (take + i) % clen
         take = s - clen
         roll = (take % clen) if clen else 0
-        return y, {kk: torch.roll(vv[:, take:], roll, dims=1)
-                   for kk, vv in entries.items()}
-    cache = init_cache(cfg, kind, b, cache_max, k.dtype, x.device)
-    for kk, vv in entries.items():
+        return y, _shard_cache({kk: _ring(vv, take, roll, kk)
+                                for kk, vv in entries.items()})
+    # under sharding rules the strip and the prompt's lanes sharded alike
+    cache = _shard_cache(init_cache(cfg, kind, b, cache_max, k.dtype,
+                                    x.device))
+    for kk, vv in _shard_cache(entries).items():
         cache[kk][:, :s] = vv
     return y, cache
+
+
+CACHE_LOGICAL = {
+    "k": ("batch", "kv_len", "kv_heads", "head_dim"),
+    "v": ("batch", "kv_len", "kv_heads", "head_dim"),
+    "k_s": ("batch", "kv_len", "kv_heads"),
+    "v_s": ("batch", "kv_len", "kv_heads"),
+    "pos": ("batch", "kv_len"),
+}
+
+
+def cache_logical_for(cfg: ModelConfig):
+    names = ["k", "v", "pos"] + (["k_s", "v_s"] if cfg.kv_cache_quant else [])
+    return {k: CACHE_LOGICAL[k] for k in names}
+
+
+def _ring(entry, take: int, roll: int, name: str):
+    """``entry``'s lanes from ``take`` on, rolled by ``roll`` along the
+    strip (dim 1); under sharding rules on each device's shards, the
+    strip whole."""
+    lg = CACHE_LOGICAL[name]
+    lg = (lg[0], None) + lg[2:]
+    return local(lambda t: torch.roll(t[:, take:], roll, dims=1), (lg,),
+                 lg)(entry)
+
+
+def _shard_cache(cache):
+    return {kk: shard(vv, *CACHE_LOGICAL[kk]) for kk, vv in cache.items()}
+
+
+def abstract_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                   dtype):
+    """``init_cache`` as fake tensors on the CPU: shapes and dtypes only
+    (``module.fake_mode``)."""
+    with fake_mode():
+        return init_cache(cfg, kind, batch, max_len, dtype, "cpu")
+
+
+def _put_lanes(leaf, val, rows, lane):
+    """``leaf[rows[b], lane[b]] = val[b]`` for every row b (``rows`` =
+    arange(B)), in place; under sharding rules on each device's shards, a
+    lane outside this device's piece of the strip rewriting what it
+    holds.  -> leaf."""
+    if active_rules() is None:
+        leaf[rows, lane] = val
+        return leaf
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import global_offset
+
+    lg = CACHE_LOGICAL["k" if leaf.dim() == 4 else
+                       ("k_s" if leaf.dim() == 3 else "pos")]
+    leaf = shard(leaf, *lg)
+    off = global_offset(leaf, 1) if isinstance(leaf, DTensor) else 0
+
+    def put(leaf, val, lane):
+        n = leaf.shape[1]
+        here = lane - off
+        ok = (here >= 0) & (here < n)
+        here = torch.clamp(here, 0, n - 1)
+        r = torch.arange(leaf.shape[0], device=leaf.device)
+        keep = ok.reshape((-1,) + (1,) * (val.dim() - 1))
+        leaf[r, here] = torch.where(keep, val.to(leaf.dtype), leaf[r, here])
+        return leaf
+
+    return local(put, (lg, (lg[0],) + lg[2:], ("batch",)), lg)(
+        leaf, val, lane)
 
 
 def attn_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str):
@@ -371,11 +475,14 @@ def attn_decode(p, cfg: ModelConfig, x, cache, pos, *, kind: str):
         new = {"k": k_new[:, 0].to(cache["k"].dtype),
                "v": v_new[:, 0].to(cache["v"].dtype)}
     for name, val in new.items():
-        cache[name][rows, lane] = val
+        cache[name] = _put_lanes(cache[name], val, rows, lane)
     pos = pos.to(torch.int32)
-    cache["pos"][rows, lane] = pos
+    cache["pos"] = _put_lanes(cache["pos"], pos, rows, lane)
     window = cfg.sliding_window if kind == "attn_local" else 0
     qpos = pos[:, None].contiguous()
+    # the reference's decode read shards its scores by kv_len, so its
+    # query's heads are whole on every device
+    q = shard(q, "batch", "seq", None, "head_dim")
     if cfg.kv_cache_quant:
         b, _, kv, hd = cache["k"].shape
         none = q.new_empty((b, 0, kv, hd))
@@ -560,10 +667,21 @@ def cross_apply(p, cfg: ModelConfig, x, k, v):
     hd = cfg.resolved_head_dim
     q = _cross_q(p, cfg, x)
     h = q.shape[2]
-    k_rep, v_rep = _repeat_kv(k, h), _repeat_kv(v, h)
-    sc = _scores(q, k_rep) / math.sqrt(hd)
-    probs = _softmax(sc, torch.ones((), dtype=torch.bool, device=x.device))
-    return _out_proj(_attn_out(probs.to(v.dtype), v_rep), p["wo"])
+    k_rep = _repeat_kv(k, h, "frames")
+    v_rep = _repeat_kv(v, h, "frames")
+    heads = ("batch", None, "heads", "head_dim")
+    out = local(functools.partial(_cross_core, root=math.sqrt(hd)),
+                (heads,) * 3, heads)(q, k_rep, v_rep)
+    out = shard(out, "batch", "seq", "heads", "head_dim")
+    return shard(_out_proj(out, p["wo"]), "batch", "seq", "d_model")
+
+
+def _cross_core(q, k_rep, v_rep, *, root: float):
+    """Unmasked attention of q (B,S,H,hd) over k_rep/v_rep (B,F,H,hd),
+    the scores divided by ``root`` (sqrt(hd))."""
+    sc = _scores(q, k_rep) / root
+    probs = _softmax(sc, torch.ones((), dtype=torch.bool, device=q.device))
+    return _attn_out(probs.to(v_rep.dtype), v_rep)
 
 
 def cross_attend(p, cfg: ModelConfig, x, k, v):

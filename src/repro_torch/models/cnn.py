@@ -29,12 +29,13 @@ def cnn_schema(cfg: CNNConfig):
     side = (cfg.image_size - cfg.conv_kernel + 1) // cfg.pool
     flat = side * side * cout
     return {
-        "conv_w": ParamSpec((k, k, cin, cout), scale_dim=-2),
-        "conv_b": ParamSpec((cout,), init="zeros"),
-        "dense1_w": ParamSpec((flat, cfg.hidden), scale_dim=-2),
-        "dense1_b": ParamSpec((cfg.hidden,), init="zeros"),
-        "dense2_w": ParamSpec((cfg.hidden, cfg.num_classes), scale_dim=-2),
-        "dense2_b": ParamSpec((cfg.num_classes,), init="zeros"),
+        "conv_w": ParamSpec((k, k, cin, cout), (None,) * 4, scale_dim=-2),
+        "conv_b": ParamSpec((cout,), (None,), init="zeros"),
+        "dense1_w": ParamSpec((flat, cfg.hidden), (None, None), scale_dim=-2),
+        "dense1_b": ParamSpec((cfg.hidden,), (None,), init="zeros"),
+        "dense2_w": ParamSpec((cfg.hidden, cfg.num_classes), (None, None),
+                              scale_dim=-2),
+        "dense2_b": ParamSpec((cfg.num_classes,), (None,), init="zeros"),
     }
 
 

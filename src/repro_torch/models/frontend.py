@@ -27,7 +27,7 @@ VISION_WIDTH = 1152
 def frontend_schema(cfg: ModelConfig):
     if cfg.frontend == "vision":
         return {"projector": ParamSpec((VISION_WIDTH, cfg.d_model),
-                                       scale_dim=-2)}
+                                       (None, "d_model"), scale_dim=-2)}
     return {}
 
 

@@ -1,7 +1,11 @@
 """Parameter schemas and their seeded initialisation.
 
 A model declares its parameters once as a nested dict of ``ParamSpec``
-(shape + initializer), mirroring ``repro.models.module``.  ``init_params``
+(shape + logical axes + initializer), mirroring ``repro.models.module``.
+From that one declaration come the concrete parameters, their fake
+stand-ins for the dry-run (``abstract_params``: nothing allocated) and
+their sharding specs under a rules table (``param_pspecs``).
+``init_params``
 draws every leaf from one ``torch.Generator`` on the target device with
 the reference's scale rules:
 
@@ -51,9 +55,19 @@ def at_least_f32(t):
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]   # one logical axis name per dim
     init: str = "normal"          # normal | zeros | ones | scaled | embed
     scale_dim: int = -1           # fan-in axis for "normal"/"scaled"
     dtype: Optional[str] = None   # overrides the model dtype
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape,
+                                                      self.logical)
+
+    def torch_dtype(self, dtype: str) -> torch.dtype:
+        """The leaf's dtype in a model of ``dtype``."""
+        return torch_dtype(dtype if dtype == "float64"
+                           else self.dtype or dtype)
 
 
 def init_params(schema, seed: int, dtype: str, device) -> dict:
@@ -63,8 +77,7 @@ def init_params(schema, seed: int, dtype: str, device) -> dict:
     gen.manual_seed(int(seed))
 
     def draw(spec: ParamSpec):
-        dt = torch_dtype(dtype if dtype == "float64"
-                         else spec.dtype or dtype)
+        dt = spec.torch_dtype(dtype)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "ones":
@@ -85,10 +98,59 @@ def init_params(schema, seed: int, dtype: str, device) -> dict:
     return walk(schema)
 
 
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a nested dict, in its key order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, depth-first in key order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def fake_mode():
+    """A context in which tensors are fake (shapes and dtypes, no
+    storage): the active ``FakeTensorMode`` if there is one, else a new
+    one."""
+    import contextlib
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE):
+        return contextlib.nullcontext()
+    return FakeTensorMode()
+
+
+def abstract_params(schema, dtype: str):
+    """Fake tensors of the schema's global shapes and dtypes on the CPU
+    (the reference's ShapeDtypeStructs): nothing is allocated
+    (``fake_mode``)."""
+    with fake_mode():
+        return tree_map(lambda s: torch.empty(s.shape,
+                                              dtype=s.torch_dtype(dtype)),
+                        schema)
+
+
+def param_pspecs(schema, rules):
+    """The schema's sharding specs under ``rules`` (``Rules.spec`` of each
+    leaf's logical axes and shape)."""
+    return tree_map(lambda s: rules.spec(s.logical, s.shape), schema)
+
+
+def count_params(schema) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(schema))
+
+
 def stack_specs(spec_tree, n: int):
     """Add a leading stacked-layers axis to every ParamSpec in a tree."""
-    if isinstance(spec_tree, dict):
-        return {k: stack_specs(v, n) for k, v in spec_tree.items()}
-    s = spec_tree
-    assert s.scale_dim < 0, "use negative scale_dim so stacking preserves it"
-    return ParamSpec((n,) + s.shape, s.init, s.scale_dim, s.dtype)
+    def f(s: ParamSpec):
+        assert s.scale_dim < 0, \
+            "use negative scale_dim so stacking preserves it"
+        return ParamSpec((n,) + s.shape, ("layers",) + s.logical, s.init,
+                         s.scale_dim, s.dtype)
+
+    return tree_map(f, spec_tree)

@@ -19,6 +19,7 @@ reference leaves them to XLA.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import ParamSpec, at_least_f32
+from repro_torch.models.sharding import local, shard
 
 EXPERT_KINDS = ("swiglu", "geglu", "gelu")
 
@@ -36,12 +38,17 @@ def moe_schema(cfg: ModelConfig):
                          f"({EXPERT_KINDS})")
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     s = {
-        "router": ParamSpec((d, e), scale_dim=-2, dtype="float32"),
-        "up": ParamSpec((e, d, f), scale_dim=-2),
-        "down": ParamSpec((e, f, d), scale_dim=-2),
+        "router": ParamSpec((d, e), ("d_model", "experts"), scale_dim=-2,
+                            dtype="float32"),
+        "up": ParamSpec((e, d, f), ("experts", "d_model", "expert_ff"),
+                        scale_dim=-2),
+        "down": ParamSpec((e, f, d), ("experts", "expert_ff", "d_model"),
+                          scale_dim=-2),
     }
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        s["gate"] = ParamSpec((e, d, f), scale_dim=-2)
+        s["gate"] = ParamSpec((e, d, f),
+                              ("experts", "d_model", "expert_ff"),
+                              scale_dim=-2)
     return s
 
 
@@ -69,12 +76,45 @@ def route(p, cfg: ModelConfig, x):
     """The router, in float32: x (B,S,D) -> (probs (B,S,E), gates
     (B,S,K) renormalised over the top k, expert ids (B,S,K))."""
     logits = at_least_f32(x) @ at_least_f32(p["router"])      # (B,S,E)
+    # each token's top k over every expert's logit, on each device's
+    # tokens under sharding
+    tokens = ("batch", "seq", None)
+    return local(functools.partial(_top_k, k=cfg.num_experts_per_tok),
+                 (tokens,), (tokens,) * 3)(logits)
+
+
+def _top_k(logits, *, k: int):
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, cfg.num_experts_per_tok,
-                                       dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
     return probs, gate_vals, expert_idx
+
+
+def _dispatch(expert_idx, *, e: int, cap: int):
+    """expert ids (B,S,K) -> (slot table (B, E*cap) of source tokens,
+    its valid mask, each (token, rank) pair's slot (B, S*K), whether the
+    pair is kept (B, S*K)).  Pairs are numbered within each expert in the
+    row's flattened (S*K) order by a one-hot cumsum; a pair whose number
+    reaches ``cap`` is dropped."""
+    b, s, k = expert_idx.shape
+    flat_e = expert_idx.reshape(b, s * k)
+    oh = F.one_hot(flat_e, e)                                 # (B,S*K,E)
+    pos_in_e = (torch.cumsum(oh, dim=1) * oh).sum(-1) - 1
+    keep = pos_in_e < cap
+    slot_flat = flat_e * cap + torch.where(keep, pos_in_e, 0)
+
+    # slot table (expert, slot) -> source token; dropped pairs write the
+    # spare last column, cut off after (empty slots read token 0 with
+    # combine weight 0)
+    device = expert_idx.device
+    token_of_pair = (torch.arange(s * k, device=device) // k).expand(b, -1)
+    dest = torch.where(keep, slot_flat, e * cap)
+    table = torch.zeros(b, e * cap + 1, dtype=torch.long, device=device)
+    table.scatter_(1, dest, token_of_pair)
+    valid = torch.zeros(b, e * cap + 1, dtype=torch.bool, device=device)
+    valid.scatter_(1, dest, True)
+    return table[:, :e * cap], valid[:, :e * cap], slot_flat, keep
 
 
 def moe_apply(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,30 +130,21 @@ def moe_apply(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
         dim=(0, 1))
     aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
 
-    # position-in-expert over the flattened (S*K) order of each row
-    flat_e = expert_idx.reshape(b, s * k)
-    oh = F.one_hot(flat_e, e)                                 # (B,S*K,E)
-    pos_in_e = (torch.cumsum(oh, dim=1) * oh).sum(-1) - 1
-    keep = pos_in_e < cap
-    slot_flat = flat_e * cap + torch.where(keep, pos_in_e, 0)
-
-    # slot table (expert, slot) -> source token; dropped pairs write the
-    # spare last column, cut off after (empty slots read token 0 with
-    # combine weight 0)
-    token_of_pair = (torch.arange(s * k, device=x.device) // k).expand(b, -1)
-    dest = torch.where(keep, slot_flat, e * cap)
-    table = torch.zeros(b, e * cap + 1, dtype=torch.long, device=x.device)
-    table.scatter_(1, dest, token_of_pair)
-    valid = torch.zeros(b, e * cap + 1, dtype=torch.bool, device=x.device)
-    valid.scatter_(1, dest, True)
-    table, valid = table[:, :e * cap], valid[:, :e * cap]
+    # each row's dispatch tables, on each device's rows under sharding
+    rows = ("batch", None)
+    table, valid, slot_flat, keep = local(
+        functools.partial(_dispatch, e=e, cap=cap), (("batch", None, None),),
+        (rows,) * 4)(expert_idx)
 
     xe = torch.gather(x, 1, table[..., None].expand(b, e * cap, d))
     xe = (xe * valid[..., None].to(xe.dtype)).reshape(b, e, cap, d)
-    ye = _experts(p, cfg.mlp_kind, xe).reshape(b, e * cap, d)
+    xe = shard(xe, "batch", "experts", None, "d_model")
+    ye = shard(_experts(p, cfg.mlp_kind, xe),
+               "batch", "experts", None, "d_model").reshape(b, e * cap, d)
 
     # combine: each pair's expert output, weighted by its gate
     gate_flat = (gate_vals.reshape(b, s * k) * keep).to(ye.dtype)
     contrib = torch.gather(ye, 1, slot_flat[..., None].expand(b, s * k, d))
     contrib = contrib * gate_flat[..., None]
-    return contrib.reshape(b, s, k, d).sum(dim=2), aux
+    return shard(contrib.reshape(b, s, k, d).sum(dim=2),
+                 "batch", "seq", "d_model"), aux

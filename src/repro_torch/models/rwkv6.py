@@ -25,6 +25,11 @@ past a row's valid lanes the decay is 1 and the key 0, so ``S = 1 S +
 it.  In training the scan differentiates through ``ops``'s autograd
 Function (backward: the ``rwkv6_scan_bwd`` kernel on the card, its plain
 version on the CPU), and so do the (B,H,S,hd) views it is given.
+
+The reference's ``shard()`` constraints sit where its own do (no-ops
+without sharding rules); under rules the scan runs on each device's
+heads (``sharding.local``), its sequence whole.  ``recurrence_cost`` is
+the reference's analytic count of the scan, which the dry-run reads.
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.module import ParamSpec, at_least_f32
+from repro_torch.models.module import ParamSpec, at_least_f32, fake_mode
+from repro_torch.models.sharding import local, shard
 
 LORA_RANK = 64
 
@@ -47,28 +53,30 @@ def rwkv_schema(cfg: ModelConfig):
     h, hd = num_heads(cfg), cfg.rwkv_head_dim
     r = LORA_RANK
     return {
-        "mu": ParamSpec((5, d), init="zeros"),
-        "mix_a": ParamSpec((d, r), scale_dim=-2),
-        "mix_b": ParamSpec((r, 5, d), init="zeros"),
-        "w_base": ParamSpec((d,), init="zeros"),
-        "w_a": ParamSpec((d, r), scale_dim=-2),
-        "w_b": ParamSpec((r, d), init="zeros"),
-        "u": ParamSpec((h, hd), init="zeros"),
-        "wr": ParamSpec((d, d), scale_dim=-2),
-        "wk": ParamSpec((d, d), scale_dim=-2),
-        "wv": ParamSpec((d, d), scale_dim=-2),
-        "wg": ParamSpec((d, d), scale_dim=-2),
-        "wo": ParamSpec((d, d), scale_dim=-2),
-        "head_scale": ParamSpec((h, hd), init="ones"),
+        "mu": ParamSpec((5, d), (None, "d_model"), init="zeros"),
+        "mix_a": ParamSpec((d, r), ("d_model", None), scale_dim=-2),
+        "mix_b": ParamSpec((r, 5, d), (None, None, "d_model"),
+                           init="zeros"),
+        "w_base": ParamSpec((d,), ("d_model",), init="zeros"),
+        "w_a": ParamSpec((d, r), ("d_model", None), scale_dim=-2),
+        "w_b": ParamSpec((r, d), (None, "d_model"), init="zeros"),
+        "u": ParamSpec((h, hd), ("heads", "head_dim"), init="zeros"),
+        "wr": ParamSpec((d, d), ("d_model", "heads_x_dim"), scale_dim=-2),
+        "wk": ParamSpec((d, d), ("d_model", "heads_x_dim"), scale_dim=-2),
+        "wv": ParamSpec((d, d), ("d_model", "heads_x_dim"), scale_dim=-2),
+        "wg": ParamSpec((d, d), ("d_model", "heads_x_dim"), scale_dim=-2),
+        "wo": ParamSpec((d, d), ("heads_x_dim", "d_model"), scale_dim=-2),
+        "head_scale": ParamSpec((h, hd), ("heads", "head_dim"),
+                                init="ones"),
     }
 
 
 def channel_mix_schema(cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu_k": ParamSpec((d,), init="zeros"),
-        "wk_cm": ParamSpec((d, f), scale_dim=-2),
-        "wv_cm": ParamSpec((f, d), scale_dim=-2),
+        "mu_k": ParamSpec((d,), ("d_model",), init="zeros"),
+        "wk_cm": ParamSpec((d, f), ("d_model", "d_ff"), scale_dim=-2),
+        "wv_cm": ParamSpec((f, d), ("d_ff", "d_model"), scale_dim=-2),
     }
 
 
@@ -77,8 +85,9 @@ def channel_mix(p, cfg: ModelConfig, x, x_prev, seq_len=None):
     x (B,S,D), x_prev (B,D) -> (y, new x_prev = x's last valid lane)."""
     prev = _token_shift(x, x_prev)
     xk = x + (prev - x) * p["mu_k"]
-    k = torch.square(F.relu(xk @ p["wk_cm"]))
-    return k @ p["wv_cm"], _last_valid(x, seq_len)
+    k = shard(torch.square(F.relu(xk @ p["wk_cm"])), "batch", "seq", "d_ff")
+    return (shard(k @ p["wv_cm"], "batch", "seq", "d_model"),
+            _last_valid(x, seq_len))
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype, device):
@@ -91,6 +100,24 @@ def init_state(cfg: ModelConfig, batch: int, dtype, device):
         "x_tm": torch.zeros(batch, cfg.d_model, dtype=dtype, device=device),
         "x_cm": torch.zeros(batch, cfg.d_model, dtype=dtype, device=device),
     }
+
+
+def abstract_state(cfg: ModelConfig, batch: int, dtype):
+    """``init_state`` as fake tensors on the CPU (``module.fake_mode``)."""
+    with fake_mode():
+        return init_state(cfg, batch, dtype, "cpu")
+
+
+STATE_LOGICAL = {
+    "s": ("batch", "heads", "head_dim", "head_dim2"),
+    "x_tm": ("batch", "d_model"),
+    "x_cm": ("batch", "d_model"),
+}
+
+# the scan's operands on each device: its heads, the sequence whole
+_HEADS = ("batch", "heads", None, "head_dim")
+_SCAN_IN = (_HEADS,) * 4 + (("heads", "head_dim"), STATE_LOGICAL["s"])
+_SCAN_OUT = (_HEADS, STATE_LOGICAL["s"])
 
 
 def _token_shift(x, x_prev):
@@ -152,6 +179,9 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, state, seq_len=None):
     v = (xv @ p["wv"]).reshape(b, s, h, hd)
     g = F.silu(xg @ p["wg"])
     w = _decay(p, xw).reshape(b, s, h, hd)             # float32
+    # split by heads as r, k, v are (its gradient gathered back in this
+    # layout, not the scan's)
+    w = shard(w, "batch", "seq", "heads", "head_dim")
     u = at_least_f32(p["u"])
     if seq_len is not None:
         pad = (torch.arange(s, device=x.device)[None, :]
@@ -162,11 +192,23 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, state, seq_len=None):
     def heads_first(t):                                # (B,H,S,hd) view
         return at_least_f32(t).transpose(1, 2)
 
-    out, s_final = kernel_ops.rwkv6_scan(
+    out, s_final = local(kernel_ops.rwkv6_scan, _SCAN_IN, _SCAN_OUT)(
         heads_first(r), heads_first(k), heads_first(v), heads_first(w), u,
         at_least_f32(state["s"]))
     o = out.transpose(1, 2)                            # (B,S,H,hd)
     o = _headnorm(o, at_least_f32(p["head_scale"]))
-    o = o.reshape(b, s, d).to(x.dtype) * g
-    y = o @ p["wo"]
-    return y, {"s": s_final, "x_tm": _last_valid(x, seq_len)}
+    o = o.contiguous().reshape(b, s, d).to(x.dtype) * g
+    y = shard(o @ p["wo"], "batch", "seq", "d_model")
+    return y, {"s": shard(s_final, *STATE_LOGICAL["s"]),
+               "x_tm": _last_valid(x, seq_len)}
+
+
+def recurrence_cost(cfg: ModelConfig, batch: int, seq: int):
+    """The reference's analytic (flops, bytes) of the WKV scan core: per
+    token and channel pair the kv outer product, the bonus, the r.S
+    reduction and the decay update; r, k, v, w streamed in and the state
+    read and written each token, float32."""
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    flops = batch * seq * d * hd * 8.0
+    bytes_ = batch * seq * (4 * d * 4.0 + 2 * d * hd * 4.0)
+    return flops, bytes_

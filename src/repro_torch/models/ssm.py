@@ -13,6 +13,11 @@ The recurrence always goes through ``ops.ssm_scan``: the CUDA kernel on
 the card, its plain version on the CPU, for a whole prompt, a ragged
 chunk and one decode token alike.  The state is ``{"h": (B, d_in, N)
 float32, "conv": (B, W-1, d_in)}`` in the model dtype.
+
+The reference's ``shard()`` constraints sit where its own do (no-ops
+without sharding rules); under rules the scan runs on each device's
+shards (``sharding.local``), its sequence whole.  ``recurrence_cost`` is
+the reference's analytic count of the scan, which the dry-run reads.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.module import ParamSpec, at_least_f32
+from repro_torch.models.module import ParamSpec, at_least_f32, fake_mode
+from repro_torch.models.sharding import local, shard
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -32,12 +38,14 @@ def ssm_schema(cfg: ModelConfig):
     d, n, w = cfg.d_model, cfg.ssm_state_dim, cfg.ssm_conv_width
     di = d_inner(cfg)
     return {
-        "in_proj": ParamSpec((d, 2 * di), scale_dim=-2),
-        "conv": ParamSpec((w, di), init="scaled", scale_dim=-2),
-        "x_proj": ParamSpec((di, 2 * n + 1), scale_dim=-2),
-        "dt_bias": ParamSpec((di,), init="zeros"),
-        "a_log": ParamSpec((di, n), init="ones"),
-        "out_proj": ParamSpec((di, d), scale_dim=-2),
+        "in_proj": ParamSpec((d, 2 * di), ("d_model", "d_ff"), scale_dim=-2),
+        "conv": ParamSpec((w, di), ("conv", "d_ff"), init="scaled",
+                          scale_dim=-2),
+        "x_proj": ParamSpec((di, 2 * n + 1), ("d_ff", "state"),
+                            scale_dim=-2),
+        "dt_bias": ParamSpec((di,), ("d_ff",), init="zeros"),
+        "a_log": ParamSpec((di, n), ("d_ff", "state"), init="ones"),
+        "out_proj": ParamSpec((di, d), ("d_ff", "d_model"), scale_dim=-2),
     }
 
 
@@ -49,6 +57,24 @@ def init_state(cfg: ModelConfig, batch: int, dtype, device):
         "h": torch.zeros(batch, di, n, dtype=torch.float32, device=device),
         "conv": torch.zeros(batch, w - 1, di, dtype=dtype, device=device),
     }
+
+
+def abstract_state(cfg: ModelConfig, batch: int, dtype):
+    """``init_state`` as fake tensors on the CPU (``module.fake_mode``)."""
+    with fake_mode():
+        return init_state(cfg, batch, dtype, "cpu")
+
+
+STATE_LOGICAL = {
+    "h": ("batch", "d_ff", "state"),
+    "conv": ("batch", "conv", "d_ff"),
+}
+
+# the scan's operands on each device: its sequence whole
+_SCAN_IN = (("batch", None, "d_ff"), ("batch", None, "state"),
+            ("batch", None, "state"), ("batch", None, "d_ff"),
+            ("d_ff", "state"), STATE_LOGICAL["h"])
+_SCAN_OUT = (("batch", None, "d_ff"), STATE_LOGICAL["h"])
 
 
 def _causal_conv(p, x_in, prev):
@@ -85,7 +111,7 @@ def ssm_forward(p, cfg: ModelConfig, x, state, seq_len=None):
     caller discards."""
     s, w = x.shape[1], cfg.ssm_conv_width
     di = d_inner(cfg)
-    xz = x @ p["in_proj"]
+    xz = shard(x @ p["in_proj"], "batch", "seq", "d_ff")
     x_in, z = xz[..., :di], xz[..., di:]
     x_c, xp = _causal_conv(p, x_in, state["conv"])
     dt, bm, cm, xc = _selective_terms(p, cfg, x_c)
@@ -102,12 +128,14 @@ def ssm_forward(p, cfg: ModelConfig, x, state, seq_len=None):
     # and cm are copied out of the projection: the kernel takes 16-byte
     # aligned operands, and at one row of one step a column slice counts
     # as contiguous but starts mid-row
-    y, h_final = kernel_ops.ssm_scan(
+    y, h_final = local(kernel_ops.ssm_scan, _SCAN_IN, _SCAN_OUT)(
         dt.contiguous(), bm.clone(memory_format=torch.contiguous_format),
         cm.clone(memory_format=torch.contiguous_format), xc.contiguous(),
         a.contiguous(), at_least_f32(state["h"]).contiguous())
     y = y * F.silu(z)
-    return y @ p["out_proj"], {"h": h_final, "conv": new_conv.contiguous()}
+    out = shard(y @ p["out_proj"], "batch", "seq", "d_model")
+    new_state = {"h": h_final, "conv": new_conv.contiguous()}
+    return out, {k: shard(v, *STATE_LOGICAL[k]) for k, v in new_state.items()}
 
 
 def ssm_apply(p, cfg: ModelConfig, x):
@@ -118,3 +146,14 @@ def ssm_apply(p, cfg: ModelConfig, x):
     its plain version on the CPU)."""
     st = init_state(cfg, x.shape[0], x.dtype, x.device)
     return ssm_forward(p, cfg, x, st)[0]
+
+
+def recurrence_cost(cfg: ModelConfig, batch: int, seq: int):
+    """The reference's analytic (flops, bytes) of the scan core over
+    ``seq`` steps: per token and state element the decay's exp, two
+    multiply-adds and the C reduction; dt, B, C and x streamed in and the
+    state read and written each token, float32."""
+    di, n = d_inner(cfg), cfg.ssm_state_dim
+    flops = batch * seq * di * n * 8.0
+    bytes_ = batch * seq * ((1 + 2 * n + di) * 4.0 + 2 * di * n * 4.0)
+    return flops, bytes_

@@ -34,7 +34,8 @@ from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (mlp_apply, mlp_schema, norm_apply,
                                        norm_schema)
-from repro_torch.models.module import ParamSpec, stack_specs
+from repro_torch.models.module import (ParamSpec, fake_mode, stack_specs,
+                                       tree_map)
 
 # ------------------------------------------------------------------ periods
 
@@ -58,6 +59,19 @@ def slot_sig(cfg: ModelConfig, j: int) -> Tuple[str, bool]:
 
 
 RECURRENT_KINDS = ("mamba", "rwkv6")
+
+
+def signatures(cfg: ModelConfig) -> Dict[Tuple[str, bool], int]:
+    """Unique layer signatures -> count over the whole stack (for the
+    compositional roofline), the reference's: whisper's decoder layers
+    count twice (self and cross attention, the same arithmetic shape)
+    beside the encoder's."""
+    if cfg.is_encoder_decoder:
+        return {("attn", False): 2 * cfg.num_layers + cfg.encoder_layers}
+    out: Dict[Tuple[str, bool], int] = {}
+    for sig in layer_sigs(cfg):
+        out[sig] = out.get(sig, 0) + 1
+    return out
 
 
 def layer_kinds(cfg: ModelConfig) -> list:
@@ -336,6 +350,56 @@ def stack_cache_init(cfg: ModelConfig, batch: int, cache_max: int, dtype,
     return _to_layout(cfg, [one(kind) for kind in layer_kinds(cfg)])
 
 
+def block_cache_abstract(cfg: ModelConfig, kind: str, batch: int,
+                         cache_max: int, dtype):
+    """One layer's slot cache as fake tensors (``module.fake_mode``)."""
+    if kind in RECURRENT_KINDS:
+        mod = ssm_mod if kind == "mamba" else rwkv_mod
+        return mod.abstract_state(cfg, batch, dtype)
+    return attn.abstract_cache(cfg, kind, batch, cache_max, dtype)
+
+
+def block_cache_logical(cfg: ModelConfig, kind: str):
+    if kind in ("attn", "attn_local"):
+        return attn.cache_logical_for(cfg)
+    if kind == "mamba":
+        return dict(ssm_mod.STATE_LOGICAL)
+    return dict(rwkv_mod.STATE_LOGICAL)
+
+
+def stack_cache_abstract(cfg: ModelConfig, batch: int, cache_max: int, dtype):
+    """The stack's slot caches as fake tensors, in the stack layout (the
+    reference's ``stack_cache_abstract``)."""
+    p, n_per, n_rem = layout(cfg)
+    with fake_mode():
+        def one(j):
+            return block_cache_abstract(cfg, slot_sig(cfg, j)[0], batch,
+                                        cache_max, dtype)
+
+        periods = {f"slot{j}": tree_map(
+            lambda t: t.new_empty((n_per,) + tuple(t.shape)), one(j))
+            for j in range(p)} if n_per else {}
+        rem = {f"layer{j}": one(n_per * p + j) for j in range(n_rem)}
+    return {"periods": periods, "rem": rem}
+
+
+def stack_cache_logical(cfg: ModelConfig):
+    p, n_per, n_rem = layout(cfg)
+
+    def with_layers(tree):
+        return {k: ("layers",) + v for k, v in tree.items()}
+
+    periods = {
+        f"slot{j}": with_layers(block_cache_logical(cfg, slot_sig(cfg, j)[0]))
+        for j in range(p)
+    } if n_per else {}
+    rem = {
+        f"layer{j}": block_cache_logical(cfg, slot_sig(cfg, n_per * p + j)[0])
+        for j in range(n_rem)
+    }
+    return {"periods": periods, "rem": rem}
+
+
 # ------------------------------------------------------------ paged path
 
 
@@ -486,7 +550,8 @@ def encdec_schema(cfg: ModelConfig):
     return {
         "encoder": {f"layer{i}": encoder_layer_schema(cfg)
                     for i in range(cfg.encoder_layers)},
-        "enc_pos": ParamSpec((cfg.encoder_frames, cfg.d_model), init="embed"),
+        "enc_pos": ParamSpec((cfg.encoder_frames, cfg.d_model),
+                             (None, "d_model"), init="embed"),
         "enc_norm": norm_schema(cfg),
         "decoder": {f"layer{i}": decoder_layer_schema(cfg)
                     for i in range(cfg.num_layers)},
