@@ -897,6 +897,176 @@ def dequantized_args(torch, ref, args):
             torch.cat([kpp, kpc], 1), qpos)
 
 
+def pool_case(torch, gen, device, case, prefix, bs=16, int8=False):
+    """An assembled case (``prefill_case`` or ``verify_case``: each row's
+    ``prefix`` prefix lanes, then its chunk) laid into a block pool of
+    ``bs`` lanes as the paged engine holds it: each row's blocks below
+    its cursor at random pool blocks (block 0 the null block), its table
+    null past them; the lanes at or past the cursor in the block holding
+    it keep their lane's position, as a copy-on-write donor's tail does,
+    for the cursor guard to hide.  ``int8``: the pool quantized as the
+    model writes it.  -> (q, pool leaves (k, v; int8: k, v, k_s, v_s),
+    pos_pool, block_table, cursors (B,), the chunk's k, v, kpos, qpos),
+    the ``paged_prefill_pool[_int8]`` operands: what they read through
+    the table is the case's prefix wherever a query sees it."""
+    from repro_torch.models.attention import _quantize_kv
+
+    q, k, v, kpos, qpos = case
+    b, nb = q.shape[0], prefix // bs
+    kv, hd = k.shape[2], k.shape[3]
+    starts = (kpos[:, :prefix] >= 0).sum(1).int()
+    n_pool = 1 + b * nb
+    k_pool, v_pool = (torch.randn(n_pool, bs, kv, hd, generator=gen,
+                                  device=device).to(k.dtype)
+                      for _ in range(2))
+    pos_pool = torch.full((n_pool, bs), -1, dtype=torch.int32, device=device)
+    bt = torch.zeros(b, nb, dtype=torch.int32, device=device)
+    perm = torch.randperm(n_pool - 1, generator=gen, device=device) + 1
+    lanes = torch.arange(prefix, dtype=torch.int32,
+                         device=device).reshape(nb, bs)
+    for i, start in enumerate(starts.tolist()):
+        used = -(-start // bs)
+        blocks = perm[i * nb:i * nb + used]
+        bt[i, :used] = blocks.int()
+        k_pool[blocks] = k[i, :used * bs].reshape(used, bs, kv, hd)
+        v_pool[blocks] = v[i, :used * bs].reshape(used, bs, kv, hd)
+        pos_pool[blocks] = lanes[:used]
+    leaves = (k_pool, v_pool)
+    if int8:
+        (k8, ks), (v8, vs) = _quantize_kv(k_pool), _quantize_kv(v_pool)
+        leaves = (k8, v8, ks, vs)
+    return (q, leaves, pos_pool, bt, starts,
+            *(t[:, prefix:].contiguous() for t in (k, v, kpos)), qpos)
+
+
+def pool_call(ops, pc, window=0):
+    """The pool entry's launch on ``pool_case``'s operands."""
+    q, leaves, pos_pool, bt, starts, k, v, kpos, qpos = pc
+    fn = ops.paged_prefill_pool_int8 if len(leaves) == 4 \
+        else ops.paged_prefill_pool
+    return fn(q, *leaves, pos_pool, bt, starts, k, v, kpos, qpos,
+              window=window)
+
+
+def pool_gathered(ref, pc):
+    """The prefix as the parent's ``attn_prefill_paged`` assembled it:
+    each pool leaf gathered through the table, the positions guarded at
+    the cursors.  -> (leaves (B, nb*bs, ...), guarded positions)."""
+    leaves, pos_pool, bt, starts = pc[1:5]
+    return (tuple(ref.gather_prefix(t, bt) for t in leaves),
+            ref.guarded_positions(pos_pool, bt, starts))
+
+
+def composed_call(torch, ops, ref, pc, window=0):
+    """The parent's composed path: the gather and the cursor guard, then,
+    over a float pool, the concatenation with the chunk and
+    ``paged_prefill``, over an int8 pool ``paged_prefill_int8``."""
+    q, k, v, kpos, qpos = pc[0], *pc[5:]
+    (pk, pv, *scales), ppos = pool_gathered(ref, pc)
+    if scales:
+        return ops.paged_prefill_int8(q, pk, pv, *scales, ppos, k, v, kpos,
+                                      qpos, window=window)
+    return ops.paged_prefill(q, torch.cat([pk, k], 1), torch.cat([pv, v], 1),
+                             torch.cat([ppos, kpos], 1), qpos, window=window)
+
+
+def pool_keys(torch, ref, pc):
+    """The keys a pool launch reads, assembled in q's dtype (an int8
+    prefix dequantized): (k, v, kpos) over the prefix and the chunk."""
+    q, k, v, kpos = pc[0], *pc[5:8]
+    (pk, pv, *scales), ppos = pool_gathered(ref, pc)
+    if scales:
+        pk = ref.dequantize_kv(pk, scales[0], q.dtype)
+        pv = ref.dequantize_kv(pv, scales[1], q.dtype)
+    return (torch.cat([pk, k], 1), torch.cat([pv, v], 1),
+            torch.cat([ppos, kpos], 1))
+
+
+def pool_plain(ref, pc, window=0):
+    q, leaves, pos_pool, bt, starts, k, v, kpos, qpos = pc
+    fn = ref.paged_prefill_pool_int8_ref if len(leaves) == 4 \
+        else ref.paged_prefill_pool_ref
+    return fn(q, *leaves, pos_pool, bt, starts, k, v, kpos, qpos,
+              window=window)
+
+
+POOL_BLOCK_SIZES = (16, 4, 1)
+
+
+def pool_kernel_parity(torch, device, ops, ref):
+    """Phase 2, the pool entries (``paged_prefill_pool`` and
+    ``paged_prefill_pool_int8``, the paged engine's attention): at the
+    chunk (4 rows, S=256, 512 prefix lanes), the fused decode dispatch (8
+    rows, S=1) and the spec verify dispatch (16 rows, S=16, 256 prefix
+    lanes) of qwen3-0.6b's heads, the prefix in pool blocks of 16 (the
+    engine's), 4 and 1 lanes, bfloat16 and float32, windows 0 and 64;
+    then in bfloat16 at the dense configs' heads and, both dtypes, at
+    gemma3-4b's head_dim 256 (windows 0 and 1,024), blocks of 16.  Each
+    launch within ``KERNEL_TOL`` of its plain version on the lanes that
+    see a key, and equal, bit for bit, to the contiguous entry's launch
+    over the keys gathered through the table, guarded at the cursors and
+    concatenated with the chunk (the parent's composed path).  -> {kernel:
+    max abs error over its bfloat16 cases}."""
+    gen = torch.Generator(device=device).manual_seed(23)
+    errs = {"paged_prefill_pool": 0.0, "paged_prefill_pool_int8": 0.0}
+    n_checked = 0
+
+    def check(dtype_name, what, case, prefix, bs, window):
+        nonlocal n_checked
+        for int8 in (False, True):
+            pc = pool_case(torch, gen, device, case, prefix, bs, int8)
+            kernel = "paged_prefill_pool_int8" if int8 \
+                else "paged_prefill_pool"
+            out = pool_call(ops, pc, window)
+            composed = composed_call(torch, ops, ref, pc, window)
+            plain = pool_plain(ref, pc, window)
+            torch.cuda.synchronize()
+            kpos = pool_keys(torch, ref, pc)[2]
+            lanes = prefill_visible(torch, kpos, pc[-1], window).any(-1)
+            assert lanes.any()
+            err = (out[lanes].float() - plain[lanes].float()).abs().max()
+            err = err.item()
+            torch.testing.assert_close(
+                out[lanes].float(), plain[lanes].float(),
+                **KERNEL_TOL["paged_prefill", dtype_name])
+            assert torch.equal(out, composed), \
+                f"{kernel} {what}: not bit-equal to the composed path"
+            n_checked += 1
+            log(f"parity {kernel} {dtype_name} {what}, blocks of {bs} "
+                f"window={window}: max_abs_err={err:.3e}, bit-equal to the "
+                "gather + guard + concat + contiguous entry")
+            if dtype_name == "bfloat16":
+                errs[kernel] = max(errs[kernel], err)
+
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for window in (0, 64):
+            for bs in POOL_BLOCK_SIZES:
+                check(dtype_name, "4 rows S=256 prefix 512",
+                      prefill_case(torch, gen, device, dt), 512, bs, window)
+                check(dtype_name, "fused decode 8 rows S=1 prefix 512",
+                      prefill_case(torch, gen, device, dt, b=8, s=1), 512,
+                      bs, window)
+                check(dtype_name, "spec verify 16 rows S=16 prefix 256",
+                      verify_case(torch, gen, device, dt), 256, bs, window)
+    for arch, (h, kv) in DENSE_HEADS.items():
+        for b, s in ((8, 1), (4, 256)):
+            check("bfloat16", f"{arch} heads ({h}/{kv}) {b} rows S={s}",
+                  prefill_case(torch, gen, device, torch.bfloat16, b=b, s=s,
+                               h=h, kv=kv), 512, 16, 0)
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for window in (0, GEMMA3_WINDOW):
+            for what, kw in GEMMA3_PP_SHAPES:
+                check(dtype_name, f"head_dim 256 {what}",
+                      prefill_case(torch, gen, device, dt, **kw,
+                                   **GEMMA3_HEADS),
+                      kw.get("prefix", 512), 16, window)
+    log(f"parity pool entries: {n_checked} launches, each bit-equal to the "
+        "composed path")
+    return errs
+
+
 def int8_kernel_parity(torch, device, ops, ref):
     """Phase 2, the int8 KV cache's variants: ``paged_attention_int8`` at
     ``PAGED_DECODE_SHAPES`` and ``paged_prefill_int8`` at the chunk (int8
@@ -1368,6 +1538,15 @@ RWKV_ARGV = ["--arch", "rwkv6-1.6b", "--no-reduced", "--engine", "slot",
              "--slots", "4", "--cache-max", "256", "--max-new", "16"]
 
 
+def prefill_launches(counts, int8=False) -> int:
+    """Launches of the ragged prefill, both entries: a paged engine's
+    dispatches launch the pool entry (its attention reads the pool
+    through the table), the slot engine's decode steps the contiguous
+    one; the sum is what the one entry counted before the pool entries."""
+    tag = "_int8" if int8 else ""
+    return counts[f"paged_prefill{tag}"] + counts[f"paged_prefill_pool{tag}"]
+
+
 def run_engine(engine, prompts, max_new, sync, stats=None,
                after_step=None):
     """Submit every prompt, drain; -> ({rid: tokens}, seconds).  A
@@ -1545,7 +1724,7 @@ def rwkv6_phase(torch, device, ops, ref, serve, Model, write_slot, validate,
     # one launch per layer per engine step (an admission or a decode step)
     assert counts["rwkv6_scan"] == cfg.num_layers * run["steps"], counts
     assert counts["flash_attention"] == counts["paged_attention"] == \
-        counts["paged_prefill"] == 0, counts
+        prefill_launches(counts) == 0, counts
     total = counts["rwkv6_scan"]
 
     # the paged engine: recurrent-state slots beside an unused block pool;
@@ -1576,7 +1755,7 @@ def rwkv6_phase(torch, device, ops, ref, serve, Model, write_slot, validate,
             assert d == {"prefill_paged": run["steps"],
                          "decode_step_paged": 0}, d
         assert counts["flash_attention"] == counts["paged_attention"] == \
-            counts["paged_prefill"] == counts["ssm_scan"] == 0, counts
+            prefill_launches(counts) == counts["ssm_scan"] == 0, counts
         assert stats["prefix_cache"] == 0
         total += counts["rwkv6_scan"]
     rwkv_masked_parity(torch, device, model, params, ops, ref)
@@ -1773,24 +1952,26 @@ def engine_features_phase(torch, ops, ref, serve, model, params,
                 # (one paged_attention a layer)
                 deltas = [{k: b[k] - a.get(k, 0) for k in b} for a, b in
                           zip([{}] + per_step, per_step)]
-                pre = [d for d in deltas if d["paged_prefill"]]
+                pre = [d for d in deltas if prefill_launches(d)]
                 dec = [d for d in deltas if d["paged_attention"]]
                 assert len(pre) + len(dec) == len(deltas) == steps
-                assert all(d["paged_prefill"] == layers
+                assert all(d["paged_prefill_pool"] == layers
+                           and d["paged_prefill"] == 0
                            and d["paged_attention"] == 0 for d in pre), pre
                 assert all(d["paged_attention"] == layers
-                           and d["paged_prefill"] == 0 for d in dec), dec
+                           and prefill_launches(d) == 0 for d in dec), dec
                 assert len(pre) == stats["admissions"]
                 # no decode row rides the ragged dispatch
                 assert not any(sig[3] for sig in engine._prefill_sigs)
                 assert stats["decode_kernel"] == 1
                 assert stats["decode_fusion"] == 0
                 log(f"  serial: {len(pre)} admission steps x {layers} "
-                    f"paged_prefill, {len(dec)} decode steps x {layers} "
-                    "paged_attention")
+                    f"paged_prefill_pool, {len(dec)} decode steps x "
+                    f"{layers} paged_attention")
             elif mode in ("ngram", "draft"):
                 assert counts["paged_attention"] == 0
-                assert counts["paged_prefill"] > 0
+                assert counts["paged_prefill_pool"] > 0
+                assert counts["paged_prefill"] == 0
                 assert engine.spec_verify_rows > 0
                 assert stats["spec_k"] == 4
                 if mode == "draft" or wname == "repetitive":
@@ -2056,14 +2237,15 @@ def cluster_phase(torch, ops, serve, model, params, small_model,
         assert cl.broker.total_depth(cl.GROUP) == 0
         assert all(r.in_flight == 0 for r in cl.balancer.replicas)
         if a.decode_fusion == "on":
-            # each engine step is one fused dispatch: a paged_prefill a
-            # layer, never paged_attention
+            # each engine step is one fused dispatch: a paged_prefill_pool
+            # a layer, never paged_attention
             assert run["dispatches"] == {
                 "prefill_paged": sum(run["engine_steps"]),
                 "decode_step_paged": 0}, run
-            assert run["counts"]["paged_prefill"] == \
+            assert run["counts"]["paged_prefill_pool"] == \
                 layers * sum(run["engine_steps"]), run
             assert run["counts"]["paged_attention"] == 0, run
+        assert run["counts"]["paged_prefill"] == 0, run
         assert run["counts"]["flash_attention"] == 0, run
         return run
 
@@ -2123,7 +2305,8 @@ def cluster_phase(torch, ops, serve, model, params, small_model,
     d = run["dispatches"]
     assert run["counts"]["paged_attention"] == \
         layers * d["decode_step_paged"] > 0, run
-    assert run["counts"]["paged_prefill"] == layers * d["prefill_paged"], run
+    assert run["counts"]["paged_prefill_pool"] == \
+        layers * d["prefill_paged"], run
 
     # bf16 at 28 layers: tokens each run shares with 1 replica, affinity
     # on, before a request's first flip, and the top-2 margin there
@@ -2295,7 +2478,9 @@ def int8_phase(torch, device, ops, ref, serve, Model, ragged_dispatch,
             f"{rel['prefill']:.3e} decode rel_err={rel['decode']:.3e}")
         assert max(rel.values()) <= MODEL_TOL["bfloat16"], (path, rel)
     counts = ops.launch_counts()
-    assert counts["paged_prefill"] == counts["paged_attention"] == 0, counts
+    assert prefill_launches(counts) == counts["paged_attention"] == 0, counts
+    # the paged path's pool entry, the slot path's contiguous one
+    assert counts["paged_prefill_pool_int8"] > 0, counts
     assert counts["paged_prefill_int8"] > 0, counts
 
     q_bytes, d_bytes = kv_bytes_per_token(qmodel), kv_bytes_per_token(model)
@@ -2342,16 +2527,17 @@ def int8_phase(torch, device, ops, ref, serve, Model, ragged_dispatch,
             f"dispatches={d} launches={counts}")
         assert len(outs) == len(prompts)
         assert all(len(t) == args.max_new for t in outs.values())
-        assert counts["paged_prefill"] == counts["paged_attention"] == 0, \
+        assert prefill_launches(counts) == counts["paged_attention"] == 0, \
             counts
         if flags is None:
             adm = stats["admissions"]
             want = {"flash_attention": layers * adm,
                     "paged_prefill_int8": layers * (run["steps"] - adm),
+                    "paged_prefill_pool_int8": 0,
                     "paged_attention_int8": 0}
         else:
-            want = {"flash_attention": 0,
-                    "paged_prefill_int8": layers * d["prefill_paged"],
+            want = {"flash_attention": 0, "paged_prefill_int8": 0,
+                    "paged_prefill_pool_int8": layers * d["prefill_paged"],
                     "paged_attention_int8": layers * d["decode_step_paged"]}
             if mode != "fusion off":
                 assert d["decode_step_paged"] == 0, d
@@ -2565,17 +2751,20 @@ def dense_phase(torch, device, ops, ref, serve, Model, ragged_dispatch,
                     layers * stats["admissions"] == layers * len(prompts)
                 assert counts["paged_prefill"] > 0
                 assert counts["paged_attention"] == 0
+                assert counts["paged_prefill_pool"] == 0
             elif mode == "on":
                 assert d == {"prefill_paged": run["steps"],
                              "decode_step_paged": 0}, d
-                assert counts["paged_prefill"] == layers * run["steps"]
+                assert counts["paged_prefill_pool"] == layers * run["steps"]
                 assert counts["paged_attention"] == 0
             else:
                 assert counts["paged_attention"] == \
                     layers * d["decode_step_paged"] > 0
-                assert counts["paged_prefill"] == layers * d["prefill_paged"]
+                assert counts["paged_prefill_pool"] == \
+                    layers * d["prefill_paged"]
             if mode != "slot":
-                assert counts["flash_attention"] == 0
+                assert counts["paged_prefill"] == \
+                    counts["flash_attention"] == 0
         log(f"dense {what}: memory high-water mark (torch.cuda."
             f"max_memory_allocated; {smi}) while drawing the weights "
             f"{init_peak / 2**30:.2f} GiB (each leaf drawn in float32), "
@@ -2844,17 +3033,19 @@ def gemma3_phase(torch, device, ops, ref, serve, ragged_dispatch, validate,
             assert counts["paged_prefill"] == \
                 layers * (run["steps"] - stats["admissions"]) > 0
             assert counts["paged_attention"] == 0
+            assert counts["paged_prefill_pool"] == 0
         elif mode == "on":
             assert d == {"prefill_paged": run["steps"],
                          "decode_step_paged": 0}, d
-            assert counts["paged_prefill"] == layers * run["steps"]
+            assert counts["paged_prefill_pool"] == layers * run["steps"]
             assert counts["paged_attention"] == 0
         else:
             assert counts["paged_attention"] == \
                 layers * d["decode_step_paged"] > 0
-            assert counts["paged_prefill"] == layers * d["prefill_paged"]
+            assert counts["paged_prefill_pool"] == \
+                layers * d["prefill_paged"]
         if mode != "slot":
-            assert counts["flash_attention"] == 0
+            assert counts["paged_prefill"] == counts["flash_attention"] == 0
         outs_by_mode[mode] = outs
     shared = {m: sum(sum(1 for x, y in zip(outs_by_mode[m][r],
                                            outs_by_mode["on"][r]) if x == y)
@@ -2872,15 +3063,19 @@ def gemma3_phase(torch, device, ops, ref, serve, ragged_dispatch, validate,
         f"({100 * busy / secs:.1f}%)")
     for us, n, key in rows[:12]:
         log(f"  {us / 1e3:9.2f} ms {n:6d}x  {key[:90]}")
-    # the attention kernels beside what assembles their keys: each layer
-    # gathers the row's whole block table (k, v, pos) and concatenates the
-    # chunk's K/V after it, local layers too
-    sums = {name: (sum(us for us, _, key in rows if pat in key) / 1e3,
-                   sum(n for _, n, key in rows if pat in key))
-            for name, pat in (("paged_prefill (tile and combine)",
-                               "paged_prefill"),
-                              ("gathers", "gather_kernel"),
-                              ("concatenations", "CatArrayBatchedCopy"))}
+    # the attention kernels beside the gathers and concatenations left in
+    # the step: the attention reads its pool through the table, so what
+    # these still count (each kernel named below) is the rest of the
+    # model's and the engine's (the chunk scatter, the embedding, RoPE's
+    # halves, the argmax's lane pick)
+    sums = {}
+    for name, pat in (("paged_prefill (tile and combine)", "paged_prefill"),
+                      ("gathers", "gather_kernel"),
+                      ("concatenations", "CatArrayBatchedCopy")):
+        sel = [(us, n, key) for us, n, key in rows if pat in key]
+        sums[name] = (sum(r[0] for r in sel) / 1e3, sum(r[1] for r in sel))
+        for us, n, key in sel[:4]:
+            log(f"  {name}: {us / 1e3:.2f} ms {n}x  {key[:110]}")
     log("profile engine " + what + " decode_fusion=on, device ms "
         "(launches): " + ", ".join(f"{k} {ms:.2f} ({n})"
                                    for k, (ms, n) in sums.items()))
@@ -3178,11 +3373,13 @@ def check_launches(cfg, mode, counts, d, run, stats):
     if mode == "slot":
         steps, adm = run["steps"], stats["admissions"]
         want = {"ssm_scan": mamba * steps, "flash_attention": attn * adm,
-                "paged_prefill": attn * (steps - adm), "paged_attention": 0}
+                "paged_prefill": attn * (steps - adm),
+                "paged_prefill_pool": 0, "paged_attention": 0}
     else:
         want = {"ssm_scan": mamba * (d["prefill_paged"]
                                      + d["decode_step_paged"]),
-                "paged_prefill": attn * d["prefill_paged"],
+                "paged_prefill": 0,
+                "paged_prefill_pool": attn * d["prefill_paged"],
                 "paged_attention": attn * d["decode_step_paged"],
                 "flash_attention": 0}
         if mode == "on":
@@ -4588,6 +4785,98 @@ def int8_kernel_times(torch, device, ops, ref):
     return out
 
 
+def pool_timing_cases(torch, device):
+    """Phase 7's pool shapes in bfloat16, the prefix in pool blocks of 16
+    (the engine's): ``paged_prefill_pool`` at a chunk (4 rows, S=256, 512
+    prefix lanes), the fused decode dispatch (8 rows, S=1), the spec
+    verify dispatch (16 rows, S=16, 256 prefix lanes), then
+    ``paged_prefill_pool_int8`` at the same three, then the float entry
+    at gemma3-4b's three ``GEMMA3_PP_SHAPES`` (window 0 and, where the
+    band cuts, 1,024).  Yields (key, what, window, ``pool_case``
+    operands), the same inputs on every call."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    spec_gen = torch.Generator(device=device).manual_seed(6)
+    ggen = torch.Generator(device=device).manual_seed(13)
+    dt = torch.bfloat16
+    for int8 in (False, True):
+        tag = "_int8" if int8 else ""
+        for key, what, case, prefix in (
+                ("", "a chunk (4 rows, S=256, 512 prefix lanes)",
+                 prefill_case(torch, gen, device, dt), 512),
+                ("_s1", "fused decode (8 rows, S=1, 512 prefix lanes)",
+                 prefill_case(torch, gen, device, dt, b=8, s=1), 512),
+                ("_verify", "spec verify (16 rows, S=16, 256 prefix lanes)",
+                 verify_case(torch, spec_gen, device, dt), 256)):
+            yield (f"paged_prefill_pool{tag}{key}", what, 0,
+                   pool_case(torch, gen, device, case, prefix, 16, int8))
+    for what, kw in GEMMA3_PP_SHAPES:
+        case = prefill_case(torch, ggen, device, dt, **kw, **GEMMA3_HEADS)
+        prefix = kw.get("prefix", 512)
+        for window in (0, GEMMA3_WINDOW) if kw.get("min_start") else (0,):
+            yield (f"paged_prefill_pool_hd256_{what}_w{window}",
+                   f"{what} ({kw['b']} rows, S={kw['s']}, {prefix} prefix "
+                   f"lanes) at gemma3-4b's heads (8/4 of 256), window "
+                   f"{window}", window,
+                   pool_case(torch, gen, device, case, prefix))
+
+
+def pool_kernel_times(torch, device, ops, ref):
+    """Phase 7, the pool entries at ``pool_timing_cases``: each by events
+    and by graph replay beside the parent's composed path (the gather
+    through the table, the cursor guard, the concatenation and the
+    contiguous entry; int8: the gather, the guard and
+    ``paged_prefill_int8``), its plain version, and SDPA over the
+    gathered keys (dequantized for int8) as a yardstick.  Bytes: q read
+    and the output written, the visible prefix rows (each K/V row read
+    once: bf16, or int8 with its float32 scale), the chunk's K/V, its
+    kpos and qpos, the table, the cursors and every table lane's
+    position; operations 4 hd a visible (query head, key) pair.  ->
+    {key: record}."""
+    from repro_torch.kernels import attention_split
+    from repro_torch.kernels import paged_prefill as pp_mod
+
+    elt = 2
+    sms = attention_split.sm_count(device)
+    out = {}
+    for key, what, window, pc in pool_timing_cases(torch, device):
+        q, leaves, pos_pool, bt, starts, k, v, kpos, qpos = pc
+        b, s, h, hd = q.shape
+        kv, bs = k.shape[2], pos_pool.shape[1]
+        prefix, int8 = bt.shape[1] * bs, len(leaves) == 4
+        keys = pool_keys(torch, ref, pc)
+        vis = prefill_visible(torch, keys[2], qpos, window)      # (B,S,L)
+        seen = vis.any(1)
+        row = kv * (hd + 4) if int8 else kv * hd * elt
+        nbytes = (2 * q.numel() * elt + int(seen[:, :prefix].sum()) * 2 * row
+                  + 2 * k.numel() * elt
+                  + 4 * (kpos.numel() + qpos.numel() + bt.numel()
+                         + starts.numel() + bt.numel() * bs))
+        fn = lambda pc=pc: pool_call(ops, pc, window)        # noqa: E731
+        comp = (lambda pc=pc: composed_call(torch, ops, ref,  # noqa: E731
+                                            pc, window))
+        lib = (lambda keys=keys, q=q, mask=vis[:, None]:      # noqa: E731
+               sdpa(torch, q.transpose(1, 2), keys[0].transpose(1, 2),
+                    keys[1].transpose(1, 2), mask))
+        out[key] = dict(
+            kernel="paged_prefill_pool" + ("_int8" if int8 else ""),
+            what=what, window=window,
+            ms=time_ms(torch, fn), graph_ms=graph_ms(torch, fn),
+            composed_ms=time_ms(torch, comp),
+            composed_graph_ms=graph_ms(torch, comp),
+            plain_ms=time_ms(torch, lambda pc=pc: pool_plain(ref, pc,
+                                                             window)),
+            library_ms=time_ms(torch, lib), library_graph_ms=graph_ms(
+                torch, lib),
+            bytes=nbytes, flops=4 * hd * h * int(vis.sum()),
+            split=pp_mod.plan(b, s, prefix + s, h, kv, sms).split)
+    for rec in out.values():
+        t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = rec["flops"] / PEAK_FLOPS["bfloat16"] * 1e3
+        rec["bound_ms"] = max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
 def kernel_times(torch, device, ops, ref):
     """Phase 7, at the parity phase's main-path shapes, the attention
     kernels in bfloat16 with window 0, ``rwkv6_scan``, ``ssm_scan`` and
@@ -5293,6 +5582,7 @@ def main() -> int:
     for k, err in frontend_kernel_parity(torch, device, ops, ref).items():
         errs[k] = max(errs[k], err)
     errs.update(int8_kernel_parity(torch, device, ops, ref))
+    errs.update(pool_kernel_parity(torch, device, ops, ref))
     errs["ssm_scan"] = ssm_parity(torch, device, ops, ref)
     errs.update(scan_backward_parity(torch, device, ops, ref))
 
@@ -5344,8 +5634,10 @@ def main() -> int:
         assert len(outs) == len(prompts)
         assert all(len(t) == args.max_new for t in outs.values())
         assert stats["preemptions"] >= 1, "pool must be tight enough to preempt"
+        # the paged engine's attention reads its pool through the table
+        assert counts["paged_prefill"] == 0, counts
         if fusion == "on":
-            assert counts["paged_prefill"] > 0
+            assert counts["paged_prefill_pool"] > 0
             assert stats["decode_kernel"] == 0
         else:
             assert counts["paged_attention"] > 0
@@ -5372,6 +5664,7 @@ def main() -> int:
     assert stats["admissions"] == len(prompts)
     assert counts["flash_attention"] == cfg.num_layers * stats["admissions"]
     assert counts["paged_prefill"] > 0 and counts["paged_attention"] == 0
+    assert counts["paged_prefill_pool"] == 0, counts
     for k, n in counts.items():
         launches[k] += n
     lap("engines: paged fusion on and off, slot")
@@ -5523,6 +5816,8 @@ def main() -> int:
     lap("kernel_times")
     int8_times = int8_kernel_times(torch, device, ops, ref)
     lap("int8_kernel_times")
+    pool_times = pool_kernel_times(torch, device, ops, ref)
+    lap("pool_kernel_times")
     phase_done("7")
 
     # 8. the dry-run and the roofline of a whole step
@@ -5648,6 +5943,32 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "graph_ms": t["graph_ms"]})
+    for key, t in pool_times.items():
+        log(f"time {t['kernel']} bf16 at {t['what']}: {t['ms']:.4f} ms "
+            f"(graph-replayed {t['graph_ms']:.4f}); the parent's composed "
+            f"path (gather, cursor guard, concat, contiguous entry) "
+            f"{t['composed_ms']:.4f} ms (graph-replayed "
+            f"{t['composed_graph_ms']:.4f}; pool / composed graph "
+            f"{t['graph_ms'] / t['composed_graph_ms']:.2f}), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes), "
+            f"plain {t['plain_ms']:.4f} ms, sdpa on the gathered keys "
+            f"{t['library_ms']:.4f} ms (graph-replayed "
+            f"{t['library_graph_ms']:.4f}), key ranges split={t['split']}")
+    for name in ("paged_prefill_pool", "paged_prefill_pool_int8"):
+        t = pool_times[name]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/" + ("paged_prefill_int8.cu"
+                                                 if name.endswith("int8")
+                                                 else "paged_prefill.cu"),
+            "replaces": "src/repro/kernels/ops.py:87",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None if name.endswith("int8")
+            else t["library_ms"],
+            "graph_ms": t["graph_ms"], "composed_ms": t["composed_ms"],
+            "composed_graph_ms": t["composed_graph_ms"]})
     t = times["paged_attention"]
     sweep = ", ".join(f"{nb} blocks / {c}: {ms:.4f}"
                       for (nb, c), ms in t["sweep"].items())

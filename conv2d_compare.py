@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time a conv kernel, the selective scan or its backward, the WKV6
-backward or an int8 attention kernel of several checkouts on one card,
-in turns.
+backward, an int8 attention kernel or the ragged prefill's pool entries
+of several checkouts on one card, in turns.
 
     python3 conv2d_compare.py [--kernel KERNEL] [--need SUBSET ...] TREE [TREE ...]
 
 KERNEL: conv2d (the default), conv2d_wgrad, ssm_scan, ssm_scan_bwd,
-rwkv6_scan_bwd, paged_prefill_int8, paged_attention_int8 or
-attention_bits.  Each TREE is the root of a checkout holding
+rwkv6_scan_bwd, paged_prefill_int8, paged_attention_int8,
+paged_prefill_pool or attention_bits.  Each TREE is the root of a checkout holding
 ``src/repro_torch`` (for another commit: ``git archive <commit> | tar -x
 -C build/<dir>``).  The trees run in the order given and then in reverse
 (parent, change, change, parent), each in a child process of its own,
@@ -47,6 +47,24 @@ at phase 7's four int8 shapes (a chunk of S = 256 over an int8 prefix of
 bf16 kernel over the concatenated dequantized keys and timed beside it
 and beside SDPA on those keys; the outputs' SHA-256 is printed, the same
 in every run where the trees' kernels give the same bits.
+``paged_prefill_pool``: the paged engine's attention at
+``chip_smoke.py``'s ``pool_timing_cases`` (bf16; a chunk of S = 256,
+fused decode and spec verify over a pool of 16-lane blocks, float and
+int8, and gemma3-4b's three head_dim-256 shapes): in every tree the
+composed path (the prefix gathered through the block table, the cursor
+guard, the concatenation with the chunk and the contiguous entry; int8:
+the gather, the guard and ``paged_prefill_int8``), and where the tree
+has them the pool entries (``ops.paged_prefill_pool`` and
+``paged_prefill_pool_int8``, which read the pool through the table),
+each held bit-equal to the composed path; both timed, their chunk and
+fused-decode launches split by kernel; the outputs' SHA-256; the tree's
+``ptxas -v`` of ``paged_prefill``, ``paged_prefill_int8`` and
+``flash_attention``; and one fused decode dispatch (8 rows, one token
+each after 512 cached) and one chunk dispatch (8 rows of 256 tokens
+after 512) of qwen3-0.6b (28 layers) and gemma3-4b (34), uncut, bf16,
+through ``ragged_dispatch`` under the profiler: kernels launched, and
+device ms of the attention kernels, the gathers and the
+concatenations.
 ``attention_bits``: ``flash_attention``, ``paged_prefill`` and
 ``paged_prefill_int8`` (the kernels over the shared bf16 tile,
 ``csrc/attention_mma.cuh``) at the shapes ``chip_smoke.py`` checks
@@ -71,7 +89,7 @@ HERE = Path(__file__).resolve().parent
 BATCHES = {"conv2d": (1, 32, 2000), "conv2d_wgrad": (64, 320, 2000),
            "ssm_scan": (), "ssm_scan_bwd": (), "rwkv6_scan_bwd": (),
            "paged_prefill_int8": (), "paged_attention_int8": (),
-           "attention_bits": ()}
+           "paged_prefill_pool": (), "attention_bits": ()}
 GRADS = {"rwkv6_scan_bwd": ("dr", "dk", "dv", "dw", "du", "ds0"),
          "ssm_scan_bwd": ("ddt", "dbm", "dcm", "dx", "da", "dh0")}
 
@@ -197,6 +215,106 @@ def int8_child(torch, cs, dev) -> dict:
             if not key.startswith("sdpa"):
                 res[f"kernels_{key}"] = kernel_split(torch, fn)
     res["digests"] = digests
+    return res
+
+
+def dispatch_profile(torch, dev, arch) -> dict:
+    """The tree's ``arch`` uncut in bf16 (seed 0): a pool of 16-lane
+    blocks, 8 rows' prompts of 512 tokens written by one dispatch, then
+    under the profiler a fused decode dispatch (one token a row at
+    position 512) and a chunk dispatch (256 tokens a row from 512), each
+    through ``ragged_dispatch`` -> {dispatch: {"kernels": launches,
+    "<group>_ms": device ms}} for the attention kernels
+    (``paged_prefill``), the gathers (``gather_kernel``) and the
+    concatenations (``CatArrayBatchedCopy``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import Model
+    from repro_torch.serving.server import ragged_dispatch
+
+    model = Model(get_config(arch), device=dev)
+    params = model.init(seed=0)
+    bs, rows, prefix = 16, 8, 512
+    nb = (prefix + 256) // bs
+    pools = model.pool_init(rows * nb + 1, bs)
+    bt = (torch.arange(rows * nb, device=dev, dtype=torch.int32)
+          .reshape(rows, nb) + 1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def dispatch(n, start):
+        toks = torch.randint(1, model.cfg.vocab_size, (rows, n),
+                             generator=gen, device=dev, dtype=torch.int32)
+        full = torch.full((rows,), start, dtype=torch.int32, device=dev)
+        lens = torch.full((rows,), n, dtype=torch.int32, device=dev)
+        return lambda: ragged_dispatch(model, params, pools, toks, bt, full,
+                                       lens, block_size=bs, all_logits=False)
+
+    out = {}
+    with torch.no_grad():
+        dispatch(prefix, 0)()
+        for name, fn in (("decode", dispatch(1, prefix)),
+                         ("chunk", dispatch(256, prefix))):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            rec = {"kernels": 0}
+            for e in prof.key_averages():
+                t = getattr(e, "self_device_time_total", 0)
+                if not str(e.device_type).endswith("CUDA") or t <= 0:
+                    continue
+                rec["kernels"] += e.count
+                for group, pat in (("attention", "paged_prefill"),
+                                   ("gathers", "gather_kernel"),
+                                   ("concatenations",
+                                    "CatArrayBatchedCopy")):
+                    if pat in e.key:
+                        rec[f"{group}_ms"] = rec.get(f"{group}_ms",
+                                                     0.0) + t / 1e3
+            out[f"{arch}_{name}"] = rec
+    del model, params, pools
+    torch.cuda.empty_cache()
+    return out
+
+
+def pool_child(torch, cs, dev) -> dict:
+    """The tree's composed path and, where it has them, its pool entries
+    at ``cs.pool_timing_cases``: each pool launch bit-equal to the
+    composed path, both timed, the outputs' SHA-256; the tree's ptxas;
+    ``dispatch_profile`` of qwen3-0.6b and gemma3-4b."""
+    from repro_torch.kernels import build, ops, ref
+
+    libs = ("flash_attention", "paged_prefill", "paged_prefill_int8")
+    build.build_all(list(libs))         # for their ptxas logs
+    pool = hasattr(ops, "paged_prefill_pool")
+    res, digests = {}, {}
+    for key, _, window, pc in cs.pool_timing_cases(torch, dev):
+        comp = (lambda pc=pc, w=window:                       # noqa: E731
+                cs.composed_call(torch, ops, ref, pc, w))
+        want = comp()
+        fns = [(f"composed_{key}", comp)]
+        if pool:
+            fn = (lambda pc=pc, w=window:                     # noqa: E731
+                  cs.pool_call(ops, pc, w))
+            got = fn()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), \
+                f"{key}: the pool entry is not bit-equal to the composed path"
+            fns.append((f"pool_{key}", fn))
+        torch.cuda.synchronize()
+        digests[key] = hashlib.sha256(
+            want.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+        for name, f in fns:
+            res[name] = (cs.time_ms(torch, f), cs.graph_ms(torch, f))
+            if key.endswith(("pool", "pool_s1", "pool_int8",
+                             "pool_int8_s1")):
+                res[f"kernels_{name}"] = kernel_split(torch, f)
+    for arch in ("qwen3-0.6b", "gemma3-4b"):
+        res.update(dispatch_profile(torch, dev, arch))
+    res["digests"] = digests
+    res["ptxas"] = ptxas_table(Path(ops.__file__).parents[3], libs)
     return res
 
 
@@ -427,6 +545,8 @@ def child(tree: Path, kernel: str, needs=()) -> dict:
         return {**res, **int8_child(torch, cs, dev)}
     if kernel == "paged_attention_int8":
         return {**res, **paged_int8_child(torch, cs, dev)}
+    if kernel == "paged_prefill_pool":
+        return {**res, **pool_child(torch, cs, dev)}
     if kernel == "attention_bits":
         return {**res, **attention_bits_child(torch, cs, dev)}
     for b in BATCHES[kernel]:

@@ -45,12 +45,21 @@
 // to scratch and combine_pieces merges them by log-sum-exp.  Rows that
 // see no key come out 0.
 //
-// int8 prefix (kQuant, the int8 KV cache's ragged prefill): keys [0, Lp)
-// are int8 rows with a float32 scale each, keys [Lp, Sk) the chunk's own
-// bf16 rows, and the tile loader picks a key's source by its index (a
-// tile may straddle Lp, a multiple of the block size and not of 64; the
-// tiles stay those of the concatenated keys, so the online softmax
-// rescales where the bf16 launch does).  A tile's int8 rows and scales
+// Paged prefix (the ragged prefill): keys [0, Lp) are rows of the block
+// pool, read through the block table (PagedPrefix above), keys [Lp, Sk)
+// the chunk's own rows, and the tile loader picks a key's source by its
+// index (a tile may straddle blocks and Lp, a multiple of the block size
+// and not of 64; the tiles stay those of the concatenated keys, so the
+// online softmax rescales where a launch over gathered keys does).  Each
+// K/V row is one contiguous slice of the pool, so a 16-byte cp.async
+// stays within a row; only its address comes from the table: threads
+// 0-63 look a tile's 64 pool rows up once, a pass ahead of its loads, into
+// shared memory (sPre), so a row's address is one shared load.  Staged
+// positions are the pool's raw lanes, and the cursor guard is applied
+// where a position is read (the ballot, the full-tile test, the mask).
+//
+// int8 prefix (kQuant, the int8 KV cache's ragged prefill): the prefix's
+// rows are int8 with a float32 scale each.  A tile's int8 rows and scales
 // are copied 16 elements a cp.async into a staging buffer of their own,
 // double-buffered: tile t+1's K and V rows are issued at the top of tile
 // t's pass and waited for at its middle barrier, so their copy overlaps
@@ -75,9 +84,68 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_tile.cuh"
 
 namespace repro_torch {
+
+// The prefix segment of a ragged prefill, keys [0, Lp): rows of a block
+// pool (NB, bs, KV, hd) read through a block table (B, nb), Lp = nb * bs.
+// Key j of batch row b is pool row bt[b][j / bs] * bs + j % bs; without a
+// table (bt null), row b * Lp + j: a contiguous (B, Lp, KV, hd) prefix.
+// Its position is pos[that row], read as -1 unless below the row's cursor
+// start[b] (start null: start_all for every row), the guard that hides a
+// copy-on-write block's diverged donor tail and the chunk's own lanes a
+// later chunk will write.  k / v hold rows in the model dtype, or int8
+// rows with float32 scales k_scale / v_scale (NB, bs, KV) in the int8
+// launches.
+struct PagedPrefix {
+  const void* k;
+  const void* v;
+  const float* k_scale;
+  const float* v_scale;
+  const int* pos;
+  const int* bt;
+  const int* start;
+  int start_all;
+  int nb, bs;
+  unsigned bs_mul, bs_shift;  // j / bs = umulhi(j, bs_mul) >> bs_shift
+  int Lp;
+};
+
+// bs_mul and bs_shift of a block size (CUTLASS's FastDivmod: exact for
+// every j below 2^31; bs 1 divides by itself)
+inline void set_block_size(PagedPrefix& pre, int bs) {
+  pre.bs = bs;
+  pre.bs_mul = pre.bs_shift = 0;
+  if (bs <= 1) return;
+  int l = 0;
+  while ((1 << l) < bs) ++l;
+  const unsigned p = 31 + l;
+  pre.bs_mul = (unsigned)(((1ull << p) + bs - 1) / bs);
+  pre.bs_shift = p - 32;
+}
+
+// the pool row of prefix key j of batch row b
+__device__ __forceinline__ long long prefix_row(const PagedPrefix& pre,
+                                                int b, int j) {
+  if (pre.bt == nullptr) return (long long)b * pre.Lp + j;
+  const int blk =
+      pre.bs == 1 ? j : (int)(__umulhi((unsigned)j, pre.bs_mul) >> pre.bs_shift);
+  return (long long)__ldg(pre.bt + (long long)b * pre.nb + blk) * pre.bs +
+         (j - blk * pre.bs);
+}
+
+__device__ __forceinline__ int row_start(const PagedPrefix& pre, int b) {
+  return pre.start ? __ldg(pre.start + b) : pre.start_all;
+}
+
+// a prefix key's position under its row's cursor guard
+__device__ __forceinline__ int guard_pos(int pos, int start) {
+  return pos < start ? pos : -1;
+}
+
 namespace mma {
 
 using bf16 = __nv_bfloat16;
@@ -99,17 +167,12 @@ struct Params {
   const bf16* v;
   bf16* out;
   Strides qs, ks, vs, os;
-  const int* kpos;   // (B, Sk) key positions, paged only (kQuant: the
-                     // chunk's, (B, Sk - Lp))
+  const int* kpos;   // (B, Sk - pre.Lp) the chunk's key positions, paged
+                     // only
   const int* qpos;   // (B, Sq) query positions, paged only
-  // kQuant only: the int8 prefix, keys [0, Lp): k8 / v8 (B, Lp, KV, hd),
-  // their float32 scales (B, Lp, KV), positions kpos8 (B, Lp)
-  const int8_t* k8;
-  const int8_t* v8;
-  const float* k8_scale;
-  const float* v8_scale;
-  const int* kpos8;
-  int Lp;
+  // paged only: the prefix, keys [0, pre.Lp) (bf16 rows, or int8 rows
+  // under kQuant); k / v / kpos are the chunk's keys [pre.Lp, Sk)
+  PagedPrefix pre;
   int B, KV, g, Sq, Sk, TQ, window, causal;
   int n_qtiles;      // ceil(Sq / TQ)
   int C;             // key tiles per piece
@@ -276,10 +339,11 @@ __host__ __device__ constexpr size_t int8_buffer_bytes(int hd) {
 
 __host__ __device__ constexpr size_t smem_bytes(int hd, bool quant = false) {
   // a K and a V tile (and at q_in_smem a Q tile of kRows = kTK rows),
-  // then K's key positions and the rows' lanes and heads; kQuant: two
-  // int8 staging buffers
+  // then K's key positions, the rows' lanes and heads, and two tiles'
+  // prefix pool rows and K and V row addresses; kQuant: two int8 staging
+  // buffers
   return (size_t)(q_in_smem(hd) ? 3 : 2) * kTK * (hd + kPad) * sizeof(bf16) +
-         (kTK + 2 * kRows) * sizeof(int) +
+         (3 * kTK + 2 * kRows) * sizeof(int) + 4 * kTK * sizeof(void*) +
          (quant ? 2 * int8_buffer_bytes(hd) : 0);
 }
 
@@ -330,10 +394,17 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
                                                      kPitch);
   int* const sRowS = sPos + kTK;     // row r -> its query lane, or -1
   int* const sRowH = sRowS + kRows;  // row r -> its query head
+  // paged: [2][kTK], the pool row of each prefix key of a tile, for this
+  // pass's tile and the next one's; then [2][kTK] the address of each
+  // key's K row and of its V row (the pool's, int8 under kQuant, or the
+  // chunk's)
+  int* const sPre = sRowH + kRows;
+  const void** const sKPtr = reinterpret_cast<const void**>(sPre + 2 * kTK);
+  const void** const sVPtr = sKPtr + 2 * kTK;
   // kQuant: two int8 staging buffers, each a K and a V tile's rows and
   // their scales
   constexpr int kP8 = int8_pitch(HD);
-  int8_t* const s8 = reinterpret_cast<int8_t*>(sRowH + kRows);
+  int8_t* const s8 = reinterpret_cast<int8_t*>(sVPtr + 2 * kTK);
   auto sK8 = [&](int buf) { return s8 + buf * int8_buffer_bytes(HD); };
   auto sV8 = [&](int buf) { return sK8(buf) + kTK * kP8; };
   auto sKs = [&](int buf) {
@@ -364,11 +435,17 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
     if (kPaged) return __ldg(p.qpos + (size_t)b * p.Sq + s);
     return kPrefix ? max(s, p.prefix - 1) : s;
   };
-  // where key `key`'s position lives: the int8 prefix's or the chunk's
-  const int lp = kQuant ? p.Lp : 0;
+  // where key `key`'s raw position lives: the prefix pool's or the
+  // chunk's; a prefix key's counts only below the row's cursor
+  const int lp = kPaged ? p.pre.Lp : 0;
+  const int start_b = kPaged ? row_start(p.pre, b) : 0;
   auto key_pos_ptr = [&](int key) -> const int* {
-    if (kQuant && key < lp) return p.kpos8 + (size_t)b * lp + key;
+    if (key < lp) return p.pre.pos + prefix_row(p.pre, b, key);
     return p.kpos + (size_t)b * (p.Sk - lp) + (key - lp);
+  };
+  auto key_pos = [&](int key) -> int {
+    const int pos = __ldg(key_pos_ptr(key));
+    return key < lp ? guard_pos(pos, start_b) : pos;
   };
   // row r = (query lane s0 + r / g, head kvh * g + r % g); real rows: r < R
   // and the lane < s_end.  One division per row, into a table.
@@ -436,7 +513,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
         for (int i = 0; i < 2 * 32; ++i) {
           const int key = k0 + 32 * i + lane;
           if (key >= k_begin && key < k_end) {
-            const int pos = __ldg(key_pos_ptr(key));
+            const int pos = key_pos(key);
             if (pos >= 0 && pos <= chi &&
                 (p.window == 0 || clo - pos < p.window))
               bits |= 1u << (i / 2);
@@ -456,35 +533,73 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   const int kr0 = tid / kChunks, kch = tid % kChunks;
   const bf16* const kbase = p.k + b * p.ks.b + kvh * p.ks.h + kch * 8;
   const bf16* const vbase = p.v + b * p.vs.b + kvh * p.vs.h + kch * 8;
-  // the thread's rows of tile t, from base (rows `stride` apart) to dst;
-  // kQuant: the chunk's rows only (row key - Lp of base), the prefix's
-  // int8 rows go through load_int8
-  auto load_rows = [&](bf16* dst, const bf16* base, long long stride,
-                       int t) {
+  // Paged: the rows of tile t's keys, found once a tile.  Thread tid <
+  // 64 looks key t * 64 + tid's pool row up (row_of, at the top of the
+  // pass before the tile's, held in a register) and, after that pass's
+  // middle barrier, writes it and the key's K and V row addresses into
+  // sPre / sKPtr / sVPtr[buf] (set_rows), so a row's address is one
+  // shared load where each thread would divide and read the table per
+  // row.
+  auto row_of = [&](int t) -> int {
+    const int key = t * kTK + tid;
+    return kPaged && tid < kTK && t < tb && key < lp
+               ? (int)prefix_row(p.pre, b, key) : 0;
+  };
+  auto set_rows = [&](int buf, int t, int row) {
+    if (!kPaged || tid >= kTK) return;
+    const int key = t * kTK + tid, i = buf * kTK + tid;
+    sPre[i] = row;
+    if (key < lp) {
+      const long long e = ((long long)row * p.KV + kvh) * HD;
+      using Row = std::conditional_t<kQuant, int8_t, bf16>;
+      sKPtr[i] = static_cast<const Row*>(p.pre.k) + e;
+      sVPtr[i] = static_cast<const Row*>(p.pre.v) + e;
+    } else {
+      sKPtr[i] = p.k + b * p.ks.b + kvh * p.ks.h + (key - lp) * p.ks.s;
+      sVPtr[i] = p.v + b * p.vs.b + kvh * p.vs.h + (key - lp) * p.vs.s;
+    }
+  };
+  // (pool row, KV head) of prefix key k0 + r of a tile whose rows are in
+  // sPre[buf]: its scale's index
+  auto prefix_head = [&](int buf, int r) -> long long {
+    return (long long)sPre[buf * kTK + r] * p.KV + kvh;
+  };
+  // the thread's rows of tile t to dst: paged, from the addresses in
+  // `rows` (sKPtr or sVPtr[buf]; kQuant: the chunk's only, the prefix's
+  // int8 rows go through load_int8), else from base, rows `stride` apart
+  auto load_rows = [&](bf16* dst, const bf16* base, const void* const* rows,
+                       long long stride, int t) {
     const int k0 = t * kTK;
 #pragma unroll
     for (int i = 0; i < kTK / kStep; ++i) {
       const int r = kr0 + i * kStep, key = k0 + r;
       if (kQuant && key < lp) continue;
       const bool ok = key >= key_lo && key < key_hi;
-      cp_async16(dst + r * kPitch + kch * 8,
-                 ok ? base + (key - lp) * stride : base, ok);
+      const bf16* src = base;
+      if constexpr (kPaged) {
+        if (ok) src = static_cast<const bf16*>(rows[r]) + kch * 8;
+      } else {
+        if (ok) src = base + key * stride;
+      }
+      cp_async16(dst + r * kPitch + kch * 8, src, ok);
     }
   };
-  // kQuant: tile t's int8 prefix rows of K and V, 16 elements a copy,
-  // and their scales into staging buffer buf
+  // kQuant: tile t's int8 prefix rows of K and V (pool rows in
+  // sPre[buf]), 16 elements a copy, and their scales into staging buffer
+  // buf
   constexpr int kChunks8 = HD / 16;
   auto load_int8 = [&](int buf, int t) {
     const int k0 = t * kTK;
-    const size_t row0 = (size_t)b * lp * p.KV + kvh;
     for (int c = tid; c < 2 * kTK * kChunks8; c += kThreads) {
       const int kv = c / (kTK * kChunks8), cc = c % (kTK * kChunks8);
       const int r = cc / kChunks8, key = k0 + r;
       if (key >= lp) continue;
       const bool ok = key >= key_lo && key < key_hi;
-      const int8_t* const base8 = (kv ? p.v8 : p.k8) + row0 * HD;
+      const int8_t* const base8 =
+          static_cast<const int8_t*>(kv ? p.pre.v : p.pre.k);
+      const void* const row = (kv ? sVPtr : sKPtr)[buf * kTK + r];
       cp_async16((kv ? sV8(buf) : sK8(buf)) + r * kP8 + (cc % kChunks8) * 16,
-                 ok ? base8 + (size_t)key * p.KV * HD + (cc % kChunks8) * 16
+                 ok ? static_cast<const int8_t*>(row) + (cc % kChunks8) * 16
                     : base8,
                  ok);
     }
@@ -492,9 +607,9 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
       const int kv = tid / kTK, r = tid % kTK, key = k0 + r;
       if (key < lp) {
         const bool ok = key >= key_lo && key < key_hi;
-        const float* const sb = (kv ? p.v8_scale : p.k8_scale) + row0;
+        const float* const sb = kv ? p.pre.v_scale : p.pre.k_scale;
         cp_async4((kv ? sVs(buf) : sKs(buf)) + r,
-                  ok ? sb + (size_t)key * p.KV : sb, ok);
+                  ok ? sb + prefix_head(buf, r) : sb, ok);
       }
     }
   };
@@ -525,22 +640,40 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
       out[1] = make_uint4(o[4], o[5], o[6], o[7]);
     }
   };
-  auto load_k = [&](int t) {
-    load_rows(sK, kbase, p.ks.s, t);
+  // sPos holds the raw positions: staged_pos applies the cursor guard
+  auto load_k = [&](int buf, int t) {
+    load_rows(sK, kbase, sKPtr + buf * kTK, p.ks.s, t);
     if (kPaged && tid < kTK) {
       const int key = t * kTK + tid;
       const bool ok = key >= key_lo && key < key_hi;
-      cp_async4(sPos + tid, ok ? key_pos_ptr(key) : p.qpos, ok);
+      const int* src = p.qpos;
+      if (ok)
+        src = key < lp ? p.pre.pos + sPre[buf * kTK + tid]
+                       : key_pos_ptr(key);
+      cp_async4(sPos + tid, src, ok);
     }
   };
-  auto load_v = [&](int t) { load_rows(sV, vbase, p.vs.s, t); };
+  auto load_v = [&](int buf, int t) {
+    load_rows(sV, vbase, sVPtr + buf * kTK, p.vs.s, t);
+  };
+  auto staged_pos = [&](int c, int key) -> int {
+    const int pos = sPos[c];
+    return key < lp ? guard_pos(pos, start_b) : pos;
+  };
 
   // the first K tile (it joins Q's copy group), and kQuant its int8 K
-  // and V rows into staging buffer 0
+  // and V rows into staging buffer 0; paged: the first two tiles' rows
   int t = next_tile(ta);
-  int buf = 0;   // kQuant: the staging buffer of tile t
+  int tn = tb;   // paged: the next tile, a pass ahead
+  int buf = 0;   // tile t's rows (paged) and kQuant staging buffer
+  if constexpr (kPaged) {
+    tn = t < tb ? next_tile(t + 1) : tb;
+    set_rows(0, t, row_of(t));
+    set_rows(1, tn, row_of(tn));
+    __syncthreads();
+  }
   if (t < tb) {
-    load_k(t);
+    load_k(0, t);
     if constexpr (kQuant) load_int8(0, t);
   }
   cp_async_commit();
@@ -573,8 +706,16 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   // K(t) is in shared memory at the top of each pass; V(t) loads while
   // S = Q K(t) and the softmax run, K(next) while P V(t) runs
   while (t < tb) {
-    const int tn = next_tile(t + 1);
-    load_v(t);
+    // paged: the tile after tn and its pool row (set after the middle
+    // barrier, when buffer buf's loads are all issued); else the next tile
+    int tnn = tb, row_nn = 0;
+    if constexpr (kPaged) {
+      tnn = tn < tb ? next_tile(tn + 1) : tb;
+      row_nn = row_of(tnn);
+    } else {
+      tn = next_tile(t + 1);
+    }
+    load_v(buf, t);
     cp_async_commit();
     const int k0 = t * kTK;
     if constexpr (kQuant) {
@@ -619,7 +760,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
     if (kPaged) {
       int lo = 0x7fffffff, hi = (int)0x80000000;
       for (int c = lane; c < 8 * NB; c += 32) {
-        const int pos = sPos[kw + c];
+        const int pos = staged_pos(kw + c, ka + c);
         lo = min(lo, pos);
         hi = max(hi, pos);
       }
@@ -640,7 +781,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
         for (int e = 0; e < 4; ++e) {
           const int c = kw + n * 8 + (lane % 4) * 2 + (e & 1);
           const int key = k0 + c;
-          const int pos = kPaged ? sPos[c] : key;
+          const int pos = kPaged ? staged_pos(c, key) : key;
           const bool ok = key >= key_lo && key < key_hi &&
                           visible<kCausal>(pos, qp[e / 2], p.window);
           s[n][e] = ok ? s[n][e] : kNegInf;
@@ -688,8 +829,9 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
 
     cp_async_wait<0>();
     __syncthreads();  // V(t) is in; every warp is done with K(t)
-    if (tn < tb) load_k(tn);
+    if (tn < tb) load_k(buf ^ 1, tn);
     cp_async_commit();
+    set_rows(buf, tnn, row_nn);   // read from the next pass's top on
     // K(tn)'s prefix rows, visible since the barrier, into the free sK
     if constexpr (kQuant)
       if (tn < tb) convert8(sK, sK8(buf ^ 1), sKs(buf ^ 1), tn);
@@ -728,6 +870,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
     cp_async_wait<0>();
     __syncthreads();
     t = tn;
+    if constexpr (kPaged) tn = tnn;
     buf ^= 1;
   }
 

@@ -79,8 +79,9 @@ def paged_attention_int8(q, k_pool, v_pool, k_scale, v_scale, kpos_pool,
 
 def paged_prefill(q, k, v, kpos, qpos, *, window: int = 0):
     """Ragged-batch chunked-prefill attention: q (B,S,H,hd) against
-    assembled keys k/v (B,L,KV,hd) with absolute key/query positions
-    kpos (B,L) / qpos (B,S) -> (B,S,H,hd)."""
+    contiguous keys k/v (B,L,KV,hd) with absolute key/query positions
+    kpos (B,L) / qpos (B,S) -> (B,S,H,hd) (the slot decode's strip; the
+    paged engine reads its pool through ``paged_prefill_pool``)."""
     _refuse_int8("paged_prefill", k=k, v=v)
     fn = _pp.paged_prefill if _on_cuda(q) else _ref.paged_prefill_ref
     return fn(q, k, v, kpos, qpos, window=window)
@@ -96,6 +97,36 @@ def paged_prefill_int8(q, k_prefix, v_prefix, k_scale, v_scale, kpos_prefix,
           else _ref.paged_prefill_int8_ref)
     return fn(q, k_prefix, v_prefix, k_scale, v_scale, kpos_prefix, k, v,
               kpos, qpos, window=window)
+
+
+def paged_prefill_pool(q, k_pool, v_pool, pos_pool, block_table, start_pos,
+                       k, v, kpos, qpos, *, window: int = 0):
+    """The paged engine's attention: q (B,S,H,hd) against the prefix read
+    from the pool k/v_pool (NB,bs,KV,hd) with positions pos_pool (NB,bs)
+    through block_table (B,nb), each position -1 unless below the row's
+    cursor ``start_pos`` (an int or (B,) int32), then the chunk's k/v
+    (B,Lc,KV,hd) with positions kpos (B,Lc) -> (B,S,H,hd).  The pool
+    holds q's dtype."""
+    _refuse_int8("paged_prefill_pool", k_pool=k_pool, v_pool=v_pool)
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise ValueError(f"paged_prefill_pool: the pool is {k_pool.dtype}, "
+                         f"q {q.dtype}; the pool holds the model dtype")
+    fn = (_pp.paged_prefill_pool if _on_cuda(q)
+          else _ref.paged_prefill_pool_ref)
+    return fn(q, k_pool, v_pool, pos_pool, block_table, start_pos, k, v,
+              kpos, qpos, window=window)
+
+
+def paged_prefill_pool_int8(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
+                            pos_pool, block_table, start_pos, k, v, kpos,
+                            qpos, *, window: int = 0):
+    """``paged_prefill_pool`` over an int8 pool (NB,bs,KV,hd) with float32
+    scales (NB,bs,KV): the prefix is dequantized to q's dtype as it is
+    read."""
+    fn = (_pp.paged_prefill_pool_int8 if _on_cuda(q)
+          else _ref.paged_prefill_pool_int8_ref)
+    return fn(q, k_pool, v_pool, k_scale_pool, v_scale_pool, pos_pool,
+              block_table, start_pos, k, v, kpos, qpos, window=window)
 
 
 def _saves(*tensors) -> bool:
@@ -238,14 +269,16 @@ _KERNELS = {"conv2d": _cv.KERNEL, "conv2d_wgrad": _cw.KERNEL,
             "paged_attention_int8": _pa.KERNEL_INT8,
             "paged_prefill": _pp.KERNEL,
             "paged_prefill_int8": _pp.KERNEL_INT8,
+            "paged_prefill_pool": _pp.KERNEL_POOL,
+            "paged_prefill_pool_int8": _pp.KERNEL_POOL_INT8,
             "rwkv6_scan": _rw.KERNEL, "rwkv6_scan_bwd": _rwb.KERNEL,
             "ssm_scan": _ss.KERNEL, "ssm_scan_bwd": _ssb.KERNEL}
 
 
 def launch_counts() -> dict:
     """Launches of each kernel since its count was last set to 0; the
-    int8-cache variants of the two paged attention kernels count under
-    their own names."""
+    int8-cache variants of the two paged attention kernels, and the pool
+    entries of ``paged_prefill``, count under their own names."""
     return {name: kern.launches for name, kern in _KERNELS.items()}
 
 

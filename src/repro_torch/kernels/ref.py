@@ -160,6 +160,54 @@ def paged_prefill_int8_ref(q, k_prefix, v_prefix, k_scale, v_scale,
                              window=window)
 
 
+def gather_prefix(leaf, block_table):
+    """A pool leaf (NB,bs,...) read through block_table (B,nb) ->
+    (B, nb*bs, ...): row b's blocks in table order."""
+    b, nb = block_table.shape
+    return leaf[block_table.long()].reshape(b, nb * leaf.shape[1],
+                                            *leaf.shape[2:])
+
+
+def guarded_positions(pos_pool, block_table, start_pos):
+    """The prefix's positions (B, nb*bs), each -1 unless below its row's
+    cursor (an int or (B,) cursors): a copy-on-write block's diverged
+    donor tail and the chunk's own not-yet-written lanes are invalid."""
+    ppos = gather_prefix(pos_pool, block_table)
+    sp = torch.as_tensor(start_pos, dtype=torch.int32,
+                         device=ppos.device).reshape(-1, 1)
+    return torch.where(ppos < sp, ppos, -1)
+
+
+def paged_prefill_pool_ref(q, k_pool, v_pool, pos_pool, block_table,
+                           start_pos, k, v, kpos, qpos, *, window: int = 0):
+    """``paged_prefill_ref`` over the prefix read from a block pool:
+    k/v_pool (NB,bs,KV,hd) and pos_pool (NB,bs) gathered through
+    block_table (B,nb), positions at or past the row's cursor
+    ``start_pos`` (an int or (B,) int32) made -1, then the chunk's k/v
+    (B,Lc,KV,hd) with kpos (B,Lc) after them: the keys the reference's
+    ``attn_prefill_paged`` assembles before its op."""
+    ppos = guarded_positions(pos_pool, block_table, start_pos)
+    k_all = torch.cat([gather_prefix(k_pool, block_table), k], 1)
+    v_all = torch.cat([gather_prefix(v_pool, block_table), v], 1)
+    return paged_prefill_ref(q, k_all, v_all,
+                             torch.cat([ppos, kpos], 1).to(torch.int32),
+                             qpos, window=window)
+
+
+def paged_prefill_pool_int8_ref(q, k_pool, v_pool, k_scale_pool,
+                                v_scale_pool, pos_pool, block_table,
+                                start_pos, k, v, kpos, qpos, *,
+                                window: int = 0):
+    """``paged_prefill_pool_ref`` over an int8 pool (NB,bs,KV,hd) with
+    float32 scales (NB,bs,KV): the gathered prefix stays int8 and goes to
+    ``paged_prefill_int8_ref``, which dequantizes it to q's dtype."""
+    return paged_prefill_int8_ref(
+        q, *(gather_prefix(t, block_table)
+             for t in (k_pool, v_pool, k_scale_pool, v_scale_pool)),
+        guarded_positions(pos_pool, block_table, start_pos), k, v, kpos,
+        qpos, window=window)
+
+
 def attention_partial_ref(q, k, v, visible, scale):
     """One key piece's partial softmax state, as the bf16 attention
     kernels write it when a query tile's keys are split: q (..., Sq, hd),

@@ -585,28 +585,18 @@ def attn_prefill_paged(p, cfg: ModelConfig, x, positions, pool, block_table,
     (B,S)}``) for the engine to scatter into the pool.  The pool itself
     is not written.
 
-    An int8 pool: the gathered prefix stays int8 (bytes and scales) and
-    ``ops.paged_prefill_int8`` reads it beside the chunk's fresh
-    full-precision K/V, dequantizing as it loads, so the reference's
-    ``concat(dequant(prefix), chunk)`` is never built; the chunk cache
-    comes back quantized (``k``, ``v`` int8, ``k_s``, ``v_s``).
+    The attention is ``ops.paged_prefill_pool``: the pool leaves, the
+    table and the cursors go to it as they are, and it reads the prefix
+    through the table itself, so the reference's gathered prefix and its
+    ``concat(prefix, chunk)`` are never built.  An int8 pool goes to
+    ``ops.paged_prefill_pool_int8``, which dequantizes the prefix as it
+    loads it; the chunk cache comes back quantized (``k``, ``v`` int8,
+    ``k_s``, ``v_s``).
     """
     rope = cfg.pos_kind == "rope"
-    hd = cfg.resolved_head_dim
-    kv = cfg.num_kv_heads
     b, s, _ = x.shape
     window = cfg.sliding_window if kind == "attn_local" else 0
     q, k, v = _project_qkv(p, cfg, x, positions, rope, kind)
-
-    bs = pool["pos"].shape[-1]
-    nb = block_table.shape[1]
-    bt = block_table.long()
-    ppos = pool["pos"][bt].reshape(b, nb * bs)
-    # per-row cursor guard: lanes at/past the row's start are invalid
-    # (diverged COW tails AND own-block lanes a later chunk will write)
-    sp = torch.as_tensor(start_pos, dtype=torch.int32,
-                         device=x.device).reshape(-1, 1)   # (B,1) | (1,1)
-    ppos = torch.where(ppos < sp, ppos, -1)
 
     qpos = _bcast_pos(positions, b, s)             # (B,S) absolute
     if seq_len is not None:
@@ -616,27 +606,30 @@ def attn_prefill_paged(p, cfg: ModelConfig, x, positions, pool, block_table,
     else:
         kpos_suffix = qpos
     kpos_suffix = kpos_suffix.to(torch.int32)
+    # the prefix is read from the pool through the table, under each
+    # row's cursor guard (lanes at/past the row's start are invalid:
+    # diverged COW tails AND own-block lanes a later chunk will write)
+    args = (block_table, _row_starts(start_pos, b, x.device),
+            k.contiguous(), v.contiguous(), kpos_suffix, qpos)
     if cfg.kv_cache_quant:
-        pk, pv = (pool[n][bt].reshape(b, nb * bs, kv, hd) for n in "kv")
-        ps_k, ps_v = (pool[n][bt].reshape(b, nb * bs, kv)
-                      for n in ("k_s", "v_s"))
-        out = kernel_ops.paged_prefill_int8(
-            q.contiguous(), pk, pv, ps_k, ps_v, ppos,
-            k.contiguous(), v.contiguous(), kpos_suffix, qpos,
-            window=window)
+        out = kernel_ops.paged_prefill_pool_int8(
+            q.contiguous(), pool["k"], pool["v"], pool["k_s"], pool["v_s"],
+            pool["pos"], *args, window=window)
         return _out_proj(out, p["wo"]), {
             **_quantized_entries(k, v), "pos": kpos_suffix}
-    pk = pool["k"][bt].to(k.dtype).reshape(b, nb * bs, kv, hd)
-    pv = pool["v"][bt].to(v.dtype).reshape(b, nb * bs, kv, hd)
-    k_all = torch.cat([pk, k], dim=1)
-    v_all = torch.cat([pv, v], dim=1)
-    kpos_all = torch.cat([ppos, kpos_suffix], dim=1).to(torch.int32)
+    out = kernel_ops.paged_prefill_pool(q.contiguous(), pool["k"], pool["v"],
+                                        pool["pos"], *args, window=window)
+    return _out_proj(out, p["wo"]), {"k": k, "v": v, "pos": kpos_suffix}
 
-    out = kernel_ops.paged_prefill(q.contiguous(), k_all, v_all, kpos_all,
-                                   qpos, window=window)
-    y = _out_proj(out, p["wo"])
 
-    return y, {"k": k, "v": v, "pos": kpos_suffix}
+def _row_starts(start_pos, b, device):
+    """The rows' cursors as the pool entries take them: a Python int as it
+    is, a tensor as (B,) int32 (a scalar one repeated)."""
+    if isinstance(start_pos, int):
+        return start_pos
+    sp = torch.as_tensor(start_pos, dtype=torch.int32,
+                         device=device).reshape(-1)
+    return sp.expand(b).contiguous()
 
 
 # ------------------------------------------------------------- cross-attn

@@ -38,7 +38,8 @@ from repro_torch.kernels import rwkv6_scan_bwd as rwb_mod  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss_mod  # noqa: E402
 from repro_torch.kernels import ssm_scan_bwd as ssb_mod  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
-from test_torch_kernels import decode_case, prefill_case  # noqa: E402
+from test_torch_kernels import (decode_case, pool_case,  # noqa: E402
+                                prefill_case)
 
 
 def kernel_inputs(name, device):
@@ -68,6 +69,10 @@ def kernel_inputs(name, device):
     if name == "paged_prefill":
         args = [t(a) for a in prefill_case(rng, 2, 4, 4, 2, 16, 8)]
         return pp_mod.paged_prefill, pp_mod.KERNEL, args, (0, 1, 2)
+    if name == "paged_prefill_pool":
+        args = [t(a) for a in pool_case(rng, 2, 4, 4, 2, 16, 8, 4)]
+        return (pp_mod.paged_prefill_pool, pp_mod.KERNEL_POOL, args,
+                (0, 1, 2, 6, 7))
     if name.startswith("ssm_scan"):
         b, s, di, n = 2, 5, 8, ss_mod.STATE_DIM
         args = [t(np.full((b, s, di), 0.5, np.float32))]
@@ -95,7 +100,7 @@ def kernel_inputs(name, device):
 
 
 KERNELS = ["conv2d", "conv2d_wgrad", "flash_attention", "paged_attention",
-           "paged_prefill", "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan",
+           "paged_prefill", "paged_prefill_pool", "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan",
            "ssm_scan_bwd"]
 
 

@@ -437,7 +437,8 @@ def test_two_replica_cluster_launches_paged_prefill_per_step(cuda):
     counts = ops.launch_counts()
     assert all(o is not None and len(o) > 0 for o in outs)
     assert min(steps) > 0
-    assert counts["paged_prefill"] == cfg.num_layers * sum(steps), (
+    assert counts["paged_prefill_pool"] == cfg.num_layers * sum(steps), (
         counts, steps)
     assert counts["paged_attention"] == counts["flash_attention"] == 0
+    assert counts["paged_prefill"] == 0
     assert cl.stats()["finished"] == len(outs)

@@ -120,6 +120,8 @@ def test_engine_token_identical_to_reference(models, reference_runs,
                                    "paged_attention_int8": 0,
                                    "paged_prefill": 0,
                                    "paged_prefill_int8": 0,
+                                   "paged_prefill_pool": 0,
+                                   "paged_prefill_pool_int8": 0,
                                    "rwkv6_scan": 0, "rwkv6_scan_bwd": 0,
                                    "ssm_scan": 0, "ssm_scan_bwd": 0}
     assert runs[True] == ref_outs

@@ -118,6 +118,73 @@ def prefill_case(rng, b, s, h, kv, hd, prefix, min_start=0):
     return q, k, v, kpos, qpos
 
 
+def pool_case(rng, b, s, h, kv, hd, prefix, bs, min_start=0, null_rows=(),
+              same_start=False):
+    """A ragged dispatch as the paged engine hands it to
+    ``attn_prefill_paged``: a pool (NB, bs, KV, hd) whose block 0 is the
+    null block (pos -1), a table of ``ceil(prefix / bs)`` columns per row,
+    null past the blocks the row holds, each row's cursor in
+    ``[min_start, nb * bs]`` (one cursor for all rows if ``same_start``)
+    and 1-``s`` valid chunk lanes (right-padded, kpos -1).  A row's blocks
+    hold its positions below its cursor; a row may share its first blocks
+    with the row before it (copy-on-write), whose positions there reach
+    that row's own cursor, so a shared block can carry a donor tail past
+    the sharer's cursor; the block holding the chunk's first lanes is the
+    row's own, with its lanes from the cursor on -1.  Odd rows share
+    (unless ``same_start``): each draws its cursor below the donor's, off
+    a block boundary where it can, and takes the donor's blocks through
+    the one holding its cursor, whose lanes past it are the donor's tail.
+    ``null_rows``: padding rows, one valid lane at position 0 over an
+    all-null table.  -> (q, k_pool, v_pool, pos_pool, block_table, starts
+    (B,), k, v, kpos, qpos)."""
+    nb = -(-prefix // bs)
+    lp = nb * bs
+    n_blocks = 1 + 2 * b * nb
+    k_pool = rng.normal(size=(n_blocks, bs, kv, hd)).astype(np.float32)
+    v_pool = rng.normal(size=(n_blocks, bs, kv, hd)).astype(np.float32)
+    pos_pool = np.full((n_blocks, bs), -1, np.int32)
+    bt = np.zeros((b, nb), np.int32)
+    starts = np.zeros((b,), np.int32)
+    kpos = np.full((b, s), -1, np.int32)
+    qpos = np.zeros((b, s), np.int32)
+    free = list(range(1, n_blocks))
+    rng.shuffle(free)
+    one_start = int(rng.integers(min_start, lp + 1))
+    prev = None                       # (table row, cursor) of the donor
+    for i in range(b):
+        if i in null_rows:
+            qpos[i] = np.arange(s)
+            kpos[i, 0] = 0
+            continue
+        share = 0
+        if same_start:
+            start = one_start
+        elif i % 2 and prev is not None and prev[1] > min_start:
+            below = np.arange(min_start, prev[1])
+            off = below[below % bs != 0] if bs > 1 else below
+            start = int(rng.choice(off if len(off) else below))
+            share = -(-start // bs)
+        else:
+            start = int(rng.integers(min_start, lp + 1))
+        n = int(rng.integers(1, s + 1))
+        starts[i] = start
+        qpos[i] = start + np.arange(s)
+        kpos[i, :n] = qpos[i, :n]
+        for j in range(min(nb, -(-(start + n) // bs))):
+            if j < share and prev[0][j]:
+                bt[i, j] = prev[0][j]
+                continue
+            blk = free.pop()
+            bt[i, j] = blk
+            lanes = j * bs + np.arange(bs)
+            pos_pool[blk] = np.where(lanes < start, lanes, -1)
+        prev = (bt[i], start)
+    q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, s, kv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, s, kv, hd)).astype(np.float32)
+    return q, k_pool, v_pool, pos_pool, bt, starts, k, v, kpos, qpos
+
+
 DECODE_SHAPES = [
     # (B, H, KV, hd, pool blocks, block size, table cols)
     (3, 4, 4, 16, 17, 4, 5),      # MHA, many small blocks
@@ -195,7 +262,7 @@ def test_cuda_sources_export_what_the_wrappers_bind():
                                "ssm_scan_bwd"]
     for kern in (cv_mod.KERNEL, cw_mod.KERNEL, fa_mod.KERNEL, pa_mod.KERNEL,
                  pa_mod.KERNEL_INT8, pp_mod.KERNEL, pp_mod.KERNEL_INT8,
-                 rw_mod.KERNEL, rwb_mod.KERNEL, ss_mod.KERNEL,
+                 pp_mod.KERNEL_POOL, pp_mod.KERNEL_POOL_INT8, rw_mod.KERNEL, rwb_mod.KERNEL, ss_mod.KERNEL,
                  ssb_mod.KERNEL):
         text = (build.CSRC / f"{kern.library}.cu").read_text()
         for sym, argtypes in ((kern.symbol, kern.argtypes),
@@ -1171,3 +1238,166 @@ def test_paged_prefill_kernel_at_frontend_slot_decode(cuda, shape, dtype):
     plain = ref.paged_prefill_ref(q, k, v, kpos, qpos)
     torch.testing.assert_close(out.float(), plain.float(),
                                **_tol("paged_prefill", dt))
+
+
+# --------------------------------------------- the pool entries of prefill
+# ``paged_prefill_pool`` / ``paged_prefill_pool_int8`` read the prefix out
+# of the pool through the block table: each launch must equal, bit for
+# bit, the contiguous entry's launch over the keys gathered through the
+# table, guarded at each row's cursor and concatenated with the chunk (what
+# ``attn_prefill_paged`` built before its op), at the float entries' card
+# shapes, the verify dispatch, gemma3-4b's and the MoE stacks' heads and
+# the frontends' slot-decode heads, block sizes 1, 4 and 16, split and
+# unsplit plans, one cursor for every row (a Python int) and per-row
+# cursors, and all-null tables.
+
+POOL_CARD_SHAPES = (
+    [(shape, 0, 0) for shape in PREFILL_SHAPES]
+    + [(shape, 0, 5) for shape in PREFILL_SHAPES]
+    + [(shape, m, w) for shape, m in GEMMA3_PP_CARD_SHAPES for w in (0, 1024)]
+    + [((8, 1) + MOE_HEADS + (512,), 0, 0), ((4, 256) + MOE_HEADS + (512,),
+                                             0, 0)]
+    + [((8, 1, 16, 8, 128, 512), 0, 0), ((2, 40, 16, 8, 128, 70), 0, 0),
+       ((16, 16, 16, 8, 128, 256), 0, 0)]
+    + [((b, 1, h, kv, hd, lanes), 0, 0)
+       for b, h, kv, hd, lanes in FRONTEND_SLOT_CARD_SHAPES])
+
+
+def _pool_operands(device, dt, args, int8):
+    """pool_case's arrays on ``device`` in dtype ``dt``; ``int8``: the
+    pool quantized as the model quantizes it -> (q, pool leaves (k, v, and
+    for int8 k_s, v_s), pos_pool, block_table, starts, k, v, kpos,
+    qpos)."""
+    q, kp, vp, pp, bt, starts, k, v, kpos, qpos = (
+        torch.from_numpy(a).to(device) for a in args)
+    q, k, v, kp, vp = (t.to(dt) for t in (q, k, v, kp, vp))
+    if int8:
+        (k8, ks), (v8, vs) = _quantized(kp), _quantized(vp)
+        leaves = (k8, v8, ks, vs)
+    else:
+        leaves = (kp, vp)
+    return q, leaves, pp, bt, starts, k, v, kpos, qpos
+
+
+def _gathered(leaves, pp, bt, start, k, v, kpos, dt):
+    """The keys the pool entries read, assembled: the prefix gathered
+    through the table (dequantized for int8), its positions guarded at
+    the cursors, the chunk after it."""
+    g = [ref.gather_prefix(t, bt) for t in leaves]
+    if len(g) == 4:
+        g = [ref.dequantize_kv(g[0], g[2], dt),
+             ref.dequantize_kv(g[1], g[3], dt)]
+    ppos = ref.guarded_positions(pp, bt, start)
+    return (torch.cat([g[0], k], 1).contiguous(),
+            torch.cat([g[1], v], 1).contiguous(),
+            torch.cat([ppos, kpos], 1).contiguous())
+
+
+def _check_pool_entry(device, shape, min_start, window, bs, dtype, int8,
+                      same_start=False, null_rows=(1,)):
+    dt = getattr(torch, dtype)
+    b = shape[0]
+    rng = np.random.default_rng(sum(shape) + window + 7 * bs + int8)
+    null_rows = tuple(r for r in null_rows if r < b)
+    q, leaves, pp, bt, starts, k, v, kpos, qpos = _pool_operands(
+        device, dt, pool_case(rng, *shape, bs, min_start=min_start,
+                              null_rows=null_rows, same_start=same_start),
+        int8)
+    start = int(starts[0]) if same_start else starts
+    kern = pp_mod.KERNEL_POOL_INT8 if int8 else pp_mod.KERNEL_POOL
+    entry = ops.paged_prefill_pool_int8 if int8 else ops.paged_prefill_pool
+    plain = (ref.paged_prefill_pool_int8_ref if int8
+             else ref.paged_prefill_pool_ref)
+    n0, c0 = kern.launches, pp_mod.KERNEL.launches
+    out = entry(q, *leaves, pp, bt, start, k, v, kpos, qpos, window=window)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1 and pp_mod.KERNEL.launches == c0
+    k_all, v_all, kp_all = _gathered(leaves, pp, bt, start, k, v, kpos, dt)
+    dense = ops.paged_prefill(q, k_all, v_all, kp_all, qpos, window=window)
+    assert torch.equal(out, dense)
+    qp, kp = qpos[:, :, None], kp_all[:, None, :]
+    vis = (kp >= 0) & (kp <= qp)
+    if window:
+        vis &= qp - kp < window
+    lanes = vis.any(-1)
+    want = plain(q, *leaves, pp, bt, start, k, v, kpos, qpos, window=window)
+    torch.testing.assert_close(out[lanes].float(), want[lanes].float(),
+                               **_tol("paged_prefill", dt))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,min_start,window", POOL_CARD_SHAPES)
+@pytest.mark.parametrize("bs", [1, 4, 16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_prefill_pool_entries_equal_the_gathered_launch(
+        cuda, shape, min_start, window, bs, int8, dtype):
+    _check_pool_entry(cuda, shape, min_start, window, bs, dtype, int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,splits", [(1, True), (256, False)])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("same_start", [False, True])
+def test_paged_prefill_pool_plans_and_cursors(cuda, s, splits, int8,
+                                              same_start):
+    """qwen3-0.6b's heads: the fused decode dispatch (split on an H100)
+    and a chunk (whole), one cursor for every row (an int) or one a
+    row."""
+    b = 8 if s == 1 else 4
+    assert pp_mod.plan(b, s, 512 + s, 16, 8,
+                       split.sm_count(cuda)).split == splits
+    _check_pool_entry(cuda, (b, s, 16, 8, 128, 512), 0, 0, 16, "bfloat16",
+                      int8, same_start=same_start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_prefill_pool_all_null_tables(cuda, int8, dtype):
+    """Every row a padding row over an all-null table: each sees its own
+    chunk key alone."""
+    out = _check_pool_entry(cuda, (4, 8, 16, 8, 128, 64), 0, 0, 16, dtype,
+                            int8, null_rows=range(4))
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+def test_paged_prefill_pool_entries_refuse_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(3)
+    args = pool_case(rng, 2, 8, 4, 2, 64, 32, 16)
+    q, (kp, vp), pp, bt, starts, k, v, kpos, qpos = _pool_operands(
+        cuda, torch.bfloat16, args, False)
+    fine = (q, kp, vp, pp, bt, starts, k, v, kpos, qpos)
+    pp_mod.paged_prefill_pool(*fine)
+    with pytest.raises(ValueError, match="q's dtype"):
+        pp_mod.paged_prefill_pool(q, kp.float(), vp.float(), *fine[3:])
+    with pytest.raises(ValueError, match="pool is torch.float32"):
+        ops.paged_prefill_pool(q, kp.float(), vp.float(), *fine[3:])
+    strided = torch.zeros(kp.shape[:-1] + (2 * kp.shape[-1],),
+                          dtype=kp.dtype, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="k_pool must be contiguous"):
+        pp_mod.paged_prefill_pool(q, strided, vp, *fine[3:])
+    with pytest.raises(ValueError, match="block_table is on cpu"):
+        pp_mod.paged_prefill_pool(q, kp, vp, pp, bt.cpu(), *fine[5:])
+    with pytest.raises(ValueError, match="start_pos"):
+        pp_mod.paged_prefill_pool(q, kp, vp, pp, bt, starts.long(),
+                                  *fine[6:])
+    (k8, ks), (v8, vs) = _quantized(kp), _quantized(vp)
+    with pytest.raises(ValueError, match="int8"):
+        ops.paged_prefill_pool(q, k8, v8, *fine[3:])
+    pp_mod.paged_prefill_pool_int8(q, k8, v8, ks, vs, *fine[3:])
+    with pytest.raises(ValueError, match="must be int8"):
+        pp_mod.paged_prefill_pool_int8(q, kp, vp, ks, vs, *fine[3:])
+    strided8 = torch.zeros(k8.shape[:-1] + (2 * k8.shape[-1],),
+                           dtype=torch.int8, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="k_pool must be contiguous"):
+        pp_mod.paged_prefill_pool_int8(q, strided8, v8, ks, vs, *fine[3:])
+    with pytest.raises(ValueError, match="block_table is on cpu"):
+        pp_mod.paged_prefill_pool_int8(q, k8, v8, ks, vs, pp, bt.cpu(),
+                                       *fine[5:])
+    with pytest.raises(ValueError, match="k_scale_pool"):
+        pp_mod.paged_prefill_pool_int8(q, k8, v8, ks[:, :2].contiguous(), vs,
+                                       *fine[3:])
+    torch.cuda.synchronize()

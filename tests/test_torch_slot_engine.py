@@ -216,6 +216,8 @@ def test_slot_engine_token_identical_to_reference(pair, reference_slot_run):
                                    "paged_attention_int8": 0,
                                    "paged_prefill": 0,
                                    "paged_prefill_int8": 0,
+                                   "paged_prefill_pool": 0,
+                                   "paged_prefill_pool_int8": 0,
                                    "rwkv6_scan": 0, "rwkv6_scan_bwd": 0,
                                    "ssm_scan": 0, "ssm_scan_bwd": 0}
     assert outs == ref_outs
