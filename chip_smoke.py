@@ -5408,12 +5408,15 @@ def kernel_times(torch, device, ops, ref):
             kernel="paged_prefill", what=f"{name} slot decode {shape}")
 
     # the bf16 attention shapes whose key ranges the planners split, timed
-    # again with every range whole (one piece, no combine)
+    # again with every range whole (one piece, no combine); the flash
+    # planner's cache is passed by
     for key, fn in split_fns.items():
         if out[key]["split"]:
             with mock.patch.object(
-                    attention_split, "plan", lambda ranges, c, n:
+                    attention_split, "plan", lambda ranges, c, n, **kw:
                     attention_split.Plan(1 << 30, (1,) * len(ranges))), \
+                    mock.patch.object(fa_mod, "plan",
+                                      fa_mod.plan.__wrapped__), \
                     mock.patch.object(pa_mod, "plan", lambda b, kv, nb, n:
                                       pa_mod.Plan(nb, 1)):
                 out[key]["whole_ms"] = time_ms(torch, fn)

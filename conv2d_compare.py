@@ -7,7 +7,7 @@ of several checkouts on one card, in turns.
 
 KERNEL: conv2d (the default), conv2d_wgrad, ssm_scan, ssm_scan_bwd,
 rwkv6_scan_bwd, paged_prefill_int8, paged_attention_int8,
-paged_prefill_pool or attention_bits.  Each TREE is the root of a checkout holding
+paged_prefill_pool, attention_bits or flash_attention.  Each TREE is the root of a checkout holding
 ``src/repro_torch`` (for another commit: ``git archive <commit> | tar -x
 -C build/<dir>``).  The trees run in the order given and then in reverse
 (parent, change, change, parent), each in a child process of its own,
@@ -72,9 +72,24 @@ without a prefix (phase 2's, the draft's, the dense configs' and
 gemma3-4b's heads, windows 0 and 64 / 1,024), bf16 and float32: each
 output's SHA-256, which must be the same in every run, and each tree's
 ``ptxas -v`` registers and spills of those kernels' instantiations, a
-prefix instantiation's (``kPrefix``, that tree's own) left out.  The full
+prefix instantiation's (``kPrefix``, that tree's own) left out; the
+digests are compared kernel by kernel, so a tree whose flash tile
+changed still shows whether ``paged_prefill``'s bits did.  The full
 launches are also split by kernel under ``torch.profiler`` (device time
-a call).  Prints a line per run, the card's name and power limit, and a
+a call).
+``flash_attention``: the whole-prompt kernel in bf16 at ``chip_smoke.py``'s
+phase-7 flash shapes (one causal row of S = 512 and 2,048 at 16/8 heads
+of 128 and at gemma3-4b's 8/4 of 256, the draft's ``DRAFT_SHAPES``) and
+``FRONTEND_FA_SHAPES``
+(whisper's encoder and cross-attention, paligemma's prefix-LM): each
+held to the plain version within ``KERNEL_TOL``, timed both ways beside
+SDPA (the prefix as a boolean mask), with its plan (tiles a piece,
+CTAs) and its bound (inputs once over 3.35 TB/s, or 4 hd FLOP a visible
+(query head, key) over 989 TFLOP/s); the tree's ``ptxas -v`` of every
+``flash_attention`` instantiation; and in the first run of the last
+TREE a sweep over forced tiles a piece at ``FLASH_SWEEP``'s shapes, with
+the flash planner's makespan constants fit to it
+(``fit_flash_planner``).  Prints a line per run, the card's name and power limit, and a
 JSON object of every reading last.  Needs one NVIDIA GPU.
 """
 from __future__ import annotations
@@ -89,7 +104,8 @@ HERE = Path(__file__).resolve().parent
 BATCHES = {"conv2d": (1, 32, 2000), "conv2d_wgrad": (64, 320, 2000),
            "ssm_scan": (), "ssm_scan_bwd": (), "rwkv6_scan_bwd": (),
            "paged_prefill_int8": (), "paged_attention_int8": (),
-           "paged_prefill_pool": (), "attention_bits": ()}
+           "paged_prefill_pool": (), "attention_bits": (),
+           "flash_attention": ()}
 GRADS = {"rwkv6_scan_bwd": ("dr", "dk", "dv", "dw", "du", "ds0"),
          "ssm_scan_bwd": ("ddt", "dbm", "dcm", "dx", "da", "dh0")}
 
@@ -419,6 +435,7 @@ def ptxas_table(tree: Path, libs) -> dict:
 
     # flash kernels: template arguments without / with kPrefix
     arity = {"flash_attention_mma_kernel": 2,
+             "flash_attention_wgmma_kernel": 2,
              "flash_attention_combine_kernel": 1,
              "flash_attention_kernel": 1}
     table = {}
@@ -514,6 +531,189 @@ def attention_bits_child(torch, cs, dev) -> dict:
                                   "paged_prefill_int8"))}
 
 
+# shapes of the forced-piece sweep: every tiles-a-piece value the planner
+# can choose at each (``attention_split.plan``'s candidates)
+FLASH_SWEEP = ("s512", "s2048", "encoder", "cross_prefill", "prefix_256")
+
+
+def plan_candidates(longest: int):
+    """The tiles a piece ``attention_split.plan`` chooses among."""
+    return sorted({longest} | {m << k for k in range(longest.bit_length())
+                               for m in (2, 3) if m << k < longest} | {1})
+
+
+def flash_cases(torch, cs, dev):
+    """-> [(name, (B, H, KV, Sq, Sk, hd, causal, prefix), q, k, v)] at the
+    phase-7 flash shapes (gemma3-4b's head_dim-256 rows included) and
+    ``FRONTEND_FA_SHAPES``."""
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+    spec_gen = torch.Generator(device=dev).manual_seed(6)
+    fgen = torch.Generator(device=dev).manual_seed(12)
+    out = []
+    for s in (512, 2048):
+        out.append((f"s{s}", (1, 16, 8, s, s, 128, True, 0),
+                    *cs.flash_case(torch, gen, dev, dt, sq=s)))
+    for s, valid in cs.DRAFT_SHAPES:
+        out.append((f"draft{s}", (1, 16, 8, s, s, 128, True, 0),
+                    *cs.draft_case(torch, spec_gen, dev, dt, s, valid)))
+    for name, shape in cs.FRONTEND_FA_SHAPES.items():
+        out.append((name, shape,
+                    *cs.frontend_fa_case(torch, fgen, dev, dt, shape)))
+    ggen = torch.Generator(device=dev).manual_seed(13)
+    for s in cs.GEMMA3_FA_SHAPES:
+        h, kv, hd = (cs.GEMMA3_HEADS[n] for n in ("h", "kv", "hd"))
+        out.append((f"hd256_{s}", (1, h, kv, s, s, hd, True, 0),
+                    *cs.flash_case(torch, ggen, dev, dt, sq=s,
+                                   **cs.GEMMA3_HEADS)))
+    return out
+
+
+def ptxas_all(tree: Path, lib: str) -> dict:
+    """``ptxas -v`` of every kernel of one of the tree's libraries ->
+    {kernel<template arguments>: "registers / spill stores"}."""
+    import re
+
+    table, fn, spill = {}, None, None
+    for line in (tree / "build" / "kernels" / f"{lib}.log").read_text() \
+            .splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), None
+        elif fn and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif fn and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            kind = re.match(r"_ZN11repro_torch\d+(\w+?)I", fn)
+            args = re.findall(r"L[ib](\d+)E", fn)
+            name = (f"{kind.group(1)}<{','.join(args)}>" if kind
+                    else fn[:60])
+            table[name] = f"{regs} / {spill}"
+            fn = None
+    return table
+
+
+def fit_flash_planner(sweep, split, sms=132):
+    """The flash planner's makespan constants read off a forced-piece
+    sweep {(name, shape, tiles a piece): graph ms}: over a grid of the
+    three constants, the plans ``attention_split.plan`` would choose at
+    the sweep's shapes, and their time against each shape's fastest
+    forced plan (the mean ratio, the regret), then a least-squares fit of
+    the model (``makespan`` with ``waves``, in 64-key tile times; each
+    shape its own tile time and base, as head dims and groups differ) ->
+    [(regret, relative RMS residual, fixed, combine, ctas_per_sm)], the
+    best first: least regret, then least residual."""
+    by_shape = {}
+    for (name, shape, c), ms in sweep.items():
+        by_shape.setdefault((name, shape), []).append((c, ms))
+    ranges = {}
+    for name, shape in by_shape:
+        b, h, kv, sq, sk, hd, causal, prefix = shape
+        tq = min(64 // (h // kv), sq)
+        rs = split.flash_key_ranges(sq, sk, tq, causal, 0, prefix)
+        ranges[name, shape] = ([max(0, t[1] - t[0]) for t in
+                                (split.tile_span(*r) for r in rs)], b * kv)
+    fits = []
+    for fixed in (0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0):
+        for combine in (0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0):
+            for per_sm in (1.0, 1.25, 1.5, 1.75, 2.0):
+                res = []
+                for key, pts in by_shape.items():
+                    tiles, ctas = ranges[key]
+                    xs = [split.makespan(tiles, c, ctas, sms, fixed=fixed,
+                                         combine=combine, ctas_per_sm=per_sm,
+                                         waves=True) for c, _ in pts]
+                    ys = [ms for _, ms in pts]
+                    mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+                    sxx = sum((x - mx) ** 2 for x in xs)
+                    tau = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+                           / sxx if sxx else 0.0)
+                    base = my - tau * mx
+                    res += [((base + tau * x - y) / y) ** 2
+                            for x, y in zip(xs, ys)]
+                regret = []
+                for key, pts in by_shape.items():
+                    tiles, ctas = ranges[key]
+                    rs = [(0, t * split.TILE_KEYS) for t in tiles]
+                    c = split.plan(rs, ctas, sms, fixed=fixed,
+                                   combine=combine, ctas_per_sm=per_sm,
+                                   waves=True).tiles_per_piece
+                    times = dict(pts)
+                    regret.append(times[c] / min(times.values()))
+                fits.append((sum(regret) / len(regret),
+                             (sum(res) / len(res)) ** 0.5, fixed, combine,
+                             per_sm))
+    return sorted(fits)[:5]
+
+
+def flash_child(torch, cs, dev, sweep=False) -> dict:
+    """The tree's bf16 ``flash_attention`` at ``flash_cases``: held to the
+    plain version, timed beside SDPA, its plan and bound; the tree's
+    ptxas; with ``sweep`` the forced-piece sweep and its fit."""
+    from unittest import mock
+
+    from repro_torch.kernels import attention_split as split
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch.mesh import HBM_BYTES_PER_S, PEAK_FLOPS
+
+    build.build_all(["flash_attention"])
+    sms = split.sm_count(dev)
+    res, plans, bounds = {}, {}, {}
+    cases = flash_cases(torch, cs, dev)
+    for name, shape, q, k, v in cases:
+        b, h, kv, sq, sk, hd, causal, prefix = shape
+        got = ops.flash_attention(q, k, v, causal=causal, prefix=prefix)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, prefix=prefix)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **cs.KERNEL_TOL["flash_attention",
+                                                   "bfloat16"])
+        i, j = (torch.arange(n, device=dev) for n in (sq, sk))
+        seen = ((j[None] <= i[:, None]) | (j[None] < prefix) if causal
+                else torch.ones(sq, sk, dtype=torch.bool, device=dev))
+        fn = (lambda q=q, k=k, v=v, c=causal, p=prefix:
+              ops.flash_attention(q, k, v, causal=c, prefix=p))
+        lib = ((lambda q=q, k=k, v=v, m=seen[None, None]:
+                cs.sdpa(torch, q, k, v, m)) if prefix else
+               (lambda q=q, k=k, v=v, c=causal: cs.sdpa(torch, q, k, v,
+                                                         causal=c)))
+        res[f"flash_{name}"] = (cs.time_ms(torch, fn), cs.graph_ms(torch, fn))
+        res[f"sdpa_{name}"] = (cs.time_ms(torch, lib),
+                               cs.graph_ms(torch, lib))
+        pl = fa_mod.plan(b, h, kv, sq, sk, causal, 0, sms, prefix)
+        plans[name] = f"{pl.tiles_per_piece} tiles a piece, " \
+            f"{pl.ctas(b * kv)} CTAs"
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        flops = 4 * hd * h * b * int(seen.sum())
+        bounds[name] = max(nbytes / HBM_BYTES_PER_S,
+                           flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    out = {**res, "plans": plans, "bounds_ms": bounds,
+           "ptxas": ptxas_all(Path(ops.__file__).parents[3],
+                              "flash_attention")}
+    if sweep:
+        points = {}
+        for name, shape, q, k, v in cases:
+            if name not in FLASH_SWEEP:
+                continue
+            b, h, kv, sq, sk, hd, causal, prefix = shape
+            tq = min(64 // (h // kv), sq)
+            rs = split.flash_key_ranges(sq, sk, tq, causal, 0, prefix)
+            longest = max(split.tile_span(lo, hi)[1]
+                          - split.tile_span(lo, hi)[0] for lo, hi in rs)
+            for c in plan_candidates(longest):
+                forced = split.Plan(c, tuple(split.pieces_of(lo, hi, c)
+                                             for lo, hi in rs))
+                with mock.patch.object(fa_mod, "plan",
+                                       lambda *a, f=forced: f):
+                    fn = (lambda q=q, k=k, v=v, c=causal, p=prefix:
+                          ops.flash_attention(q, k, v, causal=c, prefix=p))
+                    points[name, shape, c] = cs.graph_ms(torch, fn)
+        out["sweep"] = {f"{n} c={c}": ms for (n, _, c), ms in points.items()}
+        out["fit"] = [list(f) for f in fit_flash_planner(points, split)]
+    return out
+
+
 def child(tree: Path, kernel: str, needs=()) -> dict:
     import torch
     import torch.nn.functional as F
@@ -549,6 +749,9 @@ def child(tree: Path, kernel: str, needs=()) -> dict:
         return {**res, **pool_child(torch, cs, dev)}
     if kernel == "attention_bits":
         return {**res, **attention_bits_child(torch, cs, dev)}
+    if kernel == "flash_attention":
+        return {**res, **flash_child(torch, cs, dev,
+                                     sweep=("sweep",) in needs)}
     for b in BATCHES[kernel]:
         x = torch.rand(b, 28, 28, 1, generator=gen, device=dev)
         xn = x.permute(0, 3, 1, 2)
@@ -599,9 +802,11 @@ def main(argv) -> int:
 
     trees = [Path(t).resolve() for t in argv]
     runs = []
-    for tree in trees + trees[::-1]:
+    for i, tree in enumerate(trees + trees[::-1]):
+        extra = (["sweep"] if kernel == "flash_attention"
+                 and i == len(trees) - 1 else [])
         out = subprocess.run([sys.executable, __file__, "--child", str(tree),
-                              kernel, *needs],
+                              kernel, *needs, *extra],
                              capture_output=True, text=True, check=False)
         if out.returncode != 0:
             print(out.stdout, out.stderr, file=sys.stderr)
@@ -610,16 +815,27 @@ def main(argv) -> int:
         runs.append({"tree": str(tree), **res})
         print(f"{tree}: " + ", ".join(
             f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in res.items()
-            if not isinstance(v, dict))
+            if not isinstance(v, dict) and k != "fit")
             + "  (ms, event / graph-replayed)", flush=True)
         for k, v in res.items():
-            if isinstance(v, dict) and k not in ("digests", "ptxas"):
+            if isinstance(v, dict) and k not in ("digests", "ptxas",
+                                                 "plans", "bounds_ms",
+                                                 "sweep"):
                 print(f"  {k} (profiler, ms a call): " + ", ".join(
                     f"{n} {t:.4f}" for n, t in v.items()), flush=True)
     digests = [r.get("digests") for r in runs]
     if digests[0]:
         print("outputs' SHA-256 the same in every run: "
               + str(all(d == digests[0] for d in digests)), digests[0])
+        for kind in sorted({n.split()[0] for n in digests[0]}):
+            same = all({n: h for n, h in d.items() if n.split()[0] == kind}
+                       == {n: h for n, h in digests[0].items()
+                           if n.split()[0] == kind} for d in digests)
+            print(f"  {kind}: the same in every run: {same}")
+    for r in runs:
+        for key in ("plans", "bounds_ms", "sweep", "fit"):
+            if key in r:
+                print(f"{key} {r['tree']}: {r[key]}")
     tables = [r.get("ptxas") for r in runs]
     if tables[0]:
         for r in runs[:len(trees)]:

@@ -1,7 +1,7 @@
-// Online-softmax attention over bf16 operands on the tensor cores, shared
-// by the whole-prompt (flash_attention.cu) and ragged-prefill
-// (paged_prefill.cu) kernels.  float32 operands keep the CUDA-core tile of
-// attention_tile.cuh.
+// Online-softmax attention over bf16 operands on the tensor cores
+// (mma.sync): the ragged-prefill kernels' tile (paged_prefill.cuh).  The
+// whole-prompt kernel has a Hopper tile of its own (attention_wgmma.cuh);
+// float32 operands keep the CUDA-core tile of attention_tile.cuh.
 //
 // A CTA of 4 warps serves up to 64 query rows, each row one (query
 // position, group head) pair: row r = (query s0 + r / g, head kvh * g +
@@ -24,8 +24,7 @@
 //   * S = Q.K^T is summed in float32 registers; the masked online
 //     softmax runs in registers (row max and sum over the 4 threads of a
 //     quad), in base 2 with the scale folded in; a masked p is exactly 0;
-//   * P is rounded to bf16 in registers and is the A operand of P.V
-//     (kSplitP: as a bf16 hi + lo pair, two products, ~16 bits of p);
+//   * P is rounded to bf16 in registers and is the A operand of P.V;
 //     the float32 accumulator stays in registers;
 //   * a tile is masked only where some key in it can be invisible to the
 //     warp's rows; fully visible tiles skip the mask;
@@ -72,12 +71,6 @@
 // the exponent bits of 2^23, a byte permute and a subtraction, no I2F), so
 // a launch equals, bit for bit, the bf16 launch over the concatenated
 // dequantized keys.
-//
-// Prefix-LM (kPrefix, flash only: paligemma's image patches): every query
-// sees the first p.prefix keys as well as its causal ones.  Query i's
-// causal bound becomes max(i, prefix - 1), through query_pos, so the key
-// ranges, the full-tile test and the mask are the causal ones over those
-// positions; a separate instantiation, so the others compile unchanged.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -167,13 +160,12 @@ struct Params {
   const bf16* v;
   bf16* out;
   Strides qs, ks, vs, os;
-  const int* kpos;   // (B, Sk - pre.Lp) the chunk's key positions, paged
-                     // only
-  const int* qpos;   // (B, Sq) query positions, paged only
-  // paged only: the prefix, keys [0, pre.Lp) (bf16 rows, or int8 rows
-  // under kQuant); k / v / kpos are the chunk's keys [pre.Lp, Sk)
+  const int* kpos;   // (B, Sk - pre.Lp) the chunk's key positions
+  const int* qpos;   // (B, Sq) query positions
+  // the prefix, keys [0, pre.Lp) (bf16 rows, or int8 rows under kQuant);
+  // k / v / kpos are the chunk's keys [pre.Lp, Sk)
   PagedPrefix pre;
-  int B, KV, g, Sq, Sk, TQ, window, causal;
+  int B, KV, g, Sq, Sk, TQ, window;
   int n_qtiles;      // ceil(Sq / TQ)
   int C;             // key tiles per piece
   int n_pieces;      // pieces of all query tiles, one (batch, KV head)
@@ -181,32 +173,21 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
   float* part_acc;   // [B*KV][n_pieces][TQ*g][hd] when split
   float2* part_ml;   // [B*KV][n_pieces][TQ*g] (m, l) when split
-  int prefix;        // kPrefix: keys [0, prefix) seen by every query
 };
 
-// Keys query tile i can see, [lo, hi): flash's causal and window bounds
-// (kPrefix: a causal tile's end at least the prefix), or every lane for
-// the paged kernel.  attention_split.py mirrors this.
-template <bool kPaged, bool kPrefix = false>
+// Keys query tile i can see, [lo, hi): every lane (which ones a query sees
+// depends on the positions, known only in the tile).  attention_split.py
+// mirrors this.
 __host__ __device__ __forceinline__ void key_range(const Params& p, int i,
                                                    int& lo, int& hi) {
-  if (kPaged) {
-    lo = 0;
-    hi = p.Sk;
-    return;
-  }
-  const int s0 = i * p.TQ;
-  int s_end = s0 + p.TQ < p.Sq ? s0 + p.TQ : p.Sq;
-  if (kPrefix && p.prefix > s_end) s_end = p.prefix;
-  lo = p.window && s0 - p.window + 1 > 0 ? s0 - p.window + 1 : 0;
-  hi = p.causal && s_end < p.Sk ? s_end : p.Sk;
+  lo = 0;
+  hi = p.Sk;
 }
 
-template <bool kPaged, bool kPrefix = false>
 __host__ __device__ __forceinline__ int pieces_of(const Params& p, int i,
                                                   int& tlo, int& thi) {
   int lo, hi;
-  key_range<kPaged, kPrefix>(p, i, lo, hi);
+  key_range(p, i, lo, hi);
   tlo = lo / kTK;
   thi = hi > lo ? (hi + kTK - 1) / kTK : tlo;
   const int n = (thi - tlo + p.C - 1) / p.C;
@@ -215,16 +196,15 @@ __host__ __device__ __forceinline__ int pieces_of(const Params& p, int i,
 
 // Linear piece index x -> (query tile, piece within it, its piece count),
 // walking query tiles from the last.
-template <bool kPaged, bool kPrefix = false>
 __device__ __forceinline__ void locate(const Params& p, int x, int& qt,
                                        int& j, int& n) {
   int tlo, thi;
   for (qt = p.n_qtiles - 1; qt > 0; --qt) {
-    n = pieces_of<kPaged, kPrefix>(p, qt, tlo, thi);
+    n = pieces_of(p, qt, tlo, thi);
     if (x < n) break;
     x -= n;
   }
-  n = pieces_of<kPaged, kPrefix>(p, qt, tlo, thi);
+  n = pieces_of(p, qt, tlo, thi);
   j = x;
 }
 
@@ -290,11 +270,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi,
-                                                   uint32_t rounded) {
-  __nv_bfloat162 r = *reinterpret_cast<__nv_bfloat162*>(&rounded);
-  return pack_bf16(lo - __low2float(r), hi - __high2float(r));
 }
 
 // bytes lo, lo + 1 of u (int8 already offset by 128: x ^ 0x80 a byte),
@@ -368,15 +343,11 @@ __device__ __forceinline__ float row_reduce(const float (&s)[NB][4], int i) {
 }
 
 // Attend one piece of one query tile: blockIdx.x = (piece, KV head,
-// batch row), piece slowest.  kPaged: key and query positions come from
-// p.kpos / p.qpos and tiles no query of the CTA can see are skipped;
-// otherwise they are the key and query indices.
-template <int HD, bool kPaged, bool kCausal, bool kSplitP, bool kWarpKeys,
-          bool kQuant = false, bool kPrefix = false>
+// batch row), piece slowest.  Key and query positions come from p.kpos /
+// p.qpos (and the prefix's pool), and tiles no query of the CTA can see
+// are skipped.
+template <int HD, bool kWarpKeys, bool kQuant = false>
 __device__ __forceinline__ void attend_piece(const Params& p) {
-  static_assert(!kQuant || kPaged, "an int8 prefix is the paged kernel's");
-  static_assert(!kPrefix || (kCausal && !kPaged),
-                "a prefix-LM prefix is flash's causal launch's");
   static_assert(HD % 16 == 0 && HD <= 256, "head_dim: a multiple of 16");
   static_assert(kRows == kTK, "a Q tile is laid out as a K tile");
   constexpr bool kQSmem = q_in_smem(HD);
@@ -417,12 +388,12 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   const int b = (blockIdx.x % bkv) / p.KV, kvh = blockIdx.x % p.KV;
   const int g = p.g;
   int qt, piece, npieces;
-  locate<kPaged, kPrefix>(p, x, qt, piece, npieces);
+  locate(p, x, qt, piece, npieces);
   const int s0 = qt * p.TQ, s_end = min(s0 + p.TQ, p.Sq);
   const int R = p.TQ * g;
   int klo, khi, tlo, thi;
-  key_range<kPaged, kPrefix>(p, qt, klo, khi);
-  pieces_of<kPaged, kPrefix>(p, qt, tlo, thi);
+  key_range(p, qt, klo, khi);
+  pieces_of(p, qt, tlo, thi);
   const int ta = tlo + piece * p.C, tb = min(ta + p.C, thi);
   const int key_lo = max(klo, ta * kTK), key_hi = min(khi, tb * kTK);
 
@@ -430,15 +401,13 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   const int rbase = kWarpKeys ? 0 : warp * 16;  // the warp's first row
   const int kw = kWarpKeys ? warp * 16 : 0;     // the warp's first key
 
-  // kPrefix: a query before the prefix's end sees keys [0, prefix)
   auto query_pos = [&](int s) -> int {
-    if (kPaged) return __ldg(p.qpos + (size_t)b * p.Sq + s);
-    return kPrefix ? max(s, p.prefix - 1) : s;
+    return __ldg(p.qpos + (size_t)b * p.Sq + s);
   };
   // where key `key`'s raw position lives: the prefix pool's or the
   // chunk's; a prefix key's counts only below the row's cursor
-  const int lp = kPaged ? p.pre.Lp : 0;
-  const int start_b = kPaged ? row_start(p.pre, b) : 0;
+  const int lp = p.pre.Lp;
+  const int start_b = row_start(p.pre, b);
   auto key_pos_ptr = [&](int key) -> const int* {
     if (key < lp) return p.pre.pos + prefix_row(p.pre, b, key);
     return p.kpos + (size_t)b * (p.Sk - lp) + (key - lp);
@@ -468,7 +437,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   }
 
   // query positions: the thread's two rows, the warp's rows' range, the
-  // CTA's range (paged tile skipping)
+  // CTA's range (tile skipping)
   int qp[2];
   for (int i = 0; i < 2; ++i) {
     const int s = row_query(rbase + lane / 4 + 8 * i);
@@ -482,23 +451,20 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
     whi = __reduce_max_sync(0xffffffffu, s >= 0 ? pos : -1);
   }
   int clo = 0x7fffffff, chi = -1;
-  if (kPaged) {
-    for (int s = s0 + lane; s < s0 + 64; s += 32) {
-      const bool ok = s < s_end;
-      const int pos = ok ? query_pos(s) : 0;
-      clo = min(clo, ok ? pos : 0x7fffffff);
-      chi = max(chi, ok ? pos : -1);
-    }
-    clo = __reduce_min_sync(0xffffffffu, clo);
-    chi = __reduce_max_sync(0xffffffffu, chi);
+  for (int s = s0 + lane; s < s0 + 64; s += 32) {
+    const bool ok = s < s_end;
+    const int pos = ok ? query_pos(s) : 0;
+    clo = min(clo, ok ? pos : 0x7fffffff);
+    chi = max(chi, ok ? pos : -1);
   }
+  clo = __reduce_min_sync(0xffffffffu, clo);
+  chi = __reduce_max_sync(0xffffffffu, chi);
 
-  // paged: bit i of vis = tile mask_base + i has a key some query of the
+  // bit i of vis = tile mask_base + i has a key some query of the
   // CTA can see (a superset test); every warp computes the same mask
   unsigned vis = 0;
   int mask_base = ta - 32;
   auto next_tile = [&](int t) -> int {
-    if (!kPaged) return t;
     while (t < tb) {
       if (t >= mask_base + 32) {
         // the next 32 tiles' kpos lanes: coalesced, independent loads,
@@ -533,7 +499,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   const int kr0 = tid / kChunks, kch = tid % kChunks;
   const bf16* const kbase = p.k + b * p.ks.b + kvh * p.ks.h + kch * 8;
   const bf16* const vbase = p.v + b * p.vs.b + kvh * p.vs.h + kch * 8;
-  // Paged: the rows of tile t's keys, found once a tile.  Thread tid <
+  // The rows of tile t's keys, found once a tile.  Thread tid <
   // 64 looks key t * 64 + tid's pool row up (row_of, at the top of the
   // pass before the tile's, held in a register) and, after that pass's
   // middle barrier, writes it and the key's K and V row addresses into
@@ -542,11 +508,11 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   // row.
   auto row_of = [&](int t) -> int {
     const int key = t * kTK + tid;
-    return kPaged && tid < kTK && t < tb && key < lp
+    return tid < kTK && t < tb && key < lp
                ? (int)prefix_row(p.pre, b, key) : 0;
   };
   auto set_rows = [&](int buf, int t, int row) {
-    if (!kPaged || tid >= kTK) return;
+    if (tid >= kTK) return;
     const int key = t * kTK + tid, i = buf * kTK + tid;
     sPre[i] = row;
     if (key < lp) {
@@ -564,11 +530,11 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   auto prefix_head = [&](int buf, int r) -> long long {
     return (long long)sPre[buf * kTK + r] * p.KV + kvh;
   };
-  // the thread's rows of tile t to dst: paged, from the addresses in
-  // `rows` (sKPtr or sVPtr[buf]; kQuant: the chunk's only, the prefix's
-  // int8 rows go through load_int8), else from base, rows `stride` apart
+  // the thread's rows of tile t to dst, from the addresses in `rows`
+  // (sKPtr or sVPtr[buf]; kQuant: the chunk's only, the prefix's int8
+  // rows go through load_int8); base: a valid address for a skipped row
   auto load_rows = [&](bf16* dst, const bf16* base, const void* const* rows,
-                       long long stride, int t) {
+                       int t) {
     const int k0 = t * kTK;
 #pragma unroll
     for (int i = 0; i < kTK / kStep; ++i) {
@@ -576,11 +542,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
       if (kQuant && key < lp) continue;
       const bool ok = key >= key_lo && key < key_hi;
       const bf16* src = base;
-      if constexpr (kPaged) {
-        if (ok) src = static_cast<const bf16*>(rows[r]) + kch * 8;
-      } else {
-        if (ok) src = base + key * stride;
-      }
+      if (ok) src = static_cast<const bf16*>(rows[r]) + kch * 8;
       cp_async16(dst + r * kPitch + kch * 8, src, ok);
     }
   };
@@ -642,8 +604,8 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   };
   // sPos holds the raw positions: staged_pos applies the cursor guard
   auto load_k = [&](int buf, int t) {
-    load_rows(sK, kbase, sKPtr + buf * kTK, p.ks.s, t);
-    if (kPaged && tid < kTK) {
+    load_rows(sK, kbase, sKPtr + buf * kTK, t);
+    if (tid < kTK) {
       const int key = t * kTK + tid;
       const bool ok = key >= key_lo && key < key_hi;
       const int* src = p.qpos;
@@ -654,7 +616,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
     }
   };
   auto load_v = [&](int buf, int t) {
-    load_rows(sV, vbase, sVPtr + buf * kTK, p.vs.s, t);
+    load_rows(sV, vbase, sVPtr + buf * kTK, t);
   };
   auto staged_pos = [&](int c, int key) -> int {
     const int pos = sPos[c];
@@ -662,16 +624,13 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   };
 
   // the first K tile (it joins Q's copy group), and kQuant its int8 K
-  // and V rows into staging buffer 0; paged: the first two tiles' rows
+  // and V rows into staging buffer 0; the first two tiles' rows
   int t = next_tile(ta);
-  int tn = tb;   // paged: the next tile, a pass ahead
-  int buf = 0;   // tile t's rows (paged) and kQuant staging buffer
-  if constexpr (kPaged) {
-    tn = t < tb ? next_tile(t + 1) : tb;
-    set_rows(0, t, row_of(t));
-    set_rows(1, tn, row_of(tn));
-    __syncthreads();
-  }
+  int tn = t < tb ? next_tile(t + 1) : tb;   // the next tile, a pass ahead
+  int buf = 0;   // tile t's rows and kQuant staging buffer
+  set_rows(0, t, row_of(t));
+  set_rows(1, tn, row_of(tn));
+  __syncthreads();
   if (t < tb) {
     load_k(0, t);
     if constexpr (kQuant) load_int8(0, t);
@@ -706,15 +665,10 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   // K(t) is in shared memory at the top of each pass; V(t) loads while
   // S = Q K(t) and the softmax run, K(next) while P V(t) runs
   while (t < tb) {
-    // paged: the tile after tn and its pool row (set after the middle
-    // barrier, when buffer buf's loads are all issued); else the next tile
-    int tnn = tb, row_nn = 0;
-    if constexpr (kPaged) {
-      tnn = tn < tb ? next_tile(tn + 1) : tb;
-      row_nn = row_of(tnn);
-    } else {
-      tn = next_tile(t + 1);
-    }
+    // the tile after tn and its pool row (set after the middle barrier,
+    // when buffer buf's loads are all issued)
+    const int tnn = tn < tb ? next_tile(tn + 1) : tb;
+    const int row_nn = row_of(tnn);
     load_v(buf, t);
     cp_async_commit();
     const int k0 = t * kTK;
@@ -757,7 +711,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
     // is every key of the warp's slice visible to every real row of it?
     const int ka = k0 + kw, kb_end = ka + 8 * NB;
     bool full = ka >= key_lo && kb_end <= key_hi;
-    if (kPaged) {
+    {
       int lo = 0x7fffffff, hi = (int)0x80000000;
       for (int c = lane; c < 8 * NB; c += 32) {
         const int pos = staged_pos(kw + c, ka + c);
@@ -768,9 +722,6 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
       hi = __reduce_max_sync(0xffffffffu, hi);
       full = full && lo >= 0 && hi <= wlo &&
              (p.window == 0 || whi - lo < p.window);
-    } else {
-      full = full && (!kCausal || kb_end - 1 <= wlo) &&
-             (p.window == 0 || whi - ka < p.window);
     }
 
     // masked online softmax, base 2; row i of the thread: elements 2i, 2i+1
@@ -781,9 +732,9 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
         for (int e = 0; e < 4; ++e) {
           const int c = kw + n * 8 + (lane % 4) * 2 + (e & 1);
           const int key = k0 + c;
-          const int pos = kPaged ? staged_pos(c, key) : key;
+          const int pos = staged_pos(c, key);
           const bool ok = key >= key_lo && key < key_hi &&
-                          visible<kCausal>(pos, qp[e / 2], p.window);
+                          visible(pos, qp[e / 2], p.window);
           s[n][e] = ok ? s[n][e] : kNegInf;
         }
       }
@@ -843,13 +794,6 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
                         pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                         pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                         pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      uint32_t pl[4];
-      if (kSplitP) {
-        pl[0] = pack_bf16_rest(s[2 * kk][0], s[2 * kk][1], ph[0]);
-        pl[1] = pack_bf16_rest(s[2 * kk][2], s[2 * kk][3], ph[1]);
-        pl[2] = pack_bf16_rest(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2]);
-        pl[3] = pack_bf16_rest(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3]);
-      }
 #pragma unroll
       for (int dp = 0; dp < HD / 16; ++dp) {
         const int m = lane / 8;
@@ -859,10 +803,6 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
                                    dp * 16 + (m / 2) * 8);
         mma_bf16(acc[2 * dp], ph, vb[0], vb[1]);
         mma_bf16(acc[2 * dp + 1], ph, vb[2], vb[3]);
-        if (kSplitP) {
-          mma_bf16(acc[2 * dp], pl, vb[0], vb[1]);
-          mma_bf16(acc[2 * dp + 1], pl, vb[2], vb[3]);
-        }
       }
     }
     // K(tn) is in (and its prefix rows converted); every warp is done
@@ -870,7 +810,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
     cp_async_wait<0>();
     __syncthreads();
     t = tn;
-    if constexpr (kPaged) tn = tnn;
+    tn = tnn;
     buf ^= 1;
   }
 
@@ -968,26 +908,25 @@ __host__ __device__ constexpr int combine_blocks(int hd) {
 }
 
 // [lo, hi): the query tiles with several pieces (lo = hi: none)
-template <bool kPaged, bool kPrefix = false>
 inline void split_tiles(const Params& p, int& lo, int& hi) {
   lo = hi = 0;
   for (int i = 0, tlo, thi; i < p.n_qtiles; ++i)
-    if (pieces_of<kPaged, kPrefix>(p, i, tlo, thi) > 1) {
+    if (pieces_of(p, i, tlo, thi) > 1) {
       if (lo == hi) lo = i;
       hi = i + 1;
     }
 }
 
-template <int HD, bool kPaged, bool kPrefix = false>
+template <int HD>
 __device__ __forceinline__ void combine_pieces(const Params& p) {
   constexpr int kBlocks = combine_blocks(HD);
   const int qt = p.combine_lo + blockIdx.x / kBlocks, bk = blockIdx.y;
   const int b = bk / p.KV, kvh = bk % p.KV, g = p.g;
   int tlo, thi, first = 0;
-  const int n = pieces_of<kPaged, kPrefix>(p, qt, tlo, thi);
+  const int n = pieces_of(p, qt, tlo, thi);
   if (n == 1) return;
   for (int i = p.n_qtiles - 1; i > qt; --i)
-    first += pieces_of<kPaged, kPrefix>(p, i, tlo, thi);
+    first += pieces_of(p, i, tlo, thi);
   const int R = p.TQ * g, s0 = qt * p.TQ;
   const int idx = (blockIdx.x % kBlocks) * kCombineThreads + threadIdx.x;
   const int r = idx / (HD / 8), d = (idx % (HD / 8)) * 8;

@@ -17,28 +17,38 @@
 //
 // Bound on an H100: operations for prompts of a few hundred tokens and
 // up. One row's causal prefill reads q, k, v once and writes out once
-// (bytes ~ S), but does 4 * hd flops per visible (query head, key)
+// (bytes ~ S), but does 4 * hd flops per visible (query head, key) --
+// 6 * hd on the tensor cores here, P.V taking P as a hi + lo pair --
 // (flops ~ S^2 / 2), past the ~295 flops per byte line from a few
 // hundred tokens on: the tensor cores' rate decides.
 //
-// Design, bfloat16 (attention_mma.cuh): one CTA of 4 warps per (batch
-// row, KV head, tile of TQ = 64 / g queries, piece of its key range)
-// serves the R = TQ * g query vectors of that head group, so each K/V
-// tile is read once per group and query tile. The TPU kernel's
-// sequential key-block grid axis becomes a loop inside the CTA over
-// 64-key tiles in bf16 shared memory, each copy (cp.async) overlapping
-// the other operand's math; Q.K^T and P.V run on mma.sync.m16n8k16 with
-// float32 sums in registers and the online softmax stays in registers. P goes into P.V as a bf16
-// hi + lo pair (two products): rounded once to bf16 it would move
-// outputs past the 2e-3 limit against the float32 plain version. The
+// Design, bfloat16 (attention_wgmma.cuh): Hopper's path to that rate.
+// One CTA of two warpgroups per (batch row, KV head, tile of TQ = 64 / g
+// queries, piece of its key range) serves the R = TQ * g query vectors
+// of that head group, so each K/V tile is read once per group and query
+// tile. The TPU kernel's sequential key-block grid axis becomes a loop
+// inside the CTA over 64-key tiles. A producer warpgroup gives up its
+// registers (setmaxnreg) and one of its threads copies Q once and each K
+// and V tile by TMA, from tensor maps encoded for each launch over the
+// strided views, into a ring of shared-memory slots (four up to head_dim
+// 64, three CTAs an SM; two at 128 and one at 256, two CTAs an SM) with
+// mbarriers, so no
+// thread spends registers or issue slots on addresses. The consumer
+// warpgroup runs Q.K^T on wgmma (Q and K straight from the swizzled
+// slots) and P.V on wgmma with P as the register operand, as a bf16 hi
+// + lo pair (two products: rounded once to bf16 P would move outputs
+// past the 2e-3 limit against the float32 plain version), float32 sums
+// in registers and the online softmax in registers; at head_dim 128 the
+// softmax of one tile runs while the previous tile's P.V does. The
 // CTA walks only the key range some query of the tile can see (causal:
 // keys <= the tile's last query; window: keys past the tile's first
 // query minus the window), so fully masked tiles are never read, and
-// keys past Sk are zero-filled, not read. Query tiles are launched
-// heaviest first (the last causal tile has the longest range); where
-// the grid would leave SMs idle or one range is several times the mean,
-// the wrapper's planner (kernels/attention_split.py) cuts the ranges
-// into pieces of whole tiles and a combine pass merges them.
+// keys past Sk are zero-filled by the copy, not read. Query tiles are
+// launched heaviest first (the last causal tile has the longest range);
+// where the grid would leave SMs idle, a partial last wave, or one
+// range several times the mean, the wrapper's planner
+// (kernels/attention_split.py) cuts the ranges into pieces of whole
+// tiles and a combine pass merges them.
 //
 // float32 keeps the CUDA-core tile below (attention_tile.cuh): on the
 // tensor cores float32 means TF32, ~3 decimal digits, which breaks the
@@ -46,8 +56,8 @@
 // tile of TK keys is staged in shared memory as float32 and folded into
 // a float32 online softmax; the key positions are the key indices, the
 // query positions the query indices.
-#include "attention_mma.cuh"
 #include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 
 namespace repro_torch {
 
@@ -160,47 +170,59 @@ static int launch_causal(int causal, const void* q, const void* k,
 
 // ------------------------------------------------------------ bfloat16
 
+// wg::min_blocks(HD) CTAs an SM; the producer's registers are given to
+// the consumer by setmaxnreg.
 template <int HD, bool kCausal, bool kPrefix>
-__global__ void __launch_bounds__(mma::kThreads)
-    flash_attention_mma_kernel(const mma::Params p) {
-  mma::attend_piece<HD, false, kCausal, true, false, false, kPrefix>(p);
+__global__ void __launch_bounds__(wg::kThreads, wg::min_blocks(HD))
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                                 const __grid_constant__ CUtensorMap tmk,
+                                 const __grid_constant__ CUtensorMap tmv,
+                                 const wg::Params p) {
+  wg::attend_piece<HD, kCausal, kPrefix>(&tmq, &tmk, &tmv, p);
 }
 
 template <int HD, bool kPrefix>
-__global__ void __launch_bounds__(mma::kCombineThreads)
-    flash_attention_combine_kernel(const mma::Params p) {
-  mma::combine_pieces<HD, false, kPrefix>(p);
+__global__ void __launch_bounds__(wg::kCombineThreads)
+    flash_attention_combine_kernel(const wg::Params p) {
+  wg::combine_pieces<HD, kPrefix>(p);
 }
 
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
 template <int HD, bool kCausal, bool kPrefix>
-static int launch_mma(const mma::Params& p, cudaStream_t stream) {
-  const size_t smem = mma::smem_bytes(HD);
+static int launch_wgmma(const Maps& m, const wg::Params& p,
+                        cudaStream_t stream) {
+  const size_t smem = wg::smem_bytes(HD);
   static unsigned long long allowed = 0;   // a bit per device
-  cudaError_t err = mma::allow_smem(
-      flash_attention_mma_kernel<HD, kCausal, kPrefix>, smem, allowed);
+  cudaError_t err = wg::allow_smem(
+      flash_attention_wgmma_kernel<HD, kCausal, kPrefix>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_mma_kernel<HD, kCausal, kPrefix>
-      <<<p.n_pieces * p.B * p.KV, mma::kThreads, smem, stream>>>(p);
+  flash_attention_wgmma_kernel<HD, kCausal, kPrefix>
+      <<<p.n_pieces * p.B * p.KV, wg::kThreads, smem, stream>>>(m.q, m.k,
+                                                                 m.v, p);
   err = cudaGetLastError();
   int lo, hi;
-  mma::split_tiles<false, kPrefix>(p, lo, hi);
+  wg::split_tiles<kPrefix>(p, lo, hi);
   if (err != cudaSuccess || lo == hi) return (int)err;
-  mma::Params pc = p;
+  wg::Params pc = p;
   pc.combine_lo = lo;
   flash_attention_combine_kernel<HD, kPrefix>
-      <<<dim3((hi - lo) * mma::combine_blocks(HD), p.B * p.KV),
-         mma::kCombineThreads, 0, stream>>>(pc);
+      <<<dim3((hi - lo) * wg::combine_blocks(HD), p.B * p.KV),
+         wg::kCombineThreads, 0, stream>>>(pc);
   return (int)cudaGetLastError();
 }
 
 template <bool kCausal, bool kPrefix>
-static int launch_mma_hd(int hd, const mma::Params& p, cudaStream_t stream) {
+static int launch_wgmma_hd(int hd, const Maps& m, const wg::Params& p,
+                           cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_mma<16, kCausal, kPrefix>(p, stream);
-    case 32: return launch_mma<32, kCausal, kPrefix>(p, stream);
-    case 64: return launch_mma<64, kCausal, kPrefix>(p, stream);
-    case 128: return launch_mma<128, kCausal, kPrefix>(p, stream);
-    case 256: return launch_mma<256, kCausal, kPrefix>(p, stream);
+    case 16: return launch_wgmma<16, kCausal, kPrefix>(m, p, stream);
+    case 32: return launch_wgmma<32, kCausal, kPrefix>(m, p, stream);
+    case 64: return launch_wgmma<64, kCausal, kPrefix>(m, p, stream);
+    case 128: return launch_wgmma<128, kCausal, kPrefix>(m, p, stream);
+    case 256: return launch_wgmma<256, kCausal, kPrefix>(m, p, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -231,14 +253,11 @@ extern "C" int flash_attention_launch(int dtype, int causal, const void* q,
     return launch_causal<float>(causal, q, k, v, out, strides, B, H, KV, Sq,
                                 Sk, hd, TQ, window, prefix, scale, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  mma::Params p{};
-  p.q = static_cast<const mma::bf16*>(q);
-  p.k = static_cast<const mma::bf16*>(k);
-  p.v = static_cast<const mma::bf16*>(v);
-  p.out = static_cast<mma::bf16*>(out);
-  p.qs = {strides[0], strides[1], strides[2]};
-  p.ks = {strides[3], strides[4], strides[5]};
-  p.vs = {strides[6], strides[7], strides[8]};
+  const wg::Strides qs{strides[0], strides[1], strides[2]},
+      ks{strides[3], strides[4], strides[5]},
+      vs{strides[6], strides[7], strides[8]};
+  wg::Params p{};
+  p.out = static_cast<wg::bf16*>(out);
   p.os = {strides[9], strides[10], strides[11]};
   p.B = B;
   p.KV = KV;
@@ -251,19 +270,26 @@ extern "C" int flash_attention_launch(int dtype, int causal, const void* q,
   p.n_qtiles = (Sq + TQ - 1) / TQ;
   p.C = tiles_per_piece;
   p.n_pieces = n_pieces;
-  p.scale_log2 = scale * mma::kLog2e;
+  p.scale_log2 = scale * wg::kLog2e;
   p.part_acc = static_cast<float*>(part_acc);
   p.part_ml = static_cast<float2*>(part_ml);
   p.prefix = prefix;
-  if (prefix) return launch_mma_hd<true, true>(hd, p, s);
-  return causal ? launch_mma_hd<true, false>(hd, p, s)
-                : launch_mma_hd<false, false>(hd, p, s);
+  // Q's box: (64 dims, the g heads of a group, TQ positions), row r =
+  // (position r / g, head r % g); K's and V's: (64 dims, 64 keys)
+  Maps m;
+  int err = wg::encode_map(&m.q, q, hd, H, Sq, B, qs, true, p.g, TQ);
+  if (!err) err = wg::encode_map(&m.k, k, hd, KV, Sk, B, ks, false, wg::kTK, 1);
+  if (!err) err = wg::encode_map(&m.v, v, hd, KV, Sk, B, vs, false, wg::kTK, 1);
+  if (err) return err;
+  if (prefix) return launch_wgmma_hd<true, true>(hd, m, p, s);
+  return causal ? launch_wgmma_hd<true, false>(hd, m, p, s)
+                : launch_wgmma_hd<false, false>(hd, m, p, s);
 }
 
 // Shared memory a launch needs, so the wrapper can refuse shapes the card
 // cannot hold before launching.
 extern "C" size_t flash_attention_smem_bytes(int dtype, int H, int KV, int hd,
                                              int TQ) {
-  if (dtype == 1) return repro_torch::mma::smem_bytes(hd);
+  if (dtype == 1) return repro_torch::wg::smem_bytes(hd);
   return repro_torch::tile_smem_bytes(TQ * (H / KV), repro_torch::kTK, hd);
 }

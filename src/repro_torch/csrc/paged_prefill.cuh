@@ -253,13 +253,13 @@ template <int HD, bool kWarpKeys, bool kQuant>
 __global__ void __launch_bounds__(mma::kThreads,
                                   kWarpKeys && !kQuant && HD <= 128 ? 3 : 1)
     paged_prefill_mma_kernel(const mma::Params p) {
-  mma::attend_piece<HD, true, true, false, kWarpKeys, kQuant>(p);
+  mma::attend_piece<HD, kWarpKeys, kQuant>(p);
 }
 
 template <int HD>
 __global__ void __launch_bounds__(mma::kCombineThreads)
     paged_prefill_combine_kernel(const mma::Params p) {
-  mma::combine_pieces<HD, true>(p);
+  mma::combine_pieces<HD>(p);
 }
 
 template <int HD, bool kWarpKeys, bool kQuant>
@@ -273,7 +273,7 @@ static int launch_mma(const mma::Params& p, cudaStream_t stream) {
       <<<p.n_pieces * p.B * p.KV, mma::kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   int lo, hi;
-  mma::split_tiles<true>(p, lo, hi);
+  mma::split_tiles(p, lo, hi);
   if (err != cudaSuccess || lo == hi) return (int)err;
   mma::Params pc = p;
   pc.combine_lo = lo;
@@ -329,7 +329,6 @@ static int launch_entry(int dtype, const void* q, const void* k,
   p.Sk = pre.Lp + Lc;
   p.TQ = TQ;
   p.window = window;
-  p.causal = 1;
   p.n_qtiles = (S + TQ - 1) / TQ;
   p.C = tiles_per_piece;
   p.n_pieces = n_pieces;

@@ -8,17 +8,22 @@ where a query tile has several pieces each writes a partial softmax
 state that one combine pass merges (``ref.attention_combine_ref`` is its
 plain version).  This module is the planner: pure Python over the shape
 and the card's SM count, so it runs (and is tested) without a card.  The
-tile arithmetic mirrors ``csrc/attention_mma.cuh`` (``key_range``,
-``pieces_of``, ``locate``).
+tile arithmetic mirrors ``csrc/attention_wgmma.cuh`` and
+``csrc/attention_mma.cuh`` (``key_range``, ``pieces_of``, ``locate``).
 
 It splits where the grid would otherwise leave SMs idle (fewer CTAs
 than SMs: decode steps, short prompts) or where one query tile's range
 is several times the mean (a long causal prompt whose last tiles see
-every key).  The number of tiles a piece takes is then the one that
-minimises a makespan model of the launch: a CTA costs its tiles plus a
-fixed set-up and write-out, SMs run ``CTAS_PER_SM`` CTAs at full speed,
-and a split launch pays for the combine pass.  Its constants are in
-64-key tile times, read off an H100's kernel timings (PERF.md).
+every key), and, for the flash tile (``waves``), where a grid of at
+least one CTA an SM leaves a partial last wave (whisper's 144 encoder
+CTAs on 132 SMs).  The number of tiles a piece takes is then the one
+that minimises a makespan model of the launch: a CTA costs its tiles
+plus a fixed set-up and write-out, SMs run ``CTAS_PER_SM`` CTAs at full
+speed (with ``waves``, the busiest SM holds ceil(CTAs / SMs) of the mean
+CTA), and a split launch pays for the combine pass.  Its constants are
+in 64-key tile times, read off an H100's kernel timings (PERF.md): the
+ragged prefill's mma.sync tile has its own, the flash tile's
+``FLASH_*``.
 """
 from __future__ import annotations
 
@@ -34,6 +39,12 @@ SKEW = 4                # split when a range exceeds this many times the mean
 FIXED_TILES = 2.0       # a CTA's set-up and write-out, in tile times
 COMBINE_TILES = 2.5     # the combine pass of a split launch, in tile times
 CTAS_PER_SM = 1.25      # CTAs an SM runs at the speed of one alone
+# the flash tile's (wgmma from a TMA ring, two CTAs an SM), fit by
+# ``conv2d_compare.py --kernel flash_attention`` to an H100's times of
+# forced piece lengths (PERF.md)
+FLASH_FIXED_TILES = 1.5
+FLASH_COMBINE_TILES = 6.0
+FLASH_CTAS_PER_SM = 1.25
 
 
 def flash_key_ranges(sq: int, sk: int, tq: int, causal: bool,
@@ -98,37 +109,48 @@ class Plan:
 def makespan(tiles: Sequence[int], tiles_per_piece: int,
              ctas_per_qtile: int, sms: int, *, fixed: float = FIXED_TILES,
              combine: float = COMBINE_TILES,
-             ctas_per_sm: float = CTAS_PER_SM) -> float:
+             ctas_per_sm: float = CTAS_PER_SM, waves: bool = False) -> float:
     """Modelled time of a launch, in tile times: the longest CTA, or the
     grid's work spread over the card, whichever is longer, plus the
-    combine pass when a range is split.  The constants default to the
-    bf16 tile's; ``paged_attention.plan`` passes its own, in block
-    times."""
+    combine pass when a range is split.  ``waves``: the busiest SM holds
+    ceil(CTAs / SMs) CTAs of the mean length, so a partial last wave
+    costs a whole one.  The constants default to the ragged prefill's
+    tile; the flash planner and ``paged_attention.plan`` pass their own
+    (the latter in block times)."""
     pieces = [max(1, -(-t // tiles_per_piece)) for t in tiles]
     work = (sum(tiles) + fixed * sum(pieces)) * ctas_per_qtile
+    if waves:
+        n = sum(pieces) * ctas_per_qtile
+        work *= -(-n // sms) * sms / n
     longest = min(tiles_per_piece, max(tiles)) + fixed
     split = combine if sum(pieces) > len(pieces) else 0.0
     return max(longest, work / (ctas_per_sm * sms)) + split
 
 
 def plan(ranges: Sequence[Tuple[int, int]], ctas_per_qtile: int,
-         sms: int) -> Plan:
+         sms: int, *, fixed: float = FIXED_TILES,
+         combine: float = COMBINE_TILES, ctas_per_sm: float = CTAS_PER_SM,
+         waves: bool = False) -> Plan:
     """Tiles per piece for key ranges ``ranges`` (one per query tile),
     each query tile launched ``ctas_per_qtile`` times (batch rows x KV
-    heads), on a card of ``sms`` SMs."""
+    heads), on a card of ``sms`` SMs, under ``makespan``'s model with the
+    constants given (defaults: the ragged prefill's tile)."""
     tiles = [max(0, t[1] - t[0]) for t in (tile_span(*r) for r in ranges)]
     longest = max(tiles)
     mean = sum(tiles) / len(tiles)
-    small = len(tiles) * ctas_per_qtile < sms
+    ctas = len(tiles) * ctas_per_qtile
+    small = ctas < sms
     skewed = longest > SKEW * mean
+    partial = waves and ctas % sms != 0
     c = max(longest, 1)
-    if longest > 1 and (small or skewed):
+    if longest > 1 and (small or skewed or partial):
         # whole tiles per piece: 1, 2, 3, 4, 6, 8, 12, ... up to no split
         cands = sorted({longest} | {m << k for k in range(longest.bit_length())
                                     for m in (2, 3) if m << k < longest}
                        | {1})
-        c = min(cands, key=lambda n: (makespan(tiles, n, ctas_per_qtile, sms),
-                                      -n))
+        c = min(cands, key=lambda n: (makespan(
+            tiles, n, ctas_per_qtile, sms, fixed=fixed, combine=combine,
+            ctas_per_sm=ctas_per_sm, waves=waves), -n))
     return Plan(c, tuple(pieces_of(lo, hi, c) for lo, hi in ranges))
 
 @functools.lru_cache(maxsize=None)
@@ -160,10 +182,11 @@ def pointers(bufs) -> Tuple:
 
 
 def check_mma_operands(check, hd: int, **tensors) -> None:
-    """What the bf16 tile takes, else ``check`` raises: a compiled
-    head_dim, 16-byte aligned base pointers (cp.async copies 16 bytes)
-    and strides that keep every row 16-byte aligned (a dim of size 1 is
-    never stepped)."""
+    """What the bf16 tiles take, else ``check`` raises: a compiled
+    head_dim, 16-byte aligned base pointers and strides that keep every
+    row 16-byte aligned (a dim of size 1 is never stepped): what the
+    ragged prefill's 16-byte cp.async copies and the flash tile's tensor
+    maps need."""
     check(hd in MMA_HEAD_DIMS,
           f"bfloat16 head_dim {hd} (the tensor-core tile takes "
           f"{', '.join(map(str, MMA_HEAD_DIMS))})")

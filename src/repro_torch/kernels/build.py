@@ -7,6 +7,11 @@ carries a hash of the sources and flags, so an edited kernel builds
 anew and an unchanged one loads at once.  ``build_all`` starts one
 ``nvcc`` per source, all together.  Nothing here runs at import time:
 the CPU tests import every module on a machine without ``nvcc``.
+
+The libraries link the CUDA runtime only: ``flash_attention``'s TMA
+tensor maps are encoded by ``cuTensorMapEncodeTiled``, looked up at run
+time with ``cudaGetDriverEntryPoint`` (by version where the runtime has
+it), so no library needs ``-lcuda``.
 """
 from __future__ import annotations
 

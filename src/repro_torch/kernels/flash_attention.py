@@ -17,30 +17,34 @@ keys, against ~S bytes read); bytes below that.
 Design: one CTA per (batch row, KV head, tile of query positions, piece
 of its key range) serves the head group's H / KV query heads, so a K/V
 tile is read once per group, and walks only the keys its queries can
-see.  bfloat16 runs on the tensor cores (``csrc/attention_mma.cuh``:
-mma.sync with float32 sums, K/V tiles of 64 keys copied into
-shared memory, the online softmax in registers), heaviest query tiles
-first, key ranges split by ``attention_split.plan`` where the grid
-would leave SMs idle; head_dim 16, 32, 64, 128 or 256 (at 256 Q stays
-in shared memory, read a fragment at a time, so the accumulator keeps
-its registers), 16-byte aligned operands, strides a multiple of 8
-elements, or it raises.  float32 keeps the CUDA-core tile
-(``attention_tile.cuh``): on the tensor cores float32 means TF32; its
-shared memory (q, k padded to hd + 1, v, scores, acc, float32) holds a
-tile of at most 64 query vectors at head_dim 256 (206,080 bytes of
-232,448), and the wrapper refuses a shape that needs more.  Operands are read through element strides, so the model's
-``(B,S,H,hd) -> (B,H,S,hd)`` transposed views go in without copies, and
-the output takes q's layout.  A ``prefix`` (causal, no window) is a
-separate instantiation of both tiles: a query's causal bound becomes
-``max(i, prefix - 1)``, so a query tile's key range ends at ``min(Sk,
-max(its end, prefix))`` and ranges still grow with the tile index (the
-last tile stays the heaviest).  Queries that see no key (only when
-``Sq > Sk`` with a window) come out 0, where the plain version averages
-every key.
+see.  bfloat16 runs on Hopper's tensor cores (``csrc/attention_wgmma.cuh``:
+a producer warpgroup's one thread copies Q once and 64-key K and V tiles
+into a ring of shared-memory slots by TMA, from tensor maps the C entry
+encodes for each launch over the strided views; a consumer warpgroup
+runs Q.K^T and P.V on wgmma with float32 sums in registers, P as a bf16
+hi + lo pair, the online softmax of one tile under the previous tile's
+P.V), heaviest query tiles first, key ranges split by
+``attention_split.plan`` where the grid would leave SMs idle or a
+partial last wave; head_dim 16, 32, 64, 128 or 256, 16-byte aligned
+operands, strides a multiple of 8 elements, or it raises.  float32
+keeps the CUDA-core tile (``attention_tile.cuh``): on the tensor cores
+float32 means TF32; its shared memory (q, k padded to hd + 1, v,
+scores, acc, float32) holds a tile of at most 64 query vectors at
+head_dim 256 (206,080 bytes of 232,448), and the wrapper refuses a
+shape that needs more.  Operands are read through element strides, so
+the model's ``(B,S,H,hd) -> (B,H,S,hd)`` transposed views go in without
+copies, and the output takes q's layout.  A ``prefix`` (causal, no
+window) is a separate instantiation of both tiles: a query's causal
+bound becomes ``max(i, prefix - 1)``, so a query tile's key range ends
+at ``min(Sk, max(its end, prefix))`` and ranges still grow with the
+tile index (the last tile stays the heaviest).  Queries that see no key
+(only when ``Sq > Sk`` with a window) come out 0, where the plain
+version averages every key.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -118,8 +122,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
+@functools.lru_cache(maxsize=4096)
 def plan(b, h, kv, sq, sk, causal, window, sms, prefix=0) -> split.Plan:
-    """The key-range split of a bf16 launch on a card of ``sms`` SMs."""
+    """The key-range split of a bf16 launch on a card of ``sms`` SMs,
+    under the flash tile's makespan constants, partial waves counted
+    (one plan a shape: every layer of a prompt reuses it)."""
     tq = min(ROWS_PER_CTA // (h // kv), sq)
     return split.plan(split.flash_key_ranges(sq, sk, tq, causal, window,
-                                             prefix), b * kv, sms)
+                                             prefix), b * kv, sms,
+                      fixed=split.FLASH_FIXED_TILES,
+                      combine=split.FLASH_COMBINE_TILES,
+                      ctas_per_sm=split.FLASH_CTAS_PER_SM, waves=True)

@@ -36,7 +36,8 @@ ATOL = 1e-5
 
 # (name, key ranges, plan, CTAs per query tile, split expected): the slot
 # engine's prefill at one prompt row of qwen3-0.6b's 16/8 heads (a short
-# prompt, the 512-token smoke prompt, a long one), a paged chunk step (4
+# prompt, the 512-token smoke prompt, a long one: the flash tile's
+# makespan constants leave all three whole), a paged chunk step (4
 # rows of 256 lanes over a 512-lane prefix), the fused decode dispatch (8
 # rows of one lane, 512 prefix lanes) and slot decode (4 slots of 256
 # lanes); tq = 64 / g = 32 query positions a tile, 1 when S = 1
@@ -44,7 +45,7 @@ PATH_SHAPES = [
     ("flash S=37", split.flash_key_ranges(37, 37, 32, True, 0),
      fa_mod.plan(1, 16, 8, 37, 37, True, 0, H100_SMS), 8, False),
     ("flash S=512", split.flash_key_ranges(512, 512, 32, True, 0),
-     fa_mod.plan(1, 16, 8, 512, 512, True, 0, H100_SMS), 8, True),
+     fa_mod.plan(1, 16, 8, 512, 512, True, 0, H100_SMS), 8, False),
     ("flash S=2048", split.flash_key_ranges(2048, 2048, 32, True, 0),
      fa_mod.plan(1, 16, 8, 2048, 2048, True, 0, H100_SMS), 8, False),
     ("paged 4x256", split.paged_key_ranges(256, 768, 32),
@@ -53,6 +54,18 @@ PATH_SHAPES = [
      pp_mod.plan(8, 1, 513, 16, 8, H100_SMS), 64, True),
     ("slot decode 4x1", split.paged_key_ranges(1, 256, 1),
      pp_mod.plan(4, 1, 256, 16, 8, H100_SMS), 32, True),
+    # whisper-tiny's encoder (6/6 heads, 1,500 frames, non-causal: 24
+    # query tiles x 6 heads = 144 CTAs, a lone second wave of 12 unsplit),
+    # its cross-attention at a decode step of 8 rows and at a 200-token
+    # prompt, and paligemma-3b's prefix-LM (8/1 heads, 256 patches)
+    ("flash encoder", split.flash_key_ranges(1500, 1500, 64, False, 0),
+     fa_mod.plan(1, 6, 6, 1500, 1500, False, 0, H100_SMS), 6, True),
+    ("flash cross 8x1", split.flash_key_ranges(1, 1500, 1, False, 0),
+     fa_mod.plan(8, 6, 6, 1, 1500, False, 0, H100_SMS), 48, True),
+    ("flash cross prefill", split.flash_key_ranges(200, 1500, 64, False, 0),
+     fa_mod.plan(1, 6, 6, 200, 1500, False, 0, H100_SMS), 6, True),
+    ("flash prefix 256", split.flash_key_ranges(456, 456, 8, True, 0, 256),
+     fa_mod.plan(1, 8, 1, 456, 456, True, 0, H100_SMS, 256), 1, False),
 ]
 
 
@@ -101,13 +114,80 @@ def test_plan_splits_a_skewed_range():
     assert split.plan([(0, 64 * 4)] * 40, 8, H100_SMS).split is False
 
 
-def test_header_tile_matches_the_planner():
-    """The kernel's tile and piece arithmetic is the planner's."""
-    text = (build.CSRC / "attention_mma.cuh").read_text()
+@pytest.mark.parametrize("header", ["attention_wgmma.cuh",
+                                    "attention_mma.cuh"])
+def test_header_tile_matches_the_planner(header):
+    """Each bf16 tile's key tile and piece arithmetic is the planner's:
+    the flash tile's (``attention_wgmma.cuh``) and the ragged
+    prefill's."""
+    text = (build.CSRC / header).read_text()
     assert f"constexpr int kTK = {split.TILE_KEYS};" in text
     assert "const int n = (thi - tlo + p.C - 1) / p.C;" in text
     assert "return n > 1 ? n : 1;" in text
     assert "thi = hi > lo ? (hi + kTK - 1) / kTK : tlo;" in text
+
+
+def test_flash_plan_leaves_no_lone_wave():
+    """The flash planner counts waves: whisper's encoder, 144 CTAs on 132
+    SMs unsplit (a second wave of 12), is cut into pieces whose modelled
+    launch beats the whole ranges', and its grid holds more CTAs than one
+    a SM; a grid of whole waves (here exactly two) is left whole, as is
+    one with no wave to fill (S=2048's 512 CTAs spread over their
+    skew)."""
+    kw = dict(fixed=split.FLASH_FIXED_TILES,
+              combine=split.FLASH_COMBINE_TILES,
+              ctas_per_sm=split.FLASH_CTAS_PER_SM, waves=True)
+    ranges = split.flash_key_ranges(1500, 1500, 64, False, 0)
+    tiles = [split.tile_span(*r)[1] - split.tile_span(*r)[0]
+             for r in ranges]
+    pl = fa_mod.plan(1, 6, 6, 1500, 1500, False, 0, H100_SMS)
+    assert pl.split
+    assert pl.ctas(6) > 2 * H100_SMS
+    assert split.makespan(tiles, pl.tiles_per_piece, 6, H100_SMS, **kw) < \
+        split.makespan(tiles, max(tiles), 6, H100_SMS, **kw)
+    # 22 query tiles x 12 heads = 264 CTAs: two whole waves
+    assert not split.plan([(0, 1500)] * 22, 12, H100_SMS, **kw).split
+    # without waves counted (the ragged prefill's model) the encoder
+    # stays whole, as before
+    assert not split.plan(ranges, 6, H100_SMS).split
+
+
+# (B, S, L, H, KV) -> (tiles a piece, pieces of each query tile) of the
+# ragged prefill, and (B, KV, nb) -> (blocks a piece, pieces) of the paged
+# decode, on an H100's 132 SMs, as the planners gave them before the flash
+# tile had constants of its own
+PP_PLANS = [((4, 256, 768, 16, 8), (12, (1,) * 8)),
+            ((8, 1, 513, 16, 8), (3, (3,))),
+            ((4, 1, 256, 16, 8), (1, (4,))),
+            ((16, 16, 272, 16, 8), (5, (1,))),
+            ((8, 1, 216, 6, 6), (1, (4,))),
+            ((8, 1, 472, 8, 1), (1, (8,))),
+            ((4, 256, 768, 8, 4), (12, (1,) * 8)),
+            ((2, 64, 1600, 8, 4), (2, (13, 13))),
+            ((8, 1, 513, 24, 8), (3, (3,))),
+            ((8, 1, 513, 64, 8), (3, (3,))),
+            ((1, 200, 200, 16, 8), (4, (1,) * 7)),
+            ((24, 1, 513, 16, 8), (9, (1,)))]
+PA_PLANS = [((8, 8, 32), (11, 3)), ((8, 8, 16), (6, 3)),
+            ((24, 8, 16), (16, 1)), ((1, 8, 128), (16, 8)),
+            ((4, 1, 30), (4, 8)), ((8, 4, 129), (22, 6)),
+            ((132, 1, 64), (64, 1)), ((2, 2, 200), (25, 8))]
+
+
+@pytest.mark.parametrize("shape,want", PP_PLANS,
+                         ids=[str(s) for s, _ in PP_PLANS])
+def test_paged_prefill_plans_are_unchanged(shape, want):
+    pl = pp_mod.plan(*shape, H100_SMS)
+    assert (pl.tiles_per_piece, pl.pieces) == want
+
+
+@pytest.mark.parametrize("shape,want", PA_PLANS,
+                         ids=[str(s) for s, _ in PA_PLANS])
+def test_paged_attention_plans_are_unchanged(shape, want):
+    from repro_torch.kernels import paged_attention as pa_mod
+
+    pl = pa_mod.plan(*shape, H100_SMS)
+    assert (pl.blocks_per_piece, pl.n_pieces) == want
 
 
 # ------------------------------------------------------ combine, plain side
@@ -302,17 +382,35 @@ def test_bf16_probabilities_need_a_hi_lo_pair(mode, fits):
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "paged_prefill"])
 def test_bf16_sources_compile_the_planners_head_dims(kernel):
-    """The head dims each bf16 source instantiates the tile at are the
-    wrappers' ``MMA_HEAD_DIMS`` (the compiler is not here to check it),
-    and from head_dim 256 on Q stays in shared memory, in a third tile
-    beside K and V: 102,144 bytes, two CTAs to an SM's 228 KB."""
+    """The head dims each bf16 source instantiates its tile at are the
+    wrappers' ``MMA_HEAD_DIMS`` (the compiler is not here to check it).
+    The flash tile (``attention_wgmma.cuh``) keeps Q, then a ring of K
+    and V slots (four up to head_dim 64, two at 128, one at 256) and its
+    mbarriers: at most 99,368 bytes, as many CTAs to an SM's 228 KB as
+    its launch bounds ask (three up to head_dim 64, two above).  The ragged prefill's mma.sync tile keeps Q in
+    shared memory from head_dim 256 on, a third tile beside K and V:
+    102,144 bytes, two CTAs to an SM."""
     import re
 
     text = "".join(p.read_text() for p in (build.CSRC / f"{kernel}.cu",
                                           build.CSRC / f"{kernel}.cuh")
                    if p.exists())
-    cases = re.findall(r"case (\d+): return launch_mma<\1,", text)
+    cases = re.findall(r"case (\d+): return launch_(?:mma|wgmma)<\1,",
+                       text)
     assert tuple(map(int, cases)) == split.MMA_HEAD_DIMS
+    if kernel == "flash_attention":
+        tile = (build.CSRC / "attention_wgmma.cuh").read_text()
+        assert "return hd >= 256 ? 1 : hd >= 128 ? 2 : 4;" in tile
+        assert "return hd <= 64 ? 3 : 2;" in tile
+        assert "__launch_bounds__(wg::kThreads, wg::min_blocks(HD))" in text
+        for hd in split.MMA_HEAD_DIMS:
+            stages = 1 if hd >= 256 else 2 if hd >= 128 else 4
+            ctas = 3 if hd <= 64 else 2
+            smem = (1 + 2 * stages) * 64 * hd * 2 + (1 + 4 * stages) * 8 \
+                + 1024
+            assert smem <= 99_368
+            assert ctas * (smem + 1024) <= 233_472   # the SM's 228 KB
+        return
     tile = (build.CSRC / "attention_mma.cuh").read_text()
     assert "constexpr bool q_in_smem(int hd) { return hd > 128; }" in tile
     pitch, rows, ints = 256 + 8, 64, (64 + 2 * 64) * 4

@@ -529,10 +529,11 @@ def test_rwkv6_scan_kernel_refuses_what_it_does_not_take(cuda):
 
 
 # one shape the planner splits and one it does not, per bf16 kernel, on
-# this card (an H100's 132 SMs): flash at S=512 (16 query tiles x 8 KV
-# heads = 128 CTAs) and S=2048; paged_prefill at the fused decode
-# dispatch (8 rows x 8 KV heads) and a 4-row chunk of 256 lanes
-SPLIT_CARD_CASES = [("flash_attention", 512, True),
+# this card (an H100's 132 SMs): flash at one query over 1,500 keys
+# (s=1: a cross-attention decode step, 8 CTAs whole) and a causal S=2048
+# (512 CTAs); paged_prefill at the fused decode dispatch (8 rows x 8 KV
+# heads) and a 4-row chunk of 256 lanes
+SPLIT_CARD_CASES = [("flash_attention", 1, True),
                     ("flash_attention", 2048, False),
                     ("paged_prefill", 1, True),
                     ("paged_prefill", 256, False)]
@@ -545,12 +546,14 @@ def test_bf16_split_plan_on_the_card(cuda, kernel, s, splits):
     assert sms >= 128, f"planned for an H100's 132 SMs, not {sms}"
     rng = np.random.default_rng(s)
     if kernel == "flash_attention":
-        pl = fa_mod.plan(1, 16, 8, s, s, True, 0, sms)
-        q, k, v = (torch.from_numpy(rng.normal(size=(1, heads, s, 128))
+        causal, sk = s > 1, max(s, 1500)
+        pl = fa_mod.plan(1, 16, 8, s, sk, causal, 0, sms)
+        q, k, v = (torch.from_numpy(rng.normal(size=(1, heads, n, 128))
                                     .astype(np.float32))
-                   .to(cuda, torch.bfloat16) for heads in (16, 8, 8))
-        out = ops.flash_attention(q, k, v)
-        plain = ref.flash_attention_ref(q, k, v)
+                   .to(cuda, torch.bfloat16)
+                   for heads, n in ((16, s), (8, sk), (8, sk)))
+        out = ops.flash_attention(q, k, v, causal=causal)
+        plain = ref.flash_attention_ref(q, k, v, causal=causal)
         lanes = torch.ones(out.shape[:-1], dtype=torch.bool, device=cuda)
     else:
         b = 8 if s == 1 else 4
@@ -564,7 +567,7 @@ def test_bf16_split_plan_on_the_card(cuda, kernel, s, splits):
                  & (kpos[:, None, :] <= qpos[:, :, None])).any(-1)
     torch.cuda.synchronize()
     assert pl.split == splits
-    if s == 1:
+    if s == 1 and kernel == "paged_prefill":
         assert pl.ctas(8 * 8) >= sms
     torch.testing.assert_close(out[lanes].float(), plain[lanes].float(),
                                **_tol(kernel, torch.bfloat16))
@@ -1206,6 +1209,79 @@ def test_flash_attention_kernel_at_frontend_shapes(cuda, shape, dtype):
         torch.testing.assert_close(causal_out[:, :, prefix:].float(),
                                    out[:, :, prefix:].float(),
                                    **_tol("flash_attention", dt))
+
+
+# the bf16 flash tile (csrc/attention_wgmma.cuh) at every head dim it
+# compiles, each mask kind, Sq and Sk off multiples of the 64-key tile, at
+# groups of 2 and 3, with the plan forced to one-tile pieces (split, the
+# combine pass merging them) and to whole ranges; (name, causal, window,
+# prefix, Sq, Sk)
+WGMMA_MASKS = [("causal", True, 0, 0, 100, 100),
+               ("window", True, 48, 0, 130, 130),
+               ("cross", False, 0, 0, 37, 75),
+               ("noncausal", False, 0, 0, 150, 150),
+               ("prefix", True, 0, 70, 90, 90)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", split.MMA_HEAD_DIMS)
+@pytest.mark.parametrize("mask,causal,window,prefix,sq,sk", WGMMA_MASKS,
+                         ids=[m[0] for m in WGMMA_MASKS])
+@pytest.mark.parametrize("heads", [(8, 4), (6, 2)], ids=["g2", "g3"])
+@pytest.mark.parametrize("pieces", ["split", "whole"])
+def test_flash_wgmma_tile_matches_plain(cuda, hd, mask, causal, window,
+                                        prefix, sq, sk, heads, pieces):
+    from unittest import mock
+
+    h, kv = heads
+    b = 2
+    rng = np.random.default_rng(hd + sq + sk + h)
+
+    def operand(n, s):
+        return torch.from_numpy(rng.normal(size=(b, s, n, hd))
+                                .astype(np.float32)).to(cuda, torch.bfloat16) \
+            .transpose(1, 2)
+
+    q, k, v = operand(h, sq), operand(kv, sk), operand(kv, sk)
+    tq = min(fa_mod.ROWS_PER_CTA // (h // kv), sq)
+    ranges = split.flash_key_ranges(sq, sk, tq, causal, window, prefix)
+    longest = max(split.tile_span(lo, hi)[1] - split.tile_span(lo, hi)[0]
+                  for lo, hi in ranges)
+    c = 1 if pieces == "split" else max(longest, 1)
+    forced = split.Plan(c, tuple(split.pieces_of(lo, hi, c)
+                                 for lo, hi in ranges))
+    assert forced.split == (pieces == "split")
+    n0 = fa_mod.KERNEL.launches
+    with mock.patch.object(fa_mod, "plan", lambda *a: forced):
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  prefix=prefix)
+    torch.cuda.synchronize()
+    assert fa_mod.KERNEL.launches == n0 + 1
+    assert out.stride() == q.stride()
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    prefix=prefix)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("flash_attention", torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_flash_plan_splits_a_partial_last_wave_on_the_card(cuda):
+    """whisper-tiny's encoder (6/6 heads of 64, 1,500 frames): 144 CTAs
+    whole, a lone second wave on an H100's 132 SMs; the planner splits it
+    and the pieces merge to the plain version's output."""
+    sms = split.sm_count(cuda)
+    assert sms == 132, f"planned for an H100's 132 SMs, not {sms}"
+    pl = fa_mod.plan(1, 6, 6, 1500, 1500, False, 0, sms)
+    assert pl.split and pl.ctas(6) > 2 * sms
+    rng = np.random.default_rng(1500)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 1500, 6, 64))
+                                .astype(np.float32))
+               .to(cuda, torch.bfloat16).transpose(1, 2) for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=False)
+    plain = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain.float(),
+                               **_tol("flash_attention", torch.bfloat16))
 
 
 # slot decode (one query lane a row) at whisper-tiny's heads (6 / 6 of 64)
