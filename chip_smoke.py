@@ -44,7 +44,9 @@ then runs its phases, each raising on failure:
    bf16 x and 2 x 2,048 with bf16 x), with a start state and a
    final-state gradient, every gradient within ``BWD_GRAD_REL`` x its
    max|g| of the plain backward (bf16 dx within 2 ulps), a repeat launch
-   bit-identical;
+   bit-identical; every ``paged_prefill`` case logs the bf16 tile it
+   ran (``pp_tile``: the Hopper tile for more than 16 query rows a CTA,
+   the kWarpKeys mma.sync tile for the decode shapes);
 3. model: qwen3-0.6b at its published width (28 layers, bfloat16, seeded
    random weights): one ragged prefill dispatch and one decode step of
    the paged path, and two whole-prompt prefills and one decode step of
@@ -250,7 +252,10 @@ then runs its phases, each raising on failure:
    no PyTorch call reads int8 K/V); ``flash_attention`` and
    ``paged_prefill`` at whisper-tiny's and paligemma-3b's shapes as in
    phase 2, beside SDPA (the prefix as a boolean mask, the backend SDPA
-   ran named); the floor of both methods (one launch on one element);
+   ran named); every ``paged_prefill`` shape with the bf16 tile it ran,
+   and the bf16 ``paged_prefill`` launches of phases 3-6c by tile (both
+   tiles must have run); the floor of both methods (one launch on one
+   element);
 8. the dry-run and the roofline of a whole step (``launch/dryrun.py``,
    ``roofline_phase``): qwen3-0.6b train_4k as rank 0 of the (16, 16)
    production mesh under ``tp`` on a fake process group (shapes only,
@@ -607,6 +612,19 @@ def decode_visible(torch, kpos_pool, bt, pos, window):
     return vis
 
 
+def pp_tile(q, kv, dtype_name="bfloat16") -> str:
+    """The tile a ``paged_prefill`` launch of q (B, S, H, hd) at ``kv``
+    heads runs: in bf16 the Hopper tile ("wgmma": more than 16 query rows
+    a CTA) or the kWarpKeys mma.sync tile ("mma"); float32 its CUDA-core
+    tile ("float32")."""
+    from repro_torch.kernels import paged_prefill as pp_mod
+
+    if dtype_name != "bfloat16":
+        return "float32"
+    return ("mma" if pp_mod.warp_keys_tile(q.shape[1], q.shape[2], kv)
+            else "wgmma")
+
+
 def prefill_visible(torch, kpos, qpos, window):
     kp, qp = kpos[:, None, :], qpos[:, :, None]
     vis = (kp >= 0) & (kp <= qp)
@@ -733,7 +751,8 @@ def kernel_parity(torch, device, ops, ref):
                     out[lanes].float(), plain[lanes].float(),
                     **KERNEL_TOL["paged_prefill", dtype_name])
                 log(f"parity paged_prefill {dtype_name} {b} rows S={s} "
-                    f"L={args[1].shape[1]} window={window}: "
+                    f"L={args[1].shape[1]} window={window} tile="
+                    f"{pp_tile(args[0], args[1].shape[2], dtype_name)}: "
                     f"max_abs_err={err:.3e} "
                     f"({int(lanes.sum())} visible lanes)")
                 if dtype_name == "bfloat16":
@@ -766,7 +785,8 @@ def dense_head_parity(torch, device, ops, ref):
         for b, s in ((8, 1), (4, 256)):
             args = prefill_case(torch, gen, device, dt, b=b, s=s, h=h, kv=kv)
             lanes = prefill_visible(torch, args[3], args[4], 0).any(-1)
-            check("paged_prefill", f"{heads} {b} rows S={s} L={s + 512}",
+            check("paged_prefill", f"{heads} {b} rows S={s} L={s + 512} "
+                  f"tile={pp_tile(args[0], kv)}",
                   ops.paged_prefill(*args)[lanes],
                   ref.paged_prefill_ref(*args)[lanes])
         args = decode_case(torch, gen, device, dt, b=8, h=h, kv=kv, nb=16,
@@ -846,7 +866,8 @@ def frontend_kernel_parity(torch, device, ops, ref):
             torch.testing.assert_close(
                 out.float(), plain.float(),
                 **KERNEL_TOL["paged_prefill", dtype_name])
-            log(f"parity paged_prefill {dtype_name} {name} {shape}: "
+            log(f"parity paged_prefill {dtype_name} {name} {shape} tile="
+                f"{pp_tile(args[0], args[1].shape[2], dtype_name)}: "
                 f"max_abs_err={err:.3e}")
             if dtype_name == "bfloat16":
                 errs["paged_prefill"] = max(errs["paged_prefill"], err)
@@ -1033,8 +1054,10 @@ def pool_kernel_parity(torch, device, ops, ref):
                 f"{kernel} {what}: not bit-equal to the composed path"
             n_checked += 1
             log(f"parity {kernel} {dtype_name} {what}, blocks of {bs} "
-                f"window={window}: max_abs_err={err:.3e}, bit-equal to the "
-                "gather + guard + concat + contiguous entry")
+                f"window={window} tile="
+                f"{pp_tile(pc[0], pc[5].shape[2], dtype_name)}: "
+                f"max_abs_err={err:.3e}, bit-equal to the gather + guard + "
+                "concat + contiguous entry")
             if dtype_name == "bfloat16":
                 errs[kernel] = max(errs[kernel], err)
 
@@ -1102,7 +1125,9 @@ def int8_kernel_parity(torch, device, ops, ref):
             f"{kernel} {what}: not bit-equal to {base} on dequantized keys"
         assert all(torch.all(out[r] == 0) for r in nulls), \
             "all-null rows must be zeros"
-        log(f"parity {kernel} {dtype_name} {what} window={window}: "
+        tile = (f" tile={pp_tile(args[0], args[6].shape[2], dtype_name)}"
+                if base == "paged_prefill" else "")
+        log(f"parity {kernel} {dtype_name} {what} window={window}{tile}: "
             f"max_abs_err={err:.3e}, bit-equal to {base} on the "
             "dequantized keys")
         if dtype_name == "bfloat16":
@@ -2835,7 +2860,8 @@ def gemma3_kernel_parity(torch, device, ops, ref):
                                         window).any(-1)
                 check("paged_prefill", dtype_name,
                       f"{what} ({kw['b']} rows, S={kw['s']}, "
-                      f"L={args[1].shape[1]}) window={window}",
+                      f"L={args[1].shape[1]}) window={window} tile="
+                      f"{pp_tile(args[0], args[1].shape[2], dtype_name)}",
                       ops.paged_prefill(*args, window=window)[lanes],
                       ref.paged_prefill_ref(*args, window=window)[lanes])
             for nb, nulls in GEMMA3_PA_SHAPES:
@@ -4868,7 +4894,8 @@ def pool_kernel_times(torch, device, ops, ref):
             library_ms=time_ms(torch, lib), library_graph_ms=graph_ms(
                 torch, lib),
             bytes=nbytes, flops=4 * hd * h * int(vis.sum()),
-            split=pp_mod.plan(b, s, prefix + s, h, kv, sms).split)
+            split=pp_mod.plan(b, s, prefix + s, h, kv, sms).split,
+            tile=pp_tile(q, kv))
     for rec in out.values():
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = rec["flops"] / PEAK_FLOPS["bfloat16"] * 1e3
@@ -4947,7 +4974,8 @@ def kernel_times(torch, device, ops, ref):
             q, k, v, kpos, qpos)),
         library_ms=time_ms(torch, calls["paged_prefill"][1]),
         bytes=nbytes, flops=flops,
-        split=pp_mod.plan(b, s, k.shape[1], h, kv, sms).split)
+        split=pp_mod.plan(b, s, k.shape[1], h, kv, sms).split,
+        tile=pp_tile(q, kv))
 
     # one query lane per row: the fused decode dispatch (8 rows, 512
     # prefix lanes) and slot decode (4 slots of 256 lanes); then the spec
@@ -4977,7 +5005,7 @@ def kernel_times(torch, device, ops, ref):
             library_ms=time_ms(torch, calls[key][1]),
             bytes=nbytes, flops=4 * hd * h * int(vis.sum()),
             split=pp_mod.plan(q.shape[0], q.shape[1], k.shape[1], h, kv,
-                              sms).split)
+                              sms).split, tile=pp_tile(q, kv))
 
     # the slot engine's whole-prompt prefill: one row, causal, window 0
     for s in (512, 2048):
@@ -5204,7 +5232,8 @@ def kernel_times(torch, device, ops, ref):
                        + qpos.numel() * 4
                        + int(vis.any(1).sum()) * 2 * kv * hd * elt),
                 flops=4 * hd * h * int(vis.sum()),
-                split=pp_mod.plan(b, s, k.shape[1], h, kv, sms).split)
+                split=pp_mod.plan(b, s, k.shape[1], h, kv, sms).split,
+                tile=pp_tile(q, kv))
 
         q, k, v, kp, bt, pos = decode_case(torch, hgen, device, dt, h=h,
                                            kv=kv, nb=16, null_rows=(2,))
@@ -5275,6 +5304,7 @@ def kernel_times(torch, device, ops, ref):
                        + int(vis.any(1).sum()) * 2 * kv * hd * elt),
                 flops=4 * hd * h * int(vis.sum()),
                 split=pp_mod.plan(b, s, k.shape[1], h, kv, sms).split,
+                tile=pp_tile(q, kv),
                 backend=sdpa_backend(torch, *(t.transpose(1, 2)
                                               for t in (q, k, v)),
                                      vis[:, None]),
@@ -5404,6 +5434,7 @@ def kernel_times(torch, device, ops, ref):
                    + int(vis.any(1).sum()) * 2 * kv * hd * elt),
             flops=4 * hd * h * int(vis.sum()),
             split=pp_mod.plan(b, 1, k.shape[1], h, kv, sms).split,
+            tile=pp_tile(q, kv),
             backend=sdpa_backend(torch, qt, kt, vt, vis[:, None]),
             kernel="paged_prefill", what=f"{name} slot decode {shape}")
 
@@ -5590,6 +5621,8 @@ def main() -> int:
     errs.update(scan_backward_parity(torch, device, ops, ref))
 
     phase_done("2")
+    for tile in pp_mod.TILE_LAUNCHES:
+        pp_mod.TILE_LAUNCHES[tile] = 0
 
     # 3. model at full width, paged and slot paths
     full = get_config("qwen3-0.6b")
@@ -5813,6 +5846,12 @@ def main() -> int:
 
     phase_done("6c")
 
+    # bf16 paged_prefill launches of every entry by tile, phases 3-6c
+    log(f"paged_prefill bf16 launches by tile over phases 3-6c: Hopper "
+        f"tile {pp_mod.TILE_LAUNCHES['wgmma']}, kWarpKeys mma.sync tile "
+        f"{pp_mod.TILE_LAUNCHES['mma']}")
+    assert min(pp_mod.TILE_LAUNCHES.values()) > 0, pp_mod.TILE_LAUNCHES
+
     # 7. times
     lap = lapper("7")
     times = kernel_times(torch, device, ops, ref)
@@ -5865,6 +5904,8 @@ def main() -> int:
         t = times[key]
         split = (f", key ranges split={t['split']}" if "split" in t
                  else "")
+        if "tile" in t:
+            split += f", tile {t['tile']}"
         if "ctas" in t:
             split += f" ({t['ctas']} CTAs)"
         if "whole_ms" in t:
@@ -5880,6 +5921,8 @@ def main() -> int:
         if "_hd256_" not in key:
             continue
         split = f", key ranges split={t['split']}"
+        if "tile" in t:
+            split += f", tile {t['tile']}"
         if "ctas" in t:
             split += f" ({t['ctas']} CTAs)"
         if "whole_ms" in t:
@@ -5896,6 +5939,8 @@ def main() -> int:
         if "_fe_" not in key:
             continue
         split = f", key ranges split={t['split']}"
+        if "tile" in t:
+            split += f", tile {t['tile']}"
         if "whole_ms" in t:
             split += f" (whole ranges: {t['whole_ms']:.4f} ms)"
         log(f"time {t['kernel']} bf16 at {t['what']}: {t['ms']:.4f} ms "
@@ -5956,7 +6001,8 @@ def main() -> int:
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes), "
             f"plain {t['plain_ms']:.4f} ms, sdpa on the gathered keys "
             f"{t['library_ms']:.4f} ms (graph-replayed "
-            f"{t['library_graph_ms']:.4f}), key ranges split={t['split']}")
+            f"{t['library_graph_ms']:.4f}), key ranges split={t['split']}, "
+            f"tile {t['tile']}")
     for name in ("paged_prefill_pool", "paged_prefill_pool_int8"):
         t = pool_times[name]
         records.append({

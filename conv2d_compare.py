@@ -57,20 +57,26 @@ the gather, the guard and ``paged_prefill_int8``), and where the tree
 has them the pool entries (``ops.paged_prefill_pool`` and
 ``paged_prefill_pool_int8``, which read the pool through the table),
 each held bit-equal to the composed path; both timed, their chunk and
-fused-decode launches split by kernel; the outputs' SHA-256; the tree's
+fused-decode launches split by kernel; the bf16 tile each case runs
+(``tile_of``); the outputs' SHA-256; the tree's
 ``ptxas -v`` of ``paged_prefill``, ``paged_prefill_int8`` and
-``flash_attention``; and one fused decode dispatch (8 rows, one token
+``flash_attention``; in the first run of the last TREE a sweep of the
+pool entry over forced tiles a piece at ``PAGED_SWEEP``'s shapes, with
+the Hopper tile's makespan constants fit to it (``fit_paged_planner``);
+and one fused decode dispatch (8 rows, one token
 each after 512 cached) and one chunk dispatch (8 rows of 256 tokens
 after 512) of qwen3-0.6b (28 layers) and gemma3-4b (34), uncut, bf16,
 through ``ragged_dispatch`` under the profiler: kernels launched, and
 device ms of the attention kernels, the gathers and the
 concatenations.
 ``attention_bits``: ``flash_attention``, ``paged_prefill`` and
-``paged_prefill_int8`` (the kernels over the shared bf16 tile,
-``csrc/attention_mma.cuh``) at the shapes ``chip_smoke.py`` checks
+``paged_prefill_int8`` at the shapes ``chip_smoke.py`` checks
 without a prefix (phase 2's, the draft's, the dense configs' and
 gemma3-4b's heads, windows 0 and 64 / 1,024), bf16 and float32: each
-output's SHA-256, which must be the same in every run, and each tree's
+output's SHA-256, which must be the same in every run (a bf16 ragged
+prefill named by its tile, ``paged_prefill:mma`` for the kWarpKeys
+decode tile and ``paged_prefill:wgmma`` for the Hopper tile, so each
+tile's bits are compared with the parent's on their own), and each tree's
 ``ptxas -v`` registers and spills of those kernels' instantiations, a
 prefix instantiation's (``kPrefix``, that tree's own) left out; the
 digests are compared kernel by kernel, so a tree whose flash tile
@@ -295,18 +301,22 @@ def dispatch_profile(torch, dev, arch) -> dict:
     return out
 
 
-def pool_child(torch, cs, dev) -> dict:
+def pool_child(torch, cs, dev, sweep=False) -> dict:
     """The tree's composed path and, where it has them, its pool entries
     at ``cs.pool_timing_cases``: each pool launch bit-equal to the
-    composed path, both timed, the outputs' SHA-256; the tree's ptxas;
-    ``dispatch_profile`` of qwen3-0.6b and gemma3-4b."""
+    composed path, both timed, the outputs' SHA-256, the bf16 tile each
+    runs; the tree's ptxas; ``dispatch_profile`` of qwen3-0.6b and
+    gemma3-4b; with ``sweep`` the forced-piece sweep of the Hopper tile
+    (``paged_sweep``)."""
     from repro_torch.kernels import build, ops, ref
 
     libs = ("flash_attention", "paged_prefill", "paged_prefill_int8")
     build.build_all(list(libs))         # for their ptxas logs
     pool = hasattr(ops, "paged_prefill_pool")
-    res, digests = {}, {}
+    res, digests, tiles = {}, {}, {}
     for key, _, window, pc in cs.pool_timing_cases(torch, dev):
+        tiles[key] = tile_of(pc[0].shape[1], pc[0].shape[2],
+                             pc[5].shape[2])
         comp = (lambda pc=pc, w=window:                       # noqa: E731
                 cs.composed_call(torch, ops, ref, pc, w))
         want = comp()
@@ -330,8 +340,50 @@ def pool_child(torch, cs, dev) -> dict:
     for arch in ("qwen3-0.6b", "gemma3-4b"):
         res.update(dispatch_profile(torch, dev, arch))
     res["digests"] = digests
+    res["tiles"] = tiles
     res["ptxas"] = ptxas_table(Path(ops.__file__).parents[3], libs)
+    if sweep:
+        res.update(paged_sweep(torch, cs, dev))
     return res
+
+
+def paged_sweep(torch, cs, dev) -> dict:
+    """The pool entry (bf16) at ``PAGED_SWEEP``'s shapes under every
+    tiles-a-piece value the planner can choose, graph ms each, and the
+    Hopper tile's makespan constants fit to it (``fit_paged_planner``),
+    beside the plans the tree's planner makes."""
+    from unittest import mock
+
+    from repro_torch.kernels import attention_split as split
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_prefill as pp_mod
+
+    cases = [(key, pc) for key, _, _, pc in cs.pool_timing_cases(torch, dev)
+             if key in PAGED_SWEEP]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cases.append(("long", cs.pool_case(
+        torch, gen, dev, cs.prefill_case(torch, gen, dev, torch.bfloat16,
+                                         b=1, s=64, prefix=2048), 2048)))
+    points, plans = {}, {}
+    sms = split.sm_count(dev)
+    for name, pc in cases:
+        q, pos_pool, bt, k = pc[0], pc[2], pc[3], pc[5]
+        b, s, h, _ = q.shape
+        kv = k.shape[2]
+        l = bt.shape[1] * pos_pool.shape[1] + k.shape[1]
+        rs = split.paged_key_ranges(s, l, min(64 // (h // kv), s))
+        longest = max(split.tile_span(lo, hi)[1] - split.tile_span(lo, hi)[0]
+                      for lo, hi in rs)
+        for c in plan_candidates(longest):
+            forced = split.Plan(c, tuple(split.pieces_of(lo, hi, c)
+                                         for lo, hi in rs))
+            with mock.patch.object(pp_mod, "plan", lambda *a, f=forced: f):
+                points[name, (b, s, l, h, kv), c] = cs.graph_ms(
+                    torch, lambda pc=pc: cs.pool_call(ops, pc))
+        plans[name] = pp_mod.plan(b, s, l, h, kv, sms).tiles_per_piece
+    return {"sweep": {f"{n} c={c}": ms for (n, _, c), ms in points.items()},
+            "fit": [list(f) for f in fit_paged_planner(points, split)],
+            "plans": plans}
 
 
 def ssm_bwd_child(torch, cs, dev, needs) -> dict:
@@ -470,7 +522,14 @@ def attention_bits_child(torch, cs, dev) -> dict:
 
     digests = {}
 
-    def keep(name, out):
+    def keep(name, out, q=None, kv=0):
+        # bf16 ragged-prefill launches named by the tile they run: the
+        # kWarpKeys mma.sync tile (16 query rows a CTA or fewer) or the
+        # Hopper tile, so its digests are compared with the parent's on
+        # their own
+        if q is not None and q.dtype == torch.bfloat16:
+            kind, rest = name.split(" ", 1)
+            name = f"{kind}:{tile_of(q.shape[1], q.shape[2], kv)} {rest}"
         torch.cuda.synchronize()
         raw = out.view(torch.int16) if out.dtype == torch.bfloat16 else out
         digests[name] = hashlib.sha256(
@@ -500,11 +559,13 @@ def attention_bits_child(torch, cs, dev) -> dict:
                     ("slot", cs.slot_decode_case(torch, gen, dev, dt)),
                     ("verify", cs.verify_case(torch, spec_gen, dev, dt))):
                 keep(f"paged_prefill {dtype_name} {name} w{window}",
-                     ops.paged_prefill(*args, window=window))
+                     ops.paged_prefill(*args, window=window), args[0],
+                     args[1].shape[2])
                 for lp in cs.INT8_PREFIXES[:1] if name == "chunk" else ():
                     keep(f"paged_prefill_int8 {dtype_name} {name} w{window}",
                          ops.paged_prefill_int8(*cs.int8_prefill_args(
-                             args, lp), window=window))
+                             args, lp), window=window), args[0],
+                         args[1].shape[2])
         hgen = torch.Generator(device=dev).manual_seed(7)
         for arch, (h, kv) in cs.DENSE_HEADS.items():
             q, k, v = cs.flash_case(torch, hgen, dev, dt, h=h, kv=kv, sq=512)
@@ -512,14 +573,18 @@ def attention_bits_child(torch, cs, dev) -> dict:
             args = cs.prefill_case(torch, hgen, dev, dt, b=4, s=256, h=h,
                                    kv=kv)
             keep(f"paged_prefill {dtype_name} {arch}",
-                 ops.paged_prefill(*args))
+                 ops.paged_prefill(*args), args[0], kv)
+            s1 = cs.prefill_case(torch, hgen, dev, dt, b=8, s=1, h=h, kv=kv)
+            keep(f"paged_prefill {dtype_name} {arch} fused",
+                 ops.paged_prefill(*s1), s1[0], kv)
         ggen = torch.Generator(device=dev).manual_seed(11)
         for window in (0, cs.GEMMA3_WINDOW):
             for what, kw in cs.GEMMA3_PP_SHAPES:
                 args = cs.prefill_case(torch, ggen, dev, dt, **kw,
                                        **cs.GEMMA3_HEADS)
                 keep(f"paged_prefill {dtype_name} hd256 {what} w{window}",
-                     ops.paged_prefill(*args, window=window))
+                     ops.paged_prefill(*args, window=window), args[0],
+                     args[1].shape[2])
             for s in cs.GEMMA3_FA_SHAPES:
                 q, k, v = cs.flash_case(torch, ggen, dev, dt, sq=s,
                                         **cs.GEMMA3_HEADS)
@@ -534,6 +599,20 @@ def attention_bits_child(torch, cs, dev) -> dict:
 # shapes of the forced-piece sweep: every tiles-a-piece value the planner
 # can choose at each (``attention_split.plan``'s candidates)
 FLASH_SWEEP = ("s512", "s2048", "encoder", "cross_prefill", "prefix_256")
+# the ragged prefill's Hopper-tile shapes of the pool sweep
+# (``cs.pool_timing_cases`` keys, bf16), and one row's chunk of 64 lanes
+# after a prefix of 2,048 (16 CTAs: the split decides its time)
+PAGED_SWEEP = ("paged_prefill_pool", "paged_prefill_pool_verify",
+               "paged_prefill_pool_hd256_chunk_w0",
+               "paged_prefill_pool_hd256_chunk past 1,024_w0", "long")
+
+
+def tile_of(s: int, h: int, kv: int) -> str:
+    """The bf16 tile a ragged-prefill launch of ``s`` query lanes at ``h``
+    / ``kv`` heads runs in the tree this script sits in: ``mma`` (the
+    kWarpKeys tile, 16 query rows a CTA or fewer) or ``wgmma``."""
+    g = h // kv
+    return "mma" if min(64 // g, s) * g <= 16 else "wgmma"
 
 
 def plan_candidates(longest: int):
@@ -593,6 +672,20 @@ def ptxas_all(tree: Path, lib: str) -> dict:
     return table
 
 
+def fit_paged_planner(sweep, split, sms=132):
+    """The ragged prefill's Hopper-tile makespan constants read off a
+    forced-piece sweep {(name, (B, S, L, H, KV), tiles a piece): graph
+    ms}, as ``fit_flash_planner`` reads the flash tile's (no ``waves``:
+    the ragged prefill's model)."""
+    ranges = {}
+    for name, shape, _ in sweep:
+        b, s, l, h, kv = shape
+        rs = split.paged_key_ranges(s, l, min(64 // (h // kv), s))
+        ranges[name, shape] = ([max(0, t[1] - t[0]) for t in
+                                (split.tile_span(*r) for r in rs)], b * kv)
+    return fit_constants(sweep, split, ranges, False, sms)
+
+
 def fit_flash_planner(sweep, split, sms=132):
     """The flash planner's makespan constants read off a forced-piece
     sweep {(name, shape, tiles a piece): graph ms}: over a grid of the
@@ -603,16 +696,23 @@ def fit_flash_planner(sweep, split, sms=132):
     shape its own tile time and base, as head dims and groups differ) ->
     [(regret, relative RMS residual, fixed, combine, ctas_per_sm)], the
     best first: least regret, then least residual."""
-    by_shape = {}
-    for (name, shape, c), ms in sweep.items():
-        by_shape.setdefault((name, shape), []).append((c, ms))
     ranges = {}
-    for name, shape in by_shape:
+    for name, shape, _ in sweep:
         b, h, kv, sq, sk, hd, causal, prefix = shape
         tq = min(64 // (h // kv), sq)
         rs = split.flash_key_ranges(sq, sk, tq, causal, 0, prefix)
         ranges[name, shape] = ([max(0, t[1] - t[0]) for t in
                                 (split.tile_span(*r) for r in rs)], b * kv)
+    return fit_constants(sweep, split, ranges, True, sms)
+
+
+def fit_constants(sweep, split, ranges, waves, sms):
+    """``fit_flash_planner``'s search over the three makespan constants,
+    for the sweep's shapes' (tiles of each query tile, CTAs a query
+    tile) ``ranges`` under ``makespan`` with or without ``waves``."""
+    by_shape = {}
+    for (name, shape, c), ms in sweep.items():
+        by_shape.setdefault((name, shape), []).append((c, ms))
     fits = []
     for fixed in (0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0):
         for combine in (0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0):
@@ -622,7 +722,7 @@ def fit_flash_planner(sweep, split, sms=132):
                     tiles, ctas = ranges[key]
                     xs = [split.makespan(tiles, c, ctas, sms, fixed=fixed,
                                          combine=combine, ctas_per_sm=per_sm,
-                                         waves=True) for c, _ in pts]
+                                         waves=waves) for c, _ in pts]
                     ys = [ms for _, ms in pts]
                     mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
                     sxx = sum((x - mx) ** 2 for x in xs)
@@ -637,7 +737,7 @@ def fit_flash_planner(sweep, split, sms=132):
                     rs = [(0, t * split.TILE_KEYS) for t in tiles]
                     c = split.plan(rs, ctas, sms, fixed=fixed,
                                    combine=combine, ctas_per_sm=per_sm,
-                                   waves=True).tiles_per_piece
+                                   waves=waves).tiles_per_piece
                     times = dict(pts)
                     regret.append(times[c] / min(times.values()))
                 fits.append((sum(regret) / len(regret),
@@ -746,7 +846,8 @@ def child(tree: Path, kernel: str, needs=()) -> dict:
     if kernel == "paged_attention_int8":
         return {**res, **paged_int8_child(torch, cs, dev)}
     if kernel == "paged_prefill_pool":
-        return {**res, **pool_child(torch, cs, dev)}
+        return {**res, **pool_child(torch, cs, dev,
+                                    sweep=("sweep",) in needs)}
     if kernel == "attention_bits":
         return {**res, **attention_bits_child(torch, cs, dev)}
     if kernel == "flash_attention":
@@ -803,7 +904,8 @@ def main(argv) -> int:
     trees = [Path(t).resolve() for t in argv]
     runs = []
     for i, tree in enumerate(trees + trees[::-1]):
-        extra = (["sweep"] if kernel == "flash_attention"
+        extra = (["sweep"] if kernel in ("flash_attention",
+                                         "paged_prefill_pool")
                  and i == len(trees) - 1 else [])
         out = subprocess.run([sys.executable, __file__, "--child", str(tree),
                               kernel, *needs, *extra],
@@ -820,7 +922,7 @@ def main(argv) -> int:
         for k, v in res.items():
             if isinstance(v, dict) and k not in ("digests", "ptxas",
                                                  "plans", "bounds_ms",
-                                                 "sweep"):
+                                                 "sweep", "tiles"):
                 print(f"  {k} (profiler, ms a call): " + ", ".join(
                     f"{n} {t:.4f}" for n, t in v.items()), flush=True)
     digests = [r.get("digests") for r in runs]
@@ -833,7 +935,7 @@ def main(argv) -> int:
                            if n.split()[0] == kind} for d in digests)
             print(f"  {kind}: the same in every run: {same}")
     for r in runs:
-        for key in ("plans", "bounds_ms", "sweep", "fit"):
+        for key in ("plans", "bounds_ms", "sweep", "fit", "tiles"):
             if key in r:
                 print(f"{key} {r['tree']}: {r[key]}")
     tables = [r.get("ptxas") for r in runs]

@@ -1,76 +1,62 @@
 // Online-softmax attention over bf16 operands on the tensor cores
-// (mma.sync): the ragged-prefill kernels' tile (paged_prefill.cuh).  The
-// whole-prompt kernel has a Hopper tile of its own (attention_wgmma.cuh);
-// float32 operands keep the CUDA-core tile of attention_tile.cuh.
+// (mma.sync): the ragged prefill's tile for launches of 16 query rows or
+// fewer (kWarpKeys in paged_prefill.cuh: one query lane of a decode step,
+// the fused decode dispatch and the slot decode).  Launches of more rows
+// (chunks, verify windows) run the Hopper tile of
+// attention_paged_wgmma.cuh, the whole-prompt kernel its own
+// (attention_wgmma.cuh); float32 operands keep the CUDA-core tile of
+// attention_tile.cuh.  The planner arithmetic (key_range, pieces_of,
+// locate) and the combine pass below serve both paged tiles.
 //
-// A CTA of 4 warps serves up to 64 query rows, each row one (query
+// A CTA of 4 warps serves up to 16 query rows, each row one (query
 // position, group head) pair: row r = (query s0 + r / g, head kvh * g +
 // r % g), so every K/V tile is read once per head group and query tile.
 // It walks one piece of its query tile's key range in tiles of 64 keys,
-// the FlashAttention-2 way:
+// each warp taking its own 16 keys of every tile for the same 16 rows
+// (a wgmma M of 64 would waste 48 of its rows here), the four partial
+// softmax states merged through shared memory at the end:
 //
 //   * Q is staged once through shared memory into mma.sync.m16n8k16 A
 //     fragments (ldmatrix) and stays in registers; at head_dim 256
 //     (kQSmem) it stays in shared memory instead, each fragment read by
-//     ldmatrix where Q.K^T needs it: a thread's 128 float32 accumulator
-//     registers plus 64 of Q would pass the 255 a thread can have, as in
-//     FlashAttention-2's head_dim-256 tile (Q re-read from shared memory
-//     costs 32 KB a key tile against K's and V's 128 KB each);
+//     ldmatrix where Q.K^T needs it;
 //   * K and V tiles stay bf16 in shared memory, rows padded by 16 bytes
 //     so that the 8 rows one ldmatrix phase reads fall in distinct banks;
-//     one buffer each, as in FlashAttention-2: V(t) is copied with
-//     cp.async (16 bytes a thread) while Q.K(t)^T and the softmax run,
-//     K(t+1) while P.V(t) runs;
+//     one buffer each: V(t) is copied with cp.async (16 bytes a thread)
+//     while Q.K(t)^T and the softmax run, K(t+1) while P.V(t) runs;
 //   * S = Q.K^T is summed in float32 registers; the masked online
 //     softmax runs in registers (row max and sum over the 4 threads of a
 //     quad), in base 2 with the scale folded in; a masked p is exactly 0;
 //   * P is rounded to bf16 in registers and is the A operand of P.V;
 //     the float32 accumulator stays in registers;
-//   * a tile is masked only where some key in it can be invisible to the
-//     warp's rows; fully visible tiles skip the mask;
-//   * each thread writes its rows' outputs straight from registers.
-//
-// Two shapes of work inside the CTA.  With more than 16 rows each warp
-// owns 16 of them and the whole 64-key tile.  With 16 rows or fewer
-// (kWarpKeys: one query lane of a decode step) every warp holds the same
-// 16 rows and takes its own 16 keys of each tile, so no warp idles; the
-// four partial softmax states merge through shared memory at the end.
+//   * a warp's keys are masked only where some key in them can be
+//     invisible to the rows.
 //
 // Key-range split.  The host planner (kernels/attention_split.py) cuts
 // each query tile's key tiles [tlo, thi) into pieces of C tiles; the 1-D
 // grid is (piece, KV head, batch row), pieces of the last query tile
-// (the heaviest causal one) first.  A query tile with one piece writes
-// its output; otherwise each piece writes its rows' float32 (m, l, acc)
-// to scratch and combine_pieces merges them by log-sum-exp.  Rows that
-// see no key come out 0.
+// first.  A query tile with one piece writes its output; otherwise each
+// piece writes its rows' float32 (m, l, acc) to scratch and
+// combine_pieces merges them by log-sum-exp.  Rows that see no key come
+// out 0.
 //
-// Paged prefix (the ragged prefill): keys [0, Lp) are rows of the block
-// pool, read through the block table (PagedPrefix above), keys [Lp, Sk)
-// the chunk's own rows, and the tile loader picks a key's source by its
-// index (a tile may straddle blocks and Lp, a multiple of the block size
-// and not of 64; the tiles stay those of the concatenated keys, so the
-// online softmax rescales where a launch over gathered keys does).  Each
-// K/V row is one contiguous slice of the pool, so a 16-byte cp.async
-// stays within a row; only its address comes from the table: threads
+// Paged prefix: keys [0, Lp) are rows of the block pool, read through
+// the block table (PagedPrefix below), keys [Lp, Sk) the chunk's own
+// rows; a tile may straddle blocks and Lp (a multiple of the block size,
+// not of 64), and the tiles stay those of the concatenated keys.  Threads
 // 0-63 look a tile's 64 pool rows up once, a pass ahead of its loads, into
-// shared memory (sPre), so a row's address is one shared load.  Staged
-// positions are the pool's raw lanes, and the cursor guard is applied
-// where a position is read (the ballot, the full-tile test, the mask).
+// shared memory (sPre), so a row's address is one shared load.  Tiles no
+// query of the CTA can see are skipped before they are loaded, from a
+// ballot over their guarded positions.
 //
-// int8 prefix (kQuant, the int8 KV cache's ragged prefill): the prefix's
-// rows are int8 with a float32 scale each.  A tile's int8 rows and scales
-// are copied 16 elements a cp.async into a staging buffer of their own,
-// double-buffered: tile t+1's K and V rows are issued at the top of tile
-// t's pass and waited for at its middle barrier, so their copy overlaps
-// Q.K(t)^T and the softmax (the P.V(t) that follows reads only the bf16
-// tile).  The CTA converts each prefix row once into the bf16 tile, V(t)'s
-// while Q.K(t)^T runs and K(t+1)'s while P.V(t) runs, inside the two
-// barriers a tile the bf16 launch has (no barrier of its own).  A prefix
-// key or value is dequantized as the reference does (int8 times its scale
-// in float32, rounded to bf16; the int8 -> float32 step is exact through
-// the exponent bits of 2^23, a byte permute and a subtraction, no I2F), so
-// a launch equals, bit for bit, the bf16 launch over the concatenated
-// dequantized keys.
+// int8 prefix (kQuant): a tile's int8 rows and float32 scales are copied
+// 16 elements a cp.async into a staging buffer of their own,
+// double-buffered, and each prefix row is converted once into the bf16
+// tile (int8 times its scale in float32, rounded to bf16; the int8 ->
+// float32 step exact through the exponent bits of 2^23, a byte permute
+// and a subtraction), V(t)'s while Q.K(t)^T runs and K(t+1)'s while
+// P.V(t) runs, so a launch equals, bit for bit, the bf16 launch over the
+// concatenated dequantized keys.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -346,14 +332,14 @@ __device__ __forceinline__ float row_reduce(const float (&s)[NB][4], int i) {
 // batch row), piece slowest.  Key and query positions come from p.kpos /
 // p.qpos (and the prefix's pool), and tiles no query of the CTA can see
 // are skipped.
-template <int HD, bool kWarpKeys, bool kQuant = false>
+template <int HD, bool kQuant = false>
 __device__ __forceinline__ void attend_piece(const Params& p) {
   static_assert(HD % 16 == 0 && HD <= 256, "head_dim: a multiple of 16");
   static_assert(kRows == kTK, "a Q tile is laid out as a K tile");
   constexpr bool kQSmem = q_in_smem(HD);
   constexpr int kPitch = HD + kPad;      // bf16 per shared-memory row
   constexpr int kChunks = HD / 8;        // 16-byte chunks per row
-  constexpr int NB = kWarpKeys ? 2 : 8;  // 8-key score blocks per warp
+  constexpr int NB = 2;                  // 8-key score blocks per warp
   constexpr int ND = HD / 8;             // 8-dim output blocks
   extern __shared__ __align__(16) unsigned char mma_smem[];
   // one K tile, one V tile (Q is staged where V goes, or at kQSmem in a
@@ -398,8 +384,8 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   const int key_lo = max(klo, ta * kTK), key_hi = min(khi, tb * kTK);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rbase = kWarpKeys ? 0 : warp * 16;  // the warp's first row
-  const int kw = kWarpKeys ? warp * 16 : 0;     // the warp's first key
+  const int rbase = 0;          // the warp's first row: every warp's rows
+  const int kw = warp * 16;     // the warp's first key
 
   auto query_pos = [&](int s) -> int {
     return __ldg(p.qpos + (size_t)b * p.Sq + s);
@@ -822,37 +808,7 @@ __device__ __forceinline__ void attend_piece(const Params& p) {
   // a piece of a split query tile writes (m, l, acc) partials
   const long long part = ((long long)(blockIdx.x % bkv) * p.n_pieces + x) * R;
 
-  if (!kWarpKeys) {
-    // each thread writes its two rows from registers
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = rbase + lane / 4 + 8 * i;
-      const int s = row_query(r);
-      if (s < 0) continue;
-      const int d = (lane % 4) * 2;
-      if (npieces == 1) {
-        const float inv = 1.f / fmaxf(l_run[i], 1e-30f);
-        bf16* const o = p.out + b * p.os.b + sRowH[r] * p.os.h +
-                        s * p.os.s + d;
-#pragma unroll
-        for (int n = 0; n < ND; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(o + n * 8) =
-              __floats2bfloat162_rn(acc[n][2 * i] * inv,
-                                    acc[n][2 * i + 1] * inv);
-      } else {
-        float* const a = p.part_acc + (part + r) * HD + d;
-#pragma unroll
-        for (int n = 0; n < ND; ++n)
-          *reinterpret_cast<float2*>(a + n * 8) =
-              make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
-        if (lane % 4 == 0)
-          p.part_ml[part + r] = make_float2(m_run[i], l_run[i]);
-      }
-    }
-    return;
-  }
-
-  // kWarpKeys: the four warps' states of rows 0-15 merge through shared
+  // the four warps' states of rows 0-15 merge through shared
   // memory; entry w * 16 + r holds warp w's (m, l, acc) of row r
   float* const eacc = reinterpret_cast<float*>(mma_smem);
   float* const em = eacc + kRows * HD;

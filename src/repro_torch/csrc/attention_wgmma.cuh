@@ -1,7 +1,10 @@
 // Online-softmax attention over bf16 operands on Hopper's tensor cores:
-// the whole-prompt kernel's tile (flash_attention.cu).  The ragged
-// prefill keeps its mma.sync tile (attention_mma.cuh) and float32 keeps
-// the CUDA-core tile (attention_tile.cuh).
+// the whole-prompt kernel's tile (flash_attention.cu), and the PTX pieces
+// (mbarriers, wgmma and its descriptors, the swizzles) the ragged
+// prefill's Hopper tile shares (attention_paged_wgmma.cuh: rows copied
+// through the block table, where this tile copies by TMA).  The ragged
+// prefill's decode shapes keep the mma.sync tile (attention_mma.cuh) and
+// float32 keeps the CUDA-core tile (attention_tile.cuh).
 //
 // A CTA of two warpgroups serves up to 64 query rows, each row one (query
 // position, group head) pair: row r = (query s0 + r / g, head kvh * g +

@@ -53,6 +53,7 @@ extern "C" int paged_prefill_pool_launch(
 
 extern "C" size_t paged_prefill_smem_bytes(int dtype, int H, int KV, int hd,
                                            int TQ) {
-  if (dtype == 1) return repro_torch::mma::smem_bytes(hd);
+  if (dtype == 1)
+    return repro_torch::bf16_smem_bytes(hd, TQ, H / KV, false);
   return repro_torch::tile_smem_bytes(TQ * (H / KV), repro_torch::kTK, hd);
 }

@@ -31,22 +31,28 @@
 // under the ~295 flops per byte line until chunks reach a few hundred
 // tokens.
 //
-// Design, bfloat16 (attention_mma.cuh): one CTA of 4 warps per (row, KV
-// head, tile of TQ = 64 / g query lanes, piece of the key lanes) serves
-// the R = TQ * g query vectors of that head group, so each key is read
-// once per group and tile. The CTA walks 64-key tiles in bf16 shared
-// memory, each copy (cp.async) overlapping the other operand's math,
-// Q.K^T and P.V on mma.sync.m16n8k16 with float32 sums and the online
-// softmax in registers; P goes into P.V rounded to bf16, as the plain version
-// rounds its probabilities. Tiles no query of the CTA can see (null-block
-// padding of the table, keys past the tile's last query) are
-// skipped before they are loaded, from a ballot over their kpos lanes.
-// With 16 rows or fewer (S = 1: fused decode, slot decode) the four
-// warps take different 16-key slices of each tile and merge at the end.
+// Design, bfloat16: one CTA per (row, KV head, tile of TQ = 64 / g query
+// lanes, piece of the key lanes) serves the R = TQ * g query vectors of
+// that head group, so each key is read once per group and tile, and walks
+// 64-key tiles with the online softmax in registers; P goes into P.V
+// rounded to bf16, as the plain version rounds its probabilities. Tiles
+// no query of the CTA can see (null-block padding of the table, keys past
+// the tile's last query) are skipped before they are loaded. Two tiles:
+//   * more than 16 rows (chunks, verify windows: the engine's chunk and
+//     verify dispatches): attention_paged_wgmma.cuh, Hopper's tile. A
+//     producer warpgroup looks the keys up through the table, tests the
+//     tiles' positions and copies live tiles' rows (16-byte cp.async, int8
+//     rows converted there) into a ring of swizzled K/V slots with
+//     mbarriers; a consumer warpgroup runs Q.K^T and P.V on wgmma.
+//   * 16 rows or fewer (S = 1: fused decode, slot decode): the kWarpKeys
+//     mma.sync tile of attention_mma.cuh, the four warps on different
+//     16-key slices of each tile, merged at the end (a wgmma M of 64
+//     would waste 48 of its rows).
 // Small grids (8 rows x 8 KV heads at fused decode, 4 slots x 8 at slot
 // decode) leave most of the 132 SMs idle, so the wrapper's planner
-// (kernels/attention_split.py) cuts the key lanes into pieces of whole
-// tiles, each a CTA, and a combine pass merges them by log-sum-exp.
+// (kernels/attention_split.py, each tile its constants) cuts the key
+// lanes into pieces of whole tiles, each a CTA, and a combine pass merges
+// them.
 //
 // float32 keeps the CUDA-core tile below (attention_tile.cuh): on the
 // tensor cores float32 means TF32, ~3 decimal digits, which breaks the
@@ -69,10 +75,11 @@
 // scale in float32, rounded to the model dtype (the reference's
 // _dequantize_kv), then used as a float key is. So an int8 launch equals,
 // bit for bit, the float launch over the concatenated dequantized keys
-// (same shape, plan and dtype). bfloat16: attention_mma.cuh's kQuant
-// tile (int8 rows double-buffered in shared memory, each row converted
-// once into the bf16 tile inside that tile's own barriers); float32: the
-// tile below converts as it loads.
+// (same shape, plan and dtype). bfloat16: the Hopper tile's producer
+// converts each prefix chunk in place in its bf16 slot before it arrives;
+// the kWarpKeys tile stages int8 rows double-buffered and converts each
+// row once inside its own barriers; float32: the tile below converts as
+// it loads.
 //
 // Tile skipping reads positions only: a tile whose guarded positions no
 // query of the CTA can see is skipped before its K/V rows are loaded,
@@ -83,12 +90,16 @@
 #pragma once
 
 #include "attention_mma.cuh"
+#include "attention_paged_wgmma.cuh"
 #include "attention_tile.cuh"
 
 namespace repro_torch {
 
 constexpr int kTK = 32;       // keys per tile
 constexpr int kThreads = 256;
+// bf16 launches of up to this many query rows a CTA take the kWarpKeys
+// mma.sync tile (kernels/paged_prefill.py WARP_KEYS_ROWS)
+constexpr int kWarpKeysRows = 16;
 
 // A pool prefix: Lp = nb * bs keys read through block_table (B, nb)
 // from the pool's k / v rows (NB, bs, KV, hd), scales (int8 launches) and
@@ -246,14 +257,22 @@ static int launch(const void* q, const void* k, const void* v,
 
 // ------------------------------------------------------------ bfloat16
 
-// The decode shape of the bf16 tile (kWarpKeys) at head_dim 128 or less
+// The kWarpKeys tile (16 query rows or fewer) at head_dim 128 or less
 // fits three CTAs an SM (the key-range split's pieces are many small
 // CTAs): held to 170 registers, as without the pool's row addresses.
-template <int HD, bool kWarpKeys, bool kQuant>
+template <int HD, bool kQuant>
 __global__ void __launch_bounds__(mma::kThreads,
-                                  kWarpKeys && !kQuant && HD <= 128 ? 3 : 1)
+                                  !kQuant && HD <= 128 ? 3 : 1)
     paged_prefill_mma_kernel(const mma::Params p) {
-  mma::attend_piece<HD, kWarpKeys, kQuant>(p);
+  mma::attend_piece<HD, kQuant>(p);
+}
+
+// The Hopper tile (more than 16 query rows): two CTAs an SM, the
+// producer's registers given to the consumer by setmaxnreg.
+template <int HD, bool kQuant>
+__global__ void __launch_bounds__(wg::kThreads, wg::kPagedMinBlocks)
+    paged_prefill_wgmma_kernel(const mma::Params p) {
+  wg::attend_paged<HD, kQuant>(p);
 }
 
 template <int HD>
@@ -262,19 +281,12 @@ __global__ void __launch_bounds__(mma::kCombineThreads)
   mma::combine_pieces<HD>(p);
 }
 
-template <int HD, bool kWarpKeys, bool kQuant>
-static int launch_mma(const mma::Params& p, cudaStream_t stream) {
-  const size_t smem = mma::smem_bytes(HD, kQuant);
-  static unsigned long long allowed = 0;   // a bit per device
-  cudaError_t err = mma::allow_smem(
-      paged_prefill_mma_kernel<HD, kWarpKeys, kQuant>, smem, allowed);
-  if (err != cudaSuccess) return (int)err;
-  paged_prefill_mma_kernel<HD, kWarpKeys, kQuant>
-      <<<p.n_pieces * p.B * p.KV, mma::kThreads, smem, stream>>>(p);
-  err = cudaGetLastError();
+// the combine pass of a split launch, after either tile
+template <int HD>
+static int launch_combine(const mma::Params& p, cudaStream_t stream) {
   int lo, hi;
   mma::split_tiles(p, lo, hi);
-  if (err != cudaSuccess || lo == hi) return (int)err;
+  if (lo == hi) return 0;
   mma::Params pc = p;
   pc.combine_lo = lo;
   paged_prefill_combine_kernel<HD>
@@ -283,16 +295,67 @@ static int launch_mma(const mma::Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kWarpKeys, bool kQuant>
+template <int HD, bool kQuant>
+static int launch_mma(const mma::Params& p, cudaStream_t stream) {
+  const size_t smem = mma::smem_bytes(HD, kQuant);
+  static unsigned long long allowed = 0;   // a bit per device
+  cudaError_t err = mma::allow_smem(paged_prefill_mma_kernel<HD, kQuant>,
+                                    smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  paged_prefill_mma_kernel<HD, kQuant>
+      <<<p.n_pieces * p.B * p.KV, mma::kThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_combine<HD>(p, stream);
+}
+
+template <int HD, bool kQuant>
+static int launch_wgmma(const mma::Params& p, cudaStream_t stream) {
+  const size_t smem = wg::paged_smem_bytes(HD);
+  static unsigned long long allowed = 0;   // a bit per device
+  cudaError_t err = wg::allow_smem(paged_prefill_wgmma_kernel<HD, kQuant>,
+                                   smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  paged_prefill_wgmma_kernel<HD, kQuant>
+      <<<p.n_pieces * p.B * p.KV, wg::kThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_combine<HD>(p, stream);
+}
+
+template <bool kQuant>
 static int launch_mma_hd(int hd, const mma::Params& p, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_mma<16, kWarpKeys, kQuant>(p, stream);
-    case 32: return launch_mma<32, kWarpKeys, kQuant>(p, stream);
-    case 64: return launch_mma<64, kWarpKeys, kQuant>(p, stream);
-    case 128: return launch_mma<128, kWarpKeys, kQuant>(p, stream);
-    case 256: return launch_mma<256, kWarpKeys, kQuant>(p, stream);
+    case 16: return launch_mma<16, kQuant>(p, stream);
+    case 32: return launch_mma<32, kQuant>(p, stream);
+    case 64: return launch_mma<64, kQuant>(p, stream);
+    case 128: return launch_mma<128, kQuant>(p, stream);
+    case 256: return launch_mma<256, kQuant>(p, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool kQuant>
+static int launch_wgmma_hd(int hd, const mma::Params& p,
+                           cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_wgmma<16, kQuant>(p, stream);
+    case 32: return launch_wgmma<32, kQuant>(p, stream);
+    case 64: return launch_wgmma<64, kQuant>(p, stream);
+    case 128: return launch_wgmma<128, kQuant>(p, stream);
+    case 256: return launch_wgmma<256, kQuant>(p, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the bf16 tile of a launch of R = TQ * g query rows a CTA: the kWarpKeys
+// mma.sync tile up to 16, the Hopper tile above
+inline bool warp_keys_tile(int TQ, int g) { return TQ * g <= kWarpKeysRows; }
+
+// dynamic shared memory of a bf16 launch's tile
+inline size_t bf16_smem_bytes(int hd, int TQ, int g, bool quant) {
+  return warp_keys_tile(TQ, g) ? mma::smem_bytes(hd, quant)
+                               : wg::paged_smem_bytes(hd);
 }
 
 // Every entry: keys [0, pre.Lp) of the prefix (int8 rows under kQuant),
@@ -335,8 +398,8 @@ static int launch_entry(int dtype, const void* q, const void* k,
   p.scale_log2 = scale * mma::kLog2e;
   p.part_acc = static_cast<float*>(part_acc);
   p.part_ml = static_cast<float2*>(part_ml);
-  return TQ * p.g <= 16 ? launch_mma_hd<true, kQuant>(hd, p, s)
-                        : launch_mma_hd<false, kQuant>(hd, p, s);
+  return warp_keys_tile(TQ, p.g) ? launch_mma_hd<kQuant>(hd, p, s)
+                                 : launch_wgmma_hd<kQuant>(hd, p, s);
 }
 
 }  // namespace repro_torch

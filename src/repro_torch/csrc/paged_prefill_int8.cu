@@ -52,6 +52,7 @@ extern "C" int paged_prefill_pool_int8_launch(
 
 extern "C" size_t paged_prefill_int8_smem_bytes(int dtype, int H, int KV,
                                                 int hd, int TQ) {
-  if (dtype == 1) return repro_torch::mma::smem_bytes(hd, true);
+  if (dtype == 1)
+    return repro_torch::bf16_smem_bytes(hd, TQ, H / KV, true);
   return repro_torch::tile_smem_bytes(TQ * (H / KV), repro_torch::kTK, hd);
 }

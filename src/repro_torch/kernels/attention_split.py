@@ -9,7 +9,9 @@ state that one combine pass merges (``ref.attention_combine_ref`` is its
 plain version).  This module is the planner: pure Python over the shape
 and the card's SM count, so it runs (and is tested) without a card.  The
 tile arithmetic mirrors ``csrc/attention_wgmma.cuh`` and
-``csrc/attention_mma.cuh`` (``key_range``, ``pieces_of``, ``locate``).
+``csrc/attention_mma.cuh`` (``key_range``, ``pieces_of``, ``locate``;
+the ragged prefill's Hopper tile, ``csrc/attention_paged_wgmma.cuh``,
+uses the latter's).
 
 It splits where the grid would otherwise leave SMs idle (fewer CTAs
 than SMs: decode steps, short prompts) or where one query tile's range
@@ -22,8 +24,8 @@ plus a fixed set-up and write-out, SMs run ``CTAS_PER_SM`` CTAs at full
 speed (with ``waves``, the busiest SM holds ceil(CTAs / SMs) of the mean
 CTA), and a split launch pays for the combine pass.  Its constants are
 in 64-key tile times, read off an H100's kernel timings (PERF.md): the
-ragged prefill's mma.sync tile has its own, the flash tile's
-``FLASH_*``.
+ragged prefill's decode tile (mma.sync) has the defaults, its Hopper
+tile ``PAGED_*`` and the flash tile ``FLASH_*``.
 """
 from __future__ import annotations
 
@@ -45,6 +47,13 @@ CTAS_PER_SM = 1.25      # CTAs an SM runs at the speed of one alone
 FLASH_FIXED_TILES = 1.5
 FLASH_COMBINE_TILES = 6.0
 FLASH_CTAS_PER_SM = 1.25
+# the ragged prefill's Hopper tile (wgmma from a producer warpgroup's
+# ring, two CTAs an SM; launches of more than 16 query rows), fit by
+# ``conv2d_compare.py --kernel paged_prefill_pool``'s forced-piece sweep
+# to an H100's times (PERF.md); the decode shapes keep the defaults above
+PAGED_FIXED_TILES = 6.0
+PAGED_COMBINE_TILES = 1.0
+PAGED_CTAS_PER_SM = 1.75
 
 
 def flash_key_ranges(sq: int, sk: int, tq: int, causal: bool,

@@ -3,10 +3,10 @@
 Replaces ``repro/kernels/ops.py:paged_prefill``, which has no Pallas
 kernel (both of its arms run the reference): the attention of every
 default serving-engine step.  Source: ``csrc/paged_prefill.cuh`` (the
-launcher; the bf16 tile in ``attention_mma.cuh``) with its C entries in
-``csrc/paged_prefill.cu`` and, for an int8 prefix,
-``csrc/paged_prefill_int8.cu`` (compiled apart); semantics:
-``ref.paged_prefill_ref``.
+launcher; the bf16 tiles in ``attention_paged_wgmma.cuh`` and
+``attention_mma.cuh``) with its C entries in ``csrc/paged_prefill.cu``
+and, for an int8 prefix, ``csrc/paged_prefill_int8.cu`` (compiled
+apart); semantics: ``ref.paged_prefill_ref``.
 
 Two ways in.  ``paged_prefill_pool`` (and ``paged_prefill_pool_int8``)
 serve the paged engine: the prefix is read straight out of the block
@@ -17,13 +17,11 @@ follow as a second, contiguous segment.  So no gathered copy of the pool
 and no concatenation is made: the plain versions
 ``ref.paged_prefill_pool_ref`` / ``paged_prefill_pool_int8_ref`` build
 both, and the kernel equals them over those keys bit for bit (same
-shape, plan and dtype): the tile skips a tile from the guarded
-positions it reads through the table, the same ballot as over gathered
-keys.  The table is read once a tile: 64 threads look a 64-key tile's
-pool rows up a pass ahead of its loads and keep each key's K and V row
-address in shared memory, so a row copy costs one shared load.
-``paged_prefill`` (and ``paged_prefill_int8``) take keys already
-contiguous: the slot decode's strip, and the tests.
+shape, plan and dtype): the tiles are those of the concatenated keys,
+and a tile is skipped from the guarded positions it reads through the
+table, as over gathered keys.  ``paged_prefill`` (and
+``paged_prefill_int8``) take keys already contiguous: the slot decode's
+strip, and the tests.
 
 Bound on an H100: bytes at decode and small-chunk sizes (q, the chunk's
 k and v, the prefix rows some query sees and the positions read once,
@@ -31,35 +29,43 @@ the output written once, over 3.35 TB/s); a chunk of a few hundred
 tokens per row crosses into the operation bound.
 
 Design: one CTA per (row, KV head, tile of query lanes, piece of the key
-lanes) serves that head group's query vectors, walks key tiles with an
-online softmax, and skips tiles no query of the tile can see (null-block
-padding, future keys).  bfloat16 runs on the tensor cores
-(``csrc/attention_mma.cuh``: mma.sync with float32 sums, 64-key K/V tiles
-in shared memory, the softmax in registers; with 16 rows
-or fewer the four warps split each tile's keys); the key lanes are split
-by ``attention_split.plan`` where the grid would leave SMs idle (decode
-steps: 8 rows x 8 KV heads, or 4 slots x 8); head_dim 16, 32, 64, 128
-or 256 (at 256 Q stays in shared memory) and 16-byte aligned operands,
-or it raises.  float32 keeps the CUDA-core tile (``attention_tile.cuh``;
-at head_dim 256 a tile of 64 query vectors takes 206,080 bytes of
-shared memory, within the 232,448 a CTA may use).  Query lanes with no visible key come out
-0, where the plain version averages every key; the engine discards such
-lanes (padding), so comparisons hold valid lanes only.
+lanes) serves that head group's query vectors, walks 64-key tiles with
+an online softmax, and skips tiles no query of the tile can see
+(null-block padding, future keys).  bfloat16 runs on the tensor cores
+in one of two tiles, chosen by the query rows a CTA serves (``tq * g``,
+``warp_keys_tile``): more than ``WARP_KEYS_ROWS`` (chunks and verify
+windows) take the Hopper tile (``csrc/attention_paged_wgmma.cuh``: a
+producer warpgroup looks each tile's keys up through the table, tests
+their positions and copies the live tiles' rows with 16-byte cp.async
+into a ring of swizzled K/V slots under mbarriers; a consumer warpgroup
+runs Q.K^T and P.V on wgmma with P rounded once to bf16, the softmax in
+registers); up to 16 (decode: S = 1) keep the kWarpKeys mma.sync tile
+(``csrc/attention_mma.cuh``: the four warps split each tile's keys,
+where a wgmma M of 64 would waste 48 rows).  The key lanes are split by
+``attention_split.plan``, with each tile's makespan constants, where
+the grid would leave SMs idle (decode steps: 8 rows x 8 KV heads, or 4
+slots x 8); head_dim 16, 32, 64, 128 or 256 and 16-byte aligned
+operands, or it raises.  float32 keeps the CUDA-core tile
+(``attention_tile.cuh``; at head_dim 256 a tile of 64 query vectors
+takes 206,080 bytes of shared memory, within the 232,448 a CTA may
+use).  Query lanes with no visible key come out 0, where the plain
+version averages every key; the engine discards such lanes (padding),
+so comparisons hold valid lanes only.
 
 ``paged_prefill_pool_int8`` serves the int8 KV cache: its keys come in
 two segments, the int8 pool's rows with their float32 scales and the
 chunk's own K/V in the model dtype (the reference attends the chunk's
 fresh keys), so neither a dequantized copy of the prefix nor the
 concatenation is made (``paged_prefill_int8``: an int8 strip, the slot
-decode's).  The tile loader picks a key's segment by its
-index (a 64-key tile may straddle the boundary: the prefix is a
-multiple of the block size, not of 64 keys).  The bf16 tile stages a
-tile's int8 rows and scales in shared memory with 16-byte copies,
-double-buffered (the next tile's rows land while this one's Q.K^T and
-softmax run), and converts each prefix row once into the bf16 tile
-inside the two barriers a tile the bf16 launch has; the float32 tile
-converts as it loads.  Bound: bytes,
-at half the prefix's bytes of the float launch.
+decode's).  A 64-key tile may straddle the boundary (the prefix is a
+multiple of the block size, not of 64 keys).  The Hopper tile's producer
+copies a prefix key's int8 chunk into the bf16 slot it will fill and
+converts it there (int8 times its scale in float32, rounded to bf16)
+before the consumer sees the slot; the decode tile stages int8 rows
+double-buffered and converts each row once inside its own barriers; the
+float32 tile converts as it loads.  Each launch equals, bit for bit,
+the bf16 launch over the dequantized keys.  Bound: bytes, at half the
+prefix's bytes of the float launch.
 """
 from __future__ import annotations
 
@@ -73,6 +79,11 @@ from repro_torch.kernels.build import CudaKernel, refuse_autograd
 from repro_torch.kernels.paged_attention import DTYPE_CODE, MAX_SMEM
 
 ROWS_PER_CTA = 64           # query vectors (lanes x group heads) per CTA
+WARP_KEYS_ROWS = 16         # bf16: up to this many a CTA, the decode tile
+# bf16 launches of the four entries by the tile they ran: the kWarpKeys
+# mma.sync tile ("mma") or the Hopper tile ("wgmma"); grown where a launch
+# is made, beside the entries' own counts, and reset by the caller
+TILE_LAUNCHES = {"mma": 0, "wgmma": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -332,10 +343,26 @@ def _launch(kernel, q, qpos, chunk, lead, sizes, lp, window):
                       out.data_ptr(), b, s, *sizes, h, kv, hd, tq,
                       int(window), 1.0 / math.sqrt(hd), tiles_per_piece,
                       n_pieces, *split.pointers(scratch), stream)
+    if q.dtype == torch.bfloat16:
+        TILE_LAUNCHES["mma" if warp_keys_tile(s, h, kv) else "wgmma"] += 1
     return out
 
 
+def warp_keys_tile(s, h, kv) -> bool:
+    """Whether a bf16 launch of ``s`` query lanes at ``h`` / ``kv`` heads
+    runs the kWarpKeys mma.sync tile (at most ``WARP_KEYS_ROWS`` query
+    rows a CTA: the decode shapes) rather than the Hopper tile
+    (``csrc/paged_prefill.cuh``'s ``warp_keys_tile``)."""
+    return min(ROWS_PER_CTA // (h // kv), s) * (h // kv) <= WARP_KEYS_ROWS
+
+
 def plan(b, s, l, h, kv, sms) -> split.Plan:
-    """The key-range split of a bf16 launch on a card of ``sms`` SMs."""
+    """The key-range split of a bf16 launch on a card of ``sms`` SMs,
+    with the makespan constants of the tile the launch runs."""
     tq = min(ROWS_PER_CTA // (h // kv), s)
-    return split.plan(split.paged_key_ranges(s, l, tq), b * kv, sms)
+    ranges = split.paged_key_ranges(s, l, tq)
+    if warp_keys_tile(s, h, kv):
+        return split.plan(ranges, b * kv, sms)
+    return split.plan(ranges, b * kv, sms, fixed=split.PAGED_FIXED_TILES,
+                      combine=split.PAGED_COMBINE_TILES,
+                      ctas_per_sm=split.PAGED_CTAS_PER_SM)

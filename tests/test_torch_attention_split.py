@@ -115,16 +115,75 @@ def test_plan_splits_a_skewed_range():
 
 
 @pytest.mark.parametrize("header", ["attention_wgmma.cuh",
-                                    "attention_mma.cuh"])
+                                    "attention_mma.cuh",
+                                    "attention_paged_wgmma.cuh"])
 def test_header_tile_matches_the_planner(header):
     """Each bf16 tile's key tile and piece arithmetic is the planner's:
-    the flash tile's (``attention_wgmma.cuh``) and the ragged
-    prefill's."""
+    the flash tile's (``attention_wgmma.cuh``), the ragged prefill's
+    decode tile's (``attention_mma.cuh``), and its Hopper tile's, which
+    walks 64-key tiles (``wg::kTK``) of the decode tile's pieces
+    (``mma::key_range``, ``pieces_of``, ``locate``), so both tiles share
+    one plan layout and one combine pass."""
     text = (build.CSRC / header).read_text()
+    if header == "attention_paged_wgmma.cuh":
+        assert '#include "attention_mma.cuh"' in text
+        assert '#include "attention_wgmma.cuh"' in text
+        for call in ("mma::locate(p, x, qt, piece, npieces);",
+                     "mma::key_range(p, qt, klo, khi);",
+                     "mma::pieces_of(p, qt, tlo, thi);",
+                     "const int ta = tlo + piece * p.C, tb = min(ta + p.C, "
+                     "thi);"):
+            assert call in text
+        text = (build.CSRC / "attention_wgmma.cuh").read_text()
     assert f"constexpr int kTK = {split.TILE_KEYS};" in text
     assert "const int n = (thi - tlo + p.C - 1) / p.C;" in text
     assert "return n > 1 ? n : 1;" in text
     assert "thi = hi > lo ? (hi + kTK - 1) / kTK : tlo;" in text
+
+
+# the paged Hopper tile's makespan constants (fixed, combine, CTAs an SM),
+# fit to an H100's forced-piece sweep (PERF.md); the decode tile keeps the
+# defaults
+PAGED_CONSTANTS = (6.0, 1.0, 1.75)
+
+
+def test_paged_tile_planner_constants_are_pinned():
+    assert (split.PAGED_FIXED_TILES, split.PAGED_COMBINE_TILES,
+            split.PAGED_CTAS_PER_SM) == PAGED_CONSTANTS
+    assert (split.FIXED_TILES, split.COMBINE_TILES,
+            split.CTAS_PER_SM) == (2.0, 2.5, 1.25)
+
+
+# (S, H, KV): the query rows a CTA of each tile serves
+TILE_SHAPES = [((1, 16, 8), True), ((1, 64, 8), True), ((8, 16, 8), True),
+               ((9, 16, 8), False), ((16, 16, 8), False),
+               ((256, 16, 8), False), ((16, 8, 8), True),
+               ((17, 8, 8), False), ((3, 48, 8), False),
+               ((2, 8, 1), True), ((3, 8, 1), False)]
+
+
+@pytest.mark.parametrize("shape,warp_keys", TILE_SHAPES,
+                         ids=[str(s) for s, _ in TILE_SHAPES])
+def test_tile_choice_matches_the_launcher(shape, warp_keys):
+    """A launch of more than 16 query rows a CTA (``tq * g``) runs the
+    Hopper tile and is planned with its constants; up to 16 run the
+    kWarpKeys tile under the defaults, as ``paged_prefill.cuh``'s
+    ``warp_keys_tile`` dispatches."""
+    s, h, kv = shape
+    text = (build.CSRC / "paged_prefill.cuh").read_text()
+    assert (f"constexpr int kWarpKeysRows = {pp_mod.WARP_KEYS_ROWS};"
+            in text)
+    assert "return TQ * g <= kWarpKeysRows; }" in text
+    assert ("return warp_keys_tile(TQ, p.g) ? launch_mma_hd<kQuant>(hd, p, "
+            "s)") in text
+    assert pp_mod.warp_keys_tile(s, h, kv) == warp_keys
+    for b, l in ((8, 513), (2, 1600), (132, 64)):
+        ranges = split.paged_key_ranges(s, l, min(64 // (h // kv), s))
+        kw = {} if warp_keys else dict(
+            fixed=split.PAGED_FIXED_TILES, combine=split.PAGED_COMBINE_TILES,
+            ctas_per_sm=split.PAGED_CTAS_PER_SM)
+        assert pp_mod.plan(b, s, l, h, kv, H100_SMS) == split.plan(
+            ranges, b * kv, H100_SMS, **kw)
 
 
 def test_flash_plan_leaves_no_lone_wave():
@@ -155,18 +214,19 @@ def test_flash_plan_leaves_no_lone_wave():
 # (B, S, L, H, KV) -> (tiles a piece, pieces of each query tile) of the
 # ragged prefill, and (B, KV, nb) -> (blocks a piece, pieces) of the paged
 # decode, on an H100's 132 SMs, as the planners gave them before the flash
-# tile had constants of its own
+# tile had constants of its own; the entries of more than 16 query rows a
+# CTA (S > 1 here) under the Hopper tile's constants
 PP_PLANS = [((4, 256, 768, 16, 8), (12, (1,) * 8)),
             ((8, 1, 513, 16, 8), (3, (3,))),
             ((4, 1, 256, 16, 8), (1, (4,))),
-            ((16, 16, 272, 16, 8), (5, (1,))),
+            ((16, 16, 272, 16, 8), (3, (2,))),
             ((8, 1, 216, 6, 6), (1, (4,))),
             ((8, 1, 472, 8, 1), (1, (8,))),
-            ((4, 256, 768, 8, 4), (12, (1,) * 8)),
+            ((4, 256, 768, 8, 4), (6, (2,) * 8)),
             ((2, 64, 1600, 8, 4), (2, (13, 13))),
             ((8, 1, 513, 24, 8), (3, (3,))),
             ((8, 1, 513, 64, 8), (3, (3,))),
-            ((1, 200, 200, 16, 8), (4, (1,) * 7)),
+            ((1, 200, 200, 16, 8), (1, (4,) * 7)),
             ((24, 1, 513, 16, 8), (9, (1,)))]
 PA_PLANS = [((8, 8, 32), (11, 3)), ((8, 8, 16), (6, 3)),
             ((24, 8, 16), (16, 1)), ((1, 8, 128), (16, 8)),
@@ -382,23 +442,27 @@ def test_bf16_probabilities_need_a_hi_lo_pair(mode, fits):
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "paged_prefill"])
 def test_bf16_sources_compile_the_planners_head_dims(kernel):
-    """The head dims each bf16 source instantiates its tile at are the
+    """The head dims each bf16 source instantiates its tiles at are the
     wrappers' ``MMA_HEAD_DIMS`` (the compiler is not here to check it).
     The flash tile (``attention_wgmma.cuh``) keeps Q, then a ring of K
     and V slots (four up to head_dim 64, two at 128, one at 256) and its
     mbarriers: at most 99,368 bytes, as many CTAs to an SM's 228 KB as
-    its launch bounds ask (three up to head_dim 64, two above).  The ragged prefill's mma.sync tile keeps Q in
-    shared memory from head_dim 256 on, a third tile beside K and V:
-    102,144 bytes, two CTAs to an SM."""
+    its launch bounds ask (three up to head_dim 64, two above).  The
+    ragged prefill instantiates both its tiles, bf16 and int8: the
+    Hopper tile (``attention_paged_wgmma.cuh``) keeps the same Q and
+    ring, each slot with its positions, scales and tile index beside it,
+    two CTAs to an SM at every head dim (at most 100,144 bytes, at 256);
+    the kWarpKeys mma.sync tile keeps Q in shared memory from head_dim
+    256 on, a third tile beside K and V: 102,144 bytes, two CTAs to an
+    SM."""
     import re
 
     text = "".join(p.read_text() for p in (build.CSRC / f"{kernel}.cu",
                                           build.CSRC / f"{kernel}.cuh")
                    if p.exists())
-    cases = re.findall(r"case (\d+): return launch_(?:mma|wgmma)<\1,",
-                       text)
-    assert tuple(map(int, cases)) == split.MMA_HEAD_DIMS
     if kernel == "flash_attention":
+        cases = re.findall(r"case (\d+): return launch_wgmma<\1,", text)
+        assert tuple(map(int, cases)) == split.MMA_HEAD_DIMS
         tile = (build.CSRC / "attention_wgmma.cuh").read_text()
         assert "return hd >= 256 ? 1 : hd >= 128 ? 2 : 4;" in tile
         assert "return hd <= 64 ? 3 : 2;" in tile
@@ -411,6 +475,24 @@ def test_bf16_sources_compile_the_planners_head_dims(kernel):
             assert smem <= 99_368
             assert ctas * (smem + 1024) <= 233_472   # the SM's 228 KB
         return
+    for tile in ("mma", "wgmma"):
+        cases = re.findall(rf"case (\d+): return launch_{tile}<\1, kQuant>",
+                           text)
+        assert tuple(map(int, cases)) == split.MMA_HEAD_DIMS
+    for launch in ("launch_mma_hd", "launch_wgmma_hd"):
+        assert f"{launch}<kQuant>(hd, p, s)" in text
+    paged = (build.CSRC / "attention_paged_wgmma.cuh").read_text()
+    assert "constexpr int kPagedMinBlocks = 2;" in paged
+    assert "__launch_bounds__(wg::kThreads, wg::kPagedMinBlocks)" in text
+    aux = 3 * 64 * 4 + 2 * 4          # PagedAux: positions, scales, tile
+    most = 0
+    for hd in split.MMA_HEAD_DIMS:
+        stages = 1 if hd >= 256 else 2 if hd >= 128 else 4
+        smem = (1 + 2 * stages) * 64 * hd * 2 + stages * aux \
+            + (1 + 4 * stages) * 8 + 1024
+        assert 2 * (smem + 1024) <= 233_472          # two CTAs an SM
+        most = max(most, smem)
+    assert most == 100_144
     tile = (build.CSRC / "attention_mma.cuh").read_text()
     assert "constexpr bool q_in_smem(int hd) { return hd > 128; }" in tile
     pitch, rows, ints = 256 + 8, 64, (64 + 2 * 64) * 4
@@ -436,3 +518,34 @@ def test_float32_tile_fits_at_head_dim_256(g):
         assert floats * 4 + (tk + rows) * 4 <= fa_mod.MAX_SMEM
     if g == 2:                                    # gemma3-4b's group
         assert floats * 4 + (tk + rows) * 4 == 206_080
+
+
+def test_paged_planner_fit_recovers_the_model_constants():
+    """``conv2d_compare.fit_paged_planner`` (how ``PAGED_CONSTANTS`` are
+    read off the card), fed a forced-piece sweep that the makespan model
+    itself times at known constants (each shape its own tile time and
+    base), ranks those constants first: their plans are the fastest
+    forced ones (regret 1) and they leave no residual."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "conv2d_compare.py"
+    spec = importlib.util.spec_from_file_location("conv2d_compare", path)
+    cmp_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cmp_mod)
+    truth = (1.5, 4.0, 1.5)
+    sweep = {}
+    for i, shape in enumerate([(4, 256, 768, 16, 8), (16, 16, 272, 16, 8),
+                               (4, 256, 768, 8, 4), (2, 64, 1600, 8, 4),
+                               (1, 64, 2112, 16, 8)]):
+        b, s, l, h, kv = shape
+        rs = split.paged_key_ranges(s, l, min(64 // (h // kv), s))
+        tiles = [split.tile_span(*r)[1] - split.tile_span(*r)[0] for r in rs]
+        for c in cmp_mod.plan_candidates(max(tiles)):
+            model = split.makespan(tiles, c, b * kv, H100_SMS,
+                                   fixed=truth[0], combine=truth[1],
+                                   ctas_per_sm=truth[2])
+            sweep[f"s{i}", shape, c] = 0.002 * (i + 1) + 0.0007 * model
+    regret, residual, *constants = cmp_mod.fit_paged_planner(sweep, split)[0]
+    assert tuple(constants) == truth
+    assert regret == 1.0 and residual < 1e-9

@@ -1477,3 +1477,124 @@ def test_paged_prefill_pool_entries_refuse_what_they_do_not_take(cuda):
         pp_mod.paged_prefill_pool_int8(q, k8, v8, ks[:, :2].contiguous(), vs,
                                        *fine[3:])
     torch.cuda.synchronize()
+
+
+# ------------------------------------- the ragged prefill's Hopper tile
+#
+# bf16 launches of more than 16 query rows a CTA run the Hopper tile
+# (csrc/attention_paged_wgmma.cuh): at every head dim it compiles, through
+# the engine's pool entry, a tile straddling Lp (a prefix of 80 lanes in
+# blocks of 16), a query tile of padding lanes alone (q_hi = -1: it copies
+# no key and writes zeros), queries past position 1,024 under a window of
+# 1,024, and a group of 8 (three query tiles of 8 lanes) over blocks of 1;
+# each with its key lanes forced into pieces of one tile and left whole.
+
+PAGED_WGMMA_CASES = {
+    # (B, S, H, KV, prefix lanes, block size, min start, window)
+    "straddle": (2, 40, 16, 8, 70, 16, 0, 0),
+    "padding": (2, 64, 16, 8, 100, 4, 0, 0),
+    "window": (2, 64, 8, 4, 1536, 16, 1100, 1024),
+    "group8": (2, 24, 64, 8, 200, 1, 0, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", split.MMA_HEAD_DIMS)
+@pytest.mark.parametrize("case", list(PAGED_WGMMA_CASES))
+@pytest.mark.parametrize("forced", ["split", "whole"])
+def test_paged_wgmma_tile_matches_plain(cuda, hd, case, forced):
+    from unittest import mock
+
+    b, s, h, kv, prefix, bs, min_start, window = PAGED_WGMMA_CASES[case]
+    assert not pp_mod.warp_keys_tile(s, h, kv)
+    rng = np.random.default_rng(hd + 7 * len(case))
+    args = list(pool_case(rng, b, s, h, kv, hd, prefix, bs,
+                          min_start=min_start))
+    if case == "padding":
+        # the second query tile (lanes 32-63 at a group of 2) is padding
+        args[-1][:, 32:] = -1                    # qpos
+        args[-2][:, 32:] = -1                    # kpos
+    q, leaves, pp, bt, starts, k, v, kpos, qpos = _pool_operands(
+        cuda, torch.bfloat16, args, False)
+    tq = min(64 // (h // kv), s)
+    ranges = split.paged_key_ranges(s, bt.shape[1] * bs + s, tq)
+    tiles = max(split.tile_span(lo, hi)[1] for lo, hi in ranges)
+    c = 1 if forced == "split" else tiles
+    pl = split.Plan(c, tuple(split.pieces_of(lo, hi, c) for lo, hi in ranges))
+    assert pl.split == (forced == "split")
+    n0 = pp_mod.KERNEL_POOL.launches
+    with mock.patch.object(pp_mod, "plan", lambda *a: pl):
+        out = ops.paged_prefill_pool(q, *leaves, pp, bt, starts, k, v, kpos,
+                                     qpos, window=window)
+    torch.cuda.synchronize()
+    assert pp_mod.KERNEL_POOL.launches == n0 + 1
+    want = ref.paged_prefill_pool_ref(q, *leaves, pp, bt, starts, k, v, kpos,
+                                      qpos, window=window)
+    kp_all = _gathered(leaves, pp, bt, starts, k, v, kpos, torch.bfloat16)[2]
+    qp, kp = qpos[:, :, None], kp_all[:, None, :]
+    vis = (kp >= 0) & (kp <= qp)
+    if window:
+        cut = vis & (qp - kp >= window)
+        assert cut.any()
+        vis &= ~cut
+    lanes = vis.any(-1)
+    torch.testing.assert_close(out[lanes].float(), want[lanes].float(),
+                               **_tol("paged_prefill", torch.bfloat16))
+    assert torch.all(out[~lanes] == 0)
+    if case == "padding":
+        assert not lanes[:, 32:].any()
+
+
+# (B, S, H, KV, hd, prefix lanes) -> whether the launch takes the kWarpKeys
+# tile: the fused decode dispatch and slot decode (S = 1, at groups of 2
+# and 8) against a chunk and a verify window
+TILE_CHOICE_SHAPES = [((8, 1, 16, 8, 128, 512), True),
+                      ((4, 1, 64, 8, 128, 255), True),
+                      ((4, 1, 8, 4, 256, 100), True),
+                      ((4, 256, 16, 8, 128, 512), False),
+                      ((16, 16, 16, 8, 128, 256), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,warp_keys", TILE_CHOICE_SHAPES)
+@pytest.mark.parametrize("entry", ["pool", "pool_int8", "contiguous"])
+def test_decode_launches_keep_the_warp_keys_tile(cuda, shape, warp_keys,
+                                                 entry):
+    """Launches of 16 query rows or fewer run the kWarpKeys mma.sync tile
+    and nothing else of the library (but the combine pass); more rows, the
+    Hopper tile, by the kernels' names in a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, s, h, kv, hd, prefix = shape
+    assert pp_mod.warp_keys_tile(s, h, kv) == warp_keys
+    rng = np.random.default_rng(sum(shape))
+    if entry == "contiguous":
+        args = [torch.from_numpy(a).to(cuda) for a in
+                prefill_case(rng, b, s, h, kv, hd, prefix)]
+        args[:3] = [t.to(torch.bfloat16) for t in args[:3]]
+
+        def call():
+            return ops.paged_prefill(*args)
+    else:
+        int8 = entry == "pool_int8"
+        q, leaves, pp, bt, starts, k, v, kpos, qpos = _pool_operands(
+            cuda, torch.bfloat16, pool_case(rng, b, s, h, kv, hd, prefix, 16),
+            int8)
+        fn = ops.paged_prefill_pool_int8 if int8 else ops.paged_prefill_pool
+
+        def call():
+            return fn(q, *leaves, pp, bt, starts, k, v, kpos, qpos)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA")
+             and e.self_device_time_total > 0]
+    tiles = [n for n in names if "paged_prefill_" in n
+             and "combine" not in n]
+    want = ("paged_prefill_mma_kernel" if warp_keys
+            else "paged_prefill_wgmma_kernel")
+    assert len(tiles) == 1 and want in tiles[0], names
